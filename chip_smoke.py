@@ -7,17 +7,27 @@ Builds the CUDA kernels from ``spmv_topk_tpu_torch/csrc`` and the native
 host runtime from ``runtime/``, then prints one JSON object per phase:
 
   1. environment: card, power limit, torch / CUDA / nvcc versions, whether
-     the native runtime loaded, kernel build seconds;
+     the native runtime loaded, kernel build seconds, each kernel's
+     registers and spill bytes;
   2. kernels vs their plain PyTorch versions on a 50k-row h16 octet
-     corpus (tie-safe buffers, so per-lane values must agree bit for bit),
-     once more with blocks small enough to force wide octets;
+     corpus (tie-safe buffers, so per-lane values must agree bit for bit;
+     K4's slice scores bit for bit), once more with blocks small enough
+     to force wide octets; K6 on 5 queries in uneven subgroups;
   3. the main path at full size: the 10M x 1024 gamma corpus (seed 1) in
      the headline config, 32 queries through ``TopKSpMV.query()`` held
      against the exact scipy top-100, sweep and end-to-end times, and the
      stream floor of the same words;
-  4. both kernels timed against their plain versions at the main-path
+  4. K1 and K3 timed against their plain versions at the main-path
      shapes, and checked against them there;
-  5. the launch counts of the main-path run.
+  5. the batch path on the same engine: ``query_batch`` of the 32 queries
+     in one group against the same gold sets and against ``query()``,
+     K6 against its plain version, and the ``batch32_*`` numbers of
+     ``bench.py`` (256 queries in groups of 32, with and without the
+     rescore);
+  6. the scores path: ``scores()`` of one query, K4 against its plain
+     version and against the exact f32 product;
+  7. the launch counts of each path's run (counts set to 0 just before
+     a path is driven, read just after).
 
 Then the kernel summary, the ``nvidia-smi`` name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -39,6 +49,7 @@ HEADLINE = dict(k=100, lane_k=8, num_partitions=1, max_cols=1024,
 FULL_ROWS, NUM_COLS, AVG_DEG, CORPUS_SEED = 10_000_000, 1024, 20, 1
 NUM_QUERIES, QUERY_SEED = 32, 3
 MIN_PRECISION = 0.98
+BATCH_GROUP, BATCH_GROUPS, BATCH_SEED = 32, 8, 6
 
 
 def require(ok, what):
@@ -109,7 +120,8 @@ def phase_environment():
                device=torch.cuda.get_device_name(0),
                native_runtime=native.available(),
                native_error=native.load_error,
-               kernel_build_seconds=_build.build_seconds)
+               kernel_build_seconds=_build.build_seconds,
+               registers_and_spill_bytes=_build.ptxas_report())
     emit(env)
     return env
 
@@ -128,8 +140,52 @@ def _plain_and_kernel(eng, table, cfg):
     return kern, plain
 
 
+def _tables(qs, dev):
+    import torch
+
+    from spmv_topk_tpu_torch.ops.quantized_query import pack_query_tables
+
+    tabs, _ = pack_query_tables(qs, "h16")
+    return torch.from_numpy(tabs).to(dev)
+
+
+def _batch_plain_and_kernel(eng, tables, cfg):
+    from spmv_topk_tpu_torch.ops.kernel import (
+        octet_topk_batch_plain, topk_spmv_fused_batch_octet_device)
+
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    kern = topk_spmv_fused_batch_octet_device(
+        *args, cfg=cfg, block_sublanes=eng.fused.block_sublanes)
+    plain = octet_topk_batch_plain(
+        *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=eng.fused.block_sublanes)
+    return kern, plain
+
+
+def _scores_plain_and_kernel(eng, table):
+    """Requires K4's slice scores bit-equal to the plain version's;
+    returns the max abs difference (0)."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops.kernel import (
+        octet_scores_plain, spmv_fused_scores_octet_device)
+
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    kw = dict(block_sublanes=eng.fused.block_sublanes,
+              num_slices=eng.row_ids.shape[0])
+    kern = spmv_fused_scores_octet_device(*args, cfg=eng.config, **kw)
+    plain = octet_scores_plain(*args, **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(kern, plain),
+            "K4 slice scores equal the plain version's bit for bit")
+    return float((kern - plain).abs().max())
+
+
 def phase_small(dev):
     """Kernels vs plain versions on a 50k-row corpus."""
+    import dataclasses
+
     import torch
 
     from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
@@ -140,6 +196,7 @@ def phase_small(dev):
 
     coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
     q = create_query_batch(1, NUM_COLS, seed=8)[0]
+    qs5 = create_query_batch(5, NUM_COLS, seed=9)
     cases = []
     for fbs, fold in ((1024, 8), (1024, 1), (64, 8)):
         cfg = TopKSpMVConfig(**dict(HEADLINE, fused_block_sublanes=fbs,
@@ -153,22 +210,32 @@ def phase_small(dev):
         (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, cfg)
         torch.cuda.synchronize()
         err = compare_lanes(kv, kt, pv, pt)
+        # K6: 5 queries in subgroups of 2 (the last subgroup holds one)
+        bcfg = dataclasses.replace(cfg, batch_subgroup=2)
+        tables = _tables(qs5, dev)
+        (bv, bt), (bpv, bpt) = _batch_plain_and_kernel(eng, tables, bcfg)
+        torch.cuda.synchronize()
+        k6_err = max(compare_lanes(bv[j], bt[j], bpv[j], bpt[j])
+                     for j in range(len(qs5)))
+        k4_err = _scores_plain_and_kernel(eng, table)
         cases.append(dict(fused_block_sublanes=fbs, fold_tile=fold,
                           buckets=len(eng.fused.plan), wide_buckets=wide,
-                          k1_max_abs_err=err))
+                          k1_max_abs_err=err, k6_max_abs_err=k6_err,
+                          k4_max_abs_err=k4_err))
     salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128) * 7919
     ks = stream_words_device(eng.words, salt)
     ps = stream_words_plain(eng.words, salt)
     torch.cuda.synchronize()
     require(torch.equal(ks, ps), "stream probe checksum equals plain")
     out = dict(phase="kernels_vs_plain_small", rows=coo.num_rows,
-               nnz=coo.nnz, cases=cases, k3_equal=True)
+               nnz=coo.nnz, cases=cases, k3_equal=True, k4_equal=True)
     emit(out)
     return out
 
 
 def phase_main(dev):
-    """The main path at full size; returns (engine, queries, results)."""
+    """The main path at full size; returns (engine, queries, results,
+    gold top-100 sets, query() indices)."""
     import torch
 
     from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
@@ -209,7 +276,7 @@ def phase_main(dev):
     torch.cuda.synchronize()
     topk_spmv_fused_octet_device.launches = 0
     stream_words_device.launches = 0
-    prec, prec_raw, e2e_ms, sweep_ms = [], [], [], []
+    prec, prec_raw, e2e_ms, sweep_ms, single = [], [], [], [], []
     for j in range(NUM_QUERIES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -217,6 +284,7 @@ def phase_main(dev):
         torch.cuda.synchronize()
         e2e_ms.append((time.perf_counter() - t0) * 1e3)
         idx = idx.cpu().numpy()
+        single.append(idx)
         require(idx.shape == (cfg.k,) and (idx >= 0).all()
                 and np.isfinite(vals.cpu().numpy()).all(),
                 "query returns k valid rows with finite scores")
@@ -259,7 +327,7 @@ def phase_main(dev):
     emit(res)
     require(res["precision_at_100_mean"] >= MIN_PRECISION,
             f"mean precision@100 >= {MIN_PRECISION}")
-    return eng, qs, res
+    return eng, qs, res, gold, single
 
 
 def phase_kernels_full(eng, qs, dev):
@@ -308,6 +376,149 @@ def phase_kernels_full(eng, qs, dev):
     return res
 
 
+def phase_batch(eng, qs, gold, single, k1_ms, dev):
+    """The batch path on the main-path engine: query_batch through K6."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch.formats import create_query_batch
+    from spmv_topk_tpu_torch.ops.kernel import (
+        batch_grid, octet_topk_batch_plain, topk_spmv_fused_batch_octet_device)
+
+    cfg = eng.config
+    k = cfg.k
+    many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
+                              seed=BATCH_SEED)
+    eng.query_batch(many[:BATCH_GROUP], group_size=BATCH_GROUP)     # warm
+    eng.query_batch(many[:BATCH_GROUP], group_size=BATCH_GROUP,
+                    rescore_pool=0)
+    torch.cuda.synchronize()
+
+    def e2e_ms(**kw):
+        """Best of 3 host-clock runs of the 256 queries, per query."""
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, v = eng.query_batch(many, group_size=BATCH_GROUP, **kw)
+            v.cpu()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3 / len(many)
+
+    topk_spmv_fused_batch_octet_device.launches = 0
+    t0 = time.perf_counter()
+    idx, vals = eng.query_batch(qs, group_size=BATCH_GROUP)
+    torch.cuda.synchronize()
+    group_ms = (time.perf_counter() - t0) * 1e3
+    e2e = e2e_ms()
+    e2e_raw = e2e_ms(rescore_pool=0)
+    launches = topk_spmv_fused_batch_octet_device.launches
+
+    idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
+    require(idx.shape == (NUM_QUERIES, k) and (idx >= 0).all()
+            and np.isfinite(vals).all(),
+            "query_batch returns k valid rows with finite scores per query")
+    prec = [len(gold[j] & set(idx[j].tolist())) / k
+            for j in range(NUM_QUERIES)]
+    same = [len(set(single[j].tolist()) & set(idx[j].tolist())) / k
+            for j in range(NUM_QUERIES)]
+
+    # K6 against its plain version with tie-safe buffers, all 32 queries
+    tables = _tables(qs, dev)
+    safe = dataclasses.replace(cfg, tie_safe_topk=True)
+    (kv, kt), (pv, pt) = _batch_plain_and_kernel(eng, tables, safe)
+    torch.cuda.synchronize()
+    k6_err = max(compare_lanes(kv[j], kt[j], pv[j], pt[j])
+                 for j in range(NUM_QUERIES))
+
+    bs = eng.fused.block_sublanes
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    k6_ms = cuda_ms(lambda: topk_spmv_fused_batch_octet_device(
+        *args, cfg=cfg, block_sublanes=bs), reps=10, warmup=2)
+    k6_plain_ms = cuda_ms(lambda: octet_topk_batch_plain(
+        *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs), reps=1,
+        warmup=0)
+    by_subgroup = {}
+    for sub in (1, 2, 4, 8):
+        scfg = dataclasses.replace(cfg, batch_subgroup=sub)
+        by_subgroup[sub] = cuda_ms(lambda: topk_spmv_fused_batch_octet_device(
+            *args, cfg=scfg, block_sublanes=bs), reps=5, warmup=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sub, n_sub, slots = batch_grid(NUM_QUERIES, cfg.batch_subgroup, sms,
+                                   eng.words.shape[0] // 8)
+    per_query = k6_ms / NUM_QUERIES
+    res = dict(
+        phase="batch_path", queries=NUM_QUERIES, group_size=BATCH_GROUP,
+        precision_at_100_mean=float(np.mean(prec)),
+        precision_at_100_min=float(np.min(prec)),
+        agreement_with_query_mean=float(np.mean(same)),
+        agreement_with_query_min=float(np.min(same)),
+        group_of_32_e2e_ms=group_ms,
+        k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_max_abs_err=k6_err,
+        k6_ms_by_subgroup=by_subgroup,
+        subgroup=sub, stream_reads_per_group=n_sub, octet_slots=slots,
+        block_buffer_bytes_per_group=NUM_QUERIES * slots * cfg.lane_k * 128 * 8,
+        words_bytes=eng.hbm_bytes,
+        batch32_ms_per_query=per_query,
+        batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
+        batch32_e2e_ms_per_query=e2e,
+        batch32_e2e_raw_ms_per_query=e2e_raw,
+        batch32_rescore_overhead_pct=(e2e / e2e_raw - 1) * 100,
+        single_query_k1_ms=k1_ms, launches=launches,
+        nvidia_smi=smi_line())
+    emit(res)
+    require(res["precision_at_100_mean"] >= MIN_PRECISION,
+            f"batch mean precision@100 >= {MIN_PRECISION}")
+    require(launches > 0, "query_batch launched K6")
+    return res
+
+
+def phase_scores(eng, qs, dev):
+    """The scores path on the main-path engine: scores() through K4."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops.kernel import (
+        octet_scores_plain, spmv_fused_scores_octet_device)
+
+    q = qs[0]
+    eng.scores(q)                                            # warm
+    torch.cuda.synchronize()
+    spmv_fused_scores_octet_device.launches = 0
+    e2e = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = eng.scores(q)
+        torch.cuda.synchronize()
+        e2e.append((time.perf_counter() - t0) * 1e3)
+    launches = spmv_fused_scores_octet_device.launches
+    s = s.cpu().numpy()
+    require(s.shape == (eng.num_rows,) and np.isfinite(s).all(),
+            "scores() returns a finite score per row")
+    exact = np.asarray(eng._scipy_csr @ q, np.float32)
+
+    table, _ = eng._table(q)
+    k4_err = _scores_plain_and_kernel(eng, table)
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    kw = dict(block_sublanes=eng.fused.block_sublanes,
+              num_slices=eng.row_ids.shape[0])
+    k4_ms = cuda_ms(lambda: spmv_fused_scores_octet_device(
+        *args, cfg=eng.config, **kw), reps=20, warmup=2)
+    k4_plain_ms = cuda_ms(lambda: octet_scores_plain(*args, **kw), reps=2)
+    res = dict(phase="scores_path", rows=eng.num_rows,
+               scores_e2e_ms_median=statistics.median(e2e),
+               k4_ms=k4_ms, k4_plain_ms=k4_plain_ms, k4_max_abs_err=k4_err,
+               k4_words_gb_per_s=eng.hbm_bytes / (k4_ms * 1e-3) / 1e9,
+               max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
+               max_abs_exact=float(np.abs(exact).max()),
+               launches=launches, nvidia_smi=smi_line())
+    emit(res)
+    require(launches > 0, "scores() launched K4")
+    return res
+
+
 def main():
     import torch
 
@@ -323,14 +534,20 @@ def main():
     torch.cuda.synchronize()
     phase_small(dev)
     torch.cuda.synchronize()
-    eng, qs, main_res = phase_main(dev)
+    eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
     full = phase_kernels_full(eng, qs, dev)
     torch.cuda.synchronize()
-    launches = main_res["launches"]
+    batch = phase_batch(eng, qs, gold, single, full["k1_ms"], dev)
+    torch.cuda.synchronize()
+    scores = phase_scores(eng, qs, dev)
+    torch.cuda.synchronize()
+    launches = dict(main_res["launches"],
+                    octet_topk_batch_h16=batch["launches"],
+                    octet_scores_h16=scores["launches"])
     emit(dict(phase="launch_counts", **launches))
     for name, n in launches.items():
-        require(n > 0, f"main path launched {name}")
+        require(n > 0, f"its path launched {name}")
 
     emit({"kernels": [
         dict(name="octet_topk_h16", route="cuda",
@@ -339,6 +556,18 @@ def main():
              launches=launches["octet_topk_h16"],
              max_abs_err=full["k1_max_abs_err"], ms=full["k1_ms"],
              plain_ms=full["k1_plain_ms"]),
+        dict(name="octet_topk_batch_h16", route="cuda",
+             source="spmv_topk_tpu_torch/csrc/octet_topk_batch.cu",
+             replaces="spmv_topk_tpu/ops/kernel.py:1641",
+             launches=launches["octet_topk_batch_h16"],
+             max_abs_err=batch["k6_max_abs_err"], ms=batch["k6_ms"],
+             plain_ms=batch["k6_plain_ms"]),
+        dict(name="octet_scores_h16", route="cuda",
+             source="spmv_topk_tpu_torch/csrc/octet_scores.cu",
+             replaces="spmv_topk_tpu/ops/kernel.py:2039",
+             launches=launches["octet_scores_h16"],
+             max_abs_err=scores["k4_max_abs_err"], ms=scores["k4_ms"],
+             plain_ms=scores["k4_plain_ms"]),
         dict(name="stream_words", route="cuda",
              source="spmv_topk_tpu_torch/csrc/stream_probe.cu",
              replaces="spmv_topk_tpu/ops/streamprobe.py:54",

@@ -1,8 +1,8 @@
 """spmv-topk-tpu-torch: the PyTorch/CUDA port of spmv_topk_tpu.
 
-The single-query Top-K SpMV path of the JAX package (h16 codec, octet
-stream, one partition), with its device sweep written as CUDA kernels
-for Hopper (``csrc/``). Imports torch, numpy and scipy only; corpora and
+The JAX package's h16 octet engine on one partition: single queries,
+batched queries and plain SpMV, with its device sweeps written as CUDA
+kernels for Hopper (``csrc/``). Imports torch, numpy and scipy only; corpora and
 queries come from numpy generators seeded as in the JAX package, so both
 packages see the same data.
 """

@@ -1,11 +1,11 @@
 """User-facing engine: matrix-resident Top-K SpMV on one device.
 
-The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV`` for the
-single-query path: the h16 codec on the octet stream, one partition.
-``TopKSpMV`` is an ``nn.Module`` whose buffers hold the packed stream
-(``words``), the real slices per bucket (``nreal``), the slice -> row map
-(``row_ids``) and the kernel's bucket plan (``plan_rows``) on the device
-it was built for. A query runs
+The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV`` for the h16
+codec on the octet stream, one partition. ``TopKSpMV`` is an
+``nn.Module`` whose buffers hold the packed stream (``words``), the real
+slices per bucket (``nreal``), the slice -> row map (``row_ids``) and the
+kernels' bucket plan (``plan_rows``) on the device it was built for. A
+query runs
 
   1. the query table (``ops/quantized_query.pack_query_table``),
   2. the octet sweep (``ops/kernel.topk_spmv_fused_octet_device``,
@@ -13,6 +13,12 @@ it was built for. A query runs
   3. ``finalize_topk`` on the device,
   4. with ``rescore_pool``, the exact host rescore of the pool
      (``exact_rescore``, native ``csr_rescore``).
+
+``query_batch`` runs the same steps per query group, with the group's
+tables (``pack_query_tables``), the multi-query sweep
+(``topk_spmv_fused_batch_octet_device``), ``finalize_topk_batch`` and
+the rescore on a thread pool. ``scores`` is plain SpMV over the same
+stream (``spmv_fused_scores_octet_device``).
 
 Snapshots use the JAX package's ``.npz`` format v2, so one file serves
 both packages.
@@ -33,9 +39,11 @@ from .formats.coo import CooMatrix, from_scipy
 from .formats.sell_buckets import (FusedSellMatrix, fuse_buckets_octet,
                                    octet_plan_array, octet_plan_from_array,
                                    pack_sell_buckets)
-from .ops.kernel import (finalize_topk, octet_plan_rows,
+from .ops.kernel import (finalize_topk, finalize_topk_batch,
+                         octet_plan_rows, spmv_fused_scores_octet_device,
+                         topk_spmv_fused_batch_octet_device,
                          topk_spmv_fused_octet_device)
-from .ops.quantized_query import pack_query_table
+from .ops.quantized_query import pack_query_table, pack_query_tables
 
 
 def exact_rescore(csr, idx, vec, k):
@@ -270,15 +278,102 @@ class TopKSpMV(torch.nn.Module):
     def forward(self, vec):
         return self.query(vec)
 
-    def query_batch(self, queries, k=None, group_size=8, rescore_pool=None):
-        raise NotImplementedError(
-            "query_batch is not ported yet (ROADMAP.md Queue 1 item 6, "
-            "multi-query sweep): call query() per query")
+    def batch_candidates(self, tables):
+        """Per-lane candidates of a query group: (topv, topt), each
+        (Q, lane_k, 128), values unscaled integer sums. tables: the
+        group's (Q, 1, 128) int32 tables (``pack_query_tables``) on the
+        engine's device."""
+        return topk_spmv_fused_batch_octet_device(
+            self.words, tables, self.nreal, self.plan_rows, cfg=self.config,
+            block_sublanes=self.fused.block_sublanes)
+
+    def query_batch(self, queries, k: Optional[int] = None,
+                    group_size: int = 8,
+                    rescore_pool: Optional[int] = None):
+        """Batched queries (Q, C) -> (Q, k) indices int32 and values f32,
+        tensors on the engine's device, each row sorted descending.
+
+        Each group of ``group_size`` queries is one multi-query sweep (the
+        last group runs at its real size). rescore_pool: see query(); a
+        group's pool goes to the host, and its queries to a thread pool
+        (the native rescore releases the GIL), only once the next group's
+        sweep has been enqueued, so the rescore overlaps the sweep.
+
+        Quantization follows the JAX package's batch path: float32 query
+        scales (``pack_query_tables``), applied as ``scales *
+        value_scale`` in float32. query() uses a float64 scale, so an
+        un-rescored value can differ from query()'s in the last bit."""
+        user_k = k or self.config.k
+        if rescore_pool is None:  # 0 disables explicitly
+            rescore_pool = self.config.rescore_pool
+        k = max(user_k, rescore_pool) if rescore_pool else user_k
+        queries = np.asarray(queries, dtype=np.float32)
+        if queries.ndim != 2 or queries.shape[1] != self.num_cols or \
+                not len(queries):
+            raise ValueError(f"queries must have shape (Q >= 1, "
+                             f"{self.num_cols}), got {queries.shape}")
+        if group_size < 1:
+            raise ValueError(f"group_size must be >= 1, got {group_size}")
+        idx_all, val_all, futs = [], [], []
+        pending = None  # previous group's pool on its way to the host
+
+        def submit(host_idx, copied, q0, n):
+            if copied is not None:
+                copied.synchronize()
+            arr = host_idx.numpy()
+            ex = rescore_executor(self)
+            for j in range(n):
+                futs.append(ex.submit(
+                    self._rescore, arr[j], queries[q0 + j], user_k))
+
+        for start in range(0, len(queries), group_size):
+            chunk = queries[start:start + group_size]
+            padded = np.zeros((len(chunk), self.config.max_cols), np.float32)
+            padded[:, : self.num_cols] = chunk
+            tabs, scales = pack_query_tables(padded, self.config.query_codec)
+            tv, tt = self.batch_candidates(
+                torch.from_numpy(tabs).to(self.device))
+            idx, vals = finalize_topk_batch(tv, tt, self.row_ids, k=k)
+            if rescore_pool:
+                if pending is not None:
+                    submit(*pending)
+                pending = (*_to_host(idx), start, len(chunk))
+                continue
+            scale = torch.from_numpy(scales).to(self.device)[:, None] * \
+                self._value_scale
+            idx_all.append(idx)
+            val_all.append(vals * scale)
+        if rescore_pool:
+            submit(*pending)
+            outs = [f.result() for f in futs]
+            return (torch.from_numpy(np.stack([o[0] for o in outs]))
+                    .to(self.device),
+                    torch.from_numpy(np.stack([o[1] for o in outs]))
+                    .to(self.device))
+        return torch.cat(idx_all), torch.cat(val_all)
 
     def scores(self, vec):
-        raise NotImplementedError(
-            "scores() is not ported yet (ROADMAP.md Queue 1 item 4, "
-            "plain SpMV over the octet stream)")
+        """Full result A @ vec in row order (no Top-K): a (num_rows,) f32
+        tensor on the engine's device.
+
+        Plain SpMV over the stream the sweeps read, so it serves
+        load()ed and from_reference_arrays engines too. The scores are
+        the sweep's: 6-bit h16 matrix values times the 4-bit query,
+        scaled by the query scale times value_scale; rows absent from the
+        stream are 0. Materializes num_rows floats; prefer query() for
+        similarity lookup."""
+        table, scale = self._table(vec)
+        sc = spmv_fused_scores_octet_device(
+            self.words, table, self.nreal, self.plan_rows, cfg=self.config,
+            block_sublanes=self.fused.block_sublanes,
+            num_slices=self.row_ids.shape[0])
+        rows = self.row_ids.reshape(-1).long()
+        # padding lanes (row -1) land in one extra slot, dropped after
+        res = torch.zeros(self.num_rows + 1, dtype=torch.float32,
+                          device=self.device)
+        res.scatter_(0, torch.where(rows >= 0, rows, self.num_rows),
+                     sc.reshape(-1) * (scale * self._value_scale))
+        return res[: self.num_rows]
 
     # -- accounting ---------------------------------------------------------
 
@@ -290,3 +385,30 @@ class TopKSpMV(torch.nn.Module):
     @property
     def bytes_per_nnz(self) -> float:
         return self.hbm_bytes / max(self.num_nnz, 1)
+
+
+def _to_host(t):
+    """Start copying ``t`` to the host: (host tensor, CUDA event recorded
+    after the copy, or None when ``t`` is already on the CPU)."""
+    if t.device.type == "cpu":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(t.device))
+    return host, copied
+
+
+def rescore_executor(holder):
+    """Lazily created thread pool for batched host rescoring, cached on
+    ``holder`` (an engine)."""
+    ex = getattr(holder, "_rescore_ex", None)
+    if ex is None:
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        ex = ThreadPoolExecutor(
+            max_workers=min(16, os.cpu_count() or 8),
+            thread_name_prefix="rescore")
+        holder._rescore_ex = ex
+    return ex

@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
-``csrc/*.cu`` compile with nvcc into one shared library with a plain C
-interface under ``build/spmv_topk_tpu_torch/`` beside the package, at the
-first launch of any kernel. The file name carries a hash of the sources
-and flags, so an edited source builds anew. Nothing here runs at import:
-a host without nvcc or a card imports every module of the package, and
-only a launch on a CUDA tensor needs the library.
+``csrc/*.cu`` compile with nvcc, one process per source, all started
+together, and link into one shared library with a plain C interface
+under ``build/spmv_topk_tpu_torch/`` beside the package, at the first
+launch of any kernel. The file name carries a hash of the sources
+(headers included) and flags, so an edited source builds anew. Nothing
+here runs at import: a host without nvcc or a card imports every module
+of the package, and only a launch on a CUDA tensor needs the library.
+``ptxas_report`` reads each kernel's registers and spills from the build.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()``; ``check`` raises when
@@ -18,6 +20,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "spmv_topk_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIB = None
 build_seconds = None   # wall seconds of the nvcc build in this process
@@ -41,6 +44,9 @@ _i64 = ctypes.c_int64
 _SIGNATURES = {
     "octet_topk_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
                        _i32, _vp, _vp, _vp],
+    "octet_topk_batch_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                             _i32, _i32, _i32, _i32, _vp, _vp, _vp],
+    "octet_scores_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp],
     "stream_words": [_vp, _i64, _vp, _i32, _vp],
 }
 
@@ -59,7 +65,7 @@ def _nvcc() -> str:
 def library_path() -> str:
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
+    for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + fh.read())
     return os.path.join(BUILD_DIR, f"libspmv_topk_kernels-{h.hexdigest()[:16]}.so")
@@ -81,15 +87,7 @@ def lib():
     path = library_path()
     t0 = time.perf_counter()
     if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                             capture_output=True, text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, path)   # atomic: concurrent builds agree
+        _build(path)
     build_seconds = time.perf_counter() - t0
     so = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
@@ -98,6 +96,84 @@ def lib():
         fn.restype = ctypes.c_int
     _LIB = so
     return so
+
+
+def _build(path: str) -> None:
+    """nvcc each source to an object, all at once, then link ``path``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    try:
+        for src, p in zip(srcs, procs):
+            out, err = p.communicate(timeout=900)
+            logs.append(f"== {os.path.basename(src)}\n{out}{err}")
+            if p.returncode != 0:
+                failed.append(logs[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    with open(path + ".ptxas.txt", "w") as fh:
+        fh.write("\n".join(logs))
+    os.replace(tmp, path)   # atomic: concurrent builds agree
+
+
+def _demangle(mangled: str) -> str:
+    """``kernel<template args>`` of an Itanium-mangled kernel name
+    (``_ZN <len><namespace> <len><name> [I<args>E] E <params>``)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    pos, name = 3, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group(0)
+        pos += len(n)
+        name = mangled[pos:pos + int(n)]
+        pos += int(n)
+    if mangled[pos:pos + 1] == "I":
+        tail = mangled[pos:]
+        args = re.findall(r"L[ib](\d+)E", tail[:tail.find("EE") + 1])
+        name += f"<{','.join(args)}>"
+    return name
+
+
+def ptxas_report() -> dict:
+    """{kernel<template args>: (registers, spill store bytes)} of the
+    loaded library's build, from nvcc's ``-Xptxas=-v`` output."""
+    with open(library_path() + ".ptxas.txt") as fh:
+        text = fh.read()
+    report, name, spill = {}, None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = _demangle(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = (int(m.group(1)), spill)
+            name = None
+    return report
 
 
 def check(err: int, name: str) -> None:

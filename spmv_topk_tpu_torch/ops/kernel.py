@@ -1,22 +1,30 @@
-"""Octet Top-K sweep (kernel K1), its per-lane merge and ``finalize_topk``.
+"""The octet sweeps of the h16 stream (kernels K1, K6, K4), their
+per-lane merge and ``finalize_topk``.
 
-``topk_spmv_fused_octet_device`` is the device sweep of the single-query
-path: every octet of the slice-transposed stream (formats/sell_buckets.py::
-fuse_buckets_octet) adds up its W decoded h16 chunks into 8 member
-scores per lane, harvests the top 3 of the 8 (or all 8 with
-``fold_tile=1``) into per-lane (value, slice) buffers of ``lane_k``
-entries, and the buffers merge into one ``(lane_k, 128)`` pair.
+Each sweep adds up, for every octet of the slice-transposed stream
+(formats/sell_buckets.py::fuse_buckets_octet), its W decoded h16 chunks
+into 8 member scores per lane:
 
-  - On a CUDA tensor it launches ``csrc/octet_topk.cu`` (which replaces
-    ``spmv_topk_tpu/ops/kernel.py::_fused_kernel_octet`` and its
-    ``_octet_multicall`` dispatch), then merges the per-CUDA-block
-    buffers with one per-lane ``torch.topk``, the same algebra as the
-    JAX package's per-lane ``lax.top_k`` over its per-bucket buffers.
-  - On a CPU tensor it runs ``octet_topk_plain``, the plain PyTorch
-    version of the same function, which the tests hold against the JAX
-    package and the card holds the kernel against.
+  - ``topk_spmv_fused_octet_device`` (K1, one query) harvests the top 3
+    of the 8 (or all 8 with ``fold_tile=1``) into per-lane (value, slice)
+    buffers of ``lane_k`` entries, which merge into one ``(lane_k, 128)``
+    pair;
+  - ``topk_spmv_fused_batch_octet_device`` (K6) does the same for Q
+    queries at once: ``(Q, lane_k, 128)`` pairs;
+  - ``spmv_fused_scores_octet_device`` (K4) writes the 8 member scores
+    themselves, in slice order: plain SpMV.
 
-Plan rows: the kernel reads the bucket plan from an int32 ``(B, 8)``
+On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
+``octet_topk.cu``, K6 ``octet_topk_batch.cu``, K4 ``octet_scores.cu``;
+they replace the pallas_calls of ``spmv_topk_tpu/ops/kernel.py``) and
+the Top-K sweeps then merge their per-CUDA-block buffers with one
+per-lane ``torch.topk``, the same algebra as the JAX package's per-lane
+``lax.top_k`` over its per-bucket buffers. On a CPU tensor each runs its
+plain PyTorch version (``octet_topk_plain``, ``octet_topk_batch_plain``,
+``octet_scores_plain``), which the tests hold against the JAX package
+and the card holds the kernel against.
+
+Plan rows: the kernels read the bucket plan from an int32 ``(B, 8)``
 tensor (``octet_plan_rows``) with columns ``PLAN_COLUMNS``.
 """
 
@@ -38,12 +46,20 @@ TOPK_FLOOR = -1e38
 PLAN_COLUMNS = ("width", "octets_per_block", "blocks_per_octet", "stride",
                 "slice_base", "blk_start", "num_blocks", "octet_start")
 
-# Top-K buffer depths the CUDA kernel is instantiated for
+# Top-K buffer depths the CUDA kernels are instantiated for
 KERNEL_LANE_K = (4, 8, 16)
-# CUDA blocks per SM of the sweep: each block owns one set of lane
-# buffers, so this also sets the merge width (blocks * lane_k per lane)
+# CUDA blocks per SM of the sweeps: each block of a Top-K sweep owns one
+# set of lane buffers, so this also sets the merge width (blocks * lane_k
+# per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
+# K6: queries live in one CUDA block when cfg.batch_subgroup is 0, and at
+# most (a table entry packs 8 queries' nibbles; registers run out first)
+BATCH_SUBGROUP = 4
+MAX_BATCH_SUBGROUP = 8
+# plain versions decode at most ~16M words at once (bounds the int64
+# gather indices)
+_STEP_WORDS = 1 << 24
 
 
 def topk_init(lane_k: int) -> np.ndarray:
@@ -120,6 +136,16 @@ def _octet_tiles(words, row, block_sublanes, S):
         G, W, S, LANES)
 
 
+def _octet_sums(words, tab, row, block_sublanes, S):
+    """Yield (o0, sums) over one bucket: the int member sums (g, S, 128)
+    of octets o0 .. o0 + g - 1, a bounded number of words at a time."""
+    W, G = row[0], row[3]
+    tiles = _octet_tiles(words, row, block_sublanes, S)
+    per = max(1, _STEP_WORDS // (W * S * LANES))
+    for o0 in range(0, G, per):
+        yield o0, prod_h16(tiles[o0:o0 + per], tab).sum(dim=1)
+
+
 def octet_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
                      fold_tile: int, tie_safe: bool, block_sublanes: int,
                      chunk_sublanes: int = 8):
@@ -139,17 +165,12 @@ def octet_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
     tab = table.reshape(-1)[:LANES]
     miota = torch.arange(S, device=dev, dtype=torch.int32).view(1, S, 1)
     cand_v, cand_t = [], []
-    # at most ~16M words decoded at once (bounds the int64 gather indices)
-    step_words = 1 << 24
     for b, row in enumerate(plan_rows.tolist()):
-        W, G, slice_base = row[0], row[3], row[4]
+        G, slice_base = row[3], row[4]
         n_real = int(nreal.reshape(-1)[b])
-        tiles = _octet_tiles(words, row, block_sublanes, S)
-        per = max(1, step_words // (W * S * LANES))
-        for o0 in range(0, G, per):
-            t = tiles[o0:o0 + per]
-            acc = prod_h16(t, tab).sum(dim=1).to(torch.float32)  # (g, S, L)
-            oidx = torch.arange(o0, o0 + t.shape[0], device=dev,
+        for o0, sums in _octet_sums(words, tab, row, block_sublanes, S):
+            acc = sums.to(torch.float32)                       # (g, S, L)
+            oidx = torch.arange(o0, o0 + acc.shape[0], device=dev,
                                 dtype=torch.int32).view(-1, 1, 1)
             member = oidx + miota * G                          # slice - base
             sc = torch.where(member < n_real, acc,
@@ -175,13 +196,89 @@ def octet_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
                            torch.cat(cand_t + [tags0]), lane_k)
 
 
-def merge_lane_topk(topv, topt, lane_k: int):
+def octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
+    """Plain PyTorch version of the multi-query sweep: ``octet_topk_plain``
+    for each query of the (Q, 1, 128) tables -> (topv, topt), each
+    (Q, lane_k, 128). Keyword arguments as for ``octet_topk_plain``."""
+    outs = [octet_topk_plain(words, t, nreal, plan_rows, **kw)
+            for t in tables]
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
+                       block_sublanes: int, chunk_sublanes: int = 8):
+    """Plain PyTorch version of the octet SpMV: (num_slices, 128) f32, row
+    s holding slice s's 128 unscaled h16 row scores. Member m of octet o
+    of a bucket is slice slice_base + o + m * stride; rows of no real
+    slice (the sentinel slice) stay 0."""
+    S = chunk_sublanes
+    tab = table.reshape(-1)[:LANES]
+    out = torch.zeros((num_slices, LANES), dtype=torch.float32,
+                      device=words.device)
+    for b, row in enumerate(plan_rows.tolist()):
+        slice_base = row[4]
+        n_real = int(nreal.reshape(-1)[b])
+        sums = torch.cat([s for _, s in _octet_sums(words, tab, row,
+                                                     block_sublanes, S)])
+        # (octet, member) -> (member, octet): the flat index is the slice
+        out[slice_base:slice_base + n_real] = sums.transpose(0, 1).reshape(
+            -1, LANES)[:n_real].to(torch.float32)
+    return out
+
+
+def merge_lane_topk(topv, topt, lane_k: int, queries: int = 0):
     """Per-lane top-``lane_k`` over stacked candidates ((..., 128) values
-    and tags) -> (lane_k, 128) pair, values sorted descending."""
-    allv = topv.reshape(-1, LANES)
-    allt = topt.reshape(-1, LANES)
-    mv, mi = torch.topk(allv, lane_k, dim=0)
-    return mv, torch.gather(allt, 0, mi)
+    and tags) -> (lane_k, 128) pair, values sorted descending. With
+    ``queries`` = Q the leading axis is a query axis: (Q, ..., 128) ->
+    (Q, lane_k, 128) pairs."""
+    dim = 1 if queries else 0
+    shape = (queries, -1, LANES) if queries else (-1, LANES)
+    allv = topv.reshape(shape)
+    allt = topt.reshape(shape)
+    mv, mi = torch.topk(allv, lane_k, dim=dim)
+    return mv, torch.gather(allt, dim, mi)
+
+
+def _check_codec(cfg: TopKSpMVConfig) -> None:
+    if cfg.query_codec != "h16":
+        raise NotImplementedError(
+            f"query_codec={cfg.query_codec!r}: the octet sweeps are ported "
+            "for h16 only (ROADMAP.md Queue 1 item 5, other query codecs)")
+
+
+def _check_inputs(words, plan_rows, block_sublanes, *named):
+    """Raise unless words, plan_rows and each (name, tensor, shape) of
+    ``named`` are contiguous int32 tensors of those shapes on one CUDA
+    device. Returns the device's SM count."""
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError(f"words on {dev}: the octet kernels need CUDA")
+    B = plan_rows.shape[0]
+    for name, t, shape in (("words", words, (words.shape[0], LANES)),
+                           ("plan_rows", plan_rows, (B, len(PLAN_COLUMNS))),
+                           *named):
+        if t.device != dev or t.dtype != torch.int32 or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: need contiguous int32 {shape} on {dev},"
+                             f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if words.shape[0] % block_sublanes:
+        raise ValueError("words rows are not a whole number of blocks")
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_sweep(lane_k, fold_tile, chunk_sublanes):
+    if lane_k not in KERNEL_LANE_K:
+        raise ValueError(f"lane_k={lane_k}: the kernels are built for "
+                         f"{KERNEL_LANE_K}")
+    if chunk_sublanes != 8 or fold_tile not in (1, 8):
+        raise ValueError("the octet kernels need chunk_sublanes=8 and "
+                         "fold_tile 1 or 8")
+
+
+def _sweep_kw(cfg: TopKSpMVConfig, block_sublanes: int) -> dict:
+    return dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                tie_safe=bool(cfg.tie_safe_topk), block_sublanes=block_sublanes,
+                chunk_sublanes=cfg.chunk_sublanes)
 
 
 def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
@@ -196,13 +293,8 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    if cfg.query_codec != "h16":
-        raise NotImplementedError(
-            f"query_codec={cfg.query_codec!r}: the octet sweep is ported for "
-            "h16 only (ROADMAP.md Queue 1 item 5, other query codecs)")
-    kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
-              tie_safe=bool(cfg.tie_safe_topk), block_sublanes=block_sublanes,
-              chunk_sublanes=cfg.chunk_sublanes)
+    _check_codec(cfg)
+    kw = _sweep_kw(cfg, block_sublanes)
     if words.device.type == "cpu":
         return octet_topk_plain(words, table, nreal, plan_rows, **kw)
     return _octet_topk_cuda(words, table, nreal, plan_rows, **kw)
@@ -210,27 +302,11 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
 
 def _octet_topk_cuda(words, table, nreal, plan_rows, *, lane_k, fold_tile,
                      tie_safe, block_sublanes, chunk_sublanes):
-    dev = words.device
-    if dev.type != "cuda":
-        raise ValueError(f"words on {dev}: the octet kernel needs CUDA")
     B = plan_rows.shape[0]
-    for name, t, shape in (("words", words, (words.shape[0], LANES)),
-                           ("table", table, (1, LANES)),
-                           ("nreal", nreal, (B, 1)),
-                           ("plan_rows", plan_rows, (B, len(PLAN_COLUMNS)))):
-        if t.device != dev or t.dtype != torch.int32 or \
-                tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: need contiguous int32 {shape} on {dev},"
-                             f" got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if lane_k not in KERNEL_LANE_K:
-        raise ValueError(f"lane_k={lane_k}: the kernel is built for "
-                         f"{KERNEL_LANE_K}")
-    if chunk_sublanes != 8 or fold_tile not in (1, 8):
-        raise ValueError("the octet kernel needs chunk_sublanes=8 and "
-                         "fold_tile 1 or 8")
-    if words.shape[0] % block_sublanes:
-        raise ValueError("words rows are not a whole number of blocks")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _check_inputs(words, plan_rows, block_sublanes,
+                        ("table", table, (1, LANES)), ("nreal", nreal, (B, 1)))
+    _check_sweep(lane_k, fold_tile, chunk_sublanes)
+    dev = words.device
     # every octet holds >= 1 chunk: no more blocks than chunks
     nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // chunk_sublanes))
     out_v = torch.empty((nblk, lane_k, LANES), dtype=torch.float32,
@@ -252,21 +328,144 @@ def _octet_topk_cuda(words, table, nreal, plan_rows, *, lane_k, fold_tile,
 topk_spmv_fused_octet_device.launches = 0
 
 
-def finalize_topk(topv, topt, row_ids, k: int):
-    """Global Top-K merge of the per-lane candidates.
+def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int):
+    """K6's grid: (queries per CUDA block, subgroups, octet slots).
 
-    Maps (slice, lane) to a row through ``row_ids``, clamps slice tags
-    into the sentinel (-1) row, masks entries at or below TOPK_FLOOR and
-    rows of -1, and takes the global top-k. Returns (rows int32, values
-    f32), values descending; a k larger than the candidate pool is
-    clamped to the pool.
+    ``subgroup`` is cfg.batch_subgroup (0: BATCH_SUBGROUP), capped at
+    MAX_BATCH_SUBGROUP and at the query count. The stream is read once
+    per subgroup. Slots are sized so that slots * subgroups fills the
+    card as K1's grid does, with at least one slot per SM, and no more
+    slots than chunks; each slot writes lane_k * 128 (value, tag) pairs
+    per query, so a group's buffers are Q * slots * lane_k * 1 KiB."""
+    sub = min(subgroup or BATCH_SUBGROUP, MAX_BATCH_SUBGROUP, num_queries)
+    n_sub = -(-num_queries // sub)
+    slots = max(sms, -(-sms * _BLOCKS_PER_SM // n_sub))
+    return sub, n_sub, max(1, min(slots, chunks))
+
+
+def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
+                                       cfg: TopKSpMVConfig,
+                                       block_sublanes: int):
+    """Multi-query octet sweep of the h16 stream.
+
+    tables: (Q, 1, 128) int32 h16 query tables (``pack_query_tables``);
+    the other arguments as for ``topk_spmv_fused_octet_device``. Returns
+    (topv f32, topt i32), each (Q, lane_k, 128), sorted descending per
+    lane: each query's candidates are those of the single-query sweep,
+    whatever ``cfg.batch_subgroup`` is (it only sets how many queries
+    share a CUDA block; see ``batch_grid``).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
+    _check_codec(cfg)
+    kw = _sweep_kw(cfg, block_sublanes)
+    if words.device.type == "cpu":
+        return octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw)
+    return _octet_topk_batch_cuda(words, tables, nreal, plan_rows,
+                                  subgroup=cfg.batch_subgroup, **kw)
+
+
+def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, *, subgroup,
+                           lane_k, fold_tile, tie_safe, block_sublanes,
+                           chunk_sublanes):
+    B = plan_rows.shape[0]
+    Q = tables.shape[0]
+    if Q < 1:
+        raise ValueError("no queries")
+    sms = _check_inputs(words, plan_rows, block_sublanes,
+                        ("tables", tables, (Q, 1, LANES)),
+                        ("nreal", nreal, (B, 1)))
+    _check_sweep(lane_k, fold_tile, chunk_sublanes)
+    dev = words.device
+    sub, n_sub, slots = batch_grid(Q, subgroup, sms,
+                                   words.shape[0] // chunk_sublanes)
+    out_v = torch.empty((Q, slots, lane_k, LANES), dtype=torch.float32,
+                        device=dev)
+    out_t = torch.empty((Q, slots, lane_k, LANES), dtype=torch.int32,
+                        device=dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.octet_topk_batch_h16(
+            words.data_ptr(), tables.data_ptr(), nreal.data_ptr(),
+            plan_rows.data_ptr(), B, block_sublanes, lane_k,
+            int(fold_tile == 1), int(tie_safe), Q, sub, slots * n_sub,
+            out_v.data_ptr(), out_t.data_ptr(), stream)
+    _build.check(err, "octet_topk_batch_h16")
+    topk_spmv_fused_batch_octet_device.launches += 1
+    return merge_lane_topk(out_v, out_t, lane_k, queries=Q)
+
+
+topk_spmv_fused_batch_octet_device.launches = 0
+
+
+def spmv_fused_scores_octet_device(words, table, nreal, plan_rows, *,
+                                   cfg: TopKSpMVConfig, block_sublanes: int,
+                                   num_slices: int):
+    """Plain SpMV over the octet stream: (num_slices, 128) f32, row s the
+    unscaled h16 scores of slice s's 128 rows (rows of no real slice are
+    0). Arguments as for ``topk_spmv_fused_octet_device``; num_slices is
+    ``row_ids.shape[0]``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_codec(cfg)
+    kw = dict(num_slices=num_slices, block_sublanes=block_sublanes,
+              chunk_sublanes=cfg.chunk_sublanes)
+    if words.device.type == "cpu":
+        return octet_scores_plain(words, table, nreal, plan_rows, **kw)
+    return _octet_scores_cuda(words, table, nreal, plan_rows, **kw)
+
+
+def _octet_scores_cuda(words, table, nreal, plan_rows, *, num_slices,
+                       block_sublanes, chunk_sublanes):
+    B = plan_rows.shape[0]
+    sms = _check_inputs(words, plan_rows, block_sublanes,
+                        ("table", table, (1, LANES)), ("nreal", nreal, (B, 1)))
+    if chunk_sublanes != 8:
+        raise ValueError("the octet kernels need chunk_sublanes=8")
+    dev = words.device
+    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // chunk_sublanes))
+    out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.octet_scores_h16(
+            words.data_ptr(), table.data_ptr(), nreal.data_ptr(),
+            plan_rows.data_ptr(), B, block_sublanes, nblk, out.data_ptr(),
+            stream)
+    _build.check(err, "octet_scores_h16")
+    spmv_fused_scores_octet_device.launches += 1
+    return out
+
+
+spmv_fused_scores_octet_device.launches = 0
+
+
+def finalize_topk_batch(topv, topt, row_ids, k: int):
+    """Global Top-K merge of each query's per-lane candidates.
+
+    topv/topt: (Q, ..., 128). Maps (slice, lane) to a row through
+    ``row_ids``, clamps slice tags into the sentinel (-1) row, masks
+    entries at or below TOPK_FLOOR and rows of -1, and takes each query's
+    top-k. Returns (rows int32, values f32), each (Q, k), values
+    descending; a k larger than the candidate pool is clamped to the pool.
+    The counterpart of the JAX package's ``vmap(finalize_topk)``.
+    """
+    Q = topv.shape[0]
     L = row_ids.shape[1]
-    flat_v = topv.reshape(-1)
-    flat_t = topt.reshape(-1).clamp(0, row_ids.shape[0] - 1).long()
-    lane = torch.arange(L, device=topv.device).repeat(flat_v.numel() // L)
+    flat_v = topv.reshape(Q, -1)
+    flat_t = topt.reshape(Q, -1).clamp(0, row_ids.shape[0] - 1).long()
+    lane = torch.arange(L, device=topv.device).repeat(flat_v.shape[1] // L)
     rows = row_ids.reshape(-1)[flat_t * L + lane]
     valid = (rows >= 0) & (flat_v > TOPK_FLOOR)
     masked = torch.where(valid, flat_v, torch.full_like(flat_v, NEG_INF))
-    vals, pos = torch.topk(masked, min(k, masked.numel()))
-    return rows[pos], vals
+    vals, pos = torch.topk(masked, min(k, masked.shape[1]), dim=1)
+    return torch.gather(rows, 1, pos), vals
+
+
+def finalize_topk(topv, topt, row_ids, k: int):
+    """``finalize_topk_batch`` of one query: (lane_k, 128) candidates ->
+    (rows int32, values f32), each (k,)."""
+    rows, vals = finalize_topk_batch(topv[None], topt[None], row_ids, k)
+    return rows[0], vals[0]

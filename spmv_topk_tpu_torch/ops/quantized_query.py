@@ -1,7 +1,8 @@
 """Query-vector quantization codecs (host side, NumPy).
 
 The same codecs as ``spmv_topk_tpu.ops.quantized_query``, taken whole: a
-query packs into the same int32 table in both packages. The h16 codec
+query (``pack_query_table``) or a query group (``pack_query_tables``)
+packs into the same int32 tables and scales in both packages. The h16 codec
 uses the int4x8 table (``pack_query_i4s``): one 128-lane row covers 1024
 columns, eight signed 4-bit entries per word.
 """
@@ -86,6 +87,53 @@ def pack_query_table(vec_padded: np.ndarray, codec: str):
         # matrix words carry 2 nnz each (col + 6-bit value halves); the
         # query side is the int4x8 single-row table
         return pack_query_i4s(vec_padded)
+    raise ValueError(f"unknown query codec {codec!r}")
+
+
+def pack_query_tables(qs_padded: np.ndarray, codec: str):
+    """(Q, C)-padded f32 queries -> ((Q, rows, 128) tables, (Q,) scales).
+
+    Vectorized batch form of pack_query_table: the serving path packs a
+    whole query group in one NumPy pass and one device transfer. Unlike
+    pack_query_table, the scales are float32 and the quantization divides
+    by them in float32 (the JAX package's batch path; at a rounding
+    boundary a query's table and scale can differ between the two)."""
+    qs = np.asarray(qs_padded, np.float32)
+    Qn, C = qs.shape
+    if codec == "f32":
+        return qs.reshape(Qn, -1, LANES), np.ones(Qn, np.float32)
+    if codec in ("i4s", "h16"):
+        scale = np.abs(qs).max(axis=1) / 7.0
+        scale[scale == 0.0] = 1.0
+        q = (np.clip(np.round(qs / scale[:, None]), -7, 7)
+             .astype(np.int64) & 0xF)
+        n_rows = -(-C // (8 * LANES))
+        q = np.pad(q, ((0, 0), (0, n_rows * 8 * LANES - C))).reshape(
+            Qn, n_rows, 8, LANES)
+        table = sum((q[:, :, n].astype(np.uint32) << np.uint32(4 * n))
+                    for n in range(8)).view(np.int32)
+        return table, scale
+    if codec == "int8x4":
+        scale = np.abs(qs).max(axis=1) / 127.0
+        scale[scale == 0.0] = 1.0
+        q = np.clip(np.round(qs / scale[:, None]), -127, 127).astype(
+            np.int64) + 128
+        n_rows = -(-C // (4 * LANES))
+        q = np.pad(q, ((0, 0), (0, n_rows * 4 * LANES - C))).reshape(
+            Qn, n_rows, 4, LANES)
+        table = (q[:, :, 0] | (q[:, :, 1] << 8) | (q[:, :, 2] << 16)
+                 | (q[:, :, 3] << 24)).astype(np.uint32).view(np.int32)
+        return table, scale
+    if codec == "i8s":
+        scale = np.abs(qs).max(axis=1) / 127.0
+        scale[scale == 0.0] = 1.0
+        q = np.clip(np.round(qs / scale[:, None]), -127, 127).astype(np.int8)
+        n_rows = -(-C // (4 * LANES))
+        q = np.pad(q, ((0, 0), (0, n_rows * 4 * LANES - C))).view(
+            np.uint8).astype(np.uint32).reshape(Qn, n_rows, 4, LANES)
+        table = (q[:, :, 0] | (q[:, :, 1] << 8) | (q[:, :, 2] << 16)
+                 | (q[:, :, 3] << 24)).view(np.int32)
+        return table, scale
     raise ValueError(f"unknown query codec {codec!r}")
 
 

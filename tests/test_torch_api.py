@@ -165,12 +165,21 @@ def test_unported_configs_raise(kw, match):
 
 
 def test_unported_entry_points_raise(ref):
+    """query_batch and scores are ported for h16; their sweeps raise for
+    the query codecs that are not ported yet."""
+    from spmv_topk_tpu_torch.ops import kernel as pkernel
+
     peng = ref["peng"]
-    q = ref["qs"][QUERY_SEEDS[0]]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        peng.query_batch(q[None])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        peng.scores(q)
+    cfg = dataclasses.replace(peng.config, query_codec="f32")
+    args = (peng.words, torch.zeros((1, 1, 128), dtype=torch.int32),
+            peng.nreal, peng.plan_rows)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        pkernel.topk_spmv_fused_batch_octet_device(
+            *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        pkernel.spmv_fused_scores_octet_device(
+            *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes,
+            num_slices=peng.row_ids.shape[0])
 
 
 def test_device_is_required():

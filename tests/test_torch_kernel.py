@@ -195,3 +195,29 @@ def test_finalize_topk_matches_jax(seed, k):
     kth = pv[-1]
     assert set(ji[jv > kth].tolist()) == set(pi[pv > kth].tolist())
     assert (pi[np.isfinite(pv)] >= 0).all()
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    """Kernel names, template arguments, registers and spill stores from
+    nvcc's -Xptxas=-v output (lines as nvcc 12.9 prints them)."""
+    from spmv_topk_tpu_torch.ops import _build
+
+    lib = tmp_path / "lib.so"
+    (tmp_path / "lib.so.ptxas.txt").write_text(
+        "== octet_topk_batch.cu\n"
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__ba66f468"
+        "_19_octet_topk_batch_cu_4825f2a123octet_topk_batch_kernelILi16ELi8"
+        "ELb0ELb1EEEvPKiS2_S2_S2_iiiiiPfPi' for 'sm_90a'\n"
+        "    0 bytes stack frame, 3316 bytes spill stores, 3316 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, 416 bytes cmem[0]\n"
+        "== octet_scores.cu\n"
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__7ea079ae"
+        "_15_octet_scores_cu_14ecab5619octet_scores_kernelEPKiS1_S1_S1_iiPf'"
+        " for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, 400 bytes cmem[0]\n")
+    monkeypatch.setattr(_build, "library_path", lambda: str(lib))
+    assert _build.ptxas_report() == {
+        "octet_topk_batch_kernel<16,8,0,1>": (255, 3316),
+        "octet_scores_kernel": (32, 0)}
