@@ -13,6 +13,11 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      corpus (tie-safe buffers, so per-lane values must agree bit for bit;
      K4's slice scores bit for bit), once more with blocks small enough
      to force wide octets; K6 on 5 queries in uneven subgroups;
+     then the slice-layout kernels K7, K8 (5 queries in uneven subgroups)
+     and K9 the same way: h16 at quantum 2 with fold 8 and fold 1, f32 at
+     quantum 8 on integer-valued data (exact in any summation order)
+     and on real values (the plain version sums in the kernels' order),
+     wide slices, and blocks past the unroll threshold;
   3. the main path at full size: the 10M x 1024 gamma corpus (seed 1) in
      the headline config, 32 queries through ``TopKSpMV.query()`` held
      against the exact scipy top-100, sweep and end-to-end times, and the
@@ -26,7 +31,18 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      rescore);
   6. the scores path: ``scores()`` of one query, K4 against its plain
      version and against the exact f32 product;
-  7. the launch counts of each path's run (counts set to 0 just before
+  7. the slice path on the same corpus: ``bench.py``'s batch engine
+     (slice layout, h16, quantum 2, fold 8, pool 400): ``query()`` and
+     ``query_batch`` of the 32 queries against the gold sets, the
+     ``batch32_*`` numbers, one ``scores()``, and K7, K8, K9, K3 timed
+     (and held to their plain versions) on its stream;
+  8. the default path: ``TopKSpMVConfig(k=100, max_cols=1024)`` (slice
+     layout, f32 codec, no rescore): ``query()`` against the exact and
+     the bf16-matrix top-100 and bit-equal to the plain path's,
+     ``query_batch`` in groups of 8 bit-equal to ``query()``,
+     ``scores()``, and K7, K8 (a group of 8), K9 held to and timed
+     against their plain versions;
+  9. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
 Then the kernel summary, the ``nvidia-smi`` name and power limit, and
@@ -50,6 +66,15 @@ FULL_ROWS, NUM_COLS, AVG_DEG, CORPUS_SEED = 10_000_000, 1024, 20, 1
 NUM_QUERIES, QUERY_SEED = 32, 3
 MIN_PRECISION = 0.98
 BATCH_GROUP, BATCH_GROUPS, BATCH_SEED = 32, 8, 6
+# bench.py's batch engine (bench.py:295-303): the slice layout
+SLICE_BATCH = dict(k=100, lane_k=8, num_partitions=1, max_cols=1024,
+                   query_codec="h16", fused_layout="slice",
+                   width_quantum=2, fused_block_sublanes=1024, fold_tile=8,
+                   rescore_pool=400)
+# the default engine ranks by bf16 matrix values: its floor is against
+# the top-100 of the bf16-rounded matrix
+MIN_PRECISION_BF16 = 0.95
+DEFAULT_GROUP = 8      # query_batch's default group size
 
 
 def require(ok, what):
@@ -140,12 +165,12 @@ def _plain_and_kernel(eng, table, cfg):
     return kern, plain
 
 
-def _tables(qs, dev):
+def _tables(qs, dev, codec="h16"):
     import torch
 
     from spmv_topk_tpu_torch.ops.quantized_query import pack_query_tables
 
-    tabs, _ = pack_query_tables(qs, "h16")
+    tabs, _ = pack_query_tables(qs, codec)
     return torch.from_numpy(tabs).to(dev)
 
 
@@ -327,7 +352,7 @@ def phase_main(dev):
     emit(res)
     require(res["precision_at_100_mean"] >= MIN_PRECISION,
             f"mean precision@100 >= {MIN_PRECISION}")
-    return eng, qs, res, gold, single
+    return coo, eng, qs, res, gold, single
 
 
 def phase_kernels_full(eng, qs, dev):
@@ -519,6 +544,421 @@ def phase_scores(eng, qs, dev):
     return res
 
 
+# ------------------------------------------------------------ slice layout
+
+def _integer_valued(coo, seed):
+    """The corpus with integer values in [-8, 8]: exact in bf16, and every
+    partial sum of the f32 codec an exact f32, so any summation order
+    gives the same bits."""
+    from spmv_topk_tpu_torch.formats import CooMatrix
+
+    vals = np.random.default_rng(seed).integers(-8, 9, coo.nnz).astype(
+        np.float32)
+    return CooMatrix(coo.rows, coo.cols, vals, coo.num_rows, coo.num_cols)
+
+
+def _slice_plain_kw(cfg):
+    return dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+                block_sublanes=cfg.fused_block_sublanes,
+                codec=cfg.query_codec)
+
+
+def _slice_agree(eng, cfg, q, qs, dev):
+    """K7 (query q), K8 (queries qs in one group) and K9 (query q) of one
+    engine under cfg (tie-safe buffers) against their plain versions,
+    which sum in the kernels' order for both codecs: per-lane values and
+    K9's slice scores must be bit-equal, and (value, tag) pairs equal
+    above each lane's floor. Returns the three max abs errors."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    bs = cfg.fused_block_sublanes
+    table, _ = eng._table(q)
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bargs = (eng.words, _tables(qs, dev, cfg.query_codec), eng.nreal,
+             eng.plan_rows)
+    n = eng.row_ids.shape[0]
+    kv, kt = K.topk_spmv_fused_device(*args, cfg=cfg, block_sublanes=bs)
+    pv, pt = K.slice_topk_plain(*args, fold_tile=cfg.fold_tile,
+                                **_slice_plain_kw(cfg))
+    bv, bt = K.topk_spmv_fused_batch_device(*bargs, cfg=cfg,
+                                            block_sublanes=bs)
+    bpv, bpt = K.slice_topk_batch_plain(*bargs, **_slice_plain_kw(cfg))
+    ks = K.spmv_fused_scores_device(*args, cfg=cfg, block_sublanes=bs,
+                                    num_slices=n)
+    ps = K.slice_scores_plain(*args, num_slices=n, block_sublanes=bs,
+                              codec=cfg.query_codec)
+    torch.cuda.synchronize()
+    require(torch.equal(ks, ps), "K9 slice scores equal the plain "
+            "version's bit for bit")
+    return (compare_lanes(kv, kt, pv, pt),
+            max(compare_lanes(bv[j], bt[j], bpv[j], bpt[j])
+                for j in range(len(qs))),
+            float((ks - ps).abs().max()))
+
+
+def phase_slice_small(dev):
+    """K7, K8, K9 vs their plain versions on a 50k-row corpus: h16 at
+    quantum 2 with fold 8 and fold 1, f32 at quantum 8 (integer-valued
+    data, then the real values: the plain version sums in the kernels'
+    order), blocks small enough for wide slices, and blocks past the
+    JAX kernel's unroll threshold (every slice folded despite fold 8).
+    K8 runs 5 queries in subgroups of 2 (the last holds one)."""
+    import dataclasses
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    icoo = _integer_valued(coo, 17)
+    rng = np.random.default_rng(18)
+    iq = rng.integers(-8, 9, (6, NUM_COLS)).astype(np.float32)
+    q = create_query_batch(1, NUM_COLS, seed=8)[0]
+    qs5 = create_query_batch(5, NUM_COLS, seed=9)
+    h16 = dict(SLICE_BATCH, tie_safe_topk=True, rescore_pool=None)
+    f32 = dict(k=100, max_cols=NUM_COLS, tie_safe_topk=True)
+    cases = []
+    for name, kw, integer, want in (
+            ("h16_q2_fold8", h16, False, {K.TILED}),
+            ("h16_q2_fold1", dict(h16, fold_tile=1), False, {K.RUNS}),
+            ("f32_q8_fold1", f32, True, {K.RUNS}),
+            ("f32_q8_fold1_real", f32, False, {K.RUNS}),
+            ("h16_q2_fold8_wide", dict(h16, fused_block_sublanes=32), False,
+             {K.WIDE, K.TILED}),
+            ("f32_q8_fold1_wide", dict(f32, fused_block_sublanes=32), True,
+             {K.WIDE, K.RUNS}),
+            ("h16_q2_fold8_unroll", dict(h16, fused_block_sublanes=2048),
+             False, {K.RUNS})):
+        cfg = TopKSpMVConfig(**kw)
+        eng = TopKSpMV(icoo if integer else coo, cfg, device=dev)
+        modes = {K.slice_work(r, cfg.fold_tile)[0]
+                 for r in eng.plan_rows.tolist()}
+        require(want <= modes and modes <= want | {K.RUNS},
+                f"{name}: work-item modes {sorted(modes)} cover {want}")
+        k7, k8, k9 = _slice_agree(
+            eng, dataclasses.replace(cfg, batch_subgroup=2),
+            iq[0] if integer else q, iq[1:] if integer else qs5, dev)
+        cases.append(dict(case=name, buckets=len(eng.fused.plan),
+                          wide_buckets=sum(p.blocks_per_slice > 1
+                                           for p in eng.fused.plan),
+                          work_items=K.slice_work_items(eng.plan_rows,
+                                                        cfg.fold_tile),
+                          k7_max_abs_err=k7, k8_max_abs_err=k8,
+                          k9_max_abs_err=k9))
+    out = dict(phase="slice_kernels_vs_plain_small", rows=coo.num_rows,
+               nnz=coo.nnz, cases=cases)
+    emit(out)
+    return out
+
+
+def _same_top(idx, vals, ref_idx, ref_vals, what):
+    """Require two top-k lists of one query to hold bit-equal values and
+    the same rows, but where a row ties the k-th value (either list may
+    keep another of the tied rows)."""
+    require(np.array_equal(vals, ref_vals), f"{what}: top-k values equal "
+            "bit for bit")
+    kth = ref_vals[-1]
+    require(set(idx[vals > kth].tolist()) == set(ref_idx[ref_vals > kth]
+                                                 .tolist()),
+            f"{what}: the same rows above the k-th value")
+
+
+def _precision(gold, idx, k):
+    return [len(g & set(i.tolist())) / k for g, i in zip(gold, idx)]
+
+
+def _gold_sets(csr, qs, k):
+    scores = np.asarray(csr @ qs.T)                       # (rows, Q)
+    return [set(np.argpartition(-scores[:, j], k - 1)[:k].tolist())
+            for j in range(scores.shape[1])]
+
+
+def _drive(eng, qs, k, group):
+    """query() of each query (host-clock ms, indices, values), then
+    query_batch of all of them in groups of ``group``, then one scores().
+    Returns (single indices, single values, query ms, batch indices,
+    batch values, batch ms, scores, scores ms)."""
+    import torch
+
+    single, svals, q_ms = [], [], []
+    for q in qs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, vals = eng.query(q)
+        torch.cuda.synchronize()
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+        idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
+        require(idx.shape == (eng.config.k,) and (idx >= 0).all()
+                and np.isfinite(vals).all(),
+                "query returns k valid rows with finite scores")
+        single.append(idx)
+        svals.append(vals)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bidx, bvals = eng.query_batch(qs, group_size=group)
+    torch.cuda.synchronize()
+    b_ms = (time.perf_counter() - t0) * 1e3
+    bidx, bvals = bidx.cpu().numpy(), bvals.cpu().numpy()
+    require(bidx.shape == (len(qs), eng.config.k) and (bidx >= 0).all()
+            and np.isfinite(bvals).all(),
+            "query_batch returns k valid rows with finite scores per query")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = eng.scores(qs[0])
+    torch.cuda.synchronize()
+    s_ms = (time.perf_counter() - t0) * 1e3
+    s = s.cpu().numpy()
+    require(s.shape == (eng.num_rows,) and np.isfinite(s).all(),
+            "scores() returns a finite score per row")
+    return single, svals, q_ms, bidx, bvals, b_ms, s, s_ms
+
+
+def _reset_slice_counts():
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    for w in (K.topk_spmv_fused_device, K.topk_spmv_fused_batch_device,
+              K.spmv_fused_scores_device):
+        w.launches = 0
+
+
+def _slice_counts():
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    return dict(slice_topk=K.topk_spmv_fused_device.launches,
+                slice_topk_batch=K.topk_spmv_fused_batch_device.launches,
+                slice_scores=K.spmv_fused_scores_device.launches)
+
+
+def _slice_kernel_times(eng, qs, dev, group):
+    """K7, K8 (one group of the first ``group`` queries of qs, the
+    path's group size) and K9 held to their plain versions at this
+    engine's shapes (``_slice_agree``, tie-safe buffers: bit-equal), then
+    each timed against its plain version."""
+    import dataclasses
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    cfg = eng.config
+    qs = qs[:group]
+    k7, k8, k9 = _slice_agree(
+        eng, dataclasses.replace(cfg, tie_safe_topk=True), qs[0], qs, dev)
+    bs = cfg.fused_block_sublanes
+    table, _ = eng._table(qs[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bargs = (eng.words, _tables(qs, dev, cfg.query_codec), eng.nreal,
+             eng.plan_rows)
+    n = eng.row_ids.shape[0]
+    plain_kw = _slice_plain_kw(cfg)
+    return dict(
+        k7_ms=cuda_ms(lambda: K.topk_spmv_fused_device(
+            *args, cfg=cfg, block_sublanes=bs), reps=20, warmup=2),
+        k7_plain_ms=cuda_ms(lambda: K.slice_topk_plain(
+            *args, fold_tile=cfg.fold_tile, **plain_kw), reps=2),
+        k7_max_abs_err=k7,
+        k8_ms=cuda_ms(lambda: K.topk_spmv_fused_batch_device(
+            *bargs, cfg=cfg, block_sublanes=bs), reps=10, warmup=2),
+        k8_plain_ms=cuda_ms(lambda: K.slice_topk_batch_plain(
+            *bargs, **plain_kw), reps=1, warmup=0),
+        k8_max_abs_err=k8, k8_queries=len(qs),
+        k9_ms=cuda_ms(lambda: K.spmv_fused_scores_device(
+            *args, cfg=cfg, block_sublanes=bs, num_slices=n), reps=20,
+            warmup=2),
+        k9_plain_ms=cuda_ms(lambda: K.slice_scores_plain(
+            *args, num_slices=n, block_sublanes=bs, codec=cfg.query_codec),
+            reps=2),
+        k9_max_abs_err=k9)
+
+
+def phase_slice_path(coo, csr, qs, gold, dev):
+    """bench.py's batch engine (slice layout, h16, quantum 2, fold 8,
+    pool 400) on the full corpus: query(), query_batch of the 32 queries
+    in one group, the batch32_* numbers, one scores(), and K7, K8, K9, K3
+    timed on its stream."""
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import create_query_batch
+    from spmv_topk_tpu_torch.ops import kernel as K
+    from spmv_topk_tpu_torch.ops.streamprobe import stream_words_device
+
+    cfg = TopKSpMVConfig(**SLICE_BATCH)
+    t0 = time.perf_counter()
+    eng = TopKSpMV(coo, cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k = cfg.k
+    eng.query(qs[0])                                      # warm
+    eng.query_batch(qs[:2], group_size=2)
+    eng.scores(qs[0])
+    torch.cuda.synchronize()
+    _reset_slice_counts()
+    single, _, q_ms, bidx, _, b_ms, s, s_ms = _drive(eng, qs, k,
+                                                    BATCH_GROUP)
+    torch.cuda.synchronize()
+    launches = _slice_counts()
+    prec = _precision(gold, single, k)
+    bprec = _precision(gold, bidx, k)
+    same = [len(set(a.tolist()) & set(b.tolist())) / k
+            for a, b in zip(single, bidx)]
+    raw = [eng.query(q, rescore_pool=0)[0].cpu().numpy() for q in qs]
+
+    many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
+                              seed=BATCH_SEED)
+
+    def e2e_ms(**kw):
+        """Best of 3 host-clock runs of the 256 queries, per query."""
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, v = eng.query_batch(many, group_size=BATCH_GROUP, **kw)
+            v.cpu()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3 / len(many)
+
+    e2e = e2e_ms()
+    e2e_raw = e2e_ms(rescore_pool=0)
+    times = _slice_kernel_times(eng, qs, dev, BATCH_GROUP)
+    exact = np.asarray(csr @ qs[0], np.float32)
+    salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
+    k3_ms = cuda_ms(lambda: stream_words_device(eng.words, salt), reps=20,
+                    warmup=2)
+    per_query = times["k8_ms"] / len(qs)
+    res = dict(
+        phase="slice_path", config=SLICE_BATCH, rows=eng.num_rows,
+        buckets=len(eng.fused.plan),
+        widths=[p.width for p in eng.fused.plan],
+        work_items=K.slice_work_items(eng.plan_rows, cfg.fold_tile),
+        words_bytes=eng.hbm_bytes,
+        padding_words_per_nnz=eng.fused.padding_ratio,
+        pack_and_upload_s=build_s, queries=len(qs),
+        precision_at_100_mean=float(np.mean(prec)),
+        precision_at_100_min=float(np.min(prec)),
+        precision_raw_mean=float(np.mean(_precision(gold, raw, k))),
+        query_e2e_ms_median=statistics.median(q_ms),
+        batch_precision_at_100_mean=float(np.mean(bprec)),
+        batch_precision_at_100_min=float(np.min(bprec)),
+        agreement_with_query_mean=float(np.mean(same)),
+        agreement_with_query_min=float(np.min(same)),
+        group_of_32_e2e_ms=b_ms,
+        batch32_ms_per_query=per_query,
+        batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
+        batch32_e2e_ms_per_query=e2e,
+        batch32_e2e_raw_ms_per_query=e2e_raw,
+        scores_e2e_ms=s_ms,
+        scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
+        max_abs_exact=float(np.abs(exact).max()),
+        **times,
+        k7_words_gb_per_s=eng.hbm_bytes / (times["k7_ms"] * 1e-3) / 1e9,
+        k3_ms=k3_ms,
+        k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
+        launches=launches, nvidia_smi=smi_line())
+    emit(res)
+    require(res["precision_at_100_mean"] >= MIN_PRECISION,
+            f"slice query() mean precision@100 >= {MIN_PRECISION}")
+    require(res["batch_precision_at_100_mean"] >= MIN_PRECISION,
+            f"slice query_batch mean precision@100 >= {MIN_PRECISION}")
+    require(res["agreement_with_query_mean"] >= MIN_PRECISION,
+            f"slice query_batch agrees with query() on >= {MIN_PRECISION} "
+            "of the top-100 (K8 folds every slice, K7 tiles)")
+    for name, n in launches.items():
+        require(n > 0, f"the slice path launched {name}")
+    return res
+
+
+def phase_default_path(coo, csr, qs, gold, dev):
+    """TopKSpMVConfig(k=100, max_cols=1024), nothing else set (slice
+    layout, f32 codec, quantum 8, fold 1, no rescore) on the full
+    corpus: query() against the exact f32 top-100 and the top-100 of
+    the bf16-rounded matrix, and bit-equal to the plain path's;
+    query_batch at the default group size 8 bit-equal to query() (K8 and
+    K7 harvest the same slices, summed alike); scores(); and K7, K8 (a
+    group of 8), K9 held to and timed against their plain versions."""
+    import scipy.sparse
+
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.ops import kernel as K
+    from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
+
+    cfg = TopKSpMVConfig(k=100, max_cols=NUM_COLS)
+    t0 = time.perf_counter()
+    eng = TopKSpMV(coo, cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k = cfg.k
+    bf16 = scipy.sparse.csr_matrix(
+        (quantize_bf16(csr.data), csr.indices, csr.indptr), shape=csr.shape)
+    gold_bf16 = _gold_sets(bf16, qs, k)
+    del bf16
+    eng.query(qs[0])                                      # warm
+    eng.query_batch(qs[:2])
+    eng.scores(qs[0])
+    torch.cuda.synchronize()
+    _reset_slice_counts()
+    single, svals, q_ms, bidx, bvals, b_ms, s, s_ms = _drive(
+        eng, qs, k, DEFAULT_GROUP)
+    torch.cuda.synchronize()
+    launches = _slice_counts()
+    prec = _precision(gold, single, k)
+    prec_bf16 = _precision(gold_bf16, single, k)
+    bprec_bf16 = _precision(gold_bf16, bidx, k)
+    same = [len(set(a.tolist()) & set(b.tolist())) / k
+            for a, b in zip(single, bidx)]
+
+    # the path's top-100s (production buffers) against the plain path's
+    for j, q in enumerate(qs):
+        table, _ = eng._table(q)
+        pv, pt = K.slice_topk_plain(eng.words, table, eng.nreal,
+                                    eng.plan_rows, fold_tile=cfg.fold_tile,
+                                    **_slice_plain_kw(cfg))
+        pidx, pvals = (x.cpu().numpy() for x in
+                       K.finalize_topk(pv, pt, eng.row_ids, k=k))
+        _same_top(single[j], svals[j], pidx, pvals,
+                  "query() against the plain path")
+        _same_top(bidx[j], bvals[j], single[j], svals[j],
+                  "query_batch against query()")
+    times = _slice_kernel_times(eng, qs, dev, DEFAULT_GROUP)
+    exact = np.asarray(csr @ qs[0], np.float32)
+    res = dict(
+        phase="default_config_path", config=dict(k=100, max_cols=NUM_COLS),
+        rows=eng.num_rows, buckets=len(eng.fused.plan),
+        widths=[p.width for p in eng.fused.plan],
+        work_items=K.slice_work_items(eng.plan_rows, cfg.fold_tile),
+        words_bytes=eng.hbm_bytes,
+        padding_words_per_nnz=eng.fused.padding_ratio,
+        pack_and_upload_s=build_s, queries=len(qs),
+        precision_at_100_mean=float(np.mean(prec)),
+        precision_at_100_min=float(np.min(prec)),
+        precision_bf16_matrix_mean=float(np.mean(prec_bf16)),
+        precision_bf16_matrix_min=float(np.min(prec_bf16)),
+        query_e2e_ms_median=statistics.median(q_ms),
+        batch_precision_at_100_mean=float(np.mean(_precision(gold, bidx,
+                                                             k))),
+        batch_precision_bf16_matrix_mean=float(np.mean(bprec_bf16)),
+        agreement_with_query_mean=float(np.mean(same)),
+        batch_group_size=DEFAULT_GROUP,
+        batch_e2e_ms_per_query=b_ms / len(qs),
+        scores_e2e_ms=s_ms,
+        scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
+        max_abs_exact=float(np.abs(exact).max()),
+        **times,
+        k7_words_gb_per_s=eng.hbm_bytes / (times["k7_ms"] * 1e-3) / 1e9,
+        launches=launches, nvidia_smi=smi_line())
+    emit(res)
+    for key in ("precision_bf16_matrix_mean",
+                "batch_precision_bf16_matrix_mean"):
+        require(res[key] >= MIN_PRECISION_BF16,
+                f"default path {key} >= {MIN_PRECISION_BF16}")
+    for name, n in launches.items():
+        require(n > 0, f"the default path launched {name}")
+    return res
+
+
 def main():
     import torch
 
@@ -534,7 +974,9 @@ def main():
     torch.cuda.synchronize()
     phase_small(dev)
     torch.cuda.synchronize()
-    eng, qs, main_res, gold, single = phase_main(dev)
+    phase_slice_small(dev)
+    torch.cuda.synchronize()
+    coo, eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
     full = phase_kernels_full(eng, qs, dev)
     torch.cuda.synchronize()
@@ -542,12 +984,23 @@ def main():
     torch.cuda.synchronize()
     scores = phase_scores(eng, qs, dev)
     torch.cuda.synchronize()
+    csr = eng._scipy_csr
+    del eng                         # the octet engine's words leave the card
+    torch.cuda.empty_cache()
+    sl = phase_slice_path(coo, csr, qs, gold, dev)
+    torch.cuda.synchronize()
+    df = phase_default_path(coo, csr, qs, gold, dev)
+    torch.cuda.synchronize()
     launches = dict(main_res["launches"],
                     octet_topk_batch_h16=batch["launches"],
                     octet_scores_h16=scores["launches"])
-    emit(dict(phase="launch_counts", **launches))
+    by_path = dict(slice_path=sl["launches"], default_path=df["launches"])
+    emit(dict(phase="launch_counts", **launches, **by_path))
     for name, n in launches.items():
         require(n > 0, f"its path launched {name}")
+    for path in by_path.values():
+        for name, n in path.items():
+            require(n > 0, f"its path launched {name}")
 
     emit({"kernels": [
         dict(name="octet_topk_h16", route="cuda",
@@ -574,6 +1027,18 @@ def main():
              launches=launches["stream_words"],
              max_abs_err=full["k3_max_abs_err"], ms=full["k3_ms"],
              plain_ms=full["k3_plain_ms"]),
+        *(dict(name=name, route="cuda",
+               source=f"spmv_topk_tpu_torch/csrc/{name}.cu",
+               replaces=f"spmv_topk_tpu/ops/kernel.py:{line}",
+               launches=sl["launches"][name],
+               max_abs_err=sl[f"{kn}_max_abs_err"], ms=sl[f"{kn}_ms"],
+               plain_ms=sl[f"{kn}_plain_ms"],
+               f32=dict(launches=df["launches"][name],
+                        max_abs_err=df[f"{kn}_max_abs_err"],
+                        ms=df[f"{kn}_ms"], plain_ms=df[f"{kn}_plain_ms"]))
+          for name, kn, line in (("slice_topk", "k7", 864),
+                                 ("slice_topk_batch", "k8", 1381),
+                                 ("slice_scores", "k9", 1909))),
     ]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,11 @@
 """spmv-topk-tpu-torch: the PyTorch/CUDA port of spmv_topk_tpu.
 
-The JAX package's h16 octet engine on one partition: single queries,
-batched queries and plain SpMV, with its device sweeps written as CUDA
-kernels for Hopper (``csrc/``). Imports torch, numpy and scipy only; corpora and
-queries come from numpy generators seeded as in the JAX package, so both
-packages see the same data.
+The JAX package's engines on one partition, the slice layout (codecs
+f32 and h16; the default ``TopKSpMVConfig()``) and the h16 octet layout:
+single queries, batched queries and plain SpMV, with their device sweeps
+written as CUDA kernels for Hopper (``csrc/``). Imports torch, numpy and
+scipy only; corpora and queries come from numpy generators seeded as in
+the JAX package, so both packages see the same data.
 """
 
 from .config import (

@@ -1,24 +1,28 @@
 """User-facing engine: matrix-resident Top-K SpMV on one device.
 
-The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV`` for the h16
-codec on the octet stream, one partition. ``TopKSpMV`` is an
-``nn.Module`` whose buffers hold the packed stream (``words``), the real
-slices per bucket (``nreal``), the slice -> row map (``row_ids``) and the
-kernels' bucket plan (``plan_rows``) on the device it was built for. A
-query runs
+The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV`` on one
+partition, for two engines: the slice stream (``fused_layout="slice"``,
+the default) with the ``f32`` (the default) or ``h16`` query codec, and
+the octet stream (``fused_layout="octet"``) with ``h16``. ``TopKSpMV`` is
+an ``nn.Module`` whose buffers hold the packed stream (``words``), the
+real slices per bucket (``nreal``), the slice -> row map (``row_ids``)
+and the kernels' bucket plan (``plan_rows``) on the device it was built
+for. A query runs
 
   1. the query table (``ops/quantized_query.pack_query_table``),
-  2. the octet sweep (``ops/kernel.topk_spmv_fused_octet_device``,
-     a CUDA kernel on the card),
+  2. the sweep (``ops/kernel.topk_spmv_fused_device`` on the slice
+     stream, ``topk_spmv_fused_octet_device`` on the octet stream; CUDA
+     kernels on the card),
   3. ``finalize_topk`` on the device,
   4. with ``rescore_pool``, the exact host rescore of the pool
      (``exact_rescore``, native ``csr_rescore``).
 
 ``query_batch`` runs the same steps per query group, with the group's
 tables (``pack_query_tables``), the multi-query sweep
-(``topk_spmv_fused_batch_octet_device``), ``finalize_topk_batch`` and
-the rescore on a thread pool. ``scores`` is plain SpMV over the same
-stream (``spmv_fused_scores_octet_device``).
+(``topk_spmv_fused_batch_device`` / ``topk_spmv_fused_batch_octet_device``),
+``finalize_topk_batch`` and the rescore on a thread pool. ``scores`` is
+plain SpMV over the same stream (``spmv_fused_scores_device`` /
+``spmv_fused_scores_octet_device``).
 
 Snapshots use the JAX package's ``.npz`` format v2, so one file serves
 both packages.
@@ -29,21 +33,52 @@ from __future__ import annotations
 import dataclasses
 import json
 import warnings
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .config import LANES, TopKSpMVConfig, ValueFormat, DEFAULT_CONFIG
 from .formats.coo import CooMatrix, from_scipy
-from .formats.sell_buckets import (FusedSellMatrix, fuse_buckets_octet,
-                                   octet_plan_array, octet_plan_from_array,
-                                   pack_sell_buckets)
-from .ops.kernel import (finalize_topk, finalize_topk_batch,
-                         octet_plan_rows, spmv_fused_scores_octet_device,
+from .formats.sell_buckets import (FusedSellMatrix, fuse_buckets,
+                                   fuse_buckets_octet, octet_plan_array,
+                                   octet_plan_from_array, pack_sell_buckets,
+                                   slice_plan_array, slice_plan_from_array)
+from .ops.kernel import (SLICE_CODECS, finalize_topk, finalize_topk_batch,
+                         octet_plan_rows, slice_plan_rows,
+                         spmv_fused_scores_device,
+                         spmv_fused_scores_octet_device,
+                         topk_spmv_fused_batch_device,
                          topk_spmv_fused_batch_octet_device,
+                         topk_spmv_fused_device,
                          topk_spmv_fused_octet_device)
 from .ops.quantized_query import pack_query_table, pack_query_tables
+
+class _Layout(NamedTuple):
+    """What differs between the two fused streams."""
+
+    fuse: Callable            # BucketedSellMatrix -> FusedSellMatrix
+    plan_array: Callable      # plan -> snapshot array
+    plan_from_array: Callable
+    plan_rows: Callable       # FusedSellMatrix -> the kernels' plan table
+    sweep: Callable           # single-query Top-K sweep
+    batch_sweep: Callable     # multi-query Top-K sweep
+    scores: Callable          # SpMV
+
+
+_LAYOUTS = {
+    "slice": _Layout(
+        fuse_buckets, slice_plan_array, slice_plan_from_array,
+        lambda f: slice_plan_rows(f.plan, f.num_blocks, f.nreal,
+                                  f.block_sublanes),
+        topk_spmv_fused_device, topk_spmv_fused_batch_device,
+        spmv_fused_scores_device),
+    "octet": _Layout(
+        fuse_buckets_octet, octet_plan_array, octet_plan_from_array,
+        lambda f: octet_plan_rows(f.plan, f.num_blocks),
+        topk_spmv_fused_octet_device, topk_spmv_fused_batch_octet_device,
+        spmv_fused_scores_octet_device),
+}
 
 
 def exact_rescore(csr, idx, vec, k):
@@ -91,14 +126,13 @@ def exact_rescore(csr, idx, vec, k):
 
 def _check_slice(config: TopKSpMVConfig) -> None:
     """Raise for configurations the port does not run yet."""
-    if config.fused_layout != "octet":
+    ported = SLICE_CODECS if config.fused_layout == "slice" else ("h16",)
+    if config.query_codec not in ported:
         raise NotImplementedError(
-            "fused_layout='slice' is not ported yet (ROADMAP.md Queue 1 "
-            "item 7, slice layout): use fused_layout='octet'")
-    if config.query_codec != "h16":
-        raise NotImplementedError(
-            f"query_codec={config.query_codec!r} is not ported yet "
-            "(ROADMAP.md Queue 1 item 5, other query codecs): use 'h16'")
+            f"query_codec={config.query_codec!r} on the "
+            f"fused_layout={config.fused_layout!r} stream is not ported yet "
+            "(ROADMAP.md Queue 1 item 5, other query codecs): use one of "
+            f"{ported}")
     if config.num_partitions > 1:
         raise NotImplementedError(
             "num_partitions > 1 is not ported yet (ROADMAP.md Queue 1 "
@@ -125,8 +159,9 @@ class TopKSpMV(torch.nn.Module):
         # exact rescoring keeps the host CSR; the sorted COO's arrays back
         # it without a copy
         csr = matrix.to_scipy_csr() if config.rescore_pool else None
-        fused = fuse_buckets_octet(pack_sell_buckets(matrix, config),
-                                   block_sublanes=config.fused_block_sublanes)
+        fused = _LAYOUTS[config.fused_layout].fuse(
+            pack_sell_buckets(matrix, config),
+            block_sublanes=config.fused_block_sublanes)
         self._init_state(config, fused, device, csr)
 
     def _init_state(self, config, fused: FusedSellMatrix, device, csr):
@@ -138,11 +173,16 @@ class TopKSpMV(torch.nn.Module):
         self._value_scale = fused.value_scale
         self._scipy_csr = csr
         self._last_scale = 1.0
+        self._layout = _LAYOUTS[config.fused_layout]
         device = torch.device(device)
-        plan_rows = octet_plan_rows(fused.plan, fused.num_blocks)
+        plan_rows = self._layout.plan_rows(fused)
         if fused.words.shape[0] != fused.num_blocks * fused.block_sublanes:
             raise ValueError("words rows do not match num_blocks * "
                              "block_sublanes")
+        ends = [p.slice_base + int(n) for p, n in
+                zip(fused.plan, np.asarray(fused.nreal).reshape(-1))]
+        if max(ends, default=0) > fused.row_ids.shape[0] - 1:
+            raise ValueError("plan slices run past row_ids")
         for name, arr in (("words", fused.words), ("nreal", fused.nreal),
                           ("row_ids", fused.row_ids),
                           ("plan_rows", plan_rows)):
@@ -159,8 +199,9 @@ class TopKSpMV(torch.nn.Module):
         """Engine from the JAX engine's packed arrays.
 
         words/nreal/row_ids: ``eng.fused.words`` etc. of a
-        ``spmv_topk_tpu.TopKSpMV``; plan_rows: its plan as the (B, 7)
-        snapshot array; meta: the snapshot's meta dict (config as
+        ``spmv_topk_tpu.TopKSpMV``; plan_rows: its plan as the snapshot
+        array, (B, 6) for the slice layout and (B, 7) for the octet
+        layout; meta: the snapshot's meta dict (config as
         ``dataclasses.asdict``, geometry, value_scale). Exact rescoring
         needs the source matrix: without ``matrix`` it is disabled."""
         cfg_d = dict(meta["config"])
@@ -177,9 +218,14 @@ class TopKSpMV(torch.nn.Module):
             raise NotImplementedError(
                 "partitioned snapshots are not ported yet (ROADMAP.md "
                 "Queue 1 item 8, partitioned engines)")
+        plan_rows = np.asarray(plan_rows)
+        cols = 6 if config.fused_layout == "slice" else 7
+        if plan_rows.ndim != 2 or plan_rows.shape[1] != cols:
+            raise ValueError(f"a {config.fused_layout} plan has {cols} "
+                             f"columns, got shape {plan_rows.shape}")
         fused = FusedSellMatrix(
             words=np.asarray(words, np.int32),
-            plan=octet_plan_from_array(plan_rows),
+            plan=_LAYOUTS[config.fused_layout].plan_from_array(plan_rows),
             nreal=np.asarray(nreal, np.int32).reshape(-1, 1),
             block_sublanes=int(meta["block_sublanes"]),
             num_blocks=int(meta["num_blocks"]),
@@ -209,8 +255,8 @@ class TopKSpMV(torch.nn.Module):
         # suffix is missing, but load() opens the literal path
         with open(path, "wb") as fh:
             np.savez(fh, words=f.words, nreal=f.nreal, row_ids=f.row_ids,
-                     plan=octet_plan_array(f.plan), meta=np.frombuffer(
-                         json.dumps(meta).encode(), np.uint8))
+                     plan=self._layout.plan_array(f.plan),
+                     meta=np.frombuffer(json.dumps(meta).encode(), np.uint8))
 
     @classmethod
     def load(cls, path: str, *, device, matrix=None):
@@ -238,9 +284,9 @@ class TopKSpMV(torch.nn.Module):
 
     def candidates(self, vec):
         """Per-lane Top-K candidates (topv, topt), each (lane_k, 128),
-        before the global merge; values are unscaled integer sums."""
+        before the global merge; values are unscaled (h16: integer sums)."""
         table, self._last_scale = self._table(vec)
-        return topk_spmv_fused_octet_device(
+        return self._layout.sweep(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes)
 
@@ -280,10 +326,10 @@ class TopKSpMV(torch.nn.Module):
 
     def batch_candidates(self, tables):
         """Per-lane candidates of a query group: (topv, topt), each
-        (Q, lane_k, 128), values unscaled integer sums. tables: the
-        group's (Q, 1, 128) int32 tables (``pack_query_tables``) on the
-        engine's device."""
-        return topk_spmv_fused_batch_octet_device(
+        (Q, lane_k, 128), values unscaled (h16: integer sums). tables:
+        the group's (Q, rows, 128) tables (``pack_query_tables``: int32
+        for h16, float32 for f32) on the engine's device."""
+        return self._layout.batch_sweep(
             self.words, tables, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes)
 
@@ -358,12 +404,13 @@ class TopKSpMV(torch.nn.Module):
 
         Plain SpMV over the stream the sweeps read, so it serves
         load()ed and from_reference_arrays engines too. The scores are
-        the sweep's: 6-bit h16 matrix values times the 4-bit query,
-        scaled by the query scale times value_scale; rows absent from the
-        stream are 0. Materializes num_rows floats; prefer query() for
-        similarity lookup."""
+        the sweep's: for h16, 6-bit matrix values times the 4-bit query,
+        scaled by the query scale times value_scale; for f32, bf16 matrix
+        values times the f32 query. Rows absent from the stream are 0.
+        Materializes num_rows floats; prefer query() for similarity
+        lookup."""
         table, scale = self._table(vec)
-        sc = spmv_fused_scores_octet_device(
+        sc = self._layout.scores(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes,
             num_slices=self.row_ids.shape[0])

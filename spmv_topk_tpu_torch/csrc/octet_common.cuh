@@ -40,6 +40,47 @@ __device__ __forceinline__ int32_t prod_h16(int32_t w, const int32_t* tab) {
   return v0 * n0 + v1 * n1;
 }
 
+// Multi-query h16 (K6, K8). A subgroup's QG int4x8 tables (int32 (Q, 128),
+// queries q0 .. q0 + nq - 1) repacked into tab[1024]: entry c (a 10-bit
+// column) holds that column's signed nibble for every query, query dq at
+// bits [4dq, 4dq+4), so one shared-memory gather per nnz serves the whole
+// subgroup. Column c = n*128 + lane is nibble n of word `lane` of each
+// table; a block's 128 threads (one per lane) fill it together.
+constexpr int kH16Cols = 1024;   // h16 columns: 10-bit field
+
+template <int QG>
+__device__ __forceinline__ void repack_h16_tables(uint32_t* tab, const int32_t* tables, int q0,
+                                                  int nq, int lane) {
+  uint32_t qt[QG];
+#pragma unroll
+  for (int dq = 0; dq < QG; ++dq)
+    qt[dq] = dq < nq ? static_cast<uint32_t>(__ldg(tables + (q0 + dq) * kLanes + lane)) : 0u;
+#pragma unroll
+  for (int n = 0; n < kH16Cols / kLanes; ++n) {
+    uint32_t e = 0;
+#pragma unroll
+    for (int dq = 0; dq < QG; ++dq) e |= ((qt[dq] >> (4 * n)) & 0xFu) << (4 * dq);
+    tab[n * kLanes + lane] = e;
+  }
+}
+
+// Word u's product for each query of a repacked table: the decode of its
+// two nnz (columns, 6-bit values) once, then per query its nibble to the
+// top and sign-extended down (_h16_shared, _h16_apply).
+template <int QG>
+__device__ __forceinline__ void prod_h16_batch(uint32_t u, const uint32_t* tab, int32_t (&p)[QG]) {
+  const uint32_t g0 = tab[u & 0x3FFu];
+  const uint32_t g1 = tab[(u >> 16) & 0x3FFu];
+  const int32_t v0 = static_cast<int32_t>(u << 16) >> 26;
+  const int32_t v1 = static_cast<int32_t>(u) >> 26;
+#pragma unroll
+  for (int dq = 0; dq < QG; ++dq) {
+    const int32_t n0 = static_cast<int32_t>(g0 << (28 - 4 * dq)) >> 28;
+    const int32_t n1 = static_cast<int32_t>(g1 << (28 - 4 * dq)) >> 28;
+    p[dq] = v0 * n0 + v1 * n1;
+  }
+}
+
 // _topk_init's distinct sentinels (rounded as f32 mul then f32 sub), or
 // -inf for tie-safe buffers.
 template <int K, bool TIE_SAFE>

@@ -23,7 +23,8 @@
 // entry c (a 10-bit column) holds that column's signed nibble for every
 // query of the subgroup, query dq at bits [4dq, 4dq+4): one gather per
 // nnz serves the whole subgroup, and each query's nibble comes out with
-// a constant shift. Blocks grid-stride over all octets as in K1 (no
+// a constant shift (octet_common.cuh: repack_h16_tables, prod_h16_batch,
+// shared with K8). Blocks grid-stride over all octets as in K1 (no
 // carry between blocks, no block-padding octets) and write their buffers
 // to out[q][slot]; one per-lane torch.topk per query merges the slots.
 //
@@ -39,8 +40,6 @@ namespace {
 
 using namespace octet;
 
-constexpr int kCols = 1024;   // h16 columns: 10-bit field
-
 template <int K, int QG, bool TIE_SAFE, bool EXACT>
 __global__ void __launch_bounds__(kLanes)
 octet_topk_batch_kernel(const int32_t* __restrict__ words,
@@ -51,26 +50,14 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words,
                         int num_subgroups, float* __restrict__ out_v,
                         int32_t* __restrict__ out_t) {
   static_assert(QG >= 1 && QG <= 8, "a table entry holds 8 nibbles");
-  __shared__ uint32_t tab[kCols];
+  __shared__ uint32_t tab[kH16Cols];
   const int lane = threadIdx.x;
   const int sg = blockIdx.x % num_subgroups;
   const int slot = blockIdx.x / num_subgroups;
   const int num_slots = gridDim.x / num_subgroups;
   const int q0 = sg * subgroup;
   const int nq = min(subgroup, num_queries - q0);   // <= QG
-
-  // column c = n*128 + lane is nibble n of word `lane` of each table
-  uint32_t qt[QG];
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq)
-    qt[dq] = dq < nq ? static_cast<uint32_t>(__ldg(tables + (q0 + dq) * kLanes + lane)) : 0u;
-#pragma unroll
-  for (int n = 0; n < kCols / kLanes; ++n) {
-    uint32_t e = 0;
-#pragma unroll
-    for (int dq = 0; dq < QG; ++dq) e |= ((qt[dq] >> (4 * n)) & 0xFu) << (4 * dq);
-    tab[n * kLanes + lane] = e;
-  }
+  repack_h16_tables<QG>(tab, tables, q0, nq, lane);
   __syncthreads();
 
   float tv[QG][K];
@@ -92,19 +79,10 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words,
       const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
 #pragma unroll
       for (int m = 0; m < kMembers; ++m) {
-        // shared decode: columns and 6-bit values of the word's two nnz
-        const uint32_t u = static_cast<uint32_t>(__ldg(row + m * kLanes));
-        const uint32_t g0 = tab[u & 0x3FFu];
-        const uint32_t g1 = tab[(u >> 16) & 0x3FFu];
-        const int32_t v0 = static_cast<int32_t>(u << 16) >> 26;
-        const int32_t v1 = static_cast<int32_t>(u) >> 26;
+        int32_t p[QG];
+        prod_h16_batch<QG>(static_cast<uint32_t>(__ldg(row + m * kLanes)), tab, p);
 #pragma unroll
-        for (int dq = 0; dq < QG; ++dq) {
-          // per query: its nibble to the top, sign-extended down
-          const int32_t n0 = static_cast<int32_t>(g0 << (28 - 4 * dq)) >> 28;
-          const int32_t n1 = static_cast<int32_t>(g1 << (28 - 4 * dq)) >> 28;
-          acc[dq][m] += v0 * n0 + v1 * n1;
-        }
+        for (int dq = 0; dq < QG; ++dq) acc[dq][m] += p[dq];
       }
     }
 #pragma unroll

@@ -1,0 +1,164 @@
+// Slice-stream Top-K sweep of one query (kernel K7) for Hopper (sm_90a),
+// codecs h16 and f32.
+//
+// Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel (the pallas_call
+// of topk_spmv_fused_device).
+//
+// What it computes. Every real slice's 128 row scores (slice_common.cuh:
+// a lane adds up its W decoded words), harvested into per-lane (value,
+// slice tag) buffers of lane_k entries by argmin replacement
+// (_topk_update): replace the first minimum (TIE_SAFE) or every slot
+// holding it, when score >= minimum. Which scores are harvested is the
+// JAX kernel's rule (ops/kernel.py::slice_work): with fold_tile > 1 and a
+// block whose slice loop the TPU unrolled, each strided sub-tile of up to
+// fold_tile slices gives its top 2 (lowest member among ties, the order
+// of tflush); otherwise, and for every wide slice, each slice is folded.
+// Slices past a bucket's real count (the last block's padding) are
+// skipped: they enter the JAX buffers only as -inf.
+//
+// Design. One CUDA block of 128 threads, one per lane; the query table
+// in shared memory (128 int32 for h16; table_rows x 128 floats for f32,
+// 4 KB at 1024 columns); the lane buffers in registers (lane_k is a
+// template parameter). Blocks grid-stride over the work items of all
+// buckets (a run of slices, a sub-tile, or one wide slice with its block
+// sums carried in registers), so no state crosses blocks and the TPU's
+// sequential carry has no counterpart. Each block writes its buffers to
+// out[blockIdx]; one per-lane torch.topk merges them (ops/kernel.py::
+// merge_lane_topk).
+//
+// Bound. A query reads every packed word once (about 0.43 GB for the
+// h16 batch engine, 0.93 GB for the default f32 engine at the 10M x 1024
+// corpus) with a few integer or float operations and one shared-memory
+// gather per word, so the sweep should be bound by device memory bytes;
+// a warp reads 128 contiguous bytes per row, and a thread's W loads of a
+// slice are independent (unrolled by 4). Wider loads and more bytes in
+// flight per thread are later work.
+
+#include "slice_common.cuh"
+
+namespace {
+
+using namespace slice;
+
+template <class C, int K, bool TIE_SAFE>
+__global__ void __launch_bounds__(kLanes)
+slice_topk_kernel(const int32_t* __restrict__ words,
+                  const typename C::Tab* __restrict__ table,
+                  const int32_t* __restrict__ nreal,
+                  const int32_t* __restrict__ plan, int num_buckets,
+                  int block_sublanes, int table_rows, int fold_tile,
+                  float* __restrict__ out_v, int32_t* __restrict__ out_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
+  const int lane = threadIdx.x;
+  for (int i = lane; i < table_rows * kLanes; i += kLanes) tab[i] = table[i];
+  __syncthreads();
+
+  float tv[K];
+  int32_t tt[K];
+  octet::topk_init<K, TIE_SAFE>(tv, tt);
+
+  Walker w(words, plan, nreal, num_buckets, block_sublanes, fold_tile, lane);
+  Item it;
+  for (int g = blockIdx.x; w.locate(g, it); g += gridDim.x) {
+    if (it.top2) {
+      float m1 = -INFINITY, m2 = -INFINITY;
+      int i1 = -1, i2 = -1;
+      for (int m = 0; m < it.count; ++m) {
+        if (!w.real(it, m)) continue;
+        const float s = member_score<C>(w, it, m, tab, table_rows);
+        if (i1 < 0 || s > m1) {
+          m2 = m1;
+          i2 = i1;
+          m1 = s;
+          i1 = m;
+        } else if (i2 < 0 || s > m2) {
+          m2 = s;
+          i2 = m;
+        }
+      }
+      if (i1 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m1, w.tag(it, i1));
+      if (i2 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m2, w.tag(it, i2));
+    } else {
+      for (int m = 0; m < it.count; ++m) {
+        if (!w.real(it, m)) continue;
+        octet::topk_update<K, TIE_SAFE>(tv, tt, member_score<C>(w, it, m, tab, table_rows),
+                                        w.tag(it, m));
+      }
+    }
+  }
+
+  const int64_t out0 = (int64_t)blockIdx.x * K * kLanes + lane;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    out_v[out0 + s * kLanes] = tv[s];
+    out_t[out0 + s * kLanes] = tt[s];
+  }
+}
+
+struct Args {
+  const int32_t* words;
+  const void* table;
+  const int32_t* nreal;
+  const int32_t* plan;
+  int num_buckets, block_sublanes, table_rows, fold_tile, num_cuda_blocks;
+  float* out_v;
+  int32_t* out_t;
+  cudaStream_t stream;
+};
+
+template <class C, int K, bool TIE_SAFE>
+cudaError_t launch(const Args& a) {
+  auto kernel = slice_topk_kernel<C, K, TIE_SAFE>;
+  const size_t smem = sizeof(typename C::Tab) * a.table_rows * kLanes;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.num_cuda_blocks, kLanes, smem, a.stream>>>(
+      a.words, static_cast<const typename C::Tab*>(a.table), a.nreal, a.plan, a.num_buckets,
+      a.block_sublanes, a.table_rows, a.fold_tile, a.out_v, a.out_t);
+  return cudaSuccess;
+}
+
+template <class C, int K>
+cudaError_t launch_k(bool tie_safe, const Args& a) {
+  return tie_safe ? launch<C, K, true>(a) : launch<C, K, false>(a);
+}
+
+template <class C>
+cudaError_t launch_c(int lane_k, bool tie_safe, const Args& a) {
+  switch (lane_k) {
+    case 4: return launch_k<C, 4>(tie_safe, a);
+    case 8: return launch_k<C, 8>(tie_safe, a);
+    case 16: return launch_k<C, 16>(tie_safe, a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// words: (num_blocks * block_sublanes, 128) int32; table: (1, 128) int32
+// (codec 0, h16) or (table_rows, 128) f32 (codec 1, f32); nreal:
+// (num_buckets,) int32; plan: (num_buckets, 6) int32; fold_tile: 1, 2, 4
+// or 8; out_v/out_t: (num_cuda_blocks, lane_k, 128). Returns
+// cudaGetLastError() (or the error of a refused launch).
+int slice_topk(const int32_t* words, const void* table, const int32_t* nreal,
+               const int32_t* plan, int num_buckets, int block_sublanes,
+               int table_rows, int codec, int lane_k, int fold_tile,
+               int tie_safe, int num_cuda_blocks, float* out_v,
+               int32_t* out_t, void* stream) {
+  if (num_buckets < 1 || num_cuda_blocks < 1 || table_rows < 1 || fold_tile < 1 ||
+      (codec == 0 && table_rows != 1))
+    return cudaErrorInvalidValue;
+  const Args a{words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
+               fold_tile, num_cuda_blocks, out_v, out_t, static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (codec == 0) err = launch_c<H16>(lane_k, tie_safe, a);
+  else if (codec == 1) err = launch_c<F32>(lane_k, tie_safe, a);
+  else err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,20 +1,26 @@
-"""Bucketed uniform-width SELL-128 and its octet (slice-transposed) stream.
+"""Bucketed uniform-width SELL-128 and its two fused streams.
 
 The host packer of ``spmv_topk_tpu.formats.sell_buckets``, carried over
-for the octet layout: the same corpus and config give bit-identical
+for one partition: the same corpus and config give bit-identical
 ``words``, ``nreal``, ``plan``, ``row_ids`` and ``value_scale`` in both
 packages, so a snapshot of one serves the other.
 
   - rows are degree-sorted (sigma sort) and cut into 128-row slices, one
     row per lane; slice widths W (words per row) are quantized to a
-    ladder, and each run of equal-W slices is a *bucket*;
-  - ``fuse_buckets_octet`` re-lays every bucket slice-transposed: chunk j
-    of octet o holds word j of the eight member slices o + m*stride,
-    m = 0..7, one per sublane, so a sweep that adds up W decoded chunks
-    has each member's 128 row scores in its row m.
+    ladder, and each run of equal-W slices is a *bucket*. The h16 codec
+    packs two nnz per word; the other codecs one (col << 16 | bf16);
+  - ``fuse_buckets`` (``fused_layout="slice"``) re-lays the buckets into
+    one stream of uniform blocks: a slice's W words sit on W consecutive
+    rows, ``slices_per_block`` slices to a block, or one wide slice over
+    ``blocks_per_slice`` blocks (``FusedBucket``);
+  - ``fuse_buckets_octet`` (``fused_layout="octet"``) re-lays every
+    bucket slice-transposed: chunk j of octet o holds word j of the eight
+    member slices o + m*stride, m = 0..7, one per sublane, so a sweep that
+    adds up W decoded chunks has each member's 128 row scores in its row m
+    (``OctetBucket``).
 
-The slice layout (``fuse_buckets``) and the partitioned packer are not
-part of the port yet (ROADMAP.md, Queue 1).
+The partitioned packer is not part of the port yet (ROADMAP.md, Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -79,6 +85,41 @@ class BucketedSellMatrix:
 
 
 @dataclasses.dataclass(frozen=True)
+class FusedBucket:
+    """Descriptor of one bucket of the slice-layout fused stream.
+
+    Narrow buckets (width <= block) hold slices_per_block slices per
+    block, slice j of a block on rows j*width .. (j+1)*width - 1; a wide
+    bucket (width > block) spans blocks_per_slice blocks per slice, its
+    words on the span's first width rows.
+    """
+
+    width: int
+    slices_per_block: int
+    blocks_per_slice: int
+    slice_base: int
+    blk_start: int
+    num_blocks: int
+
+
+# column order of the slice plan array in snapshots (api.TopKSpMV.save)
+SLICE_PLAN_FIELDS = ("width", "slices_per_block", "blocks_per_slice",
+                     "slice_base", "blk_start", "num_blocks")
+
+
+def slice_plan_array(plan) -> np.ndarray:
+    """(B, 6) int64 snapshot form of a tuple of FusedBucket."""
+    return np.array([[getattr(p, f) for f in SLICE_PLAN_FIELDS]
+                     for p in plan], np.int64).reshape(-1, 6)
+
+
+def slice_plan_from_array(arr) -> tuple:
+    return tuple(FusedBucket(**{f: int(v) for f, v in
+                                zip(SLICE_PLAN_FIELDS, row)})
+                 for row in np.asarray(arr))
+
+
+@dataclasses.dataclass(frozen=True)
 class OctetBucket:
     """Descriptor of one bucket of the octet (slice-transposed) stream.
 
@@ -118,7 +159,8 @@ class FusedSellMatrix:
     """All buckets re-laid into one uniform-block word stream."""
 
     words: np.ndarray        # (total_blocks * block_sublanes, 128) int32
-    plan: tuple              # tuple[OctetBucket, ...]
+    plan: tuple              # tuple[FusedBucket, ...] (slice layout) or
+    #                          tuple[OctetBucket, ...] (octet layout)
     nreal: np.ndarray        # (num_buckets, 1) int32: real slices per bucket
     block_sublanes: int
     num_blocks: int
@@ -136,6 +178,64 @@ class FusedSellMatrix:
     def padding_ratio(self) -> float:
         """Packed words per nnz."""
         return self.words.size / max(self.num_nnz, 1)
+
+
+def fuse_buckets(m: BucketedSellMatrix,
+                 block_sublanes: int = 1024) -> FusedSellMatrix:
+    """Re-lay a bucketed matrix into the slice-layout fused stream.
+
+    Each bucket pairs with its own plan entry positionally (with
+    sigma_sort=False several buckets may share a width). Narrow buckets
+    pack slices_per_block = block // width consecutive slices per block;
+    wide ones put each slice on the first width rows of
+    blocks_per_slice = ceil(width / block) blocks. Rows past the real
+    slices are zero.
+    """
+    tgt = block_sublanes
+    plan = []
+    chunks = []
+    nreal = []
+    blk = 0
+    for b in m.buckets:
+        W = b.width
+        if W <= tgt:
+            spb, bps = tgt // W, 1
+        else:
+            spb, bps = 1, -(-W // tgt)
+        n_sl = b.num_slices
+        nb = -(-n_sl // spb) if bps == 1 else n_sl * bps
+        if nb == 0:
+            continue
+        buf = np.zeros((nb * tgt, LANES), np.int32)
+        src3 = b.words[: n_sl * W].reshape(n_sl, W, LANES)
+        if bps == 1:
+            buf3 = buf.reshape(nb, tgt, LANES)
+            nfull = n_sl // spb
+            if nfull:
+                buf3[:nfull, : spb * W] = src3[: nfull * spb].reshape(
+                    nfull, spb * W, LANES)
+            rem = n_sl - nfull * spb
+            if rem:
+                buf3[nfull, : rem * W] = src3[nfull * spb:].reshape(
+                    rem * W, LANES)
+        else:
+            buf.reshape(n_sl, bps * tgt, LANES)[:, :W] = src3
+        plan.append(FusedBucket(
+            width=W, slices_per_block=spb, blocks_per_slice=bps,
+            slice_base=b.slice_base, blk_start=blk, num_blocks=nb))
+        chunks.append(buf)
+        nreal.append(n_sl)
+        blk += nb
+
+    words = np.concatenate(chunks) if chunks else \
+        np.zeros((0, LANES), np.int32)
+    return FusedSellMatrix(
+        words=words, plan=tuple(plan),
+        nreal=np.asarray(nreal, np.int32).reshape(-1, 1),
+        block_sublanes=tgt, num_blocks=blk,
+        row_ids=m.row_ids, num_rows=m.num_rows, num_cols=m.num_cols,
+        num_nnz=m.num_nnz, value_scale=m.value_scale,
+    )
 
 
 def fuse_buckets_octet(m: BucketedSellMatrix,

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "octet_topk_batch_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
                              _i32, _i32, _i32, _i32, _vp, _vp, _vp],
     "octet_scores_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp],
+    "slice_topk": [_vp, _vp, _vp, _vp] + [_i32] * 8 + [_vp, _vp, _vp],
+    "slice_topk_batch": [_vp, _vp, _vp, _vp] + [_i32] * 9 + [_vp, _vp, _vp],
+    "slice_scores": [_vp, _vp, _vp, _vp] + [_i32] * 5 + [_vp, _vp],
     "stream_words": [_vp, _i64, _vp, _i32, _vp],
 }
 
@@ -138,42 +141,41 @@ def _build(path: str) -> None:
     os.replace(tmp, path)   # atomic: concurrent builds agree
 
 
-def _demangle(mangled: str) -> str:
-    """``kernel<template args>`` of an Itanium-mangled kernel name
-    (``_ZN <len><namespace> <len><name> [I<args>E] E <params>``)."""
-    if not mangled.startswith("_ZN"):
-        return mangled
-    pos, name = 3, mangled
-    while pos < len(mangled) and mangled[pos].isdigit():
-        n = re.match(r"\d+", mangled[pos:]).group(0)
-        pos += len(n)
-        name = mangled[pos:pos + int(n)]
-        pos += int(n)
-    if mangled[pos:pos + 1] == "I":
-        tail = mangled[pos:]
-        args = re.findall(r"L[ib](\d+)E", tail[:tail.find("EE") + 1])
-        name += f"<{','.join(args)}>"
-    return name
+def _kernel_name(demangled: str) -> str:
+    """``kernel<args>`` of a demangled kernel signature: no return type,
+    namespaces, literal casts, parameters or spaces."""
+    s = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\w+::", "", demangled)
+    s = re.sub(r"\((?:unsigned )?(?:int|bool|long|char)\)", "", s)
+    s = re.sub(r"^void ", "", s)
+    return s.split("(", 1)[0].replace(" ", "")
 
 
 def ptxas_report() -> dict:
     """{kernel<template args>: (registers, spill store bytes)} of the
-    loaded library's build, from nvcc's ``-Xptxas=-v`` output."""
+    loaded library's build, from nvcc's ``-Xptxas=-v`` output, the names
+    demangled by the toolkit's ``cu++filt``."""
     with open(library_path() + ".ptxas.txt") as fh:
         text = fh.read()
-    report, name, spill = {}, None, 0
+    entries, name, spill = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name, spill = _demangle(m.group(1)), 0
+            name, spill = m.group(1), 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            report[name] = (int(m.group(1)), spill)
+            entries.append((name, int(m.group(1)), spill))
             name = None
-    return report
+    if not entries:
+        return {}
+    cufilt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    names = subprocess.run([cufilt, *(e[0] for e in entries)],
+                           capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    return {_kernel_name(d): (regs, spill)
+            for d, (_, regs, spill) in zip(names, entries, strict=True)}
 
 
 def check(err: int, name: str) -> None:

@@ -1,9 +1,10 @@
-"""The octet sweeps of the h16 stream (kernels K1, K6, K4), their
-per-lane merge and ``finalize_topk``.
+"""The device sweeps of the two fused streams (kernels K1, K6, K4 on the
+octet stream; K7, K8, K9 on the slice stream), their per-lane merge and
+``finalize_topk``.
 
-Each sweep adds up, for every octet of the slice-transposed stream
-(formats/sell_buckets.py::fuse_buckets_octet), its W decoded h16 chunks
-into 8 member scores per lane:
+Octet stream (h16 codec). Each sweep adds up, for every octet of the
+slice-transposed stream (formats/sell_buckets.py::fuse_buckets_octet),
+its W decoded h16 chunks into 8 member scores per lane:
 
   - ``topk_spmv_fused_octet_device`` (K1, one query) harvests the top 3
     of the 8 (or all 8 with ``fold_tile=1``) into per-lane (value, slice)
@@ -14,21 +15,41 @@ into 8 member scores per lane:
   - ``spmv_fused_scores_octet_device`` (K4) writes the 8 member scores
     themselves, in slice order: plain SpMV.
 
-On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
-``octet_topk.cu``, K6 ``octet_topk_batch.cu``, K4 ``octet_scores.cu``;
-they replace the pallas_calls of ``spmv_topk_tpu/ops/kernel.py``) and
-the Top-K sweeps then merge their per-CUDA-block buffers with one
-per-lane ``torch.topk``, the same algebra as the JAX package's per-lane
-``lax.top_k`` over its per-bucket buffers. On a CPU tensor each runs its
-plain PyTorch version (``octet_topk_plain``, ``octet_topk_batch_plain``,
-``octet_scores_plain``), which the tests hold against the JAX package
-and the card holds the kernel against.
+Slice stream (h16 and f32 codecs; formats/sell_buckets.py::
+fuse_buckets). A slice's W words sit on W consecutive rows; each sweep
+adds up every slice's W decoded words into its 128 row scores (one
+lane per row):
 
-Plan rows: the kernels read the bucket plan from an int32 ``(B, 8)``
-tensor (``octet_plan_rows``) with columns ``PLAN_COLUMNS``.
+  - ``topk_spmv_fused_device`` (K7, one query) harvests the slice scores
+    into per-lane buffers: every slice (``fold_tile=1``), or the top 2 of
+    each strided sub-tile of ``fold_tile`` slices, as the JAX kernel
+    does (``slice_work``);
+  - ``topk_spmv_fused_batch_device`` (K8) folds every slice of Q queries,
+    whatever ``fold_tile`` is (the JAX batch kernel has no tiled fold);
+  - ``spmv_fused_scores_device`` (K9) writes the slice scores: plain SpMV.
+
+On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
+``octet_topk.cu``, K6 ``octet_topk_batch.cu``, K4 ``octet_scores.cu``,
+K7 ``slice_topk.cu``, K8 ``slice_topk_batch.cu``, K9
+``slice_scores.cu``; they replace the pallas_calls of
+``spmv_topk_tpu/ops/kernel.py``) and the Top-K sweeps then merge their
+per-CUDA-block buffers with one per-lane ``torch.topk``, the same
+algebra as the JAX package's per-lane ``lax.top_k`` over its per-bucket
+buffers. On a CPU tensor each runs its plain PyTorch version
+(``octet_topk_plain``, ``octet_topk_batch_plain``, ``octet_scores_plain``,
+``slice_topk_plain``, ``slice_topk_batch_plain``, ``slice_scores_plain``),
+which the tests hold against the JAX package and the card holds the
+kernel against.
+
+Plan rows: the kernels read the bucket plan from an int32 tensor, ``(B,
+8)`` for the octet stream (``octet_plan_rows``, columns
+``PLAN_COLUMNS``) and ``(B, 6)`` for the slice stream
+(``slice_plan_rows``, columns ``SLICE_PLAN_COLUMNS``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -60,6 +81,19 @@ MAX_BATCH_SUBGROUP = 8
 # plain versions decode at most ~16M words at once (bounds the int64
 # gather indices)
 _STEP_WORDS = 1 << 24
+
+SLICE_PLAN_COLUMNS = ("width", "slices_per_block", "blocks_per_slice",
+                      "slice_base", "blk_start", "num_blocks")
+# codecs of the slice sweeps, in the order of the kernels' codec argument
+SLICE_CODECS = ("h16", "f32")
+_S = 8          # rows per chunk of the JAX kernels (cfg.chunk_sublanes)
+_RUN = 8        # slices per work item where each slice is folded alone
+# The JAX slice kernel folds in tiles only where it unrolled a block's
+# slice loop: at most this many chunk steps per block
+# (spmv_topk_tpu/ops/kernel.py:576, :648)
+_UNROLL_CHUNKS = 128
+# work-item modes of the slice sweeps (csrc/slice_common.cuh, Mode)
+WIDE, RUNS, TILED = range(3)
 
 
 def topk_init(lane_k: int) -> np.ndarray:
@@ -180,12 +214,30 @@ def octet_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
                 cand_t.append((slice_base + member).expand_as(sc)
                               .reshape(-1, LANES))
                 continue
-            for _ in range(_HARVEST):
-                m1 = sc.amax(dim=1, keepdim=True)
-                sl = torch.where(sc == m1, miota, S).amin(dim=1, keepdim=True)
+            for m1, sl in _harvest(sc, 1, _HARVEST):
                 cand_v.append(m1.reshape(-1, LANES))
                 cand_t.append((slice_base + oidx + sl * G).reshape(-1, LANES))
-                sc = torch.where(miota == sl, NEG_INF, sc)
+    return _merge_with_init(cand_v, cand_t, lane_k, tie_safe, dev)
+
+
+def _harvest(sc, dim: int, rounds: int):
+    """Yield ``rounds`` times the maximum along ``dim`` and the lowest
+    index holding it, masking that entry to -inf each time (the JAX
+    kernels' max / first-argmax fold). Both keep ``dim`` with size 1."""
+    n = sc.shape[dim]
+    shape = [1] * sc.dim()
+    shape[dim] = n
+    iota = torch.arange(n, device=sc.device, dtype=torch.int32).view(shape)
+    for _ in range(rounds):
+        m = sc.amax(dim=dim, keepdim=True)
+        sl = torch.where(sc == m, iota, n).amin(dim=dim, keepdim=True)
+        yield m, sl
+        sc = torch.where(iota == sl, NEG_INF, sc)
+
+
+def _merge_with_init(cand_v, cand_t, lane_k, tie_safe, dev):
+    """Per-lane top-``lane_k`` of the candidates and the buffers' initial
+    entries (-inf when ``tie_safe``, else ``topk_init``'s sentinels)."""
     if tie_safe:
         init = torch.full((lane_k, LANES), NEG_INF, device=dev)
     else:
@@ -246,30 +298,48 @@ def _check_codec(cfg: TopKSpMVConfig) -> None:
             "for h16 only (ROADMAP.md Queue 1 item 5, other query codecs)")
 
 
-def _check_inputs(words, plan_rows, block_sublanes, *named):
-    """Raise unless words, plan_rows and each (name, tensor, shape) of
-    ``named`` are contiguous int32 tensors of those shapes on one CUDA
-    device. Returns the device's SM count."""
+def _check_inputs(words, plan_rows, block_sublanes, *named,
+                  plan_cols=len(PLAN_COLUMNS)):
+    """Raise unless words, plan_rows ((B, plan_cols)) and each (name,
+    tensor, shape[, dtype]) of ``named`` are contiguous tensors of those
+    shapes (int32 unless a dtype is given) on one CUDA device. Returns
+    the device's SM count."""
     dev = words.device
     if dev.type != "cuda":
-        raise ValueError(f"words on {dev}: the octet kernels need CUDA")
+        raise ValueError(f"words on {dev}: the kernels need CUDA")
     B = plan_rows.shape[0]
-    for name, t, shape in (("words", words, (words.shape[0], LANES)),
-                           ("plan_rows", plan_rows, (B, len(PLAN_COLUMNS))),
-                           *named):
-        if t.device != dev or t.dtype != torch.int32 or \
+    for name, t, shape, *dtype in (
+            ("words", words, (words.shape[0], LANES)),
+            ("plan_rows", plan_rows, (B, plan_cols)), *named):
+        dtype = dtype[0] if dtype else torch.int32
+        if t.device != dev or t.dtype != dtype or \
                 tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name}: need contiguous int32 {shape} on {dev},"
-                             f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{name}: need contiguous {dtype} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
     if words.shape[0] % block_sublanes:
         raise ValueError("words rows are not a whole number of blocks")
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _check_sweep(lane_k, fold_tile, chunk_sublanes):
+def _launch(dev, name, *args):
+    """Call C entry point ``name`` of the kernel library with ``args``
+    and ``dev``'s current stream; raise if the launch failed."""
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    _build.check(err, name)
+
+
+def _check_lane_k(lane_k):
     if lane_k not in KERNEL_LANE_K:
         raise ValueError(f"lane_k={lane_k}: the kernels are built for "
                          f"{KERNEL_LANE_K}")
+
+
+def _check_sweep(lane_k, fold_tile, chunk_sublanes):
+    _check_lane_k(lane_k)
     if chunk_sublanes != 8 or fold_tile not in (1, 8):
         raise ValueError("the octet kernels need chunk_sublanes=8 and "
                          "fold_tile 1 or 8")
@@ -312,15 +382,10 @@ def _octet_topk_cuda(words, table, nreal, plan_rows, *, lane_k, fold_tile,
     out_v = torch.empty((nblk, lane_k, LANES), dtype=torch.float32,
                         device=dev)
     out_t = torch.empty((nblk, lane_k, LANES), dtype=torch.int32, device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.octet_topk_h16(
-            words.data_ptr(), table.data_ptr(), nreal.data_ptr(),
-            plan_rows.data_ptr(), B, block_sublanes, lane_k,
-            int(fold_tile == 1), int(tie_safe), nblk,
-            out_v.data_ptr(), out_t.data_ptr(), stream)
-    _build.check(err, "octet_topk_h16")
+    _launch(dev, "octet_topk_h16", words.data_ptr(), table.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes,
+            lane_k, int(fold_tile == 1), int(tie_safe), nblk,
+            out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_octet_device.launches += 1
     return merge_lane_topk(out_v, out_t, lane_k)
 
@@ -383,15 +448,10 @@ def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, *, subgroup,
                         device=dev)
     out_t = torch.empty((Q, slots, lane_k, LANES), dtype=torch.int32,
                         device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.octet_topk_batch_h16(
-            words.data_ptr(), tables.data_ptr(), nreal.data_ptr(),
-            plan_rows.data_ptr(), B, block_sublanes, lane_k,
-            int(fold_tile == 1), int(tie_safe), Q, sub, slots * n_sub,
-            out_v.data_ptr(), out_t.data_ptr(), stream)
-    _build.check(err, "octet_topk_batch_h16")
+    _launch(dev, "octet_topk_batch_h16", words.data_ptr(),
+            tables.data_ptr(), nreal.data_ptr(), plan_rows.data_ptr(), B,
+            block_sublanes, lane_k, int(fold_tile == 1), int(tie_safe), Q,
+            sub, slots * n_sub, out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_batch_octet_device.launches += 1
     return merge_lane_topk(out_v, out_t, lane_k, queries=Q)
 
@@ -427,19 +487,403 @@ def _octet_scores_cuda(words, table, nreal, plan_rows, *, num_slices,
     dev = words.device
     nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // chunk_sublanes))
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.octet_scores_h16(
-            words.data_ptr(), table.data_ptr(), nreal.data_ptr(),
-            plan_rows.data_ptr(), B, block_sublanes, nblk, out.data_ptr(),
-            stream)
-    _build.check(err, "octet_scores_h16")
+    _launch(dev, "octet_scores_h16", words.data_ptr(), table.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, nblk,
+            out.data_ptr())
     spmv_fused_scores_octet_device.launches += 1
     return out
 
 
 spmv_fused_scores_octet_device.launches = 0
+
+
+# --------------------------------------------------------------- slice stream
+
+def slice_plan_rows(plan, num_blocks: int, nreal,
+                    block_sublanes: int) -> np.ndarray:
+    """int32 (B, 6) plan table of a tuple of FusedBucket (columns
+    SLICE_PLAN_COLUMNS); nreal: the real slices of each bucket.
+
+    Raises if the buckets do not tile blocks [0, num_blocks) in order, if
+    a bucket's num_blocks disagrees with its slices (ceil(nreal / spb)
+    narrow, nreal * bps wide), or if its slices do not fit its blocks:
+    the kernels trust this table for every address they read."""
+    nreal = np.asarray(nreal).reshape(-1)
+    if len(nreal) != len(plan):
+        raise ValueError(f"{len(nreal)} real-slice counts for "
+                         f"{len(plan)} buckets")
+    rows = []
+    blk = 0
+    for pb, n in zip(plan, nreal.tolist()):
+        W, spb, bps = pb.width, pb.slices_per_block, pb.blocks_per_slice
+        if pb.blk_start != blk:
+            raise ValueError(f"plan bucket at block {pb.blk_start}, "
+                             f"expected {blk}")
+        if min(W, spb, bps) < 1 or n < 0:
+            raise ValueError(f"bucket geometry {pb}")
+        if bps == 1:
+            fits, need = spb * W <= block_sublanes, -(-n // spb)
+        else:
+            fits, need = spb == 1 and W <= bps * block_sublanes, n * bps
+        if not fits:
+            raise ValueError(f"bucket of width {W} does not fit its blocks "
+                             f"of {block_sublanes} rows")
+        if need != pb.num_blocks:
+            raise ValueError(f"bucket of width {W} holds {pb.num_blocks} "
+                             f"blocks, its {n} slices need {need}")
+        rows.append([W, spb, bps, pb.slice_base, pb.blk_start,
+                     pb.num_blocks])
+        blk += pb.num_blocks
+    if blk != num_blocks:
+        raise ValueError(f"plan covers {blk} blocks of {num_blocks}")
+    return np.asarray(rows, np.int32).reshape(-1, len(SLICE_PLAN_COLUMNS))
+
+
+def slice_work(row, fold_tile: int):
+    """How the slice sweeps cut one bucket into work items (the kernels
+    do the same in csrc/slice_common.cuh::Bucket): (mode, units,
+    per_unit, Gp, Ps, nper).
+
+    A unit is one block of a narrow bucket or one slice of a wide one
+    (WIDE: the slice, folded alone, its partial sums carried over its
+    blocks in float32 as the JAX kernel does). Narrow buckets:
+      - TILED, the JAX kernel's tiled fold (fold_tile > 1 and the block's
+        slice loop unrolled there, ``_UNROLL_CHUNKS``): a period of Ps =
+        8 / gcd(W, 8) slices spans whole chunks (Ps = 1 when 8 divides
+        W); sub-tile (g, s), g < Gp = ceil(nper / fold_tile), holds slice
+        s of periods g, g + Gp, ... (at most fold_tile of the block's nper
+        whole periods) and harvests their top 2. The block's last
+        spb - nper * Ps slices are work items of one slice each;
+      - RUNS otherwise: runs of ``_RUN`` consecutive slices, every slice
+        folded (or written) alone."""
+    W, spb, bps, nb = row[0], row[1], row[2], row[5]
+    if bps > 1:
+        return WIDE, nb // bps, 1, 0, 0, 0
+    Ps = _S // math.gcd(W, _S)
+    nper = spb // Ps
+    if fold_tile > 1 and nper * (Ps * W // _S) <= _UNROLL_CHUNKS:
+        Gp = -(-nper // fold_tile)
+        return TILED, nb, Gp * Ps + spb - nper * Ps, Gp, Ps, nper
+    return RUNS, nb, -(-spb // _RUN), 0, 0, 0
+
+
+def slice_work_items(plan_rows, fold_tile: int) -> int:
+    """Work items of a whole slice plan (``slice_work``)."""
+    return sum(units * per for _, units, per, *_ in
+               (slice_work(r, fold_tile) for r in plan_rows.tolist()))
+
+
+def prod_f32(w: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Per-word score contribution of the f32 codec: one nnz per word.
+
+    The word is col[16:32) | bf16 value[0:16); the value is ``w << 16``
+    reinterpreted as f32, times the query entry of col in the (TR, 128)
+    f32 table. As in the JAX package's gather (``_gather_from_bcs``), lane
+    col & 127 of table row col >> 7 is read, and of row 0 when that row
+    does not exist."""
+    col = (w >> 16) & 0xFFFF
+    idx = torch.where((col >> 7) < table.shape[0], col, col & 0x7F)
+    return (w << 16).view(torch.float32) * table.reshape(-1)[idx.long()]
+
+
+def _row_sum(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in index order, one rounded float32 add at a time
+    from 0 (the kernels' order, csrc/slice_common.cuh::rows_sum)."""
+    acc = torch.zeros_like(p.select(dim, 0))
+    for r in range(p.shape[dim]):
+        acc = acc + p.select(dim, r)
+    return acc
+
+
+def _bucket_scores(words, table, row, codec: str, block_sublanes: int):
+    """f32 scores of one bucket's slices in slice order, ((units * spb,
+    128) narrow, every slice of its blocks including the last block's
+    padding slices; (units, 128) wide).
+
+    h16 sums are exact integers converted once, and once per block for
+    a wide slice, whose block sums then add up in float32 in block order
+    (the JAX kernel's carry). f32 sums run in row order, each product and
+    each add rounded (``_row_sum``), as the kernels add them, so their
+    f32 scores are bit-equal to these on any data."""
+    W, spb, bps, _, blk_start, nb = row
+    bs = block_sublanes
+    if codec == "h16":
+        prod, tab, total = prod_h16, table.reshape(-1)[:LANES], torch.sum
+    else:
+        prod, tab, total = prod_f32, table, _row_sum
+    blocks = words[blk_start * bs:(blk_start + nb) * bs]
+    out = []
+    if bps == 1:
+        tiles = blocks.reshape(nb, bs, LANES)[:, :spb * W].reshape(
+            nb * spb, W, LANES)
+        per = max(1, _STEP_WORDS // (W * LANES))
+        for s0 in range(0, nb * spb, per):
+            out.append(total(prod(tiles[s0:s0 + per], tab), dim=1)
+                       .to(torch.float32))
+        return torch.cat(out)
+    tiles = blocks.reshape(nb // bps, bps, bs, LANES)
+    per = max(1, _STEP_WORDS // (bps * bs * LANES))
+    for s0 in range(0, nb // bps, per):
+        part = total(prod(tiles[s0:s0 + per], tab), dim=2).to(torch.float32)
+        acc = torch.zeros_like(part[:, 0])
+        for k in range(bps):
+            acc = acc + part[:, k]
+        out.append(acc)
+    return torch.cat(out)
+
+
+def slice_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
+                       block_sublanes: int, codec: str):
+    """Plain PyTorch version of the slice-stream SpMV: (num_slices, 128)
+    f32, row s holding slice s's 128 unscaled row scores; rows of no real
+    slice (the sentinel slice) stay 0."""
+    out = torch.zeros((num_slices, LANES), dtype=torch.float32,
+                      device=words.device)
+    for b, row in enumerate(plan_rows.tolist()):
+        n = int(nreal.reshape(-1)[b])
+        out[row[3]:row[3] + n] = _bucket_scores(
+            words, table, row, codec, block_sublanes)[:n]
+    return out
+
+
+def slice_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
+                     fold_tile: int, tie_safe: bool, block_sublanes: int,
+                     codec: str):
+    """Plain PyTorch version of the slice sweep (K7): (topv, topt), each
+    (lane_k, 128), values sorted descending per lane.
+
+    The slice scores (padding slices of a bucket's last block at -inf)
+    harvested as ``slice_work`` says: every slice, or the top 2 of each
+    sub-tile (lowest member index among ties). Each lane keeps its exact
+    top-``lane_k`` of the candidates and the initial sentinels (-inf
+    when ``tie_safe``, else ``topk_init``), which equals the sequential
+    argmin replacement whenever values are distinct; at exact ties only
+    values above a lane's smallest kept value are comparable entry for
+    entry (see ``octet_topk_plain``)."""
+    dev = words.device
+    cand_v, cand_t = [], []
+    for b, row in enumerate(plan_rows.tolist()):
+        spb, base = row[1], row[3]
+        n = int(nreal.reshape(-1)[b])
+        sc = _bucket_scores(words, table, row, codec, block_sublanes)
+        ids = torch.arange(sc.shape[0], device=dev,
+                           dtype=torch.int32).view(-1, 1)
+        sc = torch.where(ids < n, sc, NEG_INF)
+        mode, units, _, Gp, Ps, nper = slice_work(row, fold_tile)
+        if mode != TILED:
+            cand_v.append(sc)
+            cand_t.append((base + ids).expand_as(sc))
+            continue
+        sc = sc.reshape(units, spb, LANES)
+        u0 = base + spb * torch.arange(units, device=dev,
+                                       dtype=torch.int32).view(-1, 1, 1)
+        # periods p = m * Gp + g of sub-tile (g, s): (units, m, g, s, lane)
+        per = sc[:, :nper * Ps].reshape(units, nper, Ps, LANES)
+        per = torch.cat([per, per.new_full(
+            (units, Gp * fold_tile - nper, Ps, LANES), NEG_INF)], dim=1)
+        per = per.reshape(units, fold_tile, Gp, Ps, LANES)
+        g = torch.arange(Gp, device=dev, dtype=torch.int32).view(
+            1, 1, -1, 1, 1)
+        s = torch.arange(Ps, device=dev, dtype=torch.int32).view(
+            1, 1, 1, -1, 1)
+        for m, sl in _harvest(per, 1, 2):
+            cand_v.append(m.reshape(-1, LANES))
+            cand_t.append((u0.view(-1, 1, 1, 1, 1) + Ps * (g + sl * Gp) + s)
+                          .reshape(-1, LANES))
+        j = torch.arange(nper * Ps, spb, device=dev,
+                         dtype=torch.int32).view(1, -1, 1)
+        cand_v.append(sc[:, nper * Ps:].reshape(-1, LANES))
+        cand_t.append((u0 + j).expand(units, -1, LANES).reshape(-1, LANES))
+    return _merge_with_init(cand_v, cand_t, lane_k, tie_safe, dev)
+
+
+def slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
+    """Plain PyTorch version of the multi-query slice sweep (K8):
+    ``slice_topk_plain`` with every slice folded (fold_tile 1) for each
+    query of the (Q, TR, 128) tables -> (topv, topt), each (Q, lane_k,
+    128). Keyword arguments as for ``slice_topk_plain`` but fold_tile."""
+    outs = [slice_topk_plain(words, t, nreal, plan_rows, fold_tile=1, **kw)
+            for t in tables]
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def _check_slice_codec(cfg: TopKSpMVConfig) -> None:
+    if cfg.query_codec not in SLICE_CODECS:
+        raise NotImplementedError(
+            f"query_codec={cfg.query_codec!r}: the slice sweeps are ported "
+            f"for {SLICE_CODECS} (ROADMAP.md Queue 1 item 5, other query "
+            "codecs)")
+    if cfg.chunk_sublanes != _S:
+        raise ValueError(f"the slice sweeps need chunk_sublanes={_S}")
+
+
+def _table_spec(cfg: TopKSpMVConfig):
+    """(rows, dtype) of one query table of the codec."""
+    if cfg.query_codec == "h16":
+        return 1, torch.int32
+    return cfg.max_cols // LANES, torch.float32
+
+
+def f32_tables_in_smem(max_cols: int, smem_limit: int) -> int:
+    """How many f32 query tables of ``max_cols`` columns (4 bytes each) a
+    CUDA block of the slice sweeps can hold in ``smem_limit`` bytes of
+    shared memory: the largest power of two up to MAX_BATCH_SUBGROUP (K8
+    sizes its tables for its subgroup rounded up to one). Raises
+    NotImplementedError when not even one fits (K7 and K9 hold one)."""
+    table = 4 * max_cols
+    if table > smem_limit:
+        raise NotImplementedError(
+            f"an f32 query table of {max_cols} columns takes {table} bytes, "
+            f"more than the {smem_limit} bytes of shared memory a CUDA "
+            "block can have (ROADMAP.md Queue 1 item 7, f32 tables past "
+            "shared memory)")
+    fit = 1
+    while fit < MAX_BATCH_SUBGROUP and 2 * fit * table <= smem_limit:
+        fit *= 2
+    return fit
+
+
+def _tables_in_smem(dev, cfg: TopKSpMVConfig) -> int:
+    """``f32_tables_in_smem`` on ``dev`` for cfg's f32 tables; h16 tables
+    are 512 bytes (K8 repacks a subgroup's into one of 4 KB), and all of
+    a subgroup's fit."""
+    if cfg.query_codec == "h16":
+        return MAX_BATCH_SUBGROUP
+    props = torch.cuda.get_device_properties(dev)
+    return f32_tables_in_smem(_table_spec(cfg)[0] * LANES,
+                              props.shared_memory_per_block_optin)
+
+
+def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
+                           cfg: TopKSpMVConfig, block_sublanes: int):
+    """Slice sweep (K7): per-lane (topv, topt) candidates of one query.
+
+    words: (num_blocks * block_sublanes, 128) int32 slice stream.
+    table: the query table, (1, 128) int32 (h16) or (max_cols / 128,
+    128) float32 (f32). nreal: (B, 1) int32 real slices per bucket.
+    plan_rows: (B, 6) int32 plan table (slice_plan_rows).
+    Returns (topv f32, topt i32), each (lane_k, 128), sorted descending.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel,
+    and raise NotImplementedError for an f32 table larger than a CUDA
+    block's shared memory (``f32_tables_in_smem``).
+    """
+    _check_slice_codec(cfg)
+    kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+              tie_safe=bool(cfg.tie_safe_topk),
+              block_sublanes=block_sublanes, codec=cfg.query_codec)
+    if words.device.type == "cpu":
+        return slice_topk_plain(words, table, nreal, plan_rows, **kw)
+    B = plan_rows.shape[0]
+    rows, dtype = _table_spec(cfg)
+    sms = _check_inputs(words, plan_rows, block_sublanes,
+                        ("table", table, (rows, LANES), dtype),
+                        ("nreal", nreal, (B, 1)),
+                        plan_cols=len(SLICE_PLAN_COLUMNS))
+    _check_lane_k(cfg.lane_k)
+    dev = words.device
+    _tables_in_smem(dev, cfg)
+    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // _S))
+    out_v = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.float32,
+                        device=dev)
+    out_t = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.int32,
+                        device=dev)
+    _launch(dev, "slice_topk", words.data_ptr(), table.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
+            SLICE_CODECS.index(cfg.query_codec), cfg.lane_k, cfg.fold_tile,
+            int(kw["tie_safe"]), nblk, out_v.data_ptr(), out_t.data_ptr())
+    topk_spmv_fused_device.launches += 1
+    return merge_lane_topk(out_v, out_t, cfg.lane_k)
+
+
+topk_spmv_fused_device.launches = 0
+
+
+def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
+                                 cfg: TopKSpMVConfig, block_sublanes: int):
+    """Multi-query slice sweep (K8).
+
+    tables: (Q, TR, 128) query tables (``pack_query_tables``: int32 for
+    h16, float32 for f32); the other arguments as for
+    ``topk_spmv_fused_device``. Returns (topv f32, topt i32), each (Q,
+    lane_k, 128), sorted descending per lane. Every slice is folded,
+    whatever ``cfg.fold_tile`` is (as in the JAX batch kernel), and each
+    query's candidates do not depend on ``cfg.batch_subgroup`` (it only
+    sets how many queries share a CUDA block; see ``batch_grid``; f32
+    subgroups are cut to the tables that fit shared memory,
+    ``f32_tables_in_smem``).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_slice_codec(cfg)
+    kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+              block_sublanes=block_sublanes, codec=cfg.query_codec)
+    if words.device.type == "cpu":
+        return slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw)
+    B = plan_rows.shape[0]
+    Q = tables.shape[0]
+    if Q < 1:
+        raise ValueError("no queries")
+    rows, dtype = _table_spec(cfg)
+    sms = _check_inputs(words, plan_rows, block_sublanes,
+                        ("tables", tables, (Q, rows, LANES), dtype),
+                        ("nreal", nreal, (B, 1)),
+                        plan_cols=len(SLICE_PLAN_COLUMNS))
+    _check_lane_k(cfg.lane_k)
+    dev = words.device
+    subgroup = min(cfg.batch_subgroup or BATCH_SUBGROUP,
+                   _tables_in_smem(dev, cfg))
+    sub, n_sub, slots = batch_grid(Q, subgroup, sms, words.shape[0] // _S)
+    out_v = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.float32,
+                        device=dev)
+    out_t = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.int32,
+                        device=dev)
+    _launch(dev, "slice_topk_batch", words.data_ptr(), tables.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
+            SLICE_CODECS.index(cfg.query_codec), cfg.lane_k,
+            int(kw["tie_safe"]), Q, sub, slots * n_sub, out_v.data_ptr(),
+            out_t.data_ptr())
+    topk_spmv_fused_batch_device.launches += 1
+    return merge_lane_topk(out_v, out_t, cfg.lane_k, queries=Q)
+
+
+topk_spmv_fused_batch_device.launches = 0
+
+
+def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
+                             cfg: TopKSpMVConfig, block_sublanes: int,
+                             num_slices: int):
+    """Plain SpMV over the slice stream (K9): (num_slices, 128) f32, row s
+    the unscaled scores of slice s's 128 rows (rows of no real slice are
+    0). Arguments as for ``topk_spmv_fused_device``; num_slices is
+    ``row_ids.shape[0]``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_slice_codec(cfg)
+    if words.device.type == "cpu":
+        return slice_scores_plain(words, table, nreal, plan_rows,
+                                  num_slices=num_slices,
+                                  block_sublanes=block_sublanes,
+                                  codec=cfg.query_codec)
+    B = plan_rows.shape[0]
+    rows, dtype = _table_spec(cfg)
+    sms = _check_inputs(words, plan_rows, block_sublanes,
+                        ("table", table, (rows, LANES), dtype),
+                        ("nreal", nreal, (B, 1)),
+                        plan_cols=len(SLICE_PLAN_COLUMNS))
+    dev = words.device
+    _tables_in_smem(dev, cfg)
+    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // _S))
+    out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
+    _launch(dev, "slice_scores", words.data_ptr(), table.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
+            SLICE_CODECS.index(cfg.query_codec), nblk, out.data_ptr())
+    spmv_fused_scores_device.launches += 1
+    return out
+
+
+spmv_fused_scores_device.launches = 0
 
 
 def finalize_topk_batch(topv, topt, row_ids, k: int):

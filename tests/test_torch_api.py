@@ -153,11 +153,15 @@ def test_query_shape_and_k_override(ref):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(fused_layout="slice"), "item 7"),
+    (dict(fused_layout="slice", query_codec="i8s"), "item 5"),
     (dict(query_codec="f32"), "item 5"),
     (dict(query_codec="i4s"), "item 5"),
-    (dict(num_partitions=2), "item 8")])
+    (dict(fused_layout="slice", query_codec="int8x4"), "item 5"),
+    (dict(num_partitions=2), "item 8"),
+    (dict(fused_layout="slice", num_partitions=2), "item 8")])
 def test_unported_configs_raise(kw, match):
+    """The octet stream runs h16 only, the slice stream h16 and f32, both
+    on one partition (HEADLINE is the octet engine)."""
     coo = create_sparse_matrix(300, 256, 8, "gamma", seed=1)
     cfg = pt.TopKSpMVConfig(**dict(HEADLINE, **kw))
     with pytest.raises(NotImplementedError, match=match):
@@ -165,8 +169,8 @@ def test_unported_configs_raise(kw, match):
 
 
 def test_unported_entry_points_raise(ref):
-    """query_batch and scores are ported for h16; their sweeps raise for
-    the query codecs that are not ported yet."""
+    """The sweeps raise for the query codecs that are not ported yet: the
+    octet ones for all but h16, the slice ones for all but h16 and f32."""
     from spmv_topk_tpu_torch.ops import kernel as pkernel
 
     peng = ref["peng"]
@@ -178,6 +182,16 @@ def test_unported_entry_points_raise(ref):
             *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes)
     with pytest.raises(NotImplementedError, match="item 5"):
         pkernel.spmv_fused_scores_octet_device(
+            *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes,
+            num_slices=peng.row_ids.shape[0])
+    cfg = dataclasses.replace(peng.config, fused_layout="slice",
+                              query_codec="i8s")
+    for sweep in (pkernel.topk_spmv_fused_device,
+                  pkernel.topk_spmv_fused_batch_device):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            sweep(*args, cfg=cfg, block_sublanes=peng.fused.block_sublanes)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        pkernel.spmv_fused_scores_device(
             *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes,
             num_slices=peng.row_ids.shape[0])
 

@@ -7,11 +7,15 @@ file imports no jax, so it runs on a GPU host without the JAX package
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Kernels: K1 (single-query octet sweep), K6 (multi-query octet sweep),
-K4 (octet SpMV) and K3 (stream probe). Tolerances: none. h16 scores are
-int32 sums converted to f32 once, so with tie-safe buffers the per-lane
-sorted values are bit-equal, and (value, slice) pairs are equal above
-each lane's smallest kept value; K4's per-slice scores are bit-equal;
-the stream checksum is an exact int32 sum.
+K4 (octet SpMV), K3 (stream probe), and on the slice stream K7
+(single-query sweep), K8 (multi-query sweep) and K9 (SpMV). Tolerances:
+none against the plain versions. h16 scores are int32 sums converted to
+f32 once, so with tie-safe buffers the per-lane sorted values are
+bit-equal, and (value, slice) pairs are equal above each lane's smallest
+kept value; the SpMV kernels' per-slice scores are bit-equal; the stream
+checksum is an exact int32 sum. f32 too is held bit for bit, on
+integer-valued and on real data: the plain versions sum in the kernels'
+order (see the slice section).
 """
 
 import numpy as np
@@ -279,3 +283,380 @@ def test_query_batch_and_scores_on_gpu_match_cpu(gpu, corpus):
     np.testing.assert_array_equal(gs.cpu().numpy(),
                                   on_cpu.scores(qs[0]).numpy())
     assert pkernel.spmv_fused_scores_octet_device.launches == k4 + 1
+
+
+# ---------------------------------------------------------------- slice stream
+# K7 (single-query sweep), K8 (multi-query sweep) and K9 (SpMV) of the
+# slice layout. h16 as above; f32 on integer-valued data (values and
+# queries in [-8, 8], exact in bf16, every partial sum an exact f32) and
+# on real data: the plain versions add a slice's products in row order,
+# each rounded, as the kernels do, so f32 is bit-equal either way.
+
+SLICE_BENCH = dict(k=100, lane_k=8, max_cols=1024, query_codec="h16",
+                   fused_layout="slice", width_quantum=2, fold_tile=8,
+                   rescore_pool=400, block_sublanes=512,
+                   fused_block_sublanes=1024)
+SLICE_DEFAULT = dict(k=100)
+# (name, config, integer-valued data)
+SLICE_CASES = [
+    ("h16_fold8", dict(SLICE_BENCH), False),
+    ("h16_fold1", dict(SLICE_BENCH, fold_tile=1), False),
+    ("f32_fold1", dict(SLICE_DEFAULT), True),
+    ("f32_fold8", dict(SLICE_DEFAULT, fold_tile=8), True),
+    ("f32_fold1_real", dict(SLICE_DEFAULT), False),
+    ("h16_wide", dict(SLICE_BENCH, fused_block_sublanes=32), False),
+    ("f32_wide", dict(SLICE_DEFAULT, fused_block_sublanes=32), True),
+    ("h16_unroll", dict(SLICE_BENCH, fused_block_sublanes=2048), False),
+]
+
+
+@pytest.fixture(scope="module")
+def int_corpus(corpus):
+    coo, _ = corpus
+    rng = np.random.default_rng(27)
+    vals = rng.integers(-8, 9, coo.nnz).astype(np.float32)
+    qs = rng.integers(-8, 9, (32, 1024)).astype(np.float32)
+    return pt.CooMatrix(coo.rows, coo.cols, vals, coo.num_rows,
+                        coo.num_cols), qs
+
+
+def _slice_engine(gpu, corpus, int_corpus, kw, integer, **extra):
+    coo = int_corpus[0] if integer else corpus[0]
+    cfg = pt.TopKSpMVConfig(**dict(kw, **extra))
+    return pt.TopKSpMV(coo, cfg, device=gpu), cfg
+
+
+def _slice_queries(int_corpus, integer, n, seed):
+    return int_corpus[1][:n] if integer else create_query_batch(n, 1024,
+                                                                seed=seed)
+
+
+def _slice_tables(cfg, qs, dev):
+    tabs, _ = pack_query_tables(qs, cfg.query_codec)
+    return torch.from_numpy(tabs).to(dev)
+
+
+def _plain_kw(cfg, tie_safe):
+    return dict(lane_k=cfg.lane_k, tie_safe=tie_safe,
+                block_sublanes=cfg.fused_block_sublanes,
+                codec=cfg.query_codec)
+
+
+@pytest.mark.parametrize("lane_k", [8, 16, 4])
+@pytest.mark.parametrize("name,kw,integer", SLICE_CASES,
+                         ids=[c[0] for c in SLICE_CASES])
+def test_slice_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
+                                    integer, lane_k):
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
+                             lane_k=lane_k, tie_safe_topk=True)
+    modes = {pkernel.slice_work(r, cfg.fold_tile)[0]
+             for r in eng.plan_rows.tolist()}
+    if "wide" in name:
+        assert pkernel.WIDE in modes
+    if name == "h16_unroll":
+        assert modes == {pkernel.RUNS}
+    table, _ = eng._table(_slice_queries(int_corpus, integer, 1, 22)[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    before = pkernel.topk_spmv_fused_device.launches
+    kv, kt = pkernel.topk_spmv_fused_device(
+        *args, cfg=cfg, block_sublanes=cfg.fused_block_sublanes)
+    assert pkernel.topk_spmv_fused_device.launches == before + 1
+    pv, pt_ = pkernel.slice_topk_plain(*args, fold_tile=cfg.fold_tile,
+                                       **_plain_kw(cfg, True))
+    torch.cuda.synchronize()
+    _lanes_equal(kv, kt, pv, pt_)
+
+
+@pytest.mark.parametrize("Q,subgroup", [(1, 0), (5, 2), (32, 0)])
+@pytest.mark.parametrize("name,kw,integer,lane_k", [
+    ("h16_fold8", SLICE_BENCH, False, 8),
+    ("f32_fold1", SLICE_DEFAULT, True, 8),
+    ("h16_wide", dict(SLICE_BENCH, fused_block_sublanes=32), False, 16),
+    ("f32_wide", dict(SLICE_DEFAULT, fused_block_sublanes=32), True, 4),
+    ("f32_wide_real", dict(SLICE_DEFAULT, fused_block_sublanes=32), False,
+     8)],
+    ids=["h16_fold8", "f32_fold1", "h16_wide_k16", "f32_wide_k4",
+         "f32_wide_real"])
+def test_slice_batch_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
+                                          integer, lane_k, Q, subgroup):
+    """K8 with tie-safe buffers against its plain version, per query;
+    Q=5 in subgroups of 2 leaves an uneven last subgroup."""
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
+                             lane_k=lane_k, tie_safe_topk=True,
+                             batch_subgroup=subgroup)
+    tables = _slice_tables(cfg, _slice_queries(int_corpus, integer, Q, 23),
+                           gpu)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    before = pkernel.topk_spmv_fused_batch_device.launches
+    kv, kt = pkernel.topk_spmv_fused_batch_device(
+        *args, cfg=cfg, block_sublanes=cfg.fused_block_sublanes)
+    assert pkernel.topk_spmv_fused_batch_device.launches == before + 1
+    pv, pt_ = pkernel.slice_topk_batch_plain(*args,
+                                             **_plain_kw(cfg, True))
+    torch.cuda.synchronize()
+    assert kv.shape == (Q, lane_k, 128)
+    for q in range(Q):
+        _lanes_equal(kv[q], kt[q], pv[q], pt_[q])
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["h16", "f32"])
+@pytest.mark.parametrize("subgroup", [1, 3, 8])
+def test_slice_batch_kernel_ignores_subgroup(gpu, corpus, int_corpus,
+                                             subgroup, integer):
+    """Every subgroup size gives each query the candidates of K7 with
+    every slice folded (fold_tile 1: K8 folds every slice)."""
+    kw = SLICE_DEFAULT if integer else SLICE_BENCH
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
+                             fold_tile=1, tie_safe_topk=True,
+                             batch_subgroup=subgroup)
+    qs = _slice_queries(int_corpus, integer, 7, 24)
+    kv, kt = eng.batch_candidates(_slice_tables(cfg, qs, gpu))
+    for q in range(7):
+        sv, st = eng.candidates(qs[q])
+        _lanes_equal(kv[q], kt[q], sv, st)
+
+
+def _emulate_slice_production(eng, table, cfg, nblk, fold_tile):
+    """Merged production (non-tie-safe) buffers of a slice sweep whose
+    nblk CUDA blocks each take at most one work item (ops/kernel.py::
+    slice_work) into fresh buffers: every slot holding the minimum is
+    replaced, from distinct sentinels; a sub-tile gives its top 2, any
+    other item each real slice in order."""
+    gpu = eng.words.device
+    K, L = cfg.lane_k, 128
+    init = torch.from_numpy(pkernel.topk_init(K)).to(gpu).view(K, 1)
+    bufs_v, bufs_t = [], []
+    for b, row in enumerate(eng.plan_rows.tolist()):
+        W, spb, bps, base = row[:4]
+        n = int(eng.nreal[b, 0])
+        sc = pkernel._bucket_scores(eng.words, table, row, cfg.query_codec,
+                                    cfg.fused_block_sublanes)
+        mode, units, per, Gp, Ps, nper = pkernel.slice_work(row, fold_tile)
+        for u in range(units):
+            for gi in range(per):
+                top2 = mode == pkernel.TILED and gi < Gp * Ps
+                if mode == pkernel.WIDE:
+                    members = [u]
+                elif mode == pkernel.RUNS:
+                    members = list(range(u * spb + gi * 8,
+                                         u * spb + min(spb, gi * 8 + 8)))
+                elif top2:
+                    g, s = divmod(gi, Ps)
+                    cnt = min(fold_tile, -(-(nper - g) // Gp))
+                    members = [u * spb + Ps * (g + m * Gp) + s
+                               for m in range(cnt)]
+                else:
+                    members = [u * spb + nper * Ps + gi - Gp * Ps]
+                real = torch.tensor([t for t in members if t < n],
+                                    dtype=torch.long, device=gpu)
+                steps = []
+                if top2 and len(real) > 1:
+                    for m1, sl in pkernel._harvest(sc[real], 0, 2):
+                        steps.append((m1, base + real[sl.long()]))
+                else:
+                    steps = [(sc[t:t + 1], base + t) for t in real.tolist()]
+                tv, tt = init.expand(K, L).clone(), torch.zeros(
+                    (K, L), dtype=torch.int32, device=gpu)
+                for score, tag in steps:
+                    cur = tv.amin(dim=0, keepdim=True)
+                    rep = (tv == cur) & (score >= cur)
+                    tv = torch.where(rep, score, tv)
+                    tt = torch.where(rep, torch.as_tensor(
+                        tag, device=gpu).int().expand(K, L), tt)
+                bufs_v.append(tv)
+                bufs_t.append(tt)
+    assert len(bufs_v) <= nblk
+    for _ in range(nblk - len(bufs_v)):
+        bufs_v.append(init.expand(K, L))
+        bufs_t.append(torch.zeros((K, L), dtype=torch.int32, device=gpu))
+    return pkernel.merge_lane_topk(torch.cat(bufs_v), torch.cat(bufs_t), K)
+
+
+@pytest.mark.parametrize("name,kw,integer", [
+    ("h16_fold8", SLICE_BENCH, False), ("h16_fold1", dict(SLICE_BENCH,
+                                                          fold_tile=1), False),
+    ("f32_fold1", SLICE_DEFAULT, True)], ids=["h16_fold8", "h16_fold1",
+                                              "f32_fold1"])
+def test_slice_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
+                                    integer):
+    """K7's and K8's production buffers (tie_safe_topk=False) against the
+    per-work-item emulation: the corpus has fewer work items than the
+    sweeps have CUDA blocks (K7) and slots (K8)."""
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
+                             tie_safe_topk=False)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    nblk = min(sms * pkernel._BLOCKS_PER_SM, eng.words.shape[0] // 8)
+    qs = _slice_queries(int_corpus, integer, 3, 25)
+    table, _ = eng._table(qs[0])
+    kv, kt = pkernel.topk_spmv_fused_device(
+        eng.words, table, eng.nreal, eng.plan_rows, cfg=cfg,
+        block_sublanes=cfg.fused_block_sublanes)
+    ev, et = _emulate_slice_production(eng, table, cfg, nblk, cfg.fold_tile)
+    _lanes_equal(kv, kt, ev, et)
+    tables = _slice_tables(cfg, qs, gpu)
+    _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
+                                     eng.words.shape[0] // 8)
+    bv, bt = eng.batch_candidates(tables)
+    for q in range(3):
+        ev, et = _emulate_slice_production(eng, tables[q], cfg, slots, 1)
+        _lanes_equal(bv[q], bt[q], ev, et)
+
+
+@pytest.mark.parametrize("name,kw,integer", [
+    ("h16", SLICE_BENCH, False), ("h16_wide", dict(SLICE_BENCH,
+                                                   fused_block_sublanes=32),
+                                  False),
+    ("f32", SLICE_DEFAULT, True), ("f32_wide", dict(SLICE_DEFAULT,
+                                                    fused_block_sublanes=32),
+                                   True)],
+    ids=["h16", "h16_wide", "f32", "f32_wide"])
+def test_slice_scores_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
+                                           integer):
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer)
+    table, _ = eng._table(_slice_queries(int_corpus, integer, 1, 26)[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    n = eng.row_ids.shape[0]
+    before = pkernel.spmv_fused_scores_device.launches
+    got = pkernel.spmv_fused_scores_device(
+        *args, cfg=cfg, block_sublanes=cfg.fused_block_sublanes,
+        num_slices=n)
+    assert pkernel.spmv_fused_scores_device.launches == before + 1
+    want = pkernel.slice_scores_plain(
+        *args, num_slices=n, block_sublanes=cfg.fused_block_sublanes,
+        codec=cfg.query_codec)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_slice_engines_on_gpu_match_cpu(gpu, corpus):
+    """bench.py's batch engine: query (rescored), query_batch and scores()
+    on the card equal the plain path's on the CPU. The default engine
+    (f32, real values) too: the plain versions sum in the kernels' order,
+    so values are bit-equal, and index sets equal above the k-th value
+    (the production buffers may keep another row tied at it)."""
+    coo, qs = corpus
+    batch = create_query_batch(5, 1024, seed=28)
+    cfg = pt.TopKSpMVConfig(**SLICE_BENCH)
+    on_gpu = pt.TopKSpMV(coo, cfg, device=gpu)
+    on_cpu = pt.TopKSpMV(coo, cfg, device="cpu")
+    counts = [w.launches for w in (pkernel.topk_spmv_fused_device,
+                                   pkernel.topk_spmv_fused_batch_device,
+                                   pkernel.spmv_fused_scores_device)]
+    for a, b in zip(on_gpu.query(qs[0]), on_cpu.query(qs[0])):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    for a, b in zip(on_gpu.query_batch(batch, group_size=2),
+                    on_cpu.query_batch(batch, group_size=2)):
+        assert a.device.type == "cuda"
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    np.testing.assert_array_equal(on_gpu.scores(qs[0]).cpu().numpy(),
+                                  on_cpu.scores(qs[0]).numpy())
+    assert [w.launches for w in (pkernel.topk_spmv_fused_device,
+                                 pkernel.topk_spmv_fused_batch_device,
+                                 pkernel.spmv_fused_scores_device)] == \
+        [counts[0] + 1, counts[1] + 3, counts[2] + 1]
+
+    cfg = pt.TopKSpMVConfig(**SLICE_DEFAULT)
+    on_gpu = pt.TopKSpMV(coo, cfg, device=gpu)
+    on_cpu = pt.TopKSpMV(coo, cfg, device="cpu")
+    for (gi, gv), (ci, cv) in ((on_gpu.query(qs[1]), on_cpu.query(qs[1])),
+                               *zip(zip(*on_gpu.query_batch(batch)),
+                                    zip(*on_cpu.query_batch(batch)))):
+        gi, gv, ci, cv = (x.cpu().numpy() for x in (gi, gv, ci, cv))
+        np.testing.assert_array_equal(gv, cv)
+        assert set(gi[gv > cv[-1]].tolist()) == set(ci[cv > cv[-1]].tolist())
+    np.testing.assert_array_equal(on_gpu.scores(qs[1]).cpu().numpy(),
+                                  on_cpu.scores(qs[1]).numpy())
+
+
+def test_slice_f32_kernels_take_wide_tables(gpu):
+    """2048 columns: a 16-row f32 table, and K8's eight side-by-side
+    tables need 64 KB of shared memory (past the 48 KB default)."""
+    coo = create_sparse_matrix(5000, 2048, 20, "gamma", seed=31)
+    rng = np.random.default_rng(32)
+    coo = pt.CooMatrix(coo.rows, coo.cols,
+                       rng.integers(-8, 9, coo.nnz).astype(np.float32),
+                       coo.num_rows, coo.num_cols)
+    qs = rng.integers(-8, 9, (8, 2048)).astype(np.float32)
+    cfg = pt.TopKSpMVConfig(k=100, max_cols=2048, tie_safe_topk=True,
+                            batch_subgroup=8)
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    table, _ = eng._table(qs[0])
+    assert table.shape == (16, 128) and table.dtype == torch.float32
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    kw = dict(block_sublanes=cfg.fused_block_sublanes)
+    kv, kt = pkernel.topk_spmv_fused_device(*args, cfg=cfg, **kw)
+    pv, pt_ = pkernel.slice_topk_plain(*args, fold_tile=1,
+                                       **_plain_kw(cfg, True))
+    _lanes_equal(kv, kt, pv, pt_)
+    tables = _slice_tables(cfg, qs, gpu)
+    bargs = (eng.words, tables, eng.nreal, eng.plan_rows)
+    bv, bt = pkernel.topk_spmv_fused_batch_device(*bargs, cfg=cfg, **kw)
+    bpv, bpt = pkernel.slice_topk_batch_plain(*bargs,
+                                              **_plain_kw(cfg, True))
+    for q in range(8):
+        _lanes_equal(bv[q], bt[q], bpv[q], bpt[q])
+    n = eng.row_ids.shape[0]
+    got = pkernel.spmv_fused_scores_device(*args, cfg=cfg, num_slices=n,
+                                           **kw)
+    want = pkernel.slice_scores_plain(*args, num_slices=n, codec="f32",
+                                      **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cols", ["16384", "limit"])
+def test_slice_f32_kernels_at_the_shared_memory_limit(gpu, cols):
+    """16384 columns: a 64 KB f32 table, so K8 cuts the default subgroup
+    of 4 to 2; at the widest table a CUDA block's shared memory holds
+    (58112 columns on the H100), to 1. K7, K8 (5 queries) and K9 against
+    their plain versions, bit-equal."""
+    limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
+    ncols = 16384 if cols == "16384" else limit // 512 * 128
+    fit = pkernel.f32_tables_in_smem(ncols, limit)
+    assert fit == (2 if cols == "16384" else 1)
+    coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=33)
+    qs = create_query_batch(5, ncols, seed=34)
+    cfg = pt.TopKSpMVConfig(k=100, max_cols=ncols, tie_safe_topk=True)
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    table, _ = eng._table(qs[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    kw = dict(block_sublanes=cfg.fused_block_sublanes)
+    kv, kt = pkernel.topk_spmv_fused_device(*args, cfg=cfg, **kw)
+    pv, pt_ = pkernel.slice_topk_plain(*args, fold_tile=1,
+                                       **_plain_kw(cfg, True))
+    _lanes_equal(kv, kt, pv, pt_)
+    bargs = (eng.words, _slice_tables(cfg, qs, gpu), eng.nreal,
+             eng.plan_rows)
+    bv, bt = pkernel.topk_spmv_fused_batch_device(*bargs, cfg=cfg, **kw)
+    bpv, bpt = pkernel.slice_topk_batch_plain(*bargs,
+                                              **_plain_kw(cfg, True))
+    for q in range(5):
+        _lanes_equal(bv[q], bt[q], bpv[q], bpt[q])
+    n = eng.row_ids.shape[0]
+    got = pkernel.spmv_fused_scores_device(*args, cfg=cfg, num_slices=n,
+                                           **kw)
+    want = pkernel.slice_scores_plain(*args, num_slices=n, codec="f32",
+                                      **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_slice_f32_tables_past_shared_memory_raise(gpu):
+    """One column group more than a CUDA block's shared memory holds:
+    query, query_batch and scores raise NotImplementedError naming the
+    ROADMAP item, and launch nothing."""
+    limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
+    ncols = limit // 512 * 128 + 128
+    coo = create_sparse_matrix(2000, ncols, 20, "gamma", seed=35)
+    q = create_query_batch(2, ncols, seed=36)
+    eng = pt.TopKSpMV(coo, pt.TopKSpMVConfig(k=100, max_cols=ncols),
+                      device=gpu)
+    wrappers = (pkernel.topk_spmv_fused_device,
+                pkernel.topk_spmv_fused_batch_device,
+                pkernel.spmv_fused_scores_device)
+    before = [w.launches for w in wrappers]
+    for call in (lambda: eng.query(q[0]), lambda: eng.query_batch(q),
+                 lambda: eng.scores(q[0])):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    assert [w.launches for w in wrappers] == before

@@ -199,25 +199,63 @@ def test_finalize_topk_matches_jax(seed, k):
 
 def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     """Kernel names, template arguments, registers and spill stores from
-    nvcc's -Xptxas=-v output (lines as nvcc 12.9 prints them)."""
+    nvcc's -Xptxas=-v output, the names through the toolkit's cu++filt
+    and trimmed to kernel<args> (lines as nvcc and cu++filt 12.9 print
+    them; here a stand-in for cu++filt prints them)."""
+    import json
+    import sys
+
     from spmv_topk_tpu_torch.ops import _build
 
+    names = {
+        "_ZN52_GLOBAL__N__ba66f468_19_octet_topk_batch_cu_4825f2a123octet_"
+        "topk_batch_kernelILi16ELi8ELb0ELb1EEEvPKiS2_S2_S2_iiiiiPfPi":
+            "void <unnamed>::octet_topk_batch_kernel<(int)16, (int)8, "
+            "(bool)0, (bool)1>(const int *, const int *, const int *, "
+            "const int *, int, int, int, int, int, float *, int *)",
+        "_ZN48_GLOBAL__N__7ea079ae_15_octet_scores_cu_14ecab5619octet_"
+        "scores_kernelEPKiS1_S1_S1_iiPf":
+            "<unnamed>::octet_scores_kernel(const int *, const int *, "
+            "const int *, const int *, int, int, float *)",
+        "_ZN46_GLOBAL__N__f0e1d2c3_13_slice_topk_cu_1a2b3c4d17slice_topk_"
+        "kernelIN5slice3H16ELi8ELb1EEEvPKiPKNT_3TabES3_S3_iiiiPfPi":
+            "void <unnamed>::slice_topk_kernel<slice::H16, (int)8, (bool)1>"
+            "(const int *, const T1::Tab *, const int, const int, int, int, "
+            "int, int, float *, int *)",
+        "_ZN52_GLOBAL__N__0a1b2c3d_19_slice_topk_batch_cu_5e6f7a8b23slice_"
+        "topk_batch_kernelINS_8F32BatchELi4ELi2ELb0EEEvPKiPKvS3_S3_iiiiiiPfPi":
+            "void <unnamed>::slice_topk_batch_kernel<<unnamed>::F32Batch, "
+            "(int)4, (int)2, (bool)0>(const int *, const void *, "
+            "const int *, const int *, int, int, int, int, int, int, "
+            "float *, int *)"}
+    m = list(names)
+    cufilt = tmp_path / "cu++filt"
+    cufilt.write_text(f"#!{sys.executable}\nimport json, sys\n"
+                      f"names = json.loads({json.dumps(json.dumps(names))})\n"
+                      "print('\\n'.join(names[a] for a in sys.argv[1:]))\n")
+    cufilt.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(tmp_path / "nvcc"))
     lib = tmp_path / "lib.so"
     (tmp_path / "lib.so.ptxas.txt").write_text(
         "== octet_topk_batch.cu\n"
-        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__ba66f468"
-        "_19_octet_topk_batch_cu_4825f2a123octet_topk_batch_kernelILi16ELi8"
-        "ELb0ELb1EEEvPKiS2_S2_S2_iiiiiPfPi' for 'sm_90a'\n"
+        f"ptxas info    : Compiling entry function '{m[0]}' for 'sm_90a'\n"
         "    0 bytes stack frame, 3316 bytes spill stores, 3316 bytes spill "
         "loads\n"
         "ptxas info    : Used 255 registers, 416 bytes cmem[0]\n"
         "== octet_scores.cu\n"
-        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__7ea079ae"
-        "_15_octet_scores_cu_14ecab5619octet_scores_kernelEPKiS1_S1_S1_iiPf'"
-        " for 'sm_90a'\n"
+        f"ptxas info    : Compiling entry function '{m[1]}' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 32 registers, 400 bytes cmem[0]\n")
+        "ptxas info    : Used 32 registers, 400 bytes cmem[0]\n"
+        "== slice_topk.cu\n"
+        f"ptxas info    : Compiling entry function '{m[2]}' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers, 424 bytes cmem[0]\n"
+        "== slice_topk_batch.cu\n"
+        f"ptxas info    : Compiling entry function '{m[3]}' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, 432 bytes cmem[0]\n")
     monkeypatch.setattr(_build, "library_path", lambda: str(lib))
     assert _build.ptxas_report() == {
         "octet_topk_batch_kernel<16,8,0,1>": (255, 3316),
-        "octet_scores_kernel": (32, 0)}
+        "octet_scores_kernel": (32, 0),
+        "slice_topk_kernel<H16,8,1>": (40, 0),
+        "slice_topk_batch_kernel<F32Batch,4,2,0>": (64, 8)}
