@@ -42,12 +42,35 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      ``query_batch`` in groups of 8 bit-equal to ``query()``,
      ``scores()``, and K7, K8 (a group of 8), K9 held to and timed
      against their plain versions;
-  9. the launch counts of each path's run (counts set to 0 just before
+  9. partitioned engines (``num_partitions`` > 1) at 50k rows, P = 3 and
+     4: K10a-d (K1, K6, K7, K8 with a partition axis; the batch ones on
+     5 queries in uneven subgroups) and the partitioned K4/K9 against
+     their plain versions, tie-safe, bit-equal: octet h16 at fold 8 and
+     fold 1, slice h16 at quantum 2, slice f32 on integer-valued and on
+     real data, wide octets and wide slices, and at least one partition
+     holding a bucket with no real slice; then f32 K7, K8, K9 at 65,536
+     columns (tables read from global memory) on one and two partitions;
+ 10. the library yardsticks on the same corpus: one ``torch.sparse.mm`` of
+     its CSR (the SpMV kernels' counterpart), and that plus
+     ``torch.topk`` (the Top-K sweeps'), for 1, 8 and 32 queries; timed
+     only, used nowhere in the port;
+ 11. the partitioned octet path: the headline config with
+     ``num_partitions=2`` on the 10M corpus: 32 ``query()`` against the
+     exact top-100, ``query_batch`` of the 32 in one group and the
+     ``batch32_*`` numbers, one ``scores()``, K10b, K10d and the
+     partitioned K4 held to and timed against their plain versions, and
+     its words against the one-partition engine's;
+ 12. the partitioned default path: ``TopKSpMVConfig(k=100, max_cols=1024,
+     num_partitions=2)`` as in 8, through K10a, K10c and the partitioned
+     K9;
+ 13. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
-Then the kernel summary, the ``nvidia-smi`` name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
-run exits non-zero with no ``ok`` line; so does a host without CUDA.
+Then the kernel summary (each kernel's time, its plain version's, the
+least time the card could take for the same work and what bounds it, and
+the library yardstick's time), the ``nvidia-smi`` name and power limit,
+and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
+the run exits non-zero with no ``ok`` line; so does a host without CUDA.
 """
 
 import json
@@ -75,6 +98,14 @@ SLICE_BATCH = dict(k=100, lane_k=8, num_partitions=1, max_cols=1024,
 # the top-100 of the bf16-rounded matrix
 MIN_PRECISION_BF16 = 0.95
 DEFAULT_GROUP = 8      # query_batch's default group size
+PARTITIONS = 2         # the partitioned paths (tests/test_tpu_smoke.py:107)
+# the f32 column field's width: the widest f32 table (256 KB)
+F32_MAX_COLS = 65536
+# NVIDIA's data sheet for the H100 SXM (at its 700 W limit): HBM3 bytes
+# per second, and float32 operations per second outside the tensor cores
+# (the rate used for the sweeps' multiply-adds of either codec)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def require(ok, what):
@@ -132,6 +163,55 @@ def compare_lanes(kv, kt, pv, pt):
     return float(np.abs(kv[fin] - pv[fin]).max()) if fin.any() else 0.0
 
 
+def compare_pools(kv, kt, pv, pt):
+    """``compare_lanes`` for each (lane_k, 128) pool of (..., lane_k, 128)
+    buffers (queries, partitions: a pool per partition, never merged
+    across them); the largest error."""
+    require(kv.shape == pv.shape, f"kernel pools {tuple(kv.shape)} match "
+            f"the plain version's {tuple(pv.shape)}")
+    shape = (-1, *kv.shape[-2:])
+    return max(compare_lanes(*bufs) for bufs in
+               zip(*(x.reshape(shape) for x in (kv, kt, pv, pt))))
+
+
+def bound(nbytes, ops):
+    """The least time, ms, the card could take to move ``nbytes`` once
+    and do ``ops`` operations, and which of the two bounds it."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def sweep_bound(eng, queries, out_bytes):
+    """``bound`` of a sweep over ``eng``'s words for ``queries`` queries:
+    the words and the queries' tables read once, ``out_bytes`` written,
+    a multiply and an add per nnz per query."""
+    table = eng.config.max_cols * 4 if eng.config.query_codec == "f32" \
+        else 128 * 4
+    return bound(eng.hbm_bytes + queries * table + out_bytes,
+                 2 * eng.num_nnz * queries)
+
+
+def topk_out_bytes(eng, queries):
+    """(value, tag) pairs of the merged per-lane pools."""
+    return queries * eng.config.num_partitions * eng.config.lane_k * 128 * 8
+
+
+def _e2e_ms_per_query(eng, many, group, **kw):
+    """Best of 3 host-clock runs of ``query_batch`` over ``many`` in
+    groups of ``group``, per query."""
+    import torch
+
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, v = eng.query_batch(many, group_size=group, **kw)
+        v.cpu()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3 / len(many)
+
+
 def phase_environment():
     import torch
 
@@ -157,11 +237,12 @@ def _plain_and_kernel(eng, table, cfg):
 
     args = (eng.words, table, eng.nreal, eng.plan_rows)
     kern = topk_spmv_fused_octet_device(
-        *args, cfg=cfg, block_sublanes=eng.fused.block_sublanes)
+        *args, cfg=cfg, block_sublanes=eng.fused.block_sublanes,
+        **eng.partition_kw)
     plain = octet_topk_plain(
         *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
         tie_safe=bool(cfg.tie_safe_topk),
-        block_sublanes=eng.fused.block_sublanes)
+        block_sublanes=eng.fused.block_sublanes, **eng.partition_kw)
     return kern, plain
 
 
@@ -180,17 +261,18 @@ def _batch_plain_and_kernel(eng, tables, cfg):
 
     args = (eng.words, tables, eng.nreal, eng.plan_rows)
     kern = topk_spmv_fused_batch_octet_device(
-        *args, cfg=cfg, block_sublanes=eng.fused.block_sublanes)
+        *args, cfg=cfg, block_sublanes=eng.fused.block_sublanes,
+        **eng.partition_kw)
     plain = octet_topk_batch_plain(
         *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
         tie_safe=bool(cfg.tie_safe_topk),
-        block_sublanes=eng.fused.block_sublanes)
+        block_sublanes=eng.fused.block_sublanes, **eng.partition_kw)
     return kern, plain
 
 
 def _scores_plain_and_kernel(eng, table):
-    """Requires K4's slice scores bit-equal to the plain version's;
-    returns the max abs difference (0)."""
+    """Requires K4's slice scores (every partition's) bit-equal to the
+    plain version's; returns the max abs difference (0)."""
     import torch
 
     from spmv_topk_tpu_torch.ops.kernel import (
@@ -198,7 +280,8 @@ def _scores_plain_and_kernel(eng, table):
 
     args = (eng.words, table, eng.nreal, eng.plan_rows)
     kw = dict(block_sublanes=eng.fused.block_sublanes,
-              num_slices=eng.row_ids.shape[0])
+              num_slices=eng.row_ids.shape[0],
+              num_partitions=eng.config.num_partitions)
     kern = spmv_fused_scores_octet_device(*args, cfg=eng.config, **kw)
     plain = octet_scores_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -391,11 +474,16 @@ def phase_kernels_full(eng, qs, dev):
                     warmup=2)
     k3_plain_ms = cuda_ms(lambda: stream_words_plain(eng.words, salt),
                           reps=3)
+    k1_bound = sweep_bound(eng, 1, topk_out_bytes(eng, 1))
+    # K3: the words read once, an add per word
+    k3_bound = bound(eng.hbm_bytes + 2 * 8 * 128 * 4, eng.words.numel())
     res = dict(phase="kernels_vs_plain_full", words_bytes=eng.hbm_bytes,
                k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k1_max_abs_err=k1_err,
                k1_words_gb_per_s=eng.hbm_bytes / (k1_ms * 1e-3) / 1e9,
+               k1_bound_ms=k1_bound[0], k1_bound_by=k1_bound[1],
                k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_max_abs_err=0,
                k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
+               k3_bound_ms=k3_bound[0], k3_bound_by=k3_bound[1],
                nvidia_smi=smi_line())
     emit(res)
     return res
@@ -420,24 +508,13 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
                     rescore_pool=0)
     torch.cuda.synchronize()
 
-    def e2e_ms(**kw):
-        """Best of 3 host-clock runs of the 256 queries, per query."""
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, v = eng.query_batch(many, group_size=BATCH_GROUP, **kw)
-            v.cpu()
-            best = min(best, time.perf_counter() - t0)
-        return best * 1e3 / len(many)
-
     topk_spmv_fused_batch_octet_device.launches = 0
     t0 = time.perf_counter()
     idx, vals = eng.query_batch(qs, group_size=BATCH_GROUP)
     torch.cuda.synchronize()
     group_ms = (time.perf_counter() - t0) * 1e3
-    e2e = e2e_ms()
-    e2e_raw = e2e_ms(rescore_pool=0)
+    e2e = _e2e_ms_per_query(eng, many, BATCH_GROUP)
+    e2e_raw = _e2e_ms_per_query(eng, many, BATCH_GROUP, rescore_pool=0)
     launches = topk_spmv_fused_batch_octet_device.launches
 
     idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
@@ -474,8 +551,10 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
     sub, n_sub, slots = batch_grid(NUM_QUERIES, cfg.batch_subgroup, sms,
                                    eng.words.shape[0] // 8)
     per_query = k6_ms / NUM_QUERIES
+    k6_bound = sweep_bound(eng, NUM_QUERIES, topk_out_bytes(eng, NUM_QUERIES))
     res = dict(
         phase="batch_path", queries=NUM_QUERIES, group_size=BATCH_GROUP,
+        k6_bound_ms=k6_bound[0], k6_bound_by=k6_bound[1],
         precision_at_100_mean=float(np.mean(prec)),
         precision_at_100_min=float(np.min(prec)),
         agreement_with_query_mean=float(np.mean(same)),
@@ -532,7 +611,9 @@ def phase_scores(eng, qs, dev):
     k4_ms = cuda_ms(lambda: spmv_fused_scores_octet_device(
         *args, cfg=eng.config, **kw), reps=20, warmup=2)
     k4_plain_ms = cuda_ms(lambda: octet_scores_plain(*args, **kw), reps=2)
+    k4_bound = sweep_bound(eng, 1, eng.row_ids.numel() * 4)
     res = dict(phase="scores_path", rows=eng.num_rows,
+               k4_bound_ms=k4_bound[0], k4_bound_by=k4_bound[1],
                scores_e2e_ms_median=statistics.median(e2e),
                k4_ms=k4_ms, k4_plain_ms=k4_plain_ms, k4_max_abs_err=k4_err,
                k4_words_gb_per_s=eng.hbm_bytes / (k4_ms * 1e-3) / 1e9,
@@ -574,27 +655,29 @@ def _slice_agree(eng, cfg, q, qs, dev):
     from spmv_topk_tpu_torch.ops import kernel as K
 
     bs = cfg.fused_block_sublanes
+    parts = eng.partition_kw
     table, _ = eng._table(q)
     args = (eng.words, table, eng.nreal, eng.plan_rows)
     bargs = (eng.words, _tables(qs, dev, cfg.query_codec), eng.nreal,
              eng.plan_rows)
     n = eng.row_ids.shape[0]
-    kv, kt = K.topk_spmv_fused_device(*args, cfg=cfg, block_sublanes=bs)
+    P = cfg.num_partitions
+    kv, kt = K.topk_spmv_fused_device(*args, cfg=cfg, block_sublanes=bs,
+                                      **parts)
     pv, pt = K.slice_topk_plain(*args, fold_tile=cfg.fold_tile,
-                                **_slice_plain_kw(cfg))
+                                **_slice_plain_kw(cfg), **parts)
     bv, bt = K.topk_spmv_fused_batch_device(*bargs, cfg=cfg,
-                                            block_sublanes=bs)
-    bpv, bpt = K.slice_topk_batch_plain(*bargs, **_slice_plain_kw(cfg))
+                                            block_sublanes=bs, **parts)
+    bpv, bpt = K.slice_topk_batch_plain(*bargs, **_slice_plain_kw(cfg),
+                                        **parts)
     ks = K.spmv_fused_scores_device(*args, cfg=cfg, block_sublanes=bs,
-                                    num_slices=n)
+                                    num_slices=n, num_partitions=P)
     ps = K.slice_scores_plain(*args, num_slices=n, block_sublanes=bs,
-                              codec=cfg.query_codec)
+                              codec=cfg.query_codec, num_partitions=P)
     torch.cuda.synchronize()
     require(torch.equal(ks, ps), "K9 slice scores equal the plain "
             "version's bit for bit")
-    return (compare_lanes(kv, kt, pv, pt),
-            max(compare_lanes(bv[j], bt[j], bpv[j], bpt[j])
-                for j in range(len(qs))),
+    return (compare_pools(kv, kt, pv, pt), compare_pools(bv, bt, bpv, bpt),
             float((ks - ps).abs().max()))
 
 
@@ -746,30 +829,37 @@ def _slice_kernel_times(eng, qs, dev, group):
     k7, k8, k9 = _slice_agree(
         eng, dataclasses.replace(cfg, tie_safe_topk=True), qs[0], qs, dev)
     bs = cfg.fused_block_sublanes
+    parts = eng.partition_kw
     table, _ = eng._table(qs[0])
     args = (eng.words, table, eng.nreal, eng.plan_rows)
     bargs = (eng.words, _tables(qs, dev, cfg.query_codec), eng.nreal,
              eng.plan_rows)
     n = eng.row_ids.shape[0]
-    plain_kw = _slice_plain_kw(cfg)
+    P = cfg.num_partitions
+    plain_kw = dict(_slice_plain_kw(cfg), **parts)
+    bounds = dict(k7=sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
+                  k8=sweep_bound(eng, len(qs), topk_out_bytes(eng, len(qs))),
+                  k9=sweep_bound(eng, 1, eng.row_ids.numel() * 4))
     return dict(
         k7_ms=cuda_ms(lambda: K.topk_spmv_fused_device(
-            *args, cfg=cfg, block_sublanes=bs), reps=20, warmup=2),
+            *args, cfg=cfg, block_sublanes=bs, **parts), reps=20, warmup=2),
         k7_plain_ms=cuda_ms(lambda: K.slice_topk_plain(
             *args, fold_tile=cfg.fold_tile, **plain_kw), reps=2),
         k7_max_abs_err=k7,
         k8_ms=cuda_ms(lambda: K.topk_spmv_fused_batch_device(
-            *bargs, cfg=cfg, block_sublanes=bs), reps=10, warmup=2),
+            *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
         k8_plain_ms=cuda_ms(lambda: K.slice_topk_batch_plain(
             *bargs, **plain_kw), reps=1, warmup=0),
         k8_max_abs_err=k8, k8_queries=len(qs),
         k9_ms=cuda_ms(lambda: K.spmv_fused_scores_device(
-            *args, cfg=cfg, block_sublanes=bs, num_slices=n), reps=20,
-            warmup=2),
+            *args, cfg=cfg, block_sublanes=bs, num_slices=n,
+            num_partitions=P), reps=20, warmup=2),
         k9_plain_ms=cuda_ms(lambda: K.slice_scores_plain(
-            *args, num_slices=n, block_sublanes=bs, codec=cfg.query_codec),
-            reps=2),
-        k9_max_abs_err=k9)
+            *args, num_slices=n, block_sublanes=bs, codec=cfg.query_codec,
+            num_partitions=P), reps=2),
+        k9_max_abs_err=k9,
+        **{f"{k}_bound_ms": b[0] for k, b in bounds.items()},
+        **{f"{k}_bound_by": b[1] for k, b in bounds.items()})
 
 
 def phase_slice_path(coo, csr, qs, gold, dev):
@@ -807,20 +897,8 @@ def phase_slice_path(coo, csr, qs, gold, dev):
 
     many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
                               seed=BATCH_SEED)
-
-    def e2e_ms(**kw):
-        """Best of 3 host-clock runs of the 256 queries, per query."""
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, v = eng.query_batch(many, group_size=BATCH_GROUP, **kw)
-            v.cpu()
-            best = min(best, time.perf_counter() - t0)
-        return best * 1e3 / len(many)
-
-    e2e = e2e_ms()
-    e2e_raw = e2e_ms(rescore_pool=0)
+    e2e = _e2e_ms_per_query(eng, many, BATCH_GROUP)
+    e2e_raw = _e2e_ms_per_query(eng, many, BATCH_GROUP, rescore_pool=0)
     times = _slice_kernel_times(eng, qs, dev, BATCH_GROUP)
     exact = np.asarray(csr @ qs[0], np.float32)
     salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
@@ -869,32 +947,42 @@ def phase_slice_path(coo, csr, qs, gold, dev):
     return res
 
 
-def phase_default_path(coo, csr, qs, gold, dev):
-    """TopKSpMVConfig(k=100, max_cols=1024), nothing else set (slice
-    layout, f32 codec, quantum 8, fold 1, no rescore) on the full
-    corpus: query() against the exact f32 top-100 and the top-100 of
-    the bf16-rounded matrix, and bit-equal to the plain path's;
-    query_batch at the default group size 8 bit-equal to query() (K8 and
-    K7 harvest the same slices, summed alike); scores(); and K7, K8 (a
-    group of 8), K9 held to and timed against their plain versions."""
+def _bf16_gold_sets(csr, qs, k):
+    """The top-k sets of the bf16-rounded matrix, what the f32 codec's
+    engines rank by."""
     import scipy.sparse
 
+    from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
+
+    bf16 = scipy.sparse.csr_matrix(
+        (quantize_bf16(csr.data), csr.indices, csr.indptr), shape=csr.shape)
+    return _gold_sets(bf16, qs, k)
+
+
+def phase_default_path(coo, csr, qs, gold, gold_bf16, dev, partitions=1):
+    """TopKSpMVConfig(k=100, max_cols=1024), nothing else set (slice
+    layout, f32 codec, quantum 8, fold 1, no rescore; with ``partitions``
+    > 1, num_partitions too: kernels K10a, K10c and the partitioned K9) on
+    the full corpus: query() against the exact f32 top-100 and the
+    top-100 of the bf16-rounded matrix, and bit-equal to the plain
+    path's; query_batch at the default group size 8 bit-equal to query()
+    (K8 and K7 harvest the same slices, summed alike); scores(); and K7,
+    K8 (a group of 8), K9 held to and timed against their plain
+    versions."""
     import torch
 
     from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
     from spmv_topk_tpu_torch.ops import kernel as K
-    from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
 
-    cfg = TopKSpMVConfig(k=100, max_cols=NUM_COLS)
+    config = dict(k=100, max_cols=NUM_COLS)
+    if partitions > 1:
+        config["num_partitions"] = partitions
+    cfg = TopKSpMVConfig(**config)
     t0 = time.perf_counter()
     eng = TopKSpMV(coo, cfg, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     k = cfg.k
-    bf16 = scipy.sparse.csr_matrix(
-        (quantize_bf16(csr.data), csr.indices, csr.indptr), shape=csr.shape)
-    gold_bf16 = _gold_sets(bf16, qs, k)
-    del bf16
     eng.query(qs[0])                                      # warm
     eng.query_batch(qs[:2])
     eng.scores(qs[0])
@@ -915,7 +1003,8 @@ def phase_default_path(coo, csr, qs, gold, dev):
         table, _ = eng._table(q)
         pv, pt = K.slice_topk_plain(eng.words, table, eng.nreal,
                                     eng.plan_rows, fold_tile=cfg.fold_tile,
-                                    **_slice_plain_kw(cfg))
+                                    **_slice_plain_kw(cfg),
+                                    **eng.partition_kw)
         pidx, pvals = (x.cpu().numpy() for x in
                        K.finalize_topk(pv, pt, eng.row_ids, k=k))
         _same_top(single[j], svals[j], pidx, pvals,
@@ -925,7 +1014,8 @@ def phase_default_path(coo, csr, qs, gold, dev):
     times = _slice_kernel_times(eng, qs, dev, DEFAULT_GROUP)
     exact = np.asarray(csr @ qs[0], np.float32)
     res = dict(
-        phase="default_config_path", config=dict(k=100, max_cols=NUM_COLS),
+        phase="default_config_path" if partitions == 1
+        else "partitioned_default_path", config=config,
         rows=eng.num_rows, buckets=len(eng.fused.plan),
         widths=[p.width for p in eng.fused.plan],
         work_items=K.slice_work_items(eng.plan_rows, cfg.fold_tile),
@@ -959,6 +1049,287 @@ def phase_default_path(coo, csr, qs, gold, dev):
     return res
 
 
+# ------------------------------------------------------------ partitions
+
+def phase_partition_small(dev):
+    """K10a-d and the partitioned K4/K9 against their plain versions on
+    a 50k-row corpus at P = 3 and 4 (tie-safe buffers: bit-equal values,
+    (value, tag) pairs above each lane's floor, scores bit-equal; the
+    batch sweeps on 5 queries in subgroups of 2); then f32 K7, K8, K9 at
+    65,536 columns, their tables read from global memory, on one and on
+    two partitions."""
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    icoo = _integer_valued(coo, 17)
+    rng = np.random.default_rng(18)
+    iq = rng.integers(-8, 9, (6, NUM_COLS)).astype(np.float32)
+    q = create_query_batch(1, NUM_COLS, seed=8)[0]
+    qs5 = create_query_batch(5, NUM_COLS, seed=9)
+    octet = dict(HEADLINE, tie_safe_topk=True, rescore_pool=None,
+                 batch_subgroup=2)
+    h16 = dict(SLICE_BATCH, tie_safe_topk=True, rescore_pool=None,
+               batch_subgroup=2)
+    f32 = dict(k=100, max_cols=NUM_COLS, tie_safe_topk=True,
+               batch_subgroup=2)
+    cases = []
+    for name, kw, integer, P in (
+            ("octet_h16_fold8", octet, False, 3),
+            ("octet_h16_fold1", dict(octet, fold_tile=1), False, 4),
+            ("octet_h16_wide", dict(octet, fused_block_sublanes=64), False,
+             3),
+            ("slice_h16_q2_fold8", h16, False, 3),
+            ("slice_h16_q2_fold8_wide", dict(h16, fused_block_sublanes=32),
+             False, 4),
+            ("slice_f32_q8_int", f32, True, 4),
+            ("slice_f32_q8_real", f32, False, 3),
+            ("slice_f32_q8_wide_int", dict(f32, fused_block_sublanes=32),
+             True, 3)):
+        cfg = TopKSpMVConfig(**dict(kw, num_partitions=P))
+        eng = TopKSpMV(icoo if integer else coo, cfg, device=dev)
+        plan = eng.fused.plan
+        wide = sum((p.blocks_per_octet if cfg.fused_layout == "octet"
+                    else p.blocks_per_slice) > 1 for p in plan)
+        if "wide" in name:
+            require(wide > 0, f"{name}: small blocks force wide buckets")
+        zero_real = int((eng.nreal == 0).sum())
+        query, queries = (iq[0], iq[1:]) if integer else (q, qs5)
+        if cfg.fused_layout == "octet":
+            table, _ = eng._table(query)
+            (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, cfg)
+            (bv, bt), (bpv, bpt) = _batch_plain_and_kernel(
+                eng, _tables(queries, dev), cfg)
+            torch.cuda.synchronize()
+            errs = (compare_pools(kv, kt, pv, pt),
+                    compare_pools(bv, bt, bpv, bpt),
+                    _scores_plain_and_kernel(eng, table))
+            require(kv.shape == (P, cfg.lane_k, 128) and bv.shape ==
+                    (len(queries), P, cfg.lane_k, 128),
+                    f"{name}: a pool per partition")
+            kinds = ("k10b", "k10d", "k4")
+        else:
+            errs = _slice_agree(eng, cfg, query, queries, dev)
+            kinds = ("k10a", "k10c", "k9")
+        cases.append(dict(case=name, partitions=P, buckets=len(plan),
+                          wide_buckets=wide, zero_real_buckets=zero_real,
+                          **{f"{k}_max_abs_err": e
+                             for k, e in zip(kinds, errs)}))
+        del eng
+    require(any(c["zero_real_buckets"] for c in cases),
+            "a partition holds a bucket with no real slice")
+
+    # f32 tables past shared memory: 65,536 columns, 256 KB a table
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    require(K.f32_tables_in_smem(F32_MAX_COLS, limit) == 0,
+            "a 65,536-column f32 table exceeds a CUDA block's shared memory")
+    wcoo = create_sparse_matrix(20_000, F32_MAX_COLS, AVG_DEG, "gamma",
+                                seed=19)
+    wqs = create_query_batch(5, F32_MAX_COLS, seed=20)
+    wide_cols = []
+    for P in (1, 2):
+        cfg = TopKSpMVConfig(k=100, max_cols=F32_MAX_COLS,
+                             tie_safe_topk=True, num_partitions=P)
+        eng = TopKSpMV(wcoo, cfg, device=dev)
+        k7, k8, k9 = _slice_agree(eng, cfg, wqs[0], wqs, dev)
+        wide_cols.append(dict(partitions=P, k7_max_abs_err=k7,
+                              k8_max_abs_err=k8, k9_max_abs_err=k9))
+        del eng
+    out = dict(phase="partition_kernels_vs_plain_small", rows=coo.num_rows,
+               nnz=coo.nnz, cases=cases, f32_65536_cols=wide_cols,
+               shared_memory_per_block_optin=limit)
+    emit(out)
+    return out
+
+
+def phase_library(csr, qs, dev):
+    """The library yardsticks on the corpus, timed only: one
+    ``torch.sparse.mm`` of its f32 CSR with 1 query (the SpMV kernels'
+    counterpart), and that plus ``torch.topk`` of the top 100 for 1, 8
+    and 32 queries (two calls: the Top-K sweeps' counterpart). The port
+    calls neither."""
+    import torch
+
+    A = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int32)),
+        torch.from_numpy(np.ascontiguousarray(csr.indices, np.int32)),
+        torch.from_numpy(np.ascontiguousarray(csr.data, np.float32)),
+        size=csr.shape).to(dev)
+    dense = torch.from_numpy(np.ascontiguousarray(qs.T)).to(dev)  # (C, Q)
+    one = dense[:, :1].contiguous()
+    got = torch.sparse.mm(A, one)[:, 0].cpu().numpy()
+    want = np.asarray(csr @ qs[0], np.float32)
+    require(np.allclose(got, want, rtol=1e-4, atol=1e-4),
+            "torch.sparse.mm computes the corpus's A @ q")
+    res = dict(phase="library_yardsticks", nnz=int(csr.nnz),
+               spmv_ms=cuda_ms(lambda: torch.sparse.mm(A, one), reps=20,
+                               warmup=2))
+    for n in (1, DEFAULT_GROUP, BATCH_GROUP):
+        qn = dense[:, :n].contiguous()
+        res[f"spmv_topk_{n}_ms"] = cuda_ms(
+            lambda qn=qn: torch.topk(torch.sparse.mm(A, qn), 100, dim=0),
+            reps=10, warmup=2)
+    res["nvidia_smi"] = smi_line()
+    del A, dense, one
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
+def _reset_octet_counts():
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    for w in (K.topk_spmv_fused_octet_device,
+              K.topk_spmv_fused_batch_octet_device,
+              K.spmv_fused_scores_octet_device):
+        w.launches = 0
+
+
+def _octet_counts():
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    return dict(octet_topk_h16=K.topk_spmv_fused_octet_device.launches,
+                octet_topk_batch_h16=(
+                    K.topk_spmv_fused_batch_octet_device.launches),
+                octet_scores_h16=K.spmv_fused_scores_octet_device.launches)
+
+
+def phase_partitioned_octet(coo, csr, qs, gold, p1_words_bytes, dev):
+    """The headline config with num_partitions=2 on the full corpus
+    (kernels K10b, K10d and the partitioned K4): 32 query() against the
+    exact top-100, query_batch of the 32 in one group, the batch32_*
+    numbers, one scores() against the exact f32 product, the three
+    kernels held to (tie-safe) and timed against their plain versions,
+    and the words against the one-partition engine's."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import create_query_batch
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    cfg = TopKSpMVConfig(**dict(HEADLINE, num_partitions=PARTITIONS))
+    t0 = time.perf_counter()
+    eng = TopKSpMV(coo, cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k = cfg.k
+    eng.query(qs[0])                                      # warm
+    eng.query_batch(qs[:2], group_size=2)
+    eng.scores(qs[0])
+    torch.cuda.synchronize()
+    _reset_octet_counts()
+    single, _, q_ms, bidx, _, b_ms, s, s_ms = _drive(eng, qs, k, BATCH_GROUP)
+    torch.cuda.synchronize()
+    launches = _octet_counts()
+    prec = _precision(gold, single, k)
+    bprec = _precision(gold, bidx, k)
+    same = [len(set(a.tolist()) & set(b.tolist())) / k
+            for a, b in zip(single, bidx)]
+    raw = [eng.query(q, rescore_pool=0)[0].cpu().numpy() for q in qs]
+    many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
+                              seed=BATCH_SEED)
+    e2e = _e2e_ms_per_query(eng, many, BATCH_GROUP)
+    e2e_raw = _e2e_ms_per_query(eng, many, BATCH_GROUP, rescore_pool=0)
+
+    # the kernels against their plain versions (tie-safe), then timed
+    safe = dataclasses.replace(cfg, tie_safe_topk=True)
+    table, _ = eng._table(qs[0])
+    tables = _tables(qs, dev)
+    (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, safe)
+    (bv, bt), (bpv, bpt) = _batch_plain_and_kernel(eng, tables, safe)
+    torch.cuda.synchronize()
+    require(kv.shape == (PARTITIONS, cfg.lane_k, 128),
+            "K10b keeps a pool per partition")
+    k10b_err = compare_pools(kv, kt, pv, pt)
+    k10d_err = compare_pools(bv, bt, bpv, bpt)
+    k4_err = _scores_plain_and_kernel(eng, table)
+    bs = eng.fused.block_sublanes
+    parts = eng.partition_kw
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bargs = (eng.words, tables, eng.nreal, eng.plan_rows)
+    plain_kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                    tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
+                    **parts)
+    skw = dict(block_sublanes=bs, num_slices=eng.row_ids.shape[0],
+               num_partitions=PARTITIONS)
+    times = dict(
+        k10b_ms=cuda_ms(lambda: K.topk_spmv_fused_octet_device(
+            *args, cfg=cfg, block_sublanes=bs, **parts), reps=20, warmup=2),
+        k10b_plain_ms=cuda_ms(lambda: K.octet_topk_plain(*args, **plain_kw),
+                              reps=2),
+        k10d_ms=cuda_ms(lambda: K.topk_spmv_fused_batch_octet_device(
+            *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
+        k10d_plain_ms=cuda_ms(lambda: K.octet_topk_batch_plain(
+            *bargs, **plain_kw), reps=1, warmup=0),
+        k4_ms=cuda_ms(lambda: K.spmv_fused_scores_octet_device(
+            *args, cfg=cfg, **skw), reps=20, warmup=2),
+        k4_plain_ms=cuda_ms(lambda: K.octet_scores_plain(*args, **skw),
+                            reps=2))
+    bounds = dict(k10b=sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
+                  k10d=sweep_bound(eng, NUM_QUERIES,
+                                   topk_out_bytes(eng, NUM_QUERIES)),
+                  k4=sweep_bound(eng, 1, eng.row_ids.numel() * 4))
+    exact = np.asarray(csr @ qs[0], np.float32)
+    per_query = times["k10d_ms"] / NUM_QUERIES
+    res = dict(
+        phase="partitioned_octet_path",
+        config=dict(HEADLINE, num_partitions=PARTITIONS),
+        rows=eng.num_rows, buckets=len(eng.fused.plan),
+        zero_real_buckets=int((eng.nreal == 0).sum()),
+        words_bytes=eng.hbm_bytes, words_bytes_one_partition=p1_words_bytes,
+        words_bytes_added=eng.hbm_bytes - p1_words_bytes,
+        padding_words_per_nnz=eng.fused.padding_ratio,
+        pack_and_upload_s=build_s, queries=len(qs),
+        precision_at_100_mean=float(np.mean(prec)),
+        precision_at_100_min=float(np.min(prec)),
+        precision_raw_mean=float(np.mean(_precision(gold, raw, k))),
+        query_e2e_ms_median=statistics.median(q_ms),
+        batch_precision_at_100_mean=float(np.mean(bprec)),
+        batch_precision_at_100_min=float(np.min(bprec)),
+        agreement_with_query_mean=float(np.mean(same)),
+        group_of_32_e2e_ms=b_ms,
+        batch32_ms_per_query=per_query,
+        batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
+        batch32_e2e_ms_per_query=e2e,
+        batch32_e2e_raw_ms_per_query=e2e_raw,
+        scores_e2e_ms=s_ms,
+        scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
+        max_abs_exact=float(np.abs(exact).max()),
+        k10b_max_abs_err=k10b_err, k10d_max_abs_err=k10d_err,
+        k4_max_abs_err=k4_err, **times,
+        **{f"{k}_bound_ms": b[0] for k, b in bounds.items()},
+        **{f"{k}_bound_by": b[1] for k, b in bounds.items()},
+        k10b_words_gb_per_s=eng.hbm_bytes / (times["k10b_ms"] * 1e-3) / 1e9,
+        launches=launches, nvidia_smi=smi_line())
+    emit(res)
+    for key in ("precision_at_100_mean", "batch_precision_at_100_mean"):
+        require(res[key] >= MIN_PRECISION,
+                f"partitioned octet path {key} >= {MIN_PRECISION}")
+    for name, n in launches.items():
+        require(n > 0, f"the partitioned octet path launched {name}")
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, res, key, library_ms,
+                 **extra):
+    """One kernel of the summary line, from a phase's results ``res``
+    whose keys for this kernel start with ``key``."""
+    return dict(name=name, route="cuda",
+                source=f"spmv_topk_tpu_torch/csrc/{source}",
+                replaces=f"spmv_topk_tpu/{replaces}", launches=launches,
+                max_abs_err=res[f"{key}_max_abs_err"], ms=res[f"{key}_ms"],
+                plain_ms=res[f"{key}_plain_ms"],
+                bound_ms=res[f"{key}_bound_ms"],
+                bound_by=res[f"{key}_bound_by"], library_ms=library_ms,
+                **extra)
+
+
 def main():
     import torch
 
@@ -976,6 +1347,8 @@ def main():
     torch.cuda.synchronize()
     phase_slice_small(dev)
     torch.cuda.synchronize()
+    phase_partition_small(dev)
+    torch.cuda.synchronize()
     coo, eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
     full = phase_kernels_full(eng, qs, dev)
@@ -985,66 +1358,103 @@ def main():
     scores = phase_scores(eng, qs, dev)
     torch.cuda.synchronize()
     csr = eng._scipy_csr
+    p1_octet_bytes = eng.hbm_bytes
     del eng                         # the octet engine's words leave the card
     torch.cuda.empty_cache()
+    lib = phase_library(csr, qs, dev)
     sl = phase_slice_path(coo, csr, qs, gold, dev)
     torch.cuda.synchronize()
-    df = phase_default_path(coo, csr, qs, gold, dev)
+    gold_bf16 = _bf16_gold_sets(csr, qs, 100)
+    df = phase_default_path(coo, csr, qs, gold, gold_bf16, dev)
     torch.cuda.synchronize()
-    launches = dict(main_res["launches"],
-                    octet_topk_batch_h16=batch["launches"],
-                    octet_scores_h16=scores["launches"])
-    by_path = dict(slice_path=sl["launches"], default_path=df["launches"])
-    emit(dict(phase="launch_counts", **launches, **by_path))
-    for name, n in launches.items():
-        require(n > 0, f"its path launched {name}")
-    for path in by_path.values():
-        for name, n in path.items():
-            require(n > 0, f"its path launched {name}")
-
-    emit({"kernels": [
-        dict(name="octet_topk_h16", route="cuda",
-             source="spmv_topk_tpu_torch/csrc/octet_topk.cu",
-             replaces="spmv_topk_tpu/ops/kernel.py:1057",
-             launches=launches["octet_topk_h16"],
-             max_abs_err=full["k1_max_abs_err"], ms=full["k1_ms"],
-             plain_ms=full["k1_plain_ms"]),
-        dict(name="octet_topk_batch_h16", route="cuda",
-             source="spmv_topk_tpu_torch/csrc/octet_topk_batch.cu",
-             replaces="spmv_topk_tpu/ops/kernel.py:1641",
-             launches=launches["octet_topk_batch_h16"],
-             max_abs_err=batch["k6_max_abs_err"], ms=batch["k6_ms"],
-             plain_ms=batch["k6_plain_ms"]),
-        dict(name="octet_scores_h16", route="cuda",
-             source="spmv_topk_tpu_torch/csrc/octet_scores.cu",
-             replaces="spmv_topk_tpu/ops/kernel.py:2039",
-             launches=launches["octet_scores_h16"],
-             max_abs_err=scores["k4_max_abs_err"], ms=scores["k4_ms"],
-             plain_ms=scores["k4_plain_ms"]),
-        dict(name="stream_words", route="cuda",
-             source="spmv_topk_tpu_torch/csrc/stream_probe.cu",
-             replaces="spmv_topk_tpu/ops/streamprobe.py:54",
-             launches=launches["stream_words"],
-             max_abs_err=full["k3_max_abs_err"], ms=full["k3_ms"],
-             plain_ms=full["k3_plain_ms"]),
-        *(dict(name=name, route="cuda",
-               source=f"spmv_topk_tpu_torch/csrc/{name}.cu",
-               replaces=f"spmv_topk_tpu/ops/kernel.py:{line}",
-               launches=sl["launches"][name],
-               max_abs_err=sl[f"{kn}_max_abs_err"], ms=sl[f"{kn}_ms"],
-               plain_ms=sl[f"{kn}_plain_ms"],
-               f32=dict(launches=df["launches"][name],
-                        max_abs_err=df[f"{kn}_max_abs_err"],
-                        ms=df[f"{kn}_ms"], plain_ms=df[f"{kn}_plain_ms"]))
-          for name, kn, line in (("slice_topk", "k7", 864),
-                                 ("slice_topk_batch", "k8", 1381),
-                                 ("slice_scores", "k9", 1909))),
-    ]})
+    po = phase_partitioned_octet(coo, csr, qs, gold, p1_octet_bytes, dev)
+    torch.cuda.synchronize()
+    pdf = phase_default_path(coo, csr, qs, gold, gold_bf16, dev,
+                             partitions=PARTITIONS)
+    torch.cuda.synchronize()
+    summarize(main_res, full, batch, scores, lib, sl, df, po, pdf)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf):
+    """Emit each path's launch counts and the kernel summary line; raise
+    unless every kernel of every path was launched there."""
+    require(pdf["words_bytes"] >= df["words_bytes"],
+            "the partition skeleton adds words, never drops them")
+    launches = dict(main_res["launches"],
+                    octet_topk_batch_h16=batch["launches"],
+                    octet_scores_h16=scores["launches"])
+    by_path = dict(slice_path=sl["launches"], default_path=df["launches"],
+                   partitioned_octet_path=po["launches"],
+                   partitioned_default_path=pdf["launches"])
+    emit(dict(phase="launch_counts", main_path=launches, **by_path,
+              words_bytes=dict(
+                  octet_one_partition=po["words_bytes_one_partition"],
+                  octet_partitioned=po["words_bytes"],
+                  default_one_partition=df["words_bytes"],
+                  default_partitioned=pdf["words_bytes"])))
+    for path in (launches, *by_path.values()):
+        for name, n in path.items():
+            require(n > 0, f"its path launched {name}")
+
+    # library yardsticks: SpMV alone for the SpMV kernels, SpMV and
+    # torch.topk (two calls) for the Top-K sweeps, at each sweep's queries
+    spmv, topk1 = lib["spmv_ms"], lib["spmv_topk_1_ms"]
+    two = dict(library_calls="torch.sparse.mm + torch.topk")
+    one = dict(library_calls="torch.sparse.mm")
+    ker = "ops/kernel.py"
+    emit({"kernels": [
+        kernel_entry("octet_topk_h16", "octet_topk.cu", f"{ker}:1057",
+                     launches["octet_topk_h16"], full, "k1", topk1, **two),
+        kernel_entry("octet_topk_batch_h16", "octet_topk_batch.cu",
+                     f"{ker}:1641", launches["octet_topk_batch_h16"], batch,
+                     "k6", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                     queries=BATCH_GROUP, **two),
+        kernel_entry("octet_scores_h16", "octet_scores.cu", f"{ker}:2039",
+                     launches["octet_scores_h16"], scores, "k4", spmv,
+                     **one),
+        kernel_entry("stream_words", "stream_probe.cu",
+                     "ops/streamprobe.py:54", launches["stream_words"],
+                     full, "k3", None),
+        *(kernel_entry(
+            name, f"{name}.cu", f"{ker}:{line}", sl["launches"][name], sl,
+            kn, lib[f"spmv_topk_{q}_ms"] if kn != "k9" else spmv,
+            f32=kernel_entry(name, f"{name}.cu", f"{ker}:{line}",
+                             df["launches"][name], df, kn,
+                             lib[f"spmv_topk_{fq}_ms"] if kn != "k9"
+                             else spmv))
+          for name, kn, line, q, fq in (
+              ("slice_topk", "k7", 864, 1, 1),
+              ("slice_topk_batch", "k8", 1381, BATCH_GROUP, DEFAULT_GROUP),
+              ("slice_scores", "k9", 1909, 1, 1))),
+        # K10a-d and the partitioned K4/K9: the same kernels with a
+        # partition axis, on the partitioned paths
+        kernel_entry("octet_topk_h16_partitioned", "octet_topk.cu",
+                     f"{ker}:1116", po["launches"]["octet_topk_h16"], po,
+                     "k10b", topk1, partitions=PARTITIONS, **two),
+        kernel_entry("octet_topk_batch_h16_partitioned",
+                     "octet_topk_batch.cu", f"{ker}:1693",
+                     po["launches"]["octet_topk_batch_h16"], po, "k10d",
+                     lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                     partitions=PARTITIONS, queries=BATCH_GROUP, **two),
+        kernel_entry("octet_scores_h16_partitioned", "octet_scores.cu",
+                     f"{ker}:2039", po["launches"]["octet_scores_h16"], po,
+                     "k4", spmv, partitions=PARTITIONS, **one),
+        kernel_entry("slice_topk_partitioned", "slice_topk.cu",
+                     f"{ker}:927", pdf["launches"]["slice_topk"], pdf, "k7",
+                     topk1, partitions=PARTITIONS, **two),
+        kernel_entry("slice_topk_batch_partitioned", "slice_topk_batch.cu",
+                     f"{ker}:1440", pdf["launches"]["slice_topk_batch"], pdf,
+                     "k8", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
+                     partitions=PARTITIONS, queries=DEFAULT_GROUP, **two),
+        kernel_entry("slice_scores_partitioned", "slice_scores.cu",
+                     f"{ker}:1909", pdf["launches"]["slice_scores"], pdf,
+                     "k9", spmv, partitions=PARTITIONS, **one),
+    ]})
 
 
 if __name__ == "__main__":

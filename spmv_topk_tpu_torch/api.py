@@ -1,13 +1,15 @@
 """User-facing engine: matrix-resident Top-K SpMV on one device.
 
-The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV`` on one
-partition, for two engines: the slice stream (``fused_layout="slice"``,
-the default) with the ``f32`` (the default) or ``h16`` query codec, and
-the octet stream (``fused_layout="octet"``) with ``h16``. ``TopKSpMV`` is
-an ``nn.Module`` whose buffers hold the packed stream (``words``), the
-real slices per bucket (``nreal``), the slice -> row map (``row_ids``)
-and the kernels' bucket plan (``plan_rows``) on the device it was built
-for. A query runs
+The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV``, for two
+engines: the slice stream (``fused_layout="slice"``, the default) with
+the ``f32`` (the default) or ``h16`` query codec, and the octet stream
+(``fused_layout="octet"``) with ``h16``; each on one partition or, with
+``num_partitions`` P > 1, on P row partitions that share one plan and
+keep a Top-K pool each (``pack_fused_partitions``). ``TopKSpMV`` is an
+``nn.Module`` whose buffers hold the packed stream (``words``), the real
+slices per bucket (``nreal``), the slice -> row map (``row_ids``) and the
+kernels' bucket plan (``plan_rows``) on the device it was built for. A
+query runs
 
   1. the query table (``ops/quantized_query.pack_query_table``),
   2. the sweep (``ops/kernel.topk_spmv_fused_device`` on the slice
@@ -40,9 +42,10 @@ import torch
 
 from .config import LANES, TopKSpMVConfig, ValueFormat, DEFAULT_CONFIG
 from .formats.coo import CooMatrix, from_scipy
-from .formats.sell_buckets import (FusedSellMatrix, fuse_buckets,
-                                   fuse_buckets_octet, octet_plan_array,
-                                   octet_plan_from_array, pack_sell_buckets,
+from .formats.sell_buckets import (FusedSellMatrix, PartitionedFusedMatrix,
+                                   fuse_buckets, fuse_buckets_octet,
+                                   octet_plan_array, octet_plan_from_array,
+                                   pack_fused_partitions, pack_sell_buckets,
                                    slice_plan_array, slice_plan_from_array)
 from .ops.kernel import (SLICE_CODECS, finalize_topk, finalize_topk_batch,
                          octet_plan_rows, slice_plan_rows,
@@ -133,10 +136,6 @@ def _check_slice(config: TopKSpMVConfig) -> None:
             f"fused_layout={config.fused_layout!r} stream is not ported yet "
             "(ROADMAP.md Queue 1 item 5, other query codecs): use one of "
             f"{ported}")
-    if config.num_partitions > 1:
-        raise NotImplementedError(
-            "num_partitions > 1 is not ported yet (ROADMAP.md Queue 1 "
-            "item 8, partitioned engines)")
 
 
 class TopKSpMV(torch.nn.Module):
@@ -159,12 +158,19 @@ class TopKSpMV(torch.nn.Module):
         # exact rescoring keeps the host CSR; the sorted COO's arrays back
         # it without a copy
         csr = matrix.to_scipy_csr() if config.rescore_pool else None
-        fused = _LAYOUTS[config.fused_layout].fuse(
-            pack_sell_buckets(matrix, config),
-            block_sublanes=config.fused_block_sublanes)
+        if config.num_partitions > 1:
+            fused = pack_fused_partitions(
+                matrix, config, config.num_partitions,
+                octet=config.fused_layout == "octet")
+        else:
+            fused = _LAYOUTS[config.fused_layout].fuse(
+                pack_sell_buckets(matrix, config),
+                block_sublanes=config.fused_block_sublanes)
         self._init_state(config, fused, device, csr)
 
-    def _init_state(self, config, fused: FusedSellMatrix, device, csr):
+    def _init_state(self, config, fused, device, csr):
+        """fused: a FusedSellMatrix, or a PartitionedFusedMatrix when
+        config.num_partitions > 1."""
         self.config = config
         self.fused = fused
         self.num_rows = fused.num_rows
@@ -175,13 +181,27 @@ class TopKSpMV(torch.nn.Module):
         self._last_scale = 1.0
         self._layout = _LAYOUTS[config.fused_layout]
         device = torch.device(device)
+        P = config.num_partitions
+        if getattr(fused, "num_partitions", 1) != P or \
+                isinstance(fused, PartitionedFusedMatrix) != (P > 1):
+            raise ValueError(f"config.num_partitions={P} does not match "
+                             f"the packed stream ({type(fused).__name__})")
+        # partition p's slice tags are offset by p * part_slices
+        part_slices = fused.part_slices if P > 1 else fused.row_ids.shape[0]
+        self._parts = (dict(num_partitions=P, part_slices=part_slices)
+                       if P > 1 else {})
         plan_rows = self._layout.plan_rows(fused)
-        if fused.words.shape[0] != fused.num_blocks * fused.block_sublanes:
-            raise ValueError("words rows do not match num_blocks * "
-                             "block_sublanes")
-        ends = [p.slice_base + int(n) for p, n in
-                zip(fused.plan, np.asarray(fused.nreal).reshape(-1))]
-        if max(ends, default=0) > fused.row_ids.shape[0] - 1:
+        if fused.words.shape[0] != \
+                P * fused.num_blocks * fused.block_sublanes:
+            raise ValueError("words rows do not match num_partitions * "
+                             "num_blocks * block_sublanes")
+        if fused.row_ids.shape[0] != P * part_slices:
+            raise ValueError("row_ids rows do not match num_partitions * "
+                             "part_slices")
+        nreal = np.asarray(fused.nreal).reshape(P, len(fused.plan))
+        ends = [p.slice_base + int(n) for nr in nreal
+                for p, n in zip(fused.plan, nr)]
+        if max(ends, default=0) > part_slices - 1:
             raise ValueError("plan slices run past row_ids")
         for name, arr in (("words", fused.words), ("nreal", fused.nreal),
                           ("row_ids", fused.row_ids),
@@ -193,6 +213,12 @@ class TopKSpMV(torch.nn.Module):
     def device(self) -> torch.device:
         return self.words.device
 
+    @property
+    def partition_kw(self) -> dict:
+        """The Top-K sweeps' partition keywords for this engine's stream
+        (num_partitions, part_slices), or none on one partition."""
+        return dict(self._parts)
+
     @classmethod
     def from_reference_arrays(cls, words, nreal, row_ids, plan_rows, meta,
                               device, matrix=None):
@@ -202,8 +228,9 @@ class TopKSpMV(torch.nn.Module):
         ``spmv_topk_tpu.TopKSpMV``; plan_rows: its plan as the snapshot
         array, (B, 6) for the slice layout and (B, 7) for the octet
         layout; meta: the snapshot's meta dict (config as
-        ``dataclasses.asdict``, geometry, value_scale). Exact rescoring
-        needs the source matrix: without ``matrix`` it is disabled."""
+        ``dataclasses.asdict``, geometry, value_scale; num_partitions and
+        part_slices for a partitioned engine). Exact rescoring needs the
+        source matrix: without ``matrix`` it is disabled."""
         cfg_d = dict(meta["config"])
         cfg_d["value_format"] = ValueFormat(**cfg_d["value_format"])
         if cfg_d.get("rescore_pool") and matrix is None:
@@ -214,25 +241,29 @@ class TopKSpMV(torch.nn.Module):
             cfg_d["rescore_pool"] = None
         config = TopKSpMVConfig(**cfg_d)
         _check_slice(config)
-        if meta.get("num_partitions", 1) > 1:
-            raise NotImplementedError(
-                "partitioned snapshots are not ported yet (ROADMAP.md "
-                "Queue 1 item 8, partitioned engines)")
         plan_rows = np.asarray(plan_rows)
         cols = 6 if config.fused_layout == "slice" else 7
         if plan_rows.ndim != 2 or plan_rows.shape[1] != cols:
             raise ValueError(f"a {config.fused_layout} plan has {cols} "
                              f"columns, got shape {plan_rows.shape}")
-        fused = FusedSellMatrix(
+        P = int(meta.get("num_partitions", 1))
+        geometry = dict(
             words=np.asarray(words, np.int32),
             plan=_LAYOUTS[config.fused_layout].plan_from_array(plan_rows),
-            nreal=np.asarray(nreal, np.int32).reshape(-1, 1),
             block_sublanes=int(meta["block_sublanes"]),
             num_blocks=int(meta["num_blocks"]),
             row_ids=np.asarray(row_ids, np.int32),
             num_rows=int(meta["num_rows"]), num_cols=int(meta["num_cols"]),
             num_nnz=int(meta["num_nnz"]),
             value_scale=float(meta.get("value_scale", 1.0)))
+        if P > 1:
+            fused = PartitionedFusedMatrix(
+                nreal=np.asarray(nreal, np.int32).reshape(P, -1, 1),
+                num_partitions=P, part_slices=int(meta["part_slices"]),
+                **geometry)
+        else:
+            fused = FusedSellMatrix(
+                nreal=np.asarray(nreal, np.int32).reshape(-1, 1), **geometry)
         csr = None
         if matrix is not None and config.rescore_pool:
             if not isinstance(matrix, CooMatrix):
@@ -251,6 +282,8 @@ class TopKSpMV(torch.nn.Module):
                     num_blocks=f.num_blocks, num_rows=f.num_rows,
                     num_cols=f.num_cols, num_nnz=f.num_nnz,
                     value_scale=f.value_scale, format_version=2)
+        # a partitioned stream's geometry, as the JAX package writes it
+        meta.update(self._parts)
         # explicit file handle: np.savez(str) appends '.npz' when the
         # suffix is missing, but load() opens the literal path
         with open(path, "wb") as fh:
@@ -283,12 +316,13 @@ class TopKSpMV(torch.nn.Module):
             scale
 
     def candidates(self, vec):
-        """Per-lane Top-K candidates (topv, topt), each (lane_k, 128),
+        """Per-lane Top-K candidates (topv, topt), each (lane_k, 128), or
+        (P, lane_k, 128) on P > 1 partitions (a pool per partition),
         before the global merge; values are unscaled (h16: integer sums)."""
         table, self._last_scale = self._table(vec)
         return self._layout.sweep(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
-            block_sublanes=self.fused.block_sublanes)
+            block_sublanes=self.fused.block_sublanes, **self._parts)
 
     def _rescore(self, idx, vec, k):
         if self._scipy_csr is None:
@@ -326,12 +360,13 @@ class TopKSpMV(torch.nn.Module):
 
     def batch_candidates(self, tables):
         """Per-lane candidates of a query group: (topv, topt), each
-        (Q, lane_k, 128), values unscaled (h16: integer sums). tables:
-        the group's (Q, rows, 128) tables (``pack_query_tables``: int32
-        for h16, float32 for f32) on the engine's device."""
+        (Q, lane_k, 128), or (Q, P, lane_k, 128) on P > 1 partitions,
+        values unscaled (h16: integer sums). tables: the group's (Q,
+        rows, 128) tables (``pack_query_tables``: int32 for h16, float32
+        for f32) on the engine's device."""
         return self._layout.batch_sweep(
             self.words, tables, self.nreal, self.plan_rows, cfg=self.config,
-            block_sublanes=self.fused.block_sublanes)
+            block_sublanes=self.fused.block_sublanes, **self._parts)
 
     def query_batch(self, queries, k: Optional[int] = None,
                     group_size: int = 8,
@@ -413,7 +448,8 @@ class TopKSpMV(torch.nn.Module):
         sc = self._layout.scores(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes,
-            num_slices=self.row_ids.shape[0])
+            num_slices=self.row_ids.shape[0],
+            num_partitions=self.config.num_partitions)
         rows = self.row_ids.reshape(-1).long()
         # padding lanes (row -1) land in one extra slot, dropped after
         res = torch.zeros(self.num_rows + 1, dtype=torch.float32,

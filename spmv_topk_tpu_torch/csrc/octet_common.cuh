@@ -7,7 +7,9 @@
 // one per sublane. The bucket plan is an int32 (B, 8) table (ops/kernel.py
 // ::octet_plan_rows). A CUDA block grid-strides over the octets of all
 // buckets; locate() turns a global octet index into its bucket and the
-// address of its first word, for the block's lane.
+// address of its first word, for the block's lane. A partitioned stream
+// is P such streams on one plan; the grid's y index is the partition
+// (partition()).
 
 #pragma once
 
@@ -139,6 +141,27 @@ __device__ __forceinline__ void harvest(float (&tv)[K], int32_t (&tt)[K],
     for (int m = 0; m < kMembers; ++m)
       if (m == sl) sc[m] = -INFINITY;
   }
+}
+
+// Partition blockIdx.y of a partition-major stream (formats/
+// sell_buckets.py::PartitionedFusedMatrix; an unpartitioned stream is
+// partition 0 of 1): its blocks start part_rows rows into the words, its
+// real-slice counts num_buckets into nreal ((P, B) int32), and its slice
+// tags part_slices into the stacked row_ids (the JAX kernels' toff). Each
+// CUDA block works inside one partition, so its lane buffers hold that
+// partition's candidates only.
+struct Partition {
+  const int32_t* words;
+  const int32_t* nreal;
+  int tag_offset;
+};
+
+__device__ __forceinline__ Partition partition(const int32_t* words, const int32_t* nreal,
+                                               int num_buckets, int part_rows,
+                                               int part_slices) {
+  const int p = blockIdx.y;
+  return {words + (int64_t)p * part_rows * kLanes, nreal + (int64_t)p * num_buckets,
+          p * part_slices};
 }
 
 __device__ __forceinline__ int total_octets(const int32_t* plan, int num_buckets) {

@@ -2,7 +2,9 @@
 // (sm_90a).
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_scores_kernel_octet (the
-// pallas_call of spmv_fused_scores_octet_device).
+// pallas_call of spmv_fused_scores_octet_device, with its (P, num_blocks)
+// partition grid too: the partition is the grid's y index, and partition
+// p's slices land part_slices * p rows down, against the stacked row_ids).
 //
 // What it computes. Every octet's 8 member sums of h16 products (the same
 // sums K1 harvests, octet_common.cuh::octet_sums), converted to float
@@ -33,22 +35,26 @@ octet_scores_kernel(const int32_t* __restrict__ words,
                     const int32_t* __restrict__ table,
                     const int32_t* __restrict__ nreal,
                     const int32_t* __restrict__ plan, int num_buckets,
-                    int block_sublanes, float* __restrict__ out) {
+                    int block_sublanes, int part_rows, int part_slices,
+                    float* __restrict__ out) {
   __shared__ int32_t tab[kLanes];
   const int lane = threadIdx.x;
   tab[lane] = table[lane];
   __syncthreads();
 
+  const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
   const int total = total_octets(plan, num_buckets);
   int b = 0;
   for (int g = blockIdx.x; g < total; g += gridDim.x) {
-    const Octet oc = locate(words, plan, nreal, num_buckets, block_sublanes, g, b, lane);
+    const Octet oc = locate(part.words, plan, part.nreal, num_buckets, block_sublanes, g, b, lane);
+    if (oc.index >= oc.n_real) continue;   // skeleton padding: no real member
     int32_t acc[kMembers];
     octet_sums(oc, tab, acc);
+    const int64_t row0 = part.tag_offset + oc.slice0;
 #pragma unroll
     for (int m = 0; m < kMembers; ++m)
       if (oc.index + m * oc.stride < oc.n_real)
-        out[(int64_t)(oc.slice0 + m * oc.stride) * kLanes + lane] = static_cast<float>(acc[m]);
+        out[(row0 + m * oc.stride) * kLanes + lane] = static_cast<float>(acc[m]);
   }
 }
 
@@ -56,17 +62,21 @@ octet_scores_kernel(const int32_t* __restrict__ words,
 
 extern "C" {
 
-// words: (num_blocks * block_sublanes, 128) int32; table: (1, 128) int32;
-// nreal: (num_buckets,) int32; plan: (num_buckets, 8) int32;
-// out: (num_slices, 128) f32, rows of real slices written, others left.
+// words: (num_partitions * part_rows, 128) int32, part_rows a whole
+// number of blocks; table: (1, 128) int32; nreal: (num_partitions,
+// num_buckets) int32; plan: (num_buckets, 8) int32; out: (num_partitions
+// * part_slices, 128) f32, rows of real slices written, others left.
 // Returns cudaGetLastError().
 int octet_scores_h16(const int32_t* words, const int32_t* table,
                      const int32_t* nreal, const int32_t* plan,
                      int num_buckets, int block_sublanes, int num_cuda_blocks,
+                     int num_partitions, int part_rows, int part_slices,
                      float* out, void* stream) {
-  if (num_buckets < 1 || num_cuda_blocks < 1) return cudaErrorInvalidValue;
-  octet_scores_kernel<<<num_cuda_blocks, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, table, nreal, plan, num_buckets, block_sublanes, out);
+  if (num_buckets < 1 || num_cuda_blocks < 1 || num_partitions < 1 || num_partitions > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid(num_cuda_blocks, num_partitions);
+  octet_scores_kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      words, table, nreal, plan, num_buckets, block_sublanes, part_rows, part_slices, out);
   return static_cast<int>(cudaGetLastError());
 }
 

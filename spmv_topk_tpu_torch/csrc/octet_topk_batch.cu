@@ -1,8 +1,11 @@
-// Multi-query octet Top-K sweep of the h16 stream (kernel K6) for Hopper
-// (sm_90a).
+// Multi-query octet Top-K sweep of the h16 stream (kernel K6; K10d with
+// partitions) for Hopper (sm_90a).
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel_batch_octet (the
-// pallas_call of topk_spmv_fused_batch_octet_device).
+// pallas_calls of topk_spmv_fused_batch_octet_device and, with P row
+// partitions, topk_spmv_fused_batch_octet_part_device: the partition is
+// the grid's y index, as in K1, and each query keeps a pool per
+// partition, (Q, P, lane_k, 128) after the merge).
 //
 // What it computes. For each of Q queries, exactly what K1
 // (octet_topk.cu) computes for one: every octet's 8 member sums of h16
@@ -47,8 +50,8 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words,
                         const int32_t* __restrict__ nreal,
                         const int32_t* __restrict__ plan, int num_buckets,
                         int block_sublanes, int num_queries, int subgroup,
-                        int num_subgroups, float* __restrict__ out_v,
-                        int32_t* __restrict__ out_t) {
+                        int num_subgroups, int part_rows, int part_slices,
+                        float* __restrict__ out_v, int32_t* __restrict__ out_t) {
   static_assert(QG >= 1 && QG <= 8, "a table entry holds 8 nibbles");
   __shared__ uint32_t tab[kH16Cols];
   const int lane = threadIdx.x;
@@ -65,10 +68,12 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words,
 #pragma unroll
   for (int dq = 0; dq < QG; ++dq) topk_init<K, TIE_SAFE>(tv[dq], tt[dq]);
 
+  const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
   const int total = total_octets(plan, num_buckets);
   int b = 0;
   for (int g = slot; g < total; g += num_slots) {
-    const Octet oc = locate(words, plan, nreal, num_buckets, block_sublanes, g, b, lane);
+    const Octet oc = locate(part.words, plan, part.nreal, num_buckets, block_sublanes, g, b, lane);
+    if (oc.index >= oc.n_real) continue;   // skeleton padding: no real member
     int32_t acc[QG][kMembers];
 #pragma unroll
     for (int dq = 0; dq < QG; ++dq)
@@ -92,14 +97,15 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words,
 #pragma unroll
       for (int m = 0; m < kMembers; ++m)
         sc[m] = (oc.index + m * oc.stride < oc.n_real) ? static_cast<float>(acc[dq][m]) : -INFINITY;
-      harvest<K, TIE_SAFE, EXACT>(tv[dq], tt[dq], sc, oc.slice0, oc.stride);
+      harvest<K, TIE_SAFE, EXACT>(tv[dq], tt[dq], sc, part.tag_offset + oc.slice0, oc.stride);
     }
   }
 
 #pragma unroll
   for (int dq = 0; dq < QG; ++dq) {
     if (dq >= nq) break;
-    const int64_t out0 = ((int64_t)(q0 + dq) * num_slots + slot) * K * kLanes + lane;
+    const int64_t out0 =
+        (((int64_t)(q0 + dq) * gridDim.y + blockIdx.y) * num_slots + slot) * K * kLanes + lane;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
       out_v[out0 + s * kLanes] = tv[dq][s];
@@ -114,7 +120,7 @@ struct Args {
   const int32_t* nreal;
   const int32_t* plan;
   int num_buckets, block_sublanes, num_queries, subgroup, num_subgroups,
-      num_cuda_blocks;
+      num_cuda_blocks, num_partitions, part_rows, part_slices;
   float* out_v;
   int32_t* out_t;
   cudaStream_t stream;
@@ -122,9 +128,11 @@ struct Args {
 
 template <int K, int QG, bool TIE_SAFE, bool EXACT>
 void launch(const Args& a) {
-  octet_topk_batch_kernel<K, QG, TIE_SAFE, EXACT><<<a.num_cuda_blocks, kLanes, 0, a.stream>>>(
+  const dim3 grid(a.num_cuda_blocks, a.num_partitions);
+  octet_topk_batch_kernel<K, QG, TIE_SAFE, EXACT><<<grid, kLanes, 0, a.stream>>>(
       a.words, a.tables, a.nreal, a.plan, a.num_buckets, a.block_sublanes,
-      a.num_queries, a.subgroup, a.num_subgroups, a.out_v, a.out_t);
+      a.num_queries, a.subgroup, a.num_subgroups, a.part_rows, a.part_slices, a.out_v,
+      a.out_t);
 }
 
 template <int K, int QG>
@@ -147,26 +155,30 @@ void launch_k(bool tie_safe, bool exact, const Args& a) {
 
 extern "C" {
 
-// words: (num_blocks * block_sublanes, 128) int32; tables: (Q, 128) int32;
-// nreal: (num_buckets,) int32; plan: (num_buckets, 8) int32; subgroup:
-// live queries per CUDA block, 1..8; num_cuda_blocks: a multiple of
-// num_subgroups = ceil(Q / subgroup);
-// out_v/out_t: (Q, num_cuda_blocks / num_subgroups, lane_k, 128).
-// Returns cudaGetLastError().
+// words: (num_partitions * part_rows, 128) int32, part_rows a whole
+// number of blocks; tables: (Q, 128) int32; nreal: (num_partitions,
+// num_buckets) int32; plan: (num_buckets, 8) int32; subgroup: live
+// queries per CUDA block, 1..8; num_cuda_blocks (per partition): a
+// multiple of num_subgroups = ceil(Q / subgroup); part_slices: slice tags
+// per partition; out_v/out_t: (Q, num_partitions, num_cuda_blocks /
+// num_subgroups, lane_k, 128). Returns cudaGetLastError().
 int octet_topk_batch_h16(const int32_t* words, const int32_t* tables,
                          const int32_t* nreal, const int32_t* plan,
                          int num_buckets, int block_sublanes, int lane_k,
                          int exact, int tie_safe, int num_queries,
-                         int subgroup, int num_cuda_blocks, float* out_v,
+                         int subgroup, int num_cuda_blocks, int num_partitions,
+                         int part_rows, int part_slices, float* out_v,
                          int32_t* out_t, void* stream) {
-  if (num_buckets < 1 || num_queries < 1 || subgroup < 1 || subgroup > 8)
+  if (num_buckets < 1 || num_queries < 1 || subgroup < 1 || subgroup > 8 ||
+      num_partitions < 1 || num_partitions > 65535)
     return cudaErrorInvalidValue;
   const int num_subgroups = (num_queries + subgroup - 1) / subgroup;
   if (num_cuda_blocks < num_subgroups || num_cuda_blocks % num_subgroups)
     return cudaErrorInvalidValue;
   const Args a{words, tables, nreal, plan, num_buckets, block_sublanes,
-               num_queries, subgroup, num_subgroups, num_cuda_blocks, out_v,
-               out_t, static_cast<cudaStream_t>(stream)};
+               num_queries, subgroup, num_subgroups, num_cuda_blocks,
+               num_partitions, part_rows, part_slices, out_v, out_t,
+               static_cast<cudaStream_t>(stream)};
   switch (lane_k) {
     case 4: launch_k<4>(tie_safe, exact, a); break;
     case 8: launch_k<8>(tie_safe, exact, a); break;

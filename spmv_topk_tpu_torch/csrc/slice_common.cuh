@@ -17,7 +17,11 @@
 // that is carried over. What is carried over exactly is which slice
 // scores reach the Top-K buffers (the harvest), because that decides the
 // candidates: Walker cuts the stream into the work items of
-// ops/kernel.py::slice_work, the same rules written twice.
+// ops/kernel.py::slice_work, the same rules written twice. A partitioned
+// stream is P such streams on one plan, the grid's y index the partition
+// (octet_common.cuh::partition); a partition's buckets may hold more
+// blocks than its slices need (the shared skeleton), and the Walker skips
+// slices at or past the bucket's real count.
 
 #pragma once
 
@@ -34,12 +38,15 @@ enum PlanCol { kWidth, kSpb, kBps, kSliceBase, kBlkStart, kNumBlocks };
 enum Mode { kWide, kRuns, kTiled };  // ops/kernel.py: WIDE, RUNS, TILED
 
 // Single-query codecs: the per-word product added to a lane's sum.
+// kShared says whether the sweeps copy the query table into shared
+// memory first (else each gather reads it from global memory).
 // h16: two nnz per word against the int4x8 table (128 int32), summed in
 // int32 (exact in any order) and converted to float once per slice, or
 // once per block of a wide slice, as the JAX kernel does.
 struct H16 {
   using Tab = int32_t;
   using Acc = int32_t;
+  static constexpr bool kShared = true;
   __device__ static __forceinline__ Acc add(Acc a, uint32_t u, const Tab* tab, int) {
     return a + octet::prod_h16(static_cast<int32_t>(u), tab);
   }
@@ -52,17 +59,47 @@ struct H16 {
 // rounded: no FMA contraction, as on the TPU. The sum runs in row order
 // from 0, so it agrees with the TPU's two interleaved accumulators to
 // rounding, and with the plain version (ops/kernel.py::_row_sum) bit for
-// bit.
-struct F32 {
+// bit. SHARED: the table sits in shared memory; otherwise (a table larger
+// than a block's shared memory, ops/kernel.py::f32_tables_in_smem) each
+// gather reads global memory through the read-only path: 256 KB at the
+// widest table (65,536 columns), which stays in L2 and L1. The arithmetic
+// is the same either way.
+template <bool SHARED>
+struct F32T {
   using Tab = float;
   using Acc = float;
+  static constexpr bool kShared = SHARED;
   __device__ static __forceinline__ Acc add(Acc a, uint32_t u, const Tab* tab, int table_rows) {
     const uint32_t col = u >> 16;
     const uint32_t idx = (col >> 7) < static_cast<uint32_t>(table_rows) ? col : (col & 0x7Fu);
-    return __fadd_rn(a, __fmul_rn(__uint_as_float(u << 16), tab[idx]));
+    const float q = SHARED ? tab[idx] : __ldg(tab + idx);
+    return __fadd_rn(a, __fmul_rn(__uint_as_float(u << 16), q));
   }
   __device__ static __forceinline__ float finish(Acc a) { return a; }
 };
+using F32 = F32T<true>;
+using F32Global = F32T<false>;
+
+// The query table a sweep gathers from: copied into shared memory by
+// the block's threads (C::kShared), else the global table itself.
+template <class C>
+__device__ __forceinline__ const typename C::Tab* stage_table(unsigned char* smem,
+                                                            const typename C::Tab* table,
+                                                            int table_rows, int lane) {
+  if (!C::kShared) return table;
+  typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
+  for (int i = lane; i < table_rows * kLanes; i += kLanes) tab[i] = table[i];
+  __syncthreads();
+  return tab;
+}
+
+template <class C>
+inline size_t table_smem_bytes(int table_rows) {
+  return C::kShared ? sizeof(typename C::Tab) * table_rows * kLanes : 0;
+}
+
+using octet::Partition;
+using octet::partition;
 
 // One bucket of the plan and how it is cut into work items
 // (ops/kernel.py::slice_work). A unit is a block of a narrow bucket or a

@@ -2,7 +2,9 @@
 // codecs h16 and f32.
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_scores_kernel (the
-// pallas_call of spmv_fused_scores_device).
+// pallas_call of spmv_fused_scores_device, with its (P, num_blocks)
+// partition grid too: the partition is the grid's y index, and partition
+// p's slices land part_slices * p rows down, against the stacked row_ids).
 //
 // What it computes. Every real slice's 128 row scores, as K7 computes
 // them (slice_common.cuh::member_score: h16 sums converted once per slice
@@ -32,36 +34,46 @@ slice_scores_kernel(const int32_t* __restrict__ words,
                     const typename C::Tab* __restrict__ table,
                     const int32_t* __restrict__ nreal,
                     const int32_t* __restrict__ plan, int num_buckets,
-                    int block_sublanes, int table_rows,
-                    float* __restrict__ out) {
+                    int block_sublanes, int table_rows, int part_rows,
+                    int part_slices, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
   const int lane = threadIdx.x;
-  for (int i = lane; i < table_rows * kLanes; i += kLanes) tab[i] = table[i];
-  __syncthreads();
+  const typename C::Tab* tab = stage_table<C>(smem, table, table_rows, lane);
 
   // fold_tile 1: runs of slices and wide slices, every slice on its own
-  Walker w(words, plan, nreal, num_buckets, block_sublanes, 1, lane);
+  const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
+  Walker w(part.words, plan, part.nreal, num_buckets, block_sublanes, 1, lane);
   Item it;
   for (int g = blockIdx.x; w.locate(g, it); g += gridDim.x) {
     for (int m = 0; m < it.count; ++m) {
       if (!w.real(it, m)) continue;
-      out[(int64_t)w.tag(it, m) * kLanes + lane] = member_score<C>(w, it, m, tab, table_rows);
+      out[((int64_t)part.tag_offset + w.tag(it, m)) * kLanes + lane] =
+          member_score<C>(w, it, m, tab, table_rows);
     }
   }
 }
 
+struct Args {
+  const int32_t* words;
+  const void* table;
+  const int32_t* nreal;
+  const int32_t* plan;
+  int num_buckets, block_sublanes, table_rows, num_cuda_blocks, num_partitions, part_rows,
+      part_slices;
+  float* out;
+  cudaStream_t stream;
+};
+
 template <class C>
-cudaError_t launch(const int32_t* words, const void* table, const int32_t* nreal,
-                   const int32_t* plan, int num_buckets, int block_sublanes,
-                   int table_rows, int num_cuda_blocks, float* out, cudaStream_t stream) {
+cudaError_t launch(const Args& a) {
   auto kernel = slice_scores_kernel<C>;
-  const size_t smem = sizeof(typename C::Tab) * table_rows * kLanes;
+  const size_t smem = table_smem_bytes<C>(a.table_rows);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<num_cuda_blocks, kLanes, smem, stream>>>(
-      words, static_cast<const typename C::Tab*>(table), nreal, plan, num_buckets,
-      block_sublanes, table_rows, out);
+  const dim3 grid(a.num_cuda_blocks, a.num_partitions);
+  kernel<<<grid, kLanes, smem, a.stream>>>(
+      a.words, static_cast<const typename C::Tab*>(a.table), a.nreal, a.plan, a.num_buckets,
+      a.block_sublanes, a.table_rows, a.part_rows, a.part_slices, a.out);
   return cudaSuccess;
 }
 
@@ -69,28 +81,28 @@ cudaError_t launch(const int32_t* words, const void* table, const int32_t* nreal
 
 extern "C" {
 
-// words: (num_blocks * block_sublanes, 128) int32; table: (1, 128) int32
-// (codec 0, h16) or (table_rows, 128) f32 (codec 1, f32); nreal:
-// (num_buckets,) int32; plan: (num_buckets, 6) int32; out: (num_slices,
-// 128) f32, rows of real slices written, others left. Returns
-// cudaGetLastError() (or the error of a refused launch).
+// words: (num_partitions * part_rows, 128) int32, part_rows a whole
+// number of blocks; table: (1, 128) int32 (codec 0, h16) or (table_rows,
+// 128) f32 (codec 1, f32 in shared memory; codec 2, f32 read from global
+// memory); nreal: (num_partitions, num_buckets) int32; plan:
+// (num_buckets, 6) int32; out: (num_partitions * part_slices, 128) f32,
+// rows of real slices written, others left. Returns cudaGetLastError()
+// (or the error of a refused launch).
 int slice_scores(const int32_t* words, const void* table, const int32_t* nreal,
                  const int32_t* plan, int num_buckets, int block_sublanes,
-                 int table_rows, int codec, int num_cuda_blocks, float* out,
-                 void* stream) {
-  if (num_buckets < 1 || num_cuda_blocks < 1 || table_rows < 1 ||
-      (codec == 0 && table_rows != 1))
+                 int table_rows, int codec, int num_cuda_blocks, int num_partitions,
+                 int part_rows, int part_slices, float* out, void* stream) {
+  if (num_buckets < 1 || num_cuda_blocks < 1 || table_rows < 1 || num_partitions < 1 ||
+      num_partitions > 65535 || (codec == 0 && table_rows != 1))
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
+               num_cuda_blocks, num_partitions, part_rows, part_slices, out,
+               static_cast<cudaStream_t>(stream)};
   cudaError_t err;
-  if (codec == 0)
-    err = launch<H16>(words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
-                      num_cuda_blocks, out, s);
-  else if (codec == 1)
-    err = launch<F32>(words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
-                      num_cuda_blocks, out, s);
-  else
-    err = cudaErrorInvalidValue;
+  if (codec == 0) err = launch<H16>(a);
+  else if (codec == 1) err = launch<F32>(a);
+  else if (codec == 2) err = launch<F32Global>(a);
+  else err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,11 @@
-// Slice-stream Top-K sweep of one query (kernel K7) for Hopper (sm_90a),
-// codecs h16 and f32.
+// Slice-stream Top-K sweep of one query (kernel K7; K10a with
+// partitions) for Hopper (sm_90a), codecs h16 and f32.
 //
-// Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel (the pallas_call
-// of topk_spmv_fused_device).
+// Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel (the pallas_calls
+// of topk_spmv_fused_device and, with P row partitions,
+// topk_spmv_fused_part_device: the partition is the grid's y index, tags
+// are offset by p * part_slices as the JAX kernel's toff, and the buffers
+// merge per partition into (P, lane_k, 128)).
 //
 // What it computes. Every real slice's 128 row scores (slice_common.cuh:
 // a lane adds up its W decoded words), harvested into per-lane (value,
@@ -18,7 +21,9 @@
 //
 // Design. One CUDA block of 128 threads, one per lane; the query table
 // in shared memory (128 int32 for h16; table_rows x 128 floats for f32,
-// 4 KB at 1024 columns); the lane buffers in registers (lane_k is a
+// 4 KB at 1024 columns; an f32 table past a block's shared memory, above
+// 58,112 columns on the H100, is gathered from global memory through the
+// read-only path, F32Global); the lane buffers in registers (lane_k is a
 // template parameter). Blocks grid-stride over the work items of all
 // buckets (a run of slices, a sub-tile, or one wide slice with its block
 // sums carried in registers), so no state crosses blocks and the TPU's
@@ -47,18 +52,18 @@ slice_topk_kernel(const int32_t* __restrict__ words,
                   const int32_t* __restrict__ nreal,
                   const int32_t* __restrict__ plan, int num_buckets,
                   int block_sublanes, int table_rows, int fold_tile,
+                  int part_rows, int part_slices,
                   float* __restrict__ out_v, int32_t* __restrict__ out_t) {
   extern __shared__ __align__(16) unsigned char smem[];
-  typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
   const int lane = threadIdx.x;
-  for (int i = lane; i < table_rows * kLanes; i += kLanes) tab[i] = table[i];
-  __syncthreads();
+  const typename C::Tab* tab = stage_table<C>(smem, table, table_rows, lane);
 
   float tv[K];
   int32_t tt[K];
   octet::topk_init<K, TIE_SAFE>(tv, tt);
 
-  Walker w(words, plan, nreal, num_buckets, block_sublanes, fold_tile, lane);
+  const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
+  Walker w(part.words, plan, part.nreal, num_buckets, block_sublanes, fold_tile, lane);
   Item it;
   for (int g = blockIdx.x; w.locate(g, it); g += gridDim.x) {
     if (it.top2) {
@@ -77,18 +82,18 @@ slice_topk_kernel(const int32_t* __restrict__ words,
           i2 = m;
         }
       }
-      if (i1 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m1, w.tag(it, i1));
-      if (i2 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m2, w.tag(it, i2));
+      if (i1 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m1, part.tag_offset + w.tag(it, i1));
+      if (i2 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m2, part.tag_offset + w.tag(it, i2));
     } else {
       for (int m = 0; m < it.count; ++m) {
         if (!w.real(it, m)) continue;
         octet::topk_update<K, TIE_SAFE>(tv, tt, member_score<C>(w, it, m, tab, table_rows),
-                                        w.tag(it, m));
+                                        part.tag_offset + w.tag(it, m));
       }
     }
   }
 
-  const int64_t out0 = (int64_t)blockIdx.x * K * kLanes + lane;
+  const int64_t out0 = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * K * kLanes + lane;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     out_v[out0 + s * kLanes] = tv[s];
@@ -101,7 +106,8 @@ struct Args {
   const void* table;
   const int32_t* nreal;
   const int32_t* plan;
-  int num_buckets, block_sublanes, table_rows, fold_tile, num_cuda_blocks;
+  int num_buckets, block_sublanes, table_rows, fold_tile, num_cuda_blocks, num_partitions,
+      part_rows, part_slices;
   float* out_v;
   int32_t* out_t;
   cudaStream_t stream;
@@ -110,12 +116,14 @@ struct Args {
 template <class C, int K, bool TIE_SAFE>
 cudaError_t launch(const Args& a) {
   auto kernel = slice_topk_kernel<C, K, TIE_SAFE>;
-  const size_t smem = sizeof(typename C::Tab) * a.table_rows * kLanes;
+  const size_t smem = table_smem_bytes<C>(a.table_rows);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.num_cuda_blocks, kLanes, smem, a.stream>>>(
+  const dim3 grid(a.num_cuda_blocks, a.num_partitions);
+  kernel<<<grid, kLanes, smem, a.stream>>>(
       a.words, static_cast<const typename C::Tab*>(a.table), a.nreal, a.plan, a.num_buckets,
-      a.block_sublanes, a.table_rows, a.fold_tile, a.out_v, a.out_t);
+      a.block_sublanes, a.table_rows, a.fold_tile, a.part_rows, a.part_slices, a.out_v,
+      a.out_t);
   return cudaSuccess;
 }
 
@@ -138,24 +146,30 @@ cudaError_t launch_c(int lane_k, bool tie_safe, const Args& a) {
 
 extern "C" {
 
-// words: (num_blocks * block_sublanes, 128) int32; table: (1, 128) int32
-// (codec 0, h16) or (table_rows, 128) f32 (codec 1, f32); nreal:
-// (num_buckets,) int32; plan: (num_buckets, 6) int32; fold_tile: 1, 2, 4
-// or 8; out_v/out_t: (num_cuda_blocks, lane_k, 128). Returns
-// cudaGetLastError() (or the error of a refused launch).
+// words: (num_partitions * part_rows, 128) int32, part_rows a whole
+// number of blocks; table: (1, 128) int32 (codec 0, h16) or (table_rows,
+// 128) f32 (codec 1, f32 in shared memory; codec 2, f32 read from global
+// memory); nreal: (num_partitions, num_buckets) int32; plan:
+// (num_buckets, 6) int32; fold_tile: 1, 2, 4 or 8; part_slices: slice
+// tags per partition; out_v/out_t: (num_partitions, num_cuda_blocks,
+// lane_k, 128). Returns cudaGetLastError() (or the error of a refused
+// launch).
 int slice_topk(const int32_t* words, const void* table, const int32_t* nreal,
                const int32_t* plan, int num_buckets, int block_sublanes,
                int table_rows, int codec, int lane_k, int fold_tile,
-               int tie_safe, int num_cuda_blocks, float* out_v,
-               int32_t* out_t, void* stream) {
+               int tie_safe, int num_cuda_blocks, int num_partitions,
+               int part_rows, int part_slices, float* out_v, int32_t* out_t,
+               void* stream) {
   if (num_buckets < 1 || num_cuda_blocks < 1 || table_rows < 1 || fold_tile < 1 ||
-      (codec == 0 && table_rows != 1))
+      num_partitions < 1 || num_partitions > 65535 || (codec == 0 && table_rows != 1))
     return cudaErrorInvalidValue;
   const Args a{words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
-               fold_tile, num_cuda_blocks, out_v, out_t, static_cast<cudaStream_t>(stream)};
+               fold_tile, num_cuda_blocks, num_partitions, part_rows, part_slices, out_v,
+               out_t, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (codec == 0) err = launch_c<H16>(lane_k, tie_safe, a);
   else if (codec == 1) err = launch_c<F32>(lane_k, tie_safe, a);
+  else if (codec == 2) err = launch_c<F32Global>(lane_k, tie_safe, a);
   else err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

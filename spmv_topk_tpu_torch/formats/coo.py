@@ -88,6 +88,17 @@ class CooMatrix:
     def row_degrees(self) -> np.ndarray:
         return np.bincount(self.rows, minlength=self.num_rows).astype(np.int32)
 
+    def row_slice(self, start: int, stop: int) -> "CooMatrix":
+        """Rows [start, stop) re-indexed to start at 0 (requires sorting)."""
+        lo = np.searchsorted(self.rows, start, side="left")
+        hi = np.searchsorted(self.rows, stop, side="left")
+        m = CooMatrix(
+            self.rows[lo:hi] - start, self.cols[lo:hi], self.vals[lo:hi],
+            stop - start, self.num_cols,
+        )
+        m._sorted = self._sorted  # a slice of a sorted matrix stays sorted
+        return m
+
 
 def from_scipy(mat) -> CooMatrix:
     coo = mat.tocoo()

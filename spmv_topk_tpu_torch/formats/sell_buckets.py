@@ -1,7 +1,7 @@
 """Bucketed uniform-width SELL-128 and its two fused streams.
 
-The host packer of ``spmv_topk_tpu.formats.sell_buckets``, carried over
-for one partition: the same corpus and config give bit-identical
+The host packer of ``spmv_topk_tpu.formats.sell_buckets``, carried over:
+the same corpus and config give bit-identical
 ``words``, ``nreal``, ``plan``, ``row_ids`` and ``value_scale`` in both
 packages, so a snapshot of one serves the other.
 
@@ -17,10 +17,10 @@ packages, so a snapshot of one serves the other.
     bucket slice-transposed: chunk j of octet o holds word j of the eight
     member slices o + m*stride, m = 0..7, one per sublane, so a sweep that
     adds up W decoded chunks has each member's 128 row scores in its row m
-    (``OctetBucket``).
-
-The partitioned packer is not part of the port yet (ROADMAP.md, Queue 1
-item 8).
+    (``OctetBucket``);
+  - ``pack_fused_partitions`` (``num_partitions > 1``) packs P row
+    partitions with either stream on one common plan skeleton
+    (``PartitionedFusedMatrix``).
 """
 
 from __future__ import annotations
@@ -180,8 +180,8 @@ class FusedSellMatrix:
         return self.words.size / max(self.num_nnz, 1)
 
 
-def fuse_buckets(m: BucketedSellMatrix,
-                 block_sublanes: int = 1024) -> FusedSellMatrix:
+def fuse_buckets(m: BucketedSellMatrix, block_sublanes: int = 1024,
+                 skeleton: "list | None" = None) -> FusedSellMatrix:
     """Re-lay a bucketed matrix into the slice-layout fused stream.
 
     Each bucket pairs with its own plan entry positionally (with
@@ -190,39 +190,63 @@ def fuse_buckets(m: BucketedSellMatrix,
     wide ones put each slice on the first width rows of
     blocks_per_slice = ceil(width / block) blocks. Rows past the real
     slices are zero.
+
+    skeleton: (width, num_blocks, slice_base) triples to conform to (the
+    partitions of ``pack_fused_partitions`` share one): buckets are keyed
+    by width, which must be unique; a width this matrix lacks becomes a
+    bucket of zero blocks with no real slice, block counts are padded up,
+    and slice_base follows the skeleton's numbering.
     """
     tgt = block_sublanes
+    if skeleton is None:
+        shape = [(b.width, None, b.slice_base, b) for b in m.buckets]
+    else:
+        have = {}
+        for b in m.buckets:
+            if b.width in have:
+                raise ValueError(
+                    "fuse_buckets(skeleton=...) needs unique bucket widths "
+                    f"(width {b.width} appears twice; pack with "
+                    "sigma_sort=True for partitioned engines)")
+            have[b.width] = b
+        shape = [(w, nb, sb, have.get(w)) for w, nb, sb in skeleton]
+
     plan = []
     chunks = []
     nreal = []
     blk = 0
-    for b in m.buckets:
-        W = b.width
+    for W, want_blocks, slice_base, b in shape:
         if W <= tgt:
             spb, bps = tgt // W, 1
         else:
             spb, bps = 1, -(-W // tgt)
-        n_sl = b.num_slices
+        n_sl = b.num_slices if b is not None else 0
         nb = -(-n_sl // spb) if bps == 1 else n_sl * bps
+        if want_blocks is not None:
+            assert nb <= want_blocks, (W, nb, want_blocks)
+            nb = want_blocks
         if nb == 0:
             continue
         buf = np.zeros((nb * tgt, LANES), np.int32)
-        src3 = b.words[: n_sl * W].reshape(n_sl, W, LANES)
-        if bps == 1:
-            buf3 = buf.reshape(nb, tgt, LANES)
-            nfull = n_sl // spb
-            if nfull:
-                buf3[:nfull, : spb * W] = src3[: nfull * spb].reshape(
-                    nfull, spb * W, LANES)
-            rem = n_sl - nfull * spb
-            if rem:
-                buf3[nfull, : rem * W] = src3[nfull * spb:].reshape(
-                    rem * W, LANES)
-        else:
-            buf.reshape(n_sl, bps * tgt, LANES)[:, :W] = src3
+        if b is not None:
+            src3 = b.words[: n_sl * W].reshape(n_sl, W, LANES)
+            if bps == 1:
+                buf3 = buf.reshape(nb, tgt, LANES)
+                nfull = n_sl // spb
+                if nfull:
+                    buf3[:nfull, : spb * W] = src3[: nfull * spb].reshape(
+                        nfull, spb * W, LANES)
+                rem = n_sl - nfull * spb
+                if rem:
+                    buf3[nfull, : rem * W] = src3[nfull * spb:].reshape(
+                        rem * W, LANES)
+            else:
+                # a skeleton may pad blocks past the real slices
+                buf[: n_sl * bps * tgt].reshape(
+                    n_sl, bps * tgt, LANES)[:, :W] = src3
         plan.append(FusedBucket(
             width=W, slices_per_block=spb, blocks_per_slice=bps,
-            slice_base=b.slice_base, blk_start=blk, num_blocks=nb))
+            slice_base=slice_base, blk_start=blk, num_blocks=nb))
         chunks.append(buf)
         nreal.append(n_sl)
         blk += nb
@@ -238,29 +262,50 @@ def fuse_buckets(m: BucketedSellMatrix,
     )
 
 
-def fuse_buckets_octet(m: BucketedSellMatrix,
-                       block_sublanes: int = 1024) -> FusedSellMatrix:
+def fuse_buckets_octet(m: BucketedSellMatrix, block_sublanes: int = 1024,
+                       skeleton: "list | None" = None) -> FusedSellMatrix:
     """Re-lay a bucketed matrix into the slice-transposed (octet) stream.
 
     Chunk j of an octet holds word j of eight strided slices, one per
     sublane, so accumulating W chunks yields an (8, 128) tile whose row m
     is slice (o + m*stride)'s 128 row scores. Block-tail sublanes left by
     octets_per_block * 8W < block_sublanes are zero and never read.
+
+    skeleton: (width, num_octets, slice_base) triples to conform to (the
+    partitions of ``pack_fused_partitions`` share one): the member stride
+    becomes the skeleton's num_octets, a width this matrix lacks becomes a
+    bucket with no real slice, and slice_base follows the skeleton's
+    numbering (chunk_sublanes * num_octets ids per width).
     """
     tgt = block_sublanes
     S = m.config.chunk_sublanes
+    if skeleton is None:
+        shape = [(b.width, None, b.slice_base, b) for b in m.buckets]
+    else:
+        have = {}
+        for b in m.buckets:
+            if b.width in have:
+                raise ValueError(
+                    "fuse_buckets_octet(skeleton=...) needs unique bucket "
+                    f"widths (width {b.width} appears twice; pack with "
+                    "sigma_sort=True for partitioned/sharded engines)")
+            have[b.width] = b
+        shape = [(w, g, sb, have.get(w)) for w, g, sb in skeleton]
     plan = []
     chunks = []
     nreal = []
     blk = 0
-    for b in m.buckets:
-        W = b.width
-        n_sl = b.num_slices
+    for W, want_G, slice_base, b in shape:
+        n_sl = b.num_slices if b is not None else 0
         G = -(-n_sl // S)                      # octets (= member stride)
+        if want_G is not None:
+            assert G <= want_G, (W, G, want_G)
+            G = want_G
         if G == 0:
             continue
         src = np.zeros((S * G, W, LANES), np.int32)
-        src[:n_sl] = b.words[: n_sl * W].reshape(n_sl, W, LANES)
+        if n_sl:
+            src[:n_sl] = b.words[: n_sl * W].reshape(n_sl, W, LANES)
         # member (o, m) = slice o + m*G: (S, G, W, L)[m, o] -> (G, W, S, L)
         octs = np.ascontiguousarray(
             src.reshape(S, G, W, LANES).transpose(1, 2, 0, 3)
@@ -288,7 +333,7 @@ def fuse_buckets_octet(m: BucketedSellMatrix,
             buf.reshape(G, bpo * tgt, LANES)[:, : S * W] = octs
         plan.append(OctetBucket(
             width=W, octets_per_block=opb, blocks_per_octet=bpo,
-            stride=G, slice_base=b.slice_base, blk_start=blk,
+            stride=G, slice_base=slice_base, blk_start=blk,
             num_blocks=nb,
         ))
         chunks.append(buf)
@@ -306,10 +351,142 @@ def fuse_buckets_octet(m: BucketedSellMatrix,
     )
 
 
+@dataclasses.dataclass
+class PartitionedFusedMatrix:
+    """P row-partition streams sharing one fused plan skeleton.
+
+    Partition p's blocks follow partition p - 1's in ``words``; every
+    partition has the same plan (the skeleton) and its own real-slice
+    counts. Slice tags are partition-local: the sweeps add p *
+    part_slices, so they resolve against the stacked ``row_ids``, whose
+    rows hold global row numbers.
+    """
+
+    words: np.ndarray        # (P * num_blocks * block_sublanes, 128) int32
+    plan: tuple              # shared tuple[FusedBucket | OctetBucket, ...]
+    nreal: np.ndarray        # (P, num_buckets, 1) int32
+    row_ids: np.ndarray      # (P * part_slices, 128) int32
+    num_partitions: int
+    part_slices: int         # total_slices + 1 (incl. sentinel) per partition
+    block_sublanes: int
+    num_blocks: int          # blocks per partition
+    num_rows: int
+    num_cols: int
+    num_nnz: int
+    value_scale: float = 1.0
+
+    @property
+    def hbm_bytes(self) -> int:
+        return int(self.words.nbytes)
+
+    @property
+    def padding_ratio(self) -> float:
+        return self.words.size / max(self.num_nnz, 1)
+
+
+def pack_fused_partitions(
+    coo: CooMatrix, config: TopKSpMVConfig, num_partitions: int,
+    octet: bool = False,
+) -> PartitionedFusedMatrix:
+    """Pack ``coo`` as P contiguous row partitions of ceil(rows / P) rows
+    with one common fused skeleton: per width, the most blocks (slice
+    layout) or octets (``octet``: the member stride) any partition needs.
+    A partition that lacks a width gets a bucket of that width with no
+    real slice. h16 values share one global scale, so every partition's
+    scores are in the same units."""
+    P = num_partitions
+    tgt = config.fused_block_sublanes
+    if not coo.is_sorted_row_major():
+        coo = coo.sort_row_major()
+
+    vscale = None
+    if config.query_codec == "h16":
+        vmax = float(np.max(np.abs(coo.vals))) if coo.nnz else 0.0
+        vscale = ((vmax or 1.0) / 31.0) or 1.0
+
+    rows_per = -(-coo.num_rows // P)
+    packs = []
+    for p in range(P):
+        lo = p * rows_per
+        hi = min(lo + rows_per, coo.num_rows)
+        local = coo.row_slice(lo, hi)
+        if local.num_rows <= 0 or local.nnz == 0:
+            raise ValueError(
+                f"partition {p} is empty ({P} partitions over "
+                f"{coo.num_rows} rows) — lower config.num_partitions")
+        packs.append((lo, pack_sell_buckets(local, config,
+                                            value_scale=vscale)))
+
+    by_width: dict[int, int] = {}
+    if octet:
+        S = config.chunk_sublanes
+        for _, m in packs:
+            for b in m.buckets:
+                g = -(-b.num_slices // S)
+                by_width[b.width] = max(by_width.get(b.width, 0), g)
+        skeleton = []
+        base = 0
+        for w in sorted(by_width, reverse=True):
+            g = by_width[w]
+            skeleton.append((w, g, base))
+            base += S * g   # each width entry reserves S*G slice ids
+        total_slices = base
+        fused = [fuse_buckets_octet(m, block_sublanes=tgt,
+                                    skeleton=skeleton)
+                 for _, m in packs]
+    else:
+        for _, m in packs:
+            for q in fuse_buckets(m, block_sublanes=tgt).plan:
+                by_width[q.width] = max(by_width.get(q.width, 0),
+                                        q.num_blocks)
+        skeleton = []
+        base = 0
+        for w in sorted(by_width, reverse=True):
+            nb = by_width[w]
+            skeleton.append((w, nb, base))
+            spb = tgt // w if w <= tgt else 1
+            bps = 1 if w <= tgt else -(-w // tgt)
+            base += (nb * spb) if bps == 1 else (nb // bps)
+        total_slices = base
+        fused = [fuse_buckets(m, block_sublanes=tgt, skeleton=skeleton)
+                 for _, m in packs]
+    plan = fused[0].plan
+    num_blocks = fused[0].num_blocks
+    nb_words = max(f.words.shape[0] for f in fused)
+
+    words = np.zeros((P * nb_words, LANES), np.int32)
+    nreal = np.zeros((P, len(plan), 1), np.int32)
+    row_ids = np.full((P * (total_slices + 1), LANES), -1, np.int32)
+    for p, ((row0, m), f) in enumerate(zip(packs, fused)):
+        assert f.plan == plan, "skeleton plans must agree"
+        words[p * nb_words: p * nb_words + f.words.shape[0]] = f.words
+        nreal[p, :, 0] = f.nreal[:, 0]
+        r0 = p * (total_slices + 1)
+        for q, n_sl in zip(plan, f.nreal[:, 0]):
+            if n_sl == 0:
+                continue
+            src = next(b for b in m.buckets if b.width == q.width)
+            ids = m.row_ids[src.slice_base:src.slice_base + int(n_sl)].copy()
+            ids[ids >= 0] += row0
+            row_ids[r0 + q.slice_base: r0 + q.slice_base + int(n_sl)] = ids
+    return PartitionedFusedMatrix(
+        words=words, plan=plan, nreal=nreal, row_ids=row_ids,
+        num_partitions=P, part_slices=total_slices + 1,
+        block_sublanes=tgt, num_blocks=num_blocks,
+        num_rows=coo.num_rows, num_cols=coo.num_cols, num_nnz=coo.nnz,
+        value_scale=vscale if vscale is not None else 1.0,
+    )
+
+
 def pack_sell_buckets(
     coo: CooMatrix, config: TopKSpMVConfig = DEFAULT_CONFIG,
+    value_scale: float | None = None,
 ) -> BucketedSellMatrix:
-    """Pack a COO matrix into uniform-width SELL-128 buckets."""
+    """Pack a COO matrix into uniform-width SELL-128 buckets.
+
+    value_scale: h16 only, the global 6-bit value quantization scale;
+    None computes it from this matrix (partitions pass the whole
+    matrix's, ``pack_fused_partitions``)."""
     if coo.num_cols > config.max_cols:
         raise ValueError(
             f"matrix has {coo.num_cols} cols > config.max_cols={config.max_cols}"
@@ -334,8 +511,9 @@ def pack_sell_buckets(
         # two consecutive nnz of a row per 32-bit word: slice widths, plan
         # and scatter all work on WORD degrees ceil(d/2); values are 6-bit
         # signed with one global scale
-        vmax = float(np.max(np.abs(coo.vals))) if coo.nnz else 1.0
-        value_scale = (vmax / 31.0) or 1.0
+        if value_scale is None:
+            vmax = float(np.max(np.abs(coo.vals))) if coo.nnz else 1.0
+            value_scale = (vmax / 31.0) or 1.0
         plan_degrees = (-(-degrees // 2)).astype(np.int32)
     else:
         value_scale = 1.0

@@ -42,14 +42,12 @@ _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
 # name -> argtypes of each C entry point (all return int: cudaError_t)
 _SIGNATURES = {
-    "octet_topk_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
-                       _i32, _vp, _vp, _vp],
-    "octet_topk_batch_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
-                             _i32, _i32, _i32, _i32, _vp, _vp, _vp],
-    "octet_scores_h16": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp],
-    "slice_topk": [_vp, _vp, _vp, _vp] + [_i32] * 8 + [_vp, _vp, _vp],
-    "slice_topk_batch": [_vp, _vp, _vp, _vp] + [_i32] * 9 + [_vp, _vp, _vp],
-    "slice_scores": [_vp, _vp, _vp, _vp] + [_i32] * 5 + [_vp, _vp],
+    "octet_topk_h16": [_vp] * 4 + [_i32] * 9 + [_vp] * 3,
+    "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
+    "octet_scores_h16": [_vp] * 4 + [_i32] * 6 + [_vp] * 2,
+    "slice_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
+    "slice_topk_batch": [_vp] * 4 + [_i32] * 12 + [_vp] * 3,
+    "slice_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
     "stream_words": [_vp, _i64, _vp, _i32, _vp],
 }
 

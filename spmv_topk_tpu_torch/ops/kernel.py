@@ -45,6 +45,17 @@ Plan rows: the kernels read the bucket plan from an int32 tensor, ``(B,
 8)`` for the octet stream (``octet_plan_rows``, columns
 ``PLAN_COLUMNS``) and ``(B, 6)`` for the slice stream
 (``slice_plan_rows``, columns ``SLICE_PLAN_COLUMNS``).
+
+Partitions (kernels K10a-K10d of the JAX package, and its partitioned
+K4/K9 grids): with ``num_partitions`` P > 1 the words are P equal runs
+of blocks on one plan (formats/sell_buckets.py::PartitionedFusedMatrix),
+``nreal`` is ``(P, B, 1)``, and a slice tag of partition p is offset by
+``p * part_slices`` so that it resolves against the stacked ``row_ids``.
+Each wrapper sweeps every partition in one launch (the partition is the
+CUDA grid's y index) and keeps a Top-K pool per partition: the sweeps
+return ``(P, lane_k, 128)`` (``(Q, P, lane_k, 128)`` for a batch), never
+merged across partitions, and the SpMV sweeps write ``(P * part_slices,
+128)`` rows. With P = 1 the shapes have no partition axis.
 """
 
 from __future__ import annotations
@@ -180,11 +191,35 @@ def _octet_sums(words, tab, row, block_sublanes, S):
         yield o0, prod_h16(tiles[o0:o0 + per], tab).sum(dim=1)
 
 
-def octet_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
-                     fold_tile: int, tie_safe: bool, block_sublanes: int,
-                     chunk_sublanes: int = 8):
+def _partitions(words, nreal, num_partitions: int):
+    """[(words, nreal)] of each partition of a partition-major stream: P
+    equal runs of ``words`` rows, ``nreal`` (P, B, 1), or (B, 1) when P
+    is 1."""
+    rows = words.shape[0] // num_partitions
+    nr = nreal.reshape(num_partitions, -1)
+    return [(words[p * rows:(p + 1) * rows], nr[p])
+            for p in range(num_partitions)]
+
+
+def _per_partition(one, words, table, nreal, plan_rows, num_partitions,
+                   part_slices, **kw):
+    """Single-partition plain sweep ``one`` over each partition, its tags
+    offset by p * part_slices: (topv, topt) of (lane_k, 128) for one
+    partition, (P, lane_k, 128) for P > 1 (a pool per partition)."""
+    outs = [one(w, table, n, plan_rows, tag_offset=p * part_slices, **kw)
+            for p, (w, n) in enumerate(_partitions(words, nreal,
+                                                   num_partitions))]
+    if num_partitions == 1:
+        return outs[0]
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def octet_topk_plain(words, table, nreal, plan_rows, *,
+                     num_partitions: int = 1, part_slices: int = 0, **kw):
     """Plain PyTorch version of the octet sweep: (topv, topt), each
-    (lane_k, 128), values sorted descending per lane.
+    (lane_k, 128) ((P, lane_k, 128) with num_partitions P > 1), values
+    sorted descending per lane. Keywords: lane_k, fold_tile, tie_safe,
+    block_sublanes, chunk_sublanes (8).
 
     Harvests the same candidates as the kernel and gives each lane its
     exact top-``lane_k`` of them, the initial sentinels included (``-inf``
@@ -194,13 +229,22 @@ def octet_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
     ``tie_safe``, how many copies) stay, so only values above a lane's
     smallest kept value are comparable entry for entry.
     """
+    return _per_partition(_octet_topk_one, words, table, nreal, plan_rows,
+                          num_partitions, part_slices, **kw)
+
+
+def _octet_topk_one(words, table, nreal, plan_rows, *, lane_k: int,
+                    fold_tile: int, tie_safe: bool, block_sublanes: int,
+                    chunk_sublanes: int = 8, tag_offset: int = 0):
+    """``octet_topk_plain`` of one partition, tags offset by tag_offset
+    (the buffers' initial tags stay 0, as in the kernels)."""
     S = chunk_sublanes
     dev = words.device
     tab = table.reshape(-1)[:LANES]
     miota = torch.arange(S, device=dev, dtype=torch.int32).view(1, S, 1)
     cand_v, cand_t = [], []
     for b, row in enumerate(plan_rows.tolist()):
-        G, slice_base = row[3], row[4]
+        G, slice_base = row[3], row[4] + tag_offset
         n_real = int(nreal.reshape(-1)[b])
         for o0, sums in _octet_sums(words, tab, row, block_sublanes, S):
             acc = sums.to(torch.float32)                       # (g, S, L)
@@ -251,44 +295,48 @@ def _merge_with_init(cand_v, cand_t, lane_k, tie_safe, dev):
 def octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     """Plain PyTorch version of the multi-query sweep: ``octet_topk_plain``
     for each query of the (Q, 1, 128) tables -> (topv, topt), each
-    (Q, lane_k, 128). Keyword arguments as for ``octet_topk_plain``."""
+    (Q, lane_k, 128) ((Q, P, lane_k, 128) with P > 1 partitions). Keyword
+    arguments as for ``octet_topk_plain``."""
     outs = [octet_topk_plain(words, t, nreal, plan_rows, **kw)
             for t in tables]
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
 def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
-                       block_sublanes: int, chunk_sublanes: int = 8):
+                       block_sublanes: int, chunk_sublanes: int = 8,
+                       num_partitions: int = 1):
     """Plain PyTorch version of the octet SpMV: (num_slices, 128) f32, row
     s holding slice s's 128 unscaled h16 row scores. Member m of octet o
     of a bucket is slice slice_base + o + m * stride; rows of no real
-    slice (the sentinel slice) stay 0."""
+    slice (the sentinel slice) stay 0. With P partitions, partition p's
+    slices fill rows p * part_slices .., part_slices = num_slices / P."""
     S = chunk_sublanes
     tab = table.reshape(-1)[:LANES]
     out = torch.zeros((num_slices, LANES), dtype=torch.float32,
                       device=words.device)
-    for b, row in enumerate(plan_rows.tolist()):
-        slice_base = row[4]
-        n_real = int(nreal.reshape(-1)[b])
-        sums = torch.cat([s for _, s in _octet_sums(words, tab, row,
-                                                     block_sublanes, S)])
-        # (octet, member) -> (member, octet): the flat index is the slice
-        out[slice_base:slice_base + n_real] = sums.transpose(0, 1).reshape(
-            -1, LANES)[:n_real].to(torch.float32)
+    part_slices = num_slices // num_partitions
+    for p, (w, nr) in enumerate(_partitions(words, nreal, num_partitions)):
+        for b, row in enumerate(plan_rows.tolist()):
+            slice_base = p * part_slices + row[4]
+            n_real = int(nr[b])
+            sums = torch.cat([s for _, s in _octet_sums(w, tab, row,
+                                                         block_sublanes, S)])
+            # (octet, member) -> (member, octet): the flat index is the slice
+            out[slice_base:slice_base + n_real] = sums.transpose(
+                0, 1).reshape(-1, LANES)[:n_real].to(torch.float32)
     return out
 
 
-def merge_lane_topk(topv, topt, lane_k: int, queries: int = 0):
+def merge_lane_topk(topv, topt, lane_k: int, lead: int = 0):
     """Per-lane top-``lane_k`` over stacked candidates ((..., 128) values
-    and tags) -> (lane_k, 128) pair, values sorted descending. With
-    ``queries`` = Q the leading axis is a query axis: (Q, ..., 128) ->
-    (Q, lane_k, 128) pairs."""
-    dim = 1 if queries else 0
-    shape = (queries, -1, LANES) if queries else (-1, LANES)
+    and tags) -> (lane_k, 128) pair, values sorted descending. The first
+    ``lead`` axes are kept apart (queries, partitions): (*lead axes, ...,
+    128) -> (*lead axes, lane_k, 128)."""
+    shape = (*topv.shape[:lead], -1, LANES)
     allv = topv.reshape(shape)
     allt = topt.reshape(shape)
-    mv, mi = torch.topk(allv, lane_k, dim=dim)
-    return mv, torch.gather(allt, dim, mi)
+    mv, mi = torch.topk(allv, lane_k, dim=lead)
+    return mv, torch.gather(allt, lead, mi)
 
 
 def _check_codec(cfg: TopKSpMVConfig) -> None:
@@ -298,18 +346,23 @@ def _check_codec(cfg: TopKSpMVConfig) -> None:
             "for h16 only (ROADMAP.md Queue 1 item 5, other query codecs)")
 
 
-def _check_inputs(words, plan_rows, block_sublanes, *named,
-                  plan_cols=len(PLAN_COLUMNS)):
-    """Raise unless words, plan_rows ((B, plan_cols)) and each (name,
-    tensor, shape[, dtype]) of ``named`` are contiguous tensors of those
-    shapes (int32 unless a dtype is given) on one CUDA device. Returns
-    the device's SM count."""
+def _check_inputs(words, nreal, plan_rows, block_sublanes, num_partitions,
+                  *named, plan_cols=len(PLAN_COLUMNS)):
+    """Raise unless words (P equal runs of whole blocks), nreal ((B, 1),
+    or (P, B, 1) for P > 1 partitions), plan_rows ((B, plan_cols)) and
+    each (name, tensor, shape[, dtype]) of ``named`` are contiguous
+    tensors of those shapes (int32 unless a dtype is given) on one CUDA
+    device. Returns the device's SM count."""
     dev = words.device
     if dev.type != "cuda":
         raise ValueError(f"words on {dev}: the kernels need CUDA")
     B = plan_rows.shape[0]
+    P = num_partitions
+    if P < 1:
+        raise ValueError(f"num_partitions={P}")
     for name, t, shape, *dtype in (
             ("words", words, (words.shape[0], LANES)),
+            ("nreal", nreal, (B, 1) if P == 1 else (P, B, 1)),
             ("plan_rows", plan_rows, (B, plan_cols)), *named):
         dtype = dtype[0] if dtype else torch.int32
         if t.device != dev or t.dtype != dtype or \
@@ -317,9 +370,17 @@ def _check_inputs(words, plan_rows, block_sublanes, *named,
             raise ValueError(f"{name}: need contiguous {dtype} {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    if words.shape[0] % block_sublanes:
-        raise ValueError("words rows are not a whole number of blocks")
+    if words.shape[0] % (P * block_sublanes):
+        raise ValueError(f"words rows are not {P} runs of whole blocks")
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _sweep_blocks(sms: int, part_rows: int, num_partitions: int) -> int:
+    """CUDA blocks per partition of a single-query sweep: the card's
+    sms * _BLOCKS_PER_SM shared among the partitions, and no more than a
+    partition has chunks (every octet, or slice, holds at least one)."""
+    return max(1, min(-(-sms * _BLOCKS_PER_SM // num_partitions),
+                      part_rows // _S))
 
 
 def _launch(dev, name, *args):
@@ -351,109 +412,142 @@ def _sweep_kw(cfg: TopKSpMVConfig, block_sublanes: int) -> dict:
                 chunk_sublanes=cfg.chunk_sublanes)
 
 
-def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
-                                 cfg: TopKSpMVConfig, block_sublanes: int):
-    """Octet sweep of the h16 stream: per-lane (topv, topt) candidates.
+def _part_slices(num_partitions: int, part_slices: int) -> int:
+    """The tag offset between partitions: part_slices for P > 1, 0 for
+    one partition."""
+    if num_partitions > 1 and part_slices < 1:
+        raise ValueError(f"{num_partitions} partitions need part_slices "
+                         f">= 1, got {part_slices}")
+    return part_slices if num_partitions > 1 else 0
 
-    words: (num_blocks * block_sublanes, 128) int32 octet stream.
+
+def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
+                                 cfg: TopKSpMVConfig, block_sublanes: int,
+                                 num_partitions: int = 1,
+                                 part_slices: int = 0):
+    """Octet sweep of the h16 stream: per-lane (topv, topt) candidates
+    (K1; with P = num_partitions > 1, K10b).
+
+    words: (P * num_blocks * block_sublanes, 128) int32 octet stream.
     table: (1, 128) int32 h16 query table (int4x8).
-    nreal: (B, 1) int32 real slices per bucket.
+    nreal: (B, 1) int32 real slices per bucket; (P, B, 1) for P > 1.
     plan_rows: (B, 8) int32 plan table (octet_plan_rows).
-    Returns (topv f32, topt i32), each (lane_k, 128), sorted descending.
+    part_slices: slice tags per partition (P > 1): partition p's tags are
+    offset by p * part_slices.
+    Returns (topv f32, topt i32), each (lane_k, 128) ((P, lane_k, 128)
+    for P > 1), sorted descending.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_codec(cfg)
     kw = _sweep_kw(cfg, block_sublanes)
+    ps = _part_slices(num_partitions, part_slices)
     if words.device.type == "cpu":
-        return octet_topk_plain(words, table, nreal, plan_rows, **kw)
-    return _octet_topk_cuda(words, table, nreal, plan_rows, **kw)
+        return octet_topk_plain(words, table, nreal, plan_rows,
+                                num_partitions=num_partitions,
+                                part_slices=ps, **kw)
+    return _octet_topk_cuda(words, table, nreal, plan_rows, num_partitions,
+                            ps, **kw)
 
 
-def _octet_topk_cuda(words, table, nreal, plan_rows, *, lane_k, fold_tile,
-                     tie_safe, block_sublanes, chunk_sublanes):
+def _octet_topk_cuda(words, table, nreal, plan_rows, P, part_slices, *,
+                     lane_k, fold_tile, tie_safe, block_sublanes,
+                     chunk_sublanes):
     B = plan_rows.shape[0]
-    sms = _check_inputs(words, plan_rows, block_sublanes,
-                        ("table", table, (1, LANES)), ("nreal", nreal, (B, 1)))
+    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                        ("table", table, (1, LANES)))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
-    # every octet holds >= 1 chunk: no more blocks than chunks
-    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // chunk_sublanes))
-    out_v = torch.empty((nblk, lane_k, LANES), dtype=torch.float32,
+    part_rows = words.shape[0] // P
+    nblk = _sweep_blocks(sms, part_rows, P)
+    out_v = torch.empty((P, nblk, lane_k, LANES), dtype=torch.float32,
                         device=dev)
-    out_t = torch.empty((nblk, lane_k, LANES), dtype=torch.int32, device=dev)
+    out_t = torch.empty((P, nblk, lane_k, LANES), dtype=torch.int32,
+                        device=dev)
     _launch(dev, "octet_topk_h16", words.data_ptr(), table.data_ptr(),
             nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes,
-            lane_k, int(fold_tile == 1), int(tie_safe), nblk,
-            out_v.data_ptr(), out_t.data_ptr())
+            lane_k, int(fold_tile == 1), int(tie_safe), nblk, P, part_rows,
+            part_slices, out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_octet_device.launches += 1
-    return merge_lane_topk(out_v, out_t, lane_k)
+    return merge_lane_topk(out_v, out_t, lane_k, lead=int(P > 1))
 
 
 topk_spmv_fused_octet_device.launches = 0
 
 
-def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int):
-    """K6's grid: (queries per CUDA block, subgroups, octet slots).
+def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int,
+               partitions: int = 1):
+    """K6's and K8's grid: (queries per CUDA block, subgroups, slots per
+    partition).
 
     ``subgroup`` is cfg.batch_subgroup (0: BATCH_SUBGROUP), capped at
     MAX_BATCH_SUBGROUP and at the query count. The stream is read once
-    per subgroup. Slots are sized so that slots * subgroups fills the
-    card as K1's grid does, with at least one slot per SM, and no more
-    slots than chunks; each slot writes lane_k * 128 (value, tag) pairs
-    per query, so a group's buffers are Q * slots * lane_k * 1 KiB."""
+    per subgroup. Slots are sized so that slots * subgroups * partitions
+    fills the card as K1's grid does, with at least one slot per SM over
+    the partitions, and no more slots than a partition has chunks; each
+    slot writes lane_k * 128 (value, tag) pairs per query, so a group's
+    buffers are Q * partitions * slots * lane_k * 1 KiB."""
     sub = min(subgroup or BATCH_SUBGROUP, MAX_BATCH_SUBGROUP, num_queries)
     n_sub = -(-num_queries // sub)
-    slots = max(sms, -(-sms * _BLOCKS_PER_SM // n_sub))
+    slots = max(-(-sms // partitions),
+                -(-sms * _BLOCKS_PER_SM // (n_sub * partitions)))
     return sub, n_sub, max(1, min(slots, chunks))
 
 
 def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
                                        cfg: TopKSpMVConfig,
-                                       block_sublanes: int):
-    """Multi-query octet sweep of the h16 stream.
+                                       block_sublanes: int,
+                                       num_partitions: int = 1,
+                                       part_slices: int = 0):
+    """Multi-query octet sweep of the h16 stream (K6; with P > 1
+    partitions, K10d).
 
     tables: (Q, 1, 128) int32 h16 query tables (``pack_query_tables``);
     the other arguments as for ``topk_spmv_fused_octet_device``. Returns
-    (topv f32, topt i32), each (Q, lane_k, 128), sorted descending per
-    lane: each query's candidates are those of the single-query sweep,
-    whatever ``cfg.batch_subgroup`` is (it only sets how many queries
-    share a CUDA block; see ``batch_grid``).
+    (topv f32, topt i32), each (Q, lane_k, 128) ((Q, P, lane_k, 128) for
+    P > 1), sorted descending per lane: each query's candidates are those
+    of the single-query sweep, whatever ``cfg.batch_subgroup`` is (it
+    only sets how many queries share a CUDA block; see ``batch_grid``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_codec(cfg)
     kw = _sweep_kw(cfg, block_sublanes)
+    ps = _part_slices(num_partitions, part_slices)
     if words.device.type == "cpu":
-        return octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw)
+        return octet_topk_batch_plain(words, tables, nreal, plan_rows,
+                                      num_partitions=num_partitions,
+                                      part_slices=ps, **kw)
     return _octet_topk_batch_cuda(words, tables, nreal, plan_rows,
+                                  num_partitions, ps,
                                   subgroup=cfg.batch_subgroup, **kw)
 
 
-def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, *, subgroup,
-                           lane_k, fold_tile, tie_safe, block_sublanes,
-                           chunk_sublanes):
+def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
+                           *, subgroup, lane_k, fold_tile, tie_safe,
+                           block_sublanes, chunk_sublanes):
     B = plan_rows.shape[0]
     Q = tables.shape[0]
     if Q < 1:
         raise ValueError("no queries")
-    sms = _check_inputs(words, plan_rows, block_sublanes,
-                        ("tables", tables, (Q, 1, LANES)),
-                        ("nreal", nreal, (B, 1)))
+    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                        ("tables", tables, (Q, 1, LANES)))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
+    part_rows = words.shape[0] // P
     sub, n_sub, slots = batch_grid(Q, subgroup, sms,
-                                   words.shape[0] // chunk_sublanes)
-    out_v = torch.empty((Q, slots, lane_k, LANES), dtype=torch.float32,
+                                   part_rows // chunk_sublanes, P)
+    out_v = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.float32,
                         device=dev)
-    out_t = torch.empty((Q, slots, lane_k, LANES), dtype=torch.int32,
+    out_t = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.int32,
                         device=dev)
     _launch(dev, "octet_topk_batch_h16", words.data_ptr(),
             tables.data_ptr(), nreal.data_ptr(), plan_rows.data_ptr(), B,
             block_sublanes, lane_k, int(fold_tile == 1), int(tie_safe), Q,
-            sub, slots * n_sub, out_v.data_ptr(), out_t.data_ptr())
+            sub, slots * n_sub, P, part_rows, part_slices, out_v.data_ptr(),
+            out_t.data_ptr())
     topk_spmv_fused_batch_octet_device.launches += 1
-    return merge_lane_topk(out_v, out_t, lane_k, queries=Q)
+    return merge_lane_topk(out_v, out_t, lane_k, lead=1 + int(P > 1))
 
 
 topk_spmv_fused_batch_octet_device.launches = 0
@@ -461,35 +555,42 @@ topk_spmv_fused_batch_octet_device.launches = 0
 
 def spmv_fused_scores_octet_device(words, table, nreal, plan_rows, *,
                                    cfg: TopKSpMVConfig, block_sublanes: int,
-                                   num_slices: int):
-    """Plain SpMV over the octet stream: (num_slices, 128) f32, row s the
-    unscaled h16 scores of slice s's 128 rows (rows of no real slice are
-    0). Arguments as for ``topk_spmv_fused_octet_device``; num_slices is
-    ``row_ids.shape[0]``.
+                                   num_slices: int, num_partitions: int = 1):
+    """Plain SpMV over the octet stream (K4, over every partition when
+    P = num_partitions > 1): (num_slices, 128) f32, row s the unscaled
+    h16 scores of slice s's 128 rows (rows of no real slice are 0).
+    Arguments as for ``topk_spmv_fused_octet_device``; num_slices is
+    ``row_ids.shape[0]``, P * part_slices for P partitions.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_codec(cfg)
+    if num_slices % num_partitions:
+        raise ValueError(f"{num_slices} slices in {num_partitions} "
+                         "partitions")
     kw = dict(num_slices=num_slices, block_sublanes=block_sublanes,
-              chunk_sublanes=cfg.chunk_sublanes)
+              chunk_sublanes=cfg.chunk_sublanes,
+              num_partitions=num_partitions)
     if words.device.type == "cpu":
         return octet_scores_plain(words, table, nreal, plan_rows, **kw)
     return _octet_scores_cuda(words, table, nreal, plan_rows, **kw)
 
 
 def _octet_scores_cuda(words, table, nreal, plan_rows, *, num_slices,
-                       block_sublanes, chunk_sublanes):
+                       block_sublanes, chunk_sublanes, num_partitions):
     B = plan_rows.shape[0]
-    sms = _check_inputs(words, plan_rows, block_sublanes,
-                        ("table", table, (1, LANES)), ("nreal", nreal, (B, 1)))
+    P = num_partitions
+    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                        ("table", table, (1, LANES)))
     if chunk_sublanes != 8:
         raise ValueError("the octet kernels need chunk_sublanes=8")
     dev = words.device
-    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // chunk_sublanes))
+    part_rows = words.shape[0] // P
+    nblk = _sweep_blocks(sms, part_rows, P)
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
     _launch(dev, "octet_scores_h16", words.data_ptr(), table.data_ptr(),
             nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, nblk,
-            out.data_ptr())
+            P, part_rows, num_slices // P, out.data_ptr())
     spmv_fused_scores_octet_device.launches += 1
     return out
 
@@ -502,33 +603,40 @@ spmv_fused_scores_octet_device.launches = 0
 def slice_plan_rows(plan, num_blocks: int, nreal,
                     block_sublanes: int) -> np.ndarray:
     """int32 (B, 6) plan table of a tuple of FusedBucket (columns
-    SLICE_PLAN_COLUMNS); nreal: the real slices of each bucket.
+    SLICE_PLAN_COLUMNS); nreal: the real slices of each bucket, (B, 1),
+    or (P, B, 1) for P partitions on one plan.
 
     Raises if the buckets do not tile blocks [0, num_blocks) in order, if
-    a bucket's num_blocks disagrees with its slices (ceil(nreal / spb)
-    narrow, nreal * bps wide), or if its slices do not fit its blocks:
-    the kernels trust this table for every address they read."""
+    a bucket's blocks cannot hold a partition's slices (ceil(nreal / spb)
+    narrow, nreal * bps wide; a shared skeleton may hold more, which the
+    kernels skip), if a wide bucket's blocks are not whole slices, or if
+    its slices do not fit its blocks: the kernels trust this table for
+    every address they read."""
     nreal = np.asarray(nreal).reshape(-1)
-    if len(nreal) != len(plan):
-        raise ValueError(f"{len(nreal)} real-slice counts for "
+    if not plan or nreal.size % len(plan):
+        raise ValueError(f"{nreal.size} real-slice counts for "
                          f"{len(plan)} buckets")
+    nreal = nreal.reshape(-1, len(plan))
     rows = []
     blk = 0
-    for pb, n in zip(plan, nreal.tolist()):
+    for b, pb in enumerate(plan):
         W, spb, bps = pb.width, pb.slices_per_block, pb.blocks_per_slice
+        n = int(nreal[:, b].max(initial=0))
         if pb.blk_start != blk:
             raise ValueError(f"plan bucket at block {pb.blk_start}, "
                              f"expected {blk}")
-        if min(W, spb, bps) < 1 or n < 0:
+        if min(W, spb, bps) < 1 or nreal[:, b].min(initial=0) < 0:
             raise ValueError(f"bucket geometry {pb}")
         if bps == 1:
             fits, need = spb * W <= block_sublanes, -(-n // spb)
         else:
-            fits, need = spb == 1 and W <= bps * block_sublanes, n * bps
+            fits = spb == 1 and W <= bps * block_sublanes and \
+                pb.num_blocks % bps == 0
+            need = n * bps
         if not fits:
             raise ValueError(f"bucket of width {W} does not fit its blocks "
                              f"of {block_sublanes} rows")
-        if need != pb.num_blocks:
+        if need > pb.num_blocks:
             raise ValueError(f"bucket of width {W} holds {pb.num_blocks} "
                              f"blocks, its {n} slices need {need}")
         rows.append([W, spb, bps, pb.slice_base, pb.blk_start,
@@ -633,24 +741,30 @@ def _bucket_scores(words, table, row, codec: str, block_sublanes: int):
 
 
 def slice_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
-                       block_sublanes: int, codec: str):
+                       block_sublanes: int, codec: str,
+                       num_partitions: int = 1):
     """Plain PyTorch version of the slice-stream SpMV: (num_slices, 128)
     f32, row s holding slice s's 128 unscaled row scores; rows of no real
-    slice (the sentinel slice) stay 0."""
+    slice (the sentinel slice) stay 0. With P partitions, partition p's
+    slices fill rows p * part_slices .., part_slices = num_slices / P."""
     out = torch.zeros((num_slices, LANES), dtype=torch.float32,
                       device=words.device)
-    for b, row in enumerate(plan_rows.tolist()):
-        n = int(nreal.reshape(-1)[b])
-        out[row[3]:row[3] + n] = _bucket_scores(
-            words, table, row, codec, block_sublanes)[:n]
+    part_slices = num_slices // num_partitions
+    for p, (w, nr) in enumerate(_partitions(words, nreal, num_partitions)):
+        for b, row in enumerate(plan_rows.tolist()):
+            n = int(nr[b])
+            base = p * part_slices + row[3]
+            out[base:base + n] = _bucket_scores(
+                w, table, row, codec, block_sublanes)[:n]
     return out
 
 
-def slice_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
-                     fold_tile: int, tie_safe: bool, block_sublanes: int,
-                     codec: str):
-    """Plain PyTorch version of the slice sweep (K7): (topv, topt), each
-    (lane_k, 128), values sorted descending per lane.
+def slice_topk_plain(words, table, nreal, plan_rows, *,
+                     num_partitions: int = 1, part_slices: int = 0, **kw):
+    """Plain PyTorch version of the slice sweep (K7; K10a with P > 1
+    partitions): (topv, topt), each (lane_k, 128) ((P, lane_k, 128) for
+    P > 1), values sorted descending per lane. Keywords: lane_k,
+    fold_tile, tie_safe, block_sublanes, codec.
 
     The slice scores (padding slices of a bucket's last block at -inf)
     harvested as ``slice_work`` says: every slice, or the top 2 of each
@@ -660,10 +774,18 @@ def slice_topk_plain(words, table, nreal, plan_rows, *, lane_k: int,
     argmin replacement whenever values are distinct; at exact ties only
     values above a lane's smallest kept value are comparable entry for
     entry (see ``octet_topk_plain``)."""
+    return _per_partition(_slice_topk_one, words, table, nreal, plan_rows,
+                          num_partitions, part_slices, **kw)
+
+
+def _slice_topk_one(words, table, nreal, plan_rows, *, lane_k: int,
+                    fold_tile: int, tie_safe: bool, block_sublanes: int,
+                    codec: str, tag_offset: int = 0):
+    """``slice_topk_plain`` of one partition, tags offset by tag_offset."""
     dev = words.device
     cand_v, cand_t = [], []
     for b, row in enumerate(plan_rows.tolist()):
-        spb, base = row[1], row[3]
+        spb, base = row[1], row[3] + tag_offset
         n = int(nreal.reshape(-1)[b])
         sc = _bucket_scores(words, table, row, codec, block_sublanes)
         ids = torch.arange(sc.shape[0], device=dev,
@@ -701,7 +823,8 @@ def slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     """Plain PyTorch version of the multi-query slice sweep (K8):
     ``slice_topk_plain`` with every slice folded (fold_tile 1) for each
     query of the (Q, TR, 128) tables -> (topv, topt), each (Q, lane_k,
-    128). Keyword arguments as for ``slice_topk_plain`` but fold_tile."""
+    128) ((Q, P, lane_k, 128) with P > 1 partitions, K10c). Keyword
+    arguments as for ``slice_topk_plain`` but fold_tile."""
     outs = [slice_topk_plain(words, t, nreal, plan_rows, fold_tile=1, **kw)
             for t in tables]
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
@@ -728,123 +851,143 @@ def f32_tables_in_smem(max_cols: int, smem_limit: int) -> int:
     """How many f32 query tables of ``max_cols`` columns (4 bytes each) a
     CUDA block of the slice sweeps can hold in ``smem_limit`` bytes of
     shared memory: the largest power of two up to MAX_BATCH_SUBGROUP (K8
-    sizes its tables for its subgroup rounded up to one). Raises
-    NotImplementedError when not even one fits (K7 and K9 hold one)."""
+    sizes its tables for its subgroup rounded up to one), or 0 when not
+    even one fits: the sweeps then gather from the tables in global
+    memory (``F32_GLOBAL``)."""
     table = 4 * max_cols
     if table > smem_limit:
-        raise NotImplementedError(
-            f"an f32 query table of {max_cols} columns takes {table} bytes, "
-            f"more than the {smem_limit} bytes of shared memory a CUDA "
-            "block can have (ROADMAP.md Queue 1 item 7, f32 tables past "
-            "shared memory)")
+        return 0
     fit = 1
     while fit < MAX_BATCH_SUBGROUP and 2 * fit * table <= smem_limit:
         fit *= 2
     return fit
 
 
-def _tables_in_smem(dev, cfg: TopKSpMVConfig) -> int:
-    """``f32_tables_in_smem`` on ``dev`` for cfg's f32 tables; h16 tables
-    are 512 bytes (K8 repacks a subgroup's into one of 4 KB), and all of
-    a subgroup's fit."""
+# codec argument of the slice kernels for f32 tables read from global
+# memory (the first two are SLICE_CODECS' indices, tables in shared memory)
+F32_GLOBAL = 2
+
+
+def _slice_codec(dev, cfg: TopKSpMVConfig):
+    """(codec argument of the slice kernels, tables per CUDA block): h16
+    tables are 512 bytes (K8 repacks a subgroup's into one of 4 KB), and
+    all of a subgroup's fit shared memory; f32 ones as many as
+    ``f32_tables_in_smem`` says on ``dev``, and with none, F32_GLOBAL and
+    a subgroup of any size."""
     if cfg.query_codec == "h16":
-        return MAX_BATCH_SUBGROUP
+        return SLICE_CODECS.index("h16"), MAX_BATCH_SUBGROUP
     props = torch.cuda.get_device_properties(dev)
-    return f32_tables_in_smem(_table_spec(cfg)[0] * LANES,
-                              props.shared_memory_per_block_optin)
+    fit = f32_tables_in_smem(_table_spec(cfg)[0] * LANES,
+                             props.shared_memory_per_block_optin)
+    if fit == 0:
+        return F32_GLOBAL, MAX_BATCH_SUBGROUP
+    return SLICE_CODECS.index("f32"), fit
 
 
 def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
-                           cfg: TopKSpMVConfig, block_sublanes: int):
-    """Slice sweep (K7): per-lane (topv, topt) candidates of one query.
+                           cfg: TopKSpMVConfig, block_sublanes: int,
+                           num_partitions: int = 1, part_slices: int = 0):
+    """Slice sweep (K7; with P = num_partitions > 1, K10a): per-lane
+    (topv, topt) candidates of one query.
 
-    words: (num_blocks * block_sublanes, 128) int32 slice stream.
+    words: (P * num_blocks * block_sublanes, 128) int32 slice stream.
     table: the query table, (1, 128) int32 (h16) or (max_cols / 128,
-    128) float32 (f32). nreal: (B, 1) int32 real slices per bucket.
-    plan_rows: (B, 6) int32 plan table (slice_plan_rows).
-    Returns (topv f32, topt i32), each (lane_k, 128), sorted descending.
+    128) float32 (f32). nreal: (B, 1) int32 real slices per bucket; (P,
+    B, 1) for P > 1. plan_rows: (B, 6) int32 plan table
+    (slice_plan_rows). part_slices: slice tags per partition (P > 1).
+    Returns (topv f32, topt i32), each (lane_k, 128) ((P, lane_k, 128)
+    for P > 1), sorted descending.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel,
-    and raise NotImplementedError for an f32 table larger than a CUDA
-    block's shared memory (``f32_tables_in_smem``).
+    CPU tensors run the plain version; CUDA tensors launch the kernel (an
+    f32 table larger than a CUDA block's shared memory is read from
+    global memory, ``f32_tables_in_smem``).
     """
     _check_slice_codec(cfg)
+    P = num_partitions
+    ps = _part_slices(P, part_slices)
     kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
               tie_safe=bool(cfg.tie_safe_topk),
               block_sublanes=block_sublanes, codec=cfg.query_codec)
     if words.device.type == "cpu":
-        return slice_topk_plain(words, table, nreal, plan_rows, **kw)
+        return slice_topk_plain(words, table, nreal, plan_rows,
+                                num_partitions=P, part_slices=ps, **kw)
     B = plan_rows.shape[0]
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, plan_rows, block_sublanes,
+    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
                         ("table", table, (rows, LANES), dtype),
-                        ("nreal", nreal, (B, 1)),
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     _check_lane_k(cfg.lane_k)
     dev = words.device
-    _tables_in_smem(dev, cfg)
-    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // _S))
-    out_v = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.float32,
+    codec, _ = _slice_codec(dev, cfg)
+    part_rows = words.shape[0] // P
+    nblk = _sweep_blocks(sms, part_rows, P)
+    out_v = torch.empty((P, nblk, cfg.lane_k, LANES), dtype=torch.float32,
                         device=dev)
-    out_t = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.int32,
+    out_t = torch.empty((P, nblk, cfg.lane_k, LANES), dtype=torch.int32,
                         device=dev)
     _launch(dev, "slice_topk", words.data_ptr(), table.data_ptr(),
             nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            SLICE_CODECS.index(cfg.query_codec), cfg.lane_k, cfg.fold_tile,
-            int(kw["tie_safe"]), nblk, out_v.data_ptr(), out_t.data_ptr())
+            codec, cfg.lane_k, cfg.fold_tile, int(kw["tie_safe"]), nblk, P,
+            part_rows, ps, out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_device.launches += 1
-    return merge_lane_topk(out_v, out_t, cfg.lane_k)
+    return merge_lane_topk(out_v, out_t, cfg.lane_k, lead=int(P > 1))
 
 
 topk_spmv_fused_device.launches = 0
 
 
 def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
-                                 cfg: TopKSpMVConfig, block_sublanes: int):
-    """Multi-query slice sweep (K8).
+                                 cfg: TopKSpMVConfig, block_sublanes: int,
+                                 num_partitions: int = 1,
+                                 part_slices: int = 0):
+    """Multi-query slice sweep (K8; with P = num_partitions > 1, K10c).
 
     tables: (Q, TR, 128) query tables (``pack_query_tables``: int32 for
     h16, float32 for f32); the other arguments as for
     ``topk_spmv_fused_device``. Returns (topv f32, topt i32), each (Q,
-    lane_k, 128), sorted descending per lane. Every slice is folded,
-    whatever ``cfg.fold_tile`` is (as in the JAX batch kernel), and each
-    query's candidates do not depend on ``cfg.batch_subgroup`` (it only
-    sets how many queries share a CUDA block; see ``batch_grid``; f32
-    subgroups are cut to the tables that fit shared memory,
-    ``f32_tables_in_smem``).
+    lane_k, 128) ((Q, P, lane_k, 128) for P > 1), sorted descending per
+    lane. Every slice is folded, whatever ``cfg.fold_tile`` is (as in the
+    JAX batch kernel), and each query's candidates do not depend on
+    ``cfg.batch_subgroup`` (it only sets how many queries share a CUDA
+    block; see ``batch_grid``; f32 subgroups are cut to the tables that
+    fit shared memory, ``f32_tables_in_smem``, or read from global
+    memory when none fits).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_slice_codec(cfg)
+    P = num_partitions
+    ps = _part_slices(P, part_slices)
     kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
               block_sublanes=block_sublanes, codec=cfg.query_codec)
     if words.device.type == "cpu":
-        return slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw)
+        return slice_topk_batch_plain(words, tables, nreal, plan_rows,
+                                      num_partitions=P, part_slices=ps, **kw)
     B = plan_rows.shape[0]
     Q = tables.shape[0]
     if Q < 1:
         raise ValueError("no queries")
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, plan_rows, block_sublanes,
+    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
                         ("tables", tables, (Q, rows, LANES), dtype),
-                        ("nreal", nreal, (B, 1)),
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     _check_lane_k(cfg.lane_k)
     dev = words.device
-    subgroup = min(cfg.batch_subgroup or BATCH_SUBGROUP,
-                   _tables_in_smem(dev, cfg))
-    sub, n_sub, slots = batch_grid(Q, subgroup, sms, words.shape[0] // _S)
-    out_v = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.float32,
-                        device=dev)
-    out_t = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.int32,
+    codec, fit = _slice_codec(dev, cfg)
+    part_rows = words.shape[0] // P
+    sub, n_sub, slots = batch_grid(Q, min(cfg.batch_subgroup
+                                          or BATCH_SUBGROUP, fit),
+                                   sms, part_rows // _S, P)
+    out_v = torch.empty((Q, P, slots, cfg.lane_k, LANES),
+                        dtype=torch.float32, device=dev)
+    out_t = torch.empty((Q, P, slots, cfg.lane_k, LANES), dtype=torch.int32,
                         device=dev)
     _launch(dev, "slice_topk_batch", words.data_ptr(), tables.data_ptr(),
             nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            SLICE_CODECS.index(cfg.query_codec), cfg.lane_k,
-            int(kw["tie_safe"]), Q, sub, slots * n_sub, out_v.data_ptr(),
-            out_t.data_ptr())
+            codec, cfg.lane_k, int(kw["tie_safe"]), Q, sub, slots * n_sub,
+            P, part_rows, ps, out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_batch_device.launches += 1
-    return merge_lane_topk(out_v, out_t, cfg.lane_k, queries=Q)
+    return merge_lane_topk(out_v, out_t, cfg.lane_k, lead=1 + int(P > 1))
 
 
 topk_spmv_fused_batch_device.launches = 0
@@ -852,33 +995,37 @@ topk_spmv_fused_batch_device.launches = 0
 
 def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
                              cfg: TopKSpMVConfig, block_sublanes: int,
-                             num_slices: int):
-    """Plain SpMV over the slice stream (K9): (num_slices, 128) f32, row s
-    the unscaled scores of slice s's 128 rows (rows of no real slice are
-    0). Arguments as for ``topk_spmv_fused_device``; num_slices is
-    ``row_ids.shape[0]``.
+                             num_slices: int, num_partitions: int = 1):
+    """Plain SpMV over the slice stream (K9, over every partition when
+    P = num_partitions > 1): (num_slices, 128) f32, row s the unscaled
+    scores of slice s's 128 rows (rows of no real slice are 0).
+    Arguments as for ``topk_spmv_fused_device``; num_slices is
+    ``row_ids.shape[0]``, P * part_slices for P partitions.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
     _check_slice_codec(cfg)
+    P = num_partitions
+    if num_slices % P:
+        raise ValueError(f"{num_slices} slices in {P} partitions")
     if words.device.type == "cpu":
         return slice_scores_plain(words, table, nreal, plan_rows,
                                   num_slices=num_slices,
                                   block_sublanes=block_sublanes,
-                                  codec=cfg.query_codec)
+                                  codec=cfg.query_codec, num_partitions=P)
     B = plan_rows.shape[0]
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, plan_rows, block_sublanes,
+    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
                         ("table", table, (rows, LANES), dtype),
-                        ("nreal", nreal, (B, 1)),
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     dev = words.device
-    _tables_in_smem(dev, cfg)
-    nblk = max(1, min(sms * _BLOCKS_PER_SM, words.shape[0] // _S))
+    codec, _ = _slice_codec(dev, cfg)
+    part_rows = words.shape[0] // P
+    nblk = _sweep_blocks(sms, part_rows, P)
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
     _launch(dev, "slice_scores", words.data_ptr(), table.data_ptr(),
             nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            SLICE_CODECS.index(cfg.query_codec), nblk, out.data_ptr())
+            codec, nblk, P, part_rows, num_slices // P, out.data_ptr())
     spmv_fused_scores_device.launches += 1
     return out
 

@@ -7,8 +7,9 @@ file imports no jax, so it runs on a GPU host without the JAX package
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Kernels: K1 (single-query octet sweep), K6 (multi-query octet sweep),
-K4 (octet SpMV), K3 (stream probe), and on the slice stream K7
-(single-query sweep), K8 (multi-query sweep) and K9 (SpMV). Tolerances:
+K4 (octet SpMV), K3 (stream probe), on the slice stream K7
+(single-query sweep), K8 (multi-query sweep) and K9 (SpMV), and all six
+on partitioned streams (K10a-d and the partitioned K4/K9). Tolerances:
 none against the plain versions. h16 scores are int32 sums converted to
 f32 once, so with tie-safe buffers the per-lane sorted values are
 bit-equal, and (value, slice) pairs are equal above each lane's smallest
@@ -17,6 +18,8 @@ checksum is an exact int32 sum. f32 too is held bit for bit, on
 integer-valued and on real data: the plain versions sum in the kernels'
 order (see the slice section).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -65,6 +68,15 @@ def _lanes_equal(kv, kt, pv, pt_):
         b = sorted(zip(pv[pv[:, lane] > floor, lane].tolist(),
                        pt_[pv[:, lane] > floor, lane].tolist()))
         assert a == b, f"lane {lane}"
+
+
+def _pools_equal(kv, kt, pv, pt_):
+    """``_lanes_equal`` for each (lane_k, 128) pool of (..., lane_k, 128)
+    buffers (queries, partitions)."""
+    assert kv.shape == pv.shape
+    shape = (-1, *kv.shape[-2:])
+    for args in zip(*(x.reshape(shape) for x in (kv, kt, pv, pt_))):
+        _lanes_equal(*args)
 
 
 @pytest.mark.parametrize("fbs,fold,lane_k", [(1024, 8, 8), (1024, 1, 8),
@@ -641,22 +653,230 @@ def test_slice_f32_kernels_at_the_shared_memory_limit(gpu, cols):
     assert torch.equal(got, want)
 
 
-def test_slice_f32_tables_past_shared_memory_raise(gpu):
-    """One column group more than a CUDA block's shared memory holds:
-    query, query_batch and scores raise NotImplementedError naming the
-    ROADMAP item, and launch nothing."""
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("cols", ["past_limit", "65536"])
+def test_slice_f32_tables_past_shared_memory_read_global(gpu, cols, P):
+    """One column group more than a CUDA block's shared memory holds, and
+    the f32 column field's 65,536: no table fits, so K7, K8 (5 queries in
+    the default subgroup of 4) and K9 gather from the tables in global
+    memory, bit-equal to their plain versions, on one partition and on
+    two; the engine's query, query_batch and scores launch them."""
     limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
-    ncols = limit // 512 * 128 + 128
-    coo = create_sparse_matrix(2000, ncols, 20, "gamma", seed=35)
-    q = create_query_batch(2, ncols, seed=36)
-    eng = pt.TopKSpMV(coo, pt.TopKSpMVConfig(k=100, max_cols=ncols),
-                      device=gpu)
+    ncols = limit // 512 * 128 + 128 if cols == "past_limit" else 65536
+    assert pkernel.f32_tables_in_smem(ncols, limit) == 0
+    coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=35)
+    qs = create_query_batch(5, ncols, seed=36)
+    cfg = pt.TopKSpMVConfig(k=100, max_cols=ncols, tie_safe_topk=True,
+                            num_partitions=P)
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    table, _ = eng._table(qs[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bs = dict(block_sublanes=cfg.fused_block_sublanes)
+    kv, kt = pkernel.topk_spmv_fused_device(*args, cfg=cfg, **bs,
+                                            **eng.partition_kw)
+    pv, pt_ = pkernel.slice_topk_plain(*args, fold_tile=1,
+                                       **eng.partition_kw,
+                                       **_plain_kw(cfg, True))
+    _pools_equal(kv, kt, pv, pt_)
+    bargs = (eng.words, _slice_tables(cfg, qs, gpu), eng.nreal,
+             eng.plan_rows)
+    bv, bt = pkernel.topk_spmv_fused_batch_device(*bargs, cfg=cfg, **bs,
+                                                  **eng.partition_kw)
+    bpv, bpt = pkernel.slice_topk_batch_plain(*bargs, **eng.partition_kw,
+                                              **_plain_kw(cfg, True))
+    _pools_equal(bv, bt, bpv, bpt)
+    n = eng.row_ids.shape[0]
+    got = pkernel.spmv_fused_scores_device(*args, cfg=cfg, num_slices=n,
+                                           num_partitions=P, **bs)
+    want = pkernel.slice_scores_plain(*args, num_slices=n, codec="f32",
+                                      num_partitions=P, **bs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
     wrappers = (pkernel.topk_spmv_fused_device,
                 pkernel.topk_spmv_fused_batch_device,
                 pkernel.spmv_fused_scores_device)
     before = [w.launches for w in wrappers]
-    for call in (lambda: eng.query(q[0]), lambda: eng.query_batch(q),
-                 lambda: eng.scores(q[0])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    assert [w.launches for w in wrappers] == before
+    idx, _ = eng.query(qs[0])
+    bidx, _ = eng.query_batch(qs)
+    sc = eng.scores(qs[0])
+    assert idx.shape == (100,) and bidx.shape == (5, 100)
+    assert torch.isfinite(sc).all()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+
+
+# ------------------------------------------------------------- partitions
+# K10a-d: K7, K8, K1, K6 with a partition axis, and the partitioned K4 and
+# K9, on engines of P row partitions on one plan skeleton. A pool per
+# partition: (P, lane_k, 128) and (Q, P, lane_k, 128), each partition's
+# tags offset by p * part_slices.
+
+# (name, config, integer-valued data)
+PART_CASES = [
+    ("octet_h16", dict(HEADLINE, tie_safe_topk=True, num_partitions=3),
+     False),
+    ("octet_h16_fold1", dict(HEADLINE, fold_tile=1, tie_safe_topk=True,
+                             num_partitions=2), False),
+    ("octet_h16_wide", dict(HEADLINE, fused_block_sublanes=64,
+                            tie_safe_topk=True, num_partitions=2), False),
+    ("slice_h16", dict(SLICE_BENCH, tie_safe_topk=True, num_partitions=3),
+     False),
+    ("slice_h16_wide", dict(SLICE_BENCH, fused_block_sublanes=32,
+                            tie_safe_topk=True, num_partitions=2), False),
+    ("slice_f32_int", dict(SLICE_DEFAULT, tie_safe_topk=True,
+                           num_partitions=4), True),
+    ("slice_f32_real", dict(SLICE_DEFAULT, tie_safe_topk=True,
+                            num_partitions=2), False),
+]
+
+
+def _part_view(eng, p):
+    """Partition p of a partitioned engine as an engine-like view (words,
+    nreal (B, 1), plan_rows) for the single-partition emulations."""
+    from types import SimpleNamespace
+
+    P = eng.config.num_partitions
+    rows = eng.words.shape[0] // P
+    return SimpleNamespace(words=eng.words[p * rows:(p + 1) * rows],
+                           nreal=eng.nreal[p], plan_rows=eng.plan_rows)
+
+
+@pytest.mark.parametrize("lane_k", [8, 16, 4])
+@pytest.mark.parametrize("name,kw,integer", PART_CASES,
+                         ids=[c[0] for c in PART_CASES])
+def test_partition_kernels_match_plain(gpu, corpus, int_corpus, name, kw,
+                                       integer, lane_k):
+    """K10a/b (one query), K10c/d (5 queries in subgroups of 2) and the
+    partitioned K4/K9 against their plain versions: sorted values
+    bit-equal, (value, tag) pairs above each lane's floor, scores
+    bit-equal; at least one partition holds a bucket with no real
+    slice."""
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
+                             lane_k=lane_k, batch_subgroup=2)
+    P = cfg.num_partitions
+    if name != "slice_f32_real":
+        assert (eng.nreal == 0).any()
+    octet = cfg.fused_layout == "octet"
+    qs = _slice_queries(int_corpus, integer, 6, 29)
+    table, _ = eng._table(qs[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bargs = (eng.words, _slice_tables(cfg, qs[1:], gpu), eng.nreal,
+             eng.plan_rows)
+    bs = cfg.fused_block_sublanes
+    parts = eng.partition_kw
+    pkw = dict(lane_k=lane_k, tie_safe=True, block_sublanes=bs, **parts)
+    n = eng.row_ids.shape[0]
+    if octet:
+        sweeps = (pkernel.topk_spmv_fused_octet_device,
+                  pkernel.topk_spmv_fused_batch_octet_device,
+                  pkernel.spmv_fused_scores_octet_device)
+        pkw["fold_tile"] = cfg.fold_tile
+        plain = (pkernel.octet_topk_plain(*args, **pkw),
+                 pkernel.octet_topk_batch_plain(*bargs, **pkw),
+                 pkernel.octet_scores_plain(*args, num_slices=n,
+                                            block_sublanes=bs,
+                                            num_partitions=P))
+    else:
+        sweeps = (pkernel.topk_spmv_fused_device,
+                  pkernel.topk_spmv_fused_batch_device,
+                  pkernel.spmv_fused_scores_device)
+        pkw["codec"] = cfg.query_codec
+        plain = (pkernel.slice_topk_plain(*args, fold_tile=cfg.fold_tile,
+                                          **pkw),
+                 pkernel.slice_topk_batch_plain(*bargs, **pkw),
+                 pkernel.slice_scores_plain(*args, num_slices=n,
+                                            block_sublanes=bs,
+                                            codec=cfg.query_codec,
+                                            num_partitions=P))
+    before = [w.launches for w in sweeps]
+    kv, kt = sweeps[0](*args, cfg=cfg, block_sublanes=bs, **parts)
+    bv, bt = sweeps[1](*bargs, cfg=cfg, block_sublanes=bs, **parts)
+    ks = sweeps[2](*args, cfg=cfg, block_sublanes=bs, num_slices=n,
+                   num_partitions=P)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(sweeps, before)] == [1, 1, 1]
+    assert kv.shape == (P, lane_k, 128) and bv.shape == (5, P, lane_k, 128)
+    _pools_equal(kv, kt, *plain[0])
+    _pools_equal(bv, bt, *plain[1])
+    assert torch.equal(ks, plain[2])
+
+
+def _offset_real(tv, tt, off):
+    """Tags of real entries (above the sentinels) moved up by off."""
+    return torch.where(tv > pkernel.TOPK_FLOOR, tt + off, tt)
+
+
+@pytest.mark.parametrize("name,kw,integer", [
+    ("octet_fold8", dict(HEADLINE, num_partitions=2), False),
+    ("octet_fold1", dict(HEADLINE, fold_tile=1, num_partitions=3), False),
+    ("slice_h16_fold8", dict(SLICE_BENCH, num_partitions=2), False),
+    ("slice_h16_fold1", dict(SLICE_BENCH, fold_tile=1, num_partitions=3),
+     False),
+    ("slice_f32", dict(SLICE_DEFAULT, num_partitions=2), True)],
+    ids=["octet_fold8", "octet_fold1", "slice_h16_fold8", "slice_h16_fold1",
+         "slice_f32"])
+def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
+                                        integer):
+    """K10a-d's production buffers (tie_safe_topk=False) against the
+    per-octet and per-work-item emulations, partition by partition: each
+    partition has fewer octets or work items than it has CUDA blocks
+    (single query) and slots (batch)."""
+    eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
+                             tie_safe_topk=False)
+    P = cfg.num_partitions
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    part_rows = eng.words.shape[0] // P
+    nblk = pkernel._sweep_blocks(sms, part_rows, P)
+    qs = _slice_queries(int_corpus, integer, 3, 30)
+    tables = _slice_tables(cfg, qs, gpu)
+    _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
+                                     part_rows // 8, P)
+    table, _ = eng._table(qs[0])
+    kv, kt = eng.candidates(qs[0])
+    bv, bt = eng.batch_candidates(tables)
+    octet = cfg.fused_layout == "octet"
+    for p in range(P):
+        view = _part_view(eng, p)
+        off = p * eng.partition_kw["part_slices"]
+        for got_v, got_t, tab, blocks, fold in (
+                (kv[p], kt[p], table, nblk, cfg.fold_tile),
+                *((bv[q, p], bt[q, p], tables[q], slots,
+                   cfg.fold_tile if octet else 1) for q in range(3))):
+            if octet:
+                ev, et = _emulate_production(
+                    view, tab, dataclasses.replace(cfg, fold_tile=fold),
+                    blocks)
+            else:
+                ev, et = _emulate_slice_production(view, tab, cfg, blocks,
+                                                   fold)
+            _lanes_equal(got_v, got_t, ev, _offset_real(ev, et, off))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("octet_headline", dict(HEADLINE, num_partitions=2)),
+    ("slice_bench", dict(SLICE_BENCH, num_partitions=3)),
+    ("default", dict(SLICE_DEFAULT, num_partitions=2))],
+    ids=["octet_headline", "slice_bench", "default"])
+def test_partitioned_engines_on_gpu_match_cpu(gpu, corpus, name, kw):
+    """query, query_batch (groups of 2, a tail group) and scores of
+    partitioned engines on the card equal the plain path's on the CPU:
+    the rescored engines' top 100 bit for bit, the default engine's
+    values bit-equal and its rows above the k-th value."""
+    coo, qs = corpus
+    batch = create_query_batch(5, 1024, seed=31)
+    cfg = pt.TopKSpMVConfig(**kw)
+    on_gpu = pt.TopKSpMV(coo, cfg, device=gpu)
+    on_cpu = pt.TopKSpMV(coo, cfg, device="cpu")
+    pairs = [(on_gpu.query(qs[0]), on_cpu.query(qs[0])),
+             *zip(zip(*on_gpu.query_batch(batch, group_size=2)),
+                  zip(*on_cpu.query_batch(batch, group_size=2)))]
+    for (gi, gv), (ci, cv) in pairs:
+        assert gi.device.type == "cuda"
+        gi, gv, ci, cv = (x.cpu().numpy() for x in (gi, gv, ci, cv))
+        np.testing.assert_array_equal(gv, cv)
+        if cfg.rescore_pool:
+            np.testing.assert_array_equal(gi, ci)
+        else:
+            assert set(gi[gv > cv[-1]].tolist()) == \
+                set(ci[cv > cv[-1]].tolist())
+    np.testing.assert_array_equal(on_gpu.scores(qs[1]).cpu().numpy(),
+                                  on_cpu.scores(qs[1]).numpy())
