@@ -31,18 +31,7 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      rescore);
   6. the scores path: ``scores()`` of one query, K4 against its plain
      version and against the exact f32 product;
-  7. the slice path on the same corpus: ``bench.py``'s batch engine
-     (slice layout, h16, quantum 2, fold 8, pool 400): ``query()`` and
-     ``query_batch`` of the 32 queries against the gold sets, the
-     ``batch32_*`` numbers, one ``scores()``, and K7, K8, K9, K3 timed
-     (and held to their plain versions) on its stream;
-  8. the default path: ``TopKSpMVConfig(k=100, max_cols=1024)`` (slice
-     layout, f32 codec, no rescore): ``query()`` against the exact and
-     the bf16-matrix top-100 and bit-equal to the plain path's,
-     ``query_batch`` in groups of 8 bit-equal to ``query()``,
-     ``scores()``, and K7, K8 (a group of 8), K9 held to and timed
-     against their plain versions;
-  9. partitioned engines (``num_partitions`` > 1) at 50k rows, P = 3 and
+  7. partitioned engines (``num_partitions`` > 1) at 50k rows, P = 3 and
      4: K10a-d (K1, K6, K7, K8 with a partition axis; the batch ones on
      5 queries in uneven subgroups) and the partitioned K4/K9 against
      their plain versions, tie-safe, bit-equal: octet h16 at fold 8 and
@@ -50,25 +39,45 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      real data, wide octets and wide slices, and at least one partition
      holding a bucket with no real slice; then f32 K7, K8, K9 at 65,536
      columns (tables read from global memory) on one and two partitions;
- 10. the library yardsticks on the same corpus: one ``torch.sparse.mm`` of
+  8. the query codecs at 50k rows: K7, K8 (5 queries in uneven
+     subgroups), K9 for int8x4, i8s and i4s, and K1, K6, K4 for f32,
+     int8x4, i8s and i4s at fold 8 and, with wide octets, fold 1, wide
+     slices, int8x4 at 1536 columns and i4s at 2048 (tables of several
+     rows) and P = 3 partitions of each stream, all against their plain
+     versions, tie-safe, bit-equal;
+  9. the library yardsticks on the 10M corpus: one ``torch.sparse.mm`` of
      its CSR (the SpMV kernels' counterpart), and that plus
      ``torch.topk`` (the Top-K sweeps'), for 1, 8 and 32 queries; timed
      only, used nowhere in the port;
- 11. the partitioned octet path: the headline config with
-     ``num_partitions=2`` on the 10M corpus: 32 ``query()`` against the
-     exact top-100, ``query_batch`` of the 32 in one group and the
-     ``batch32_*`` numbers, one ``scores()``, K10b, K10d and the
-     partitioned K4 held to and timed against their plain versions, and
-     its words against the one-partition engine's;
- 12. the partitioned default path: ``TopKSpMVConfig(k=100, max_cols=1024,
-     num_partitions=2)`` as in 8, through K10a, K10c and the partitioned
-     K9;
- 13. the launch counts of each path's run (counts set to 0 just before
+ 10. the slice-layout engines on the 10M corpus, each built from its
+     config and driven alike (``phase_slice_engine``): ``bench.py``'s
+     batch engine (h16, quantum 2, fold 8, pool 400); the default engine
+     ``TopKSpMVConfig(k=100, max_cols=1024)`` (f32, no rescore), and the
+     same on 2 partitions (K10a, K10c, the partitioned K9); the c3 and
+     c8 deployments of ``spmv_topk_tpu/bench/full_eval.py`` (i8s and i4s
+     at quantum 4; c8 with pool 400, its 50M rows cut to this corpus);
+     c3's geometry with the int8x4 codec (``bench/sweep.py``'s codec
+     flag). Each: 32 ``query()`` against the exact and the bf16-matrix
+     top-100, ``query_batch`` in groups of 32 (rescored engines, with the
+     ``batch32_*`` numbers) or 8, one ``scores()``, K7, K8 (on the path's
+     group) and K9 held to and timed against their plain versions, K3 on
+     the words; an engine without a rescore is held to its plain path
+     bit for bit, and its ``query_batch`` to its ``query()``;
+ 11. the octet-layout engines on the 10M corpus, each built from its
+     config and driven alike (``phase_octet_engine``): the headline
+     config on 2 partitions (K10b, K10d, the partitioned K4), and with
+     each other codec (f32, int8x4, i8s, i4s). Each: 32 ``query()``
+     against the exact top-100, ``query_batch`` of the 32 in one group
+     and the ``batch32_*`` numbers, one ``scores()``, the three kernels
+     held to and timed against their plain versions on the path's
+     shapes (K6 on its group of 32), K3 on the words;
+ 12. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
 Then the kernel summary (each kernel's time, its plain version's, the
 least time the card could take for the same work and what bounds it, and
-the library yardstick's time), the ``nvidia-smi`` name and power limit,
+the library yardstick's time; each codec's numbers nested under its
+kernel's h16 entry), the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the run exits non-zero with no ``ok`` line; so does a host without CUDA.
 """
@@ -98,7 +107,18 @@ SLICE_BATCH = dict(k=100, lane_k=8, num_partitions=1, max_cols=1024,
 # the top-100 of the bf16-rounded matrix
 MIN_PRECISION_BF16 = 0.95
 DEFAULT_GROUP = 8      # query_batch's default group size
+# the default engine: TopKSpMVConfig(k=100, max_cols=1024), nothing else
+# set (slice layout, f32 codec, quantum 8, fold 1, no rescore)
+DEFAULT = dict(k=100, max_cols=NUM_COLS)
 PARTITIONS = 2         # the partitioned paths (tests/test_tpu_smoke.py:107)
+# the quantized-codec deployments of spmv_topk_tpu/bench/full_eval.py: c3
+# (:174-191, on this very corpus) and c8 (:263-275, 50M rows there, cut to
+# this corpus's 10M to keep the run's time)
+C3 = dict(k=100, max_cols=1024, query_codec="i8s", width_quantum=4)
+C8 = dict(k=100, max_cols=1024, query_codec="i4s", width_quantum=4,
+          rescore_pool=400)
+# the int8x4 codec of bench/sweep.py (:79) at c3's geometry
+INT8X4 = dict(C3, query_codec="int8x4")
 # the f32 column field's width: the widest f32 table (256 KB)
 F32_MAX_COLS = 65536
 # NVIDIA's data sheet for the H100 SXM (at its 700 W limit): HBM3 bytes
@@ -184,10 +204,11 @@ def bound(nbytes, ops):
 
 def sweep_bound(eng, queries, out_bytes):
     """``bound`` of a sweep over ``eng``'s words for ``queries`` queries:
-    the words and the queries' tables read once, ``out_bytes`` written,
-    a multiply and an add per nnz per query."""
-    table = eng.config.max_cols * 4 if eng.config.query_codec == "f32" \
-        else 128 * 4
+    the words and the queries' tables (``_table_spec``) read once,
+    ``out_bytes`` written, a multiply and an add per nnz per query."""
+    from spmv_topk_tpu_torch.ops.kernel import _table_spec
+
+    table = _table_spec(eng.config)[0] * 128 * 4
     return bound(eng.hbm_bytes + queries * table + out_bytes,
                  2 * eng.num_nnz * queries)
 
@@ -226,6 +247,7 @@ def phase_environment():
                native_runtime=native.available(),
                native_error=native.load_error,
                kernel_build_seconds=_build.build_seconds,
+               kernel_source_seconds=_build.source_seconds,
                registers_and_spill_bytes=_build.ptxas_report())
     emit(env)
     return env
@@ -242,7 +264,8 @@ def _plain_and_kernel(eng, table, cfg):
     plain = octet_topk_plain(
         *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
         tie_safe=bool(cfg.tie_safe_topk),
-        block_sublanes=eng.fused.block_sublanes, **eng.partition_kw)
+        block_sublanes=eng.fused.block_sublanes, codec=cfg.query_codec,
+        **eng.partition_kw)
     return kern, plain
 
 
@@ -266,7 +289,8 @@ def _batch_plain_and_kernel(eng, tables, cfg):
     plain = octet_topk_batch_plain(
         *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
         tie_safe=bool(cfg.tie_safe_topk),
-        block_sublanes=eng.fused.block_sublanes, **eng.partition_kw)
+        block_sublanes=eng.fused.block_sublanes, codec=cfg.query_codec,
+        **eng.partition_kw)
     return kern, plain
 
 
@@ -283,7 +307,7 @@ def _scores_plain_and_kernel(eng, table):
               num_slices=eng.row_ids.shape[0],
               num_partitions=eng.config.num_partitions)
     kern = spmv_fused_scores_octet_device(*args, cfg=eng.config, **kw)
-    plain = octet_scores_plain(*args, **kw)
+    plain = octet_scores_plain(*args, codec=eng.config.query_codec, **kw)
     torch.cuda.synchronize()
     require(torch.equal(kern, plain),
             "K4 slice scores equal the plain version's bit for bit")
@@ -737,13 +761,18 @@ def phase_slice_small(dev):
     return out
 
 
-def _same_top(idx, vals, ref_idx, ref_vals, what):
-    """Require two top-k lists of one query to hold bit-equal values and
-    the same rows, but where a row ties the k-th value (either list may
-    keep another of the tied rows)."""
-    require(np.array_equal(vals, ref_vals), f"{what}: top-k values equal "
-            "bit for bit")
-    kth = ref_vals[-1]
+def _same_top(idx, vals, ref_idx, ref_vals, what, rtol=0.0):
+    """Require two top-k lists of one query to hold the same values (bit
+    for bit, or within ``rtol``) and the same rows, but where a row ties
+    the k-th value, or lies within ``rtol`` of it (either list may keep
+    another of the tied rows)."""
+    if rtol:
+        require(np.allclose(vals, ref_vals, rtol=rtol, atol=0),
+                f"{what}: top-k values equal to rtol {rtol}")
+    else:
+        require(np.array_equal(vals, ref_vals), f"{what}: top-k values "
+                "equal bit for bit")
+    kth = ref_vals[-1] + rtol * abs(ref_vals[-1])
     require(set(idx[vals > kth].tolist()) == set(ref_idx[ref_vals > kth]
                                                  .tolist()),
             f"{what}: the same rows above the k-th value")
@@ -862,11 +891,75 @@ def _slice_kernel_times(eng, qs, dev, group):
         **{f"{k}_bound_by": b[1] for k, b in bounds.items()})
 
 
-def phase_slice_path(coo, csr, qs, gold, dev):
-    """bench.py's batch engine (slice layout, h16, quantum 2, fold 8,
-    pool 400) on the full corpus: query(), query_batch of the 32 queries
-    in one group, the batch32_* numbers, one scores(), and K7, K8, K9, K3
-    timed on its stream."""
+def _bf16_gold_sets(csr, qs, k):
+    """The top-k sets of the bf16-rounded matrix, what the engines without
+    a rescore rank by."""
+    import scipy.sparse
+
+    from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
+
+    bf16 = scipy.sparse.csr_matrix(
+        (quantize_bf16(csr.data), csr.indices, csr.indptr), shape=csr.shape)
+    return _gold_sets(bf16, qs, k)
+
+
+def _unrescored_agree(eng, qs, group, single, svals, bidx, bvals, dev):
+    """An engine without a rescore against its plain path and its two
+    entry points against each other: each query()'s top-k bit-equal to
+    the plain sweep's, finalized and scaled as query() does; K8's
+    candidates (tie-safe, the path's first group) bit-equal to K7's for
+    each query, since both fold every slice and sum alike; and
+    query_batch's top-k the same as query()'s, bit for bit for f32 and to
+    rtol 1e-6 for the scaled codecs (query_batch scales in float32,
+    query() in float64)."""
+    import dataclasses
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    cfg = eng.config
+    bs = cfg.fused_block_sublanes
+    parts = eng.partition_kw
+    safe = dataclasses.replace(cfg, tie_safe_topk=True)
+    tables = _tables(qs[:group], dev, cfg.query_codec)
+    bv, bt = K.topk_spmv_fused_batch_device(
+        eng.words, tables, eng.nreal, eng.plan_rows, cfg=safe,
+        block_sublanes=bs, **parts)
+    for j in range(len(tables)):
+        sv, st = K.topk_spmv_fused_device(
+            eng.words, tables[j], eng.nreal, eng.plan_rows, cfg=safe,
+            block_sublanes=bs, **parts)
+        compare_pools(bv[j], bt[j], sv, st)
+    rtol = 0.0 if cfg.query_codec == "f32" else 1e-6
+    for j, q in enumerate(qs):
+        table, scale = eng._table(q)
+        pv, pt = K.slice_topk_plain(eng.words, table, eng.nreal,
+                                    eng.plan_rows, fold_tile=cfg.fold_tile,
+                                    **_slice_plain_kw(cfg), **parts)
+        pidx, pvals = K.finalize_topk(pv, pt, eng.row_ids, k=cfg.k)
+        scale *= eng._value_scale
+        if scale != 1.0:
+            pvals = pvals * scale
+        _same_top(single[j], svals[j], pidx.cpu().numpy(),
+                  pvals.cpu().numpy(), "query() against the plain path")
+        _same_top(bidx[j], bvals[j], single[j], svals[j],
+                  "query_batch against query()", rtol=rtol)
+
+
+def phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
+                       group):
+    """One slice-layout engine built from ``config`` on the full corpus
+    (kernels K7, K8, K9; with num_partitions > 1, K10a, K10c and the
+    partitioned K9): 32 query() against the exact and the bf16-matrix
+    top-100 (and, rescored, the raw pool's), query_batch in groups of
+    ``group``, one scores() against the exact f32 product, K7, K8 (the
+    path's group) and K9 held to (tie-safe) and timed against their plain
+    versions, K3 on the words; with ``group`` 32, the batch32_* numbers.
+
+    A rescored engine is held to MIN_PRECISION against the exact top-100
+    in query(), query_batch and their agreement; one without a rescore
+    ranks by bf16 matrix values and is held to MIN_PRECISION_BF16 against
+    the bf16 matrix's top-100, and to its plain path
+    (``_unrescored_agree``)."""
     import torch
 
     from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
@@ -874,7 +967,7 @@ def phase_slice_path(coo, csr, qs, gold, dev):
     from spmv_topk_tpu_torch.ops import kernel as K
     from spmv_topk_tpu_torch.ops.streamprobe import stream_words_device
 
-    cfg = TopKSpMVConfig(**SLICE_BATCH)
+    cfg = TopKSpMVConfig(**config)
     t0 = time.perf_counter()
     eng = TopKSpMV(coo, cfg, device=dev)
     torch.cuda.synchronize()
@@ -885,28 +978,20 @@ def phase_slice_path(coo, csr, qs, gold, dev):
     eng.scores(qs[0])
     torch.cuda.synchronize()
     _reset_slice_counts()
-    single, _, q_ms, bidx, _, b_ms, s, s_ms = _drive(eng, qs, k,
-                                                    BATCH_GROUP)
+    single, svals, q_ms, bidx, bvals, b_ms, s, s_ms = _drive(eng, qs, k,
+                                                             group)
     torch.cuda.synchronize()
     launches = _slice_counts()
-    prec = _precision(gold, single, k)
-    bprec = _precision(gold, bidx, k)
+    raw = ([eng.query(q, rescore_pool=0)[0].cpu().numpy() for q in qs]
+           if cfg.rescore_pool else single)
     same = [len(set(a.tolist()) & set(b.tolist())) / k
             for a, b in zip(single, bidx)]
-    raw = [eng.query(q, rescore_pool=0)[0].cpu().numpy() for q in qs]
-
-    many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
-                              seed=BATCH_SEED)
-    e2e = _e2e_ms_per_query(eng, many, BATCH_GROUP)
-    e2e_raw = _e2e_ms_per_query(eng, many, BATCH_GROUP, rescore_pool=0)
-    times = _slice_kernel_times(eng, qs, dev, BATCH_GROUP)
-    exact = np.asarray(csr @ qs[0], np.float32)
-    salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
-    k3_ms = cuda_ms(lambda: stream_words_device(eng.words, salt), reps=20,
-                    warmup=2)
-    per_query = times["k8_ms"] / len(qs)
+    if not cfg.rescore_pool:
+        _unrescored_agree(eng, qs, group, single, svals, bidx, bvals, dev)
+    prec = _precision(gold, single, k)
+    bprec = _precision(gold, bidx, k)
     res = dict(
-        phase="slice_path", config=SLICE_BATCH, rows=eng.num_rows,
+        phase=f"{name}_path", config=config, rows=eng.num_rows,
         buckets=len(eng.fused.plan),
         widths=[p.width for p in eng.fused.plan],
         work_items=K.slice_work_items(eng.plan_rows, cfg.fold_tile),
@@ -915,137 +1000,57 @@ def phase_slice_path(coo, csr, qs, gold, dev):
         pack_and_upload_s=build_s, queries=len(qs),
         precision_at_100_mean=float(np.mean(prec)),
         precision_at_100_min=float(np.min(prec)),
+        precision_bf16_matrix_mean=float(np.mean(
+            _precision(gold_bf16, single, k))),
+        precision_bf16_matrix_min=float(np.min(
+            _precision(gold_bf16, single, k))),
         precision_raw_mean=float(np.mean(_precision(gold, raw, k))),
+        precision_raw_bf16_matrix_mean=float(np.mean(
+            _precision(gold_bf16, raw, k))),
         query_e2e_ms_median=statistics.median(q_ms),
         batch_precision_at_100_mean=float(np.mean(bprec)),
         batch_precision_at_100_min=float(np.min(bprec)),
+        batch_precision_bf16_matrix_mean=float(np.mean(
+            _precision(gold_bf16, bidx, k))),
         agreement_with_query_mean=float(np.mean(same)),
         agreement_with_query_min=float(np.min(same)),
-        group_of_32_e2e_ms=b_ms,
-        batch32_ms_per_query=per_query,
-        batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
-        batch32_e2e_ms_per_query=e2e,
-        batch32_e2e_raw_ms_per_query=e2e_raw,
-        scores_e2e_ms=s_ms,
-        scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
-        max_abs_exact=float(np.abs(exact).max()),
-        **times,
-        k7_words_gb_per_s=eng.hbm_bytes / (times["k7_ms"] * 1e-3) / 1e9,
-        k3_ms=k3_ms,
-        k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
-        launches=launches, nvidia_smi=smi_line())
-    emit(res)
-    require(res["precision_at_100_mean"] >= MIN_PRECISION,
-            f"slice query() mean precision@100 >= {MIN_PRECISION}")
-    require(res["batch_precision_at_100_mean"] >= MIN_PRECISION,
-            f"slice query_batch mean precision@100 >= {MIN_PRECISION}")
-    require(res["agreement_with_query_mean"] >= MIN_PRECISION,
-            f"slice query_batch agrees with query() on >= {MIN_PRECISION} "
-            "of the top-100 (K8 folds every slice, K7 tiles)")
-    for name, n in launches.items():
-        require(n > 0, f"the slice path launched {name}")
-    return res
-
-
-def _bf16_gold_sets(csr, qs, k):
-    """The top-k sets of the bf16-rounded matrix, what the f32 codec's
-    engines rank by."""
-    import scipy.sparse
-
-    from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
-
-    bf16 = scipy.sparse.csr_matrix(
-        (quantize_bf16(csr.data), csr.indices, csr.indptr), shape=csr.shape)
-    return _gold_sets(bf16, qs, k)
-
-
-def phase_default_path(coo, csr, qs, gold, gold_bf16, dev, partitions=1):
-    """TopKSpMVConfig(k=100, max_cols=1024), nothing else set (slice
-    layout, f32 codec, quantum 8, fold 1, no rescore; with ``partitions``
-    > 1, num_partitions too: kernels K10a, K10c and the partitioned K9) on
-    the full corpus: query() against the exact f32 top-100 and the
-    top-100 of the bf16-rounded matrix, and bit-equal to the plain
-    path's; query_batch at the default group size 8 bit-equal to query()
-    (K8 and K7 harvest the same slices, summed alike); scores(); and K7,
-    K8 (a group of 8), K9 held to and timed against their plain
-    versions."""
-    import torch
-
-    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
-    from spmv_topk_tpu_torch.ops import kernel as K
-
-    config = dict(k=100, max_cols=NUM_COLS)
-    if partitions > 1:
-        config["num_partitions"] = partitions
-    cfg = TopKSpMVConfig(**config)
-    t0 = time.perf_counter()
-    eng = TopKSpMV(coo, cfg, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    k = cfg.k
-    eng.query(qs[0])                                      # warm
-    eng.query_batch(qs[:2])
-    eng.scores(qs[0])
-    torch.cuda.synchronize()
-    _reset_slice_counts()
-    single, svals, q_ms, bidx, bvals, b_ms, s, s_ms = _drive(
-        eng, qs, k, DEFAULT_GROUP)
-    torch.cuda.synchronize()
-    launches = _slice_counts()
-    prec = _precision(gold, single, k)
-    prec_bf16 = _precision(gold_bf16, single, k)
-    bprec_bf16 = _precision(gold_bf16, bidx, k)
-    same = [len(set(a.tolist()) & set(b.tolist())) / k
-            for a, b in zip(single, bidx)]
-
-    # the path's top-100s (production buffers) against the plain path's
-    for j, q in enumerate(qs):
-        table, _ = eng._table(q)
-        pv, pt = K.slice_topk_plain(eng.words, table, eng.nreal,
-                                    eng.plan_rows, fold_tile=cfg.fold_tile,
-                                    **_slice_plain_kw(cfg),
-                                    **eng.partition_kw)
-        pidx, pvals = (x.cpu().numpy() for x in
-                       K.finalize_topk(pv, pt, eng.row_ids, k=k))
-        _same_top(single[j], svals[j], pidx, pvals,
-                  "query() against the plain path")
-        _same_top(bidx[j], bvals[j], single[j], svals[j],
-                  "query_batch against query()")
-    times = _slice_kernel_times(eng, qs, dev, DEFAULT_GROUP)
+        batch_group_size=group, batch_e2e_ms_per_query=b_ms / len(qs),
+        scores_e2e_ms=s_ms)
+    times = _slice_kernel_times(eng, qs, dev, group)
+    if group == BATCH_GROUP:
+        many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
+                                  seed=BATCH_SEED)
+        per_query = times["k8_ms"] / group
+        res.update(
+            batch32_ms_per_query=per_query,
+            batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
+            batch32_e2e_ms_per_query=_e2e_ms_per_query(eng, many, group),
+            batch32_e2e_raw_ms_per_query=_e2e_ms_per_query(
+                eng, many, group, rescore_pool=0))
     exact = np.asarray(csr @ qs[0], np.float32)
-    res = dict(
-        phase="default_config_path" if partitions == 1
-        else "partitioned_default_path", config=config,
-        rows=eng.num_rows, buckets=len(eng.fused.plan),
-        widths=[p.width for p in eng.fused.plan],
-        work_items=K.slice_work_items(eng.plan_rows, cfg.fold_tile),
-        words_bytes=eng.hbm_bytes,
-        padding_words_per_nnz=eng.fused.padding_ratio,
-        pack_and_upload_s=build_s, queries=len(qs),
-        precision_at_100_mean=float(np.mean(prec)),
-        precision_at_100_min=float(np.min(prec)),
-        precision_bf16_matrix_mean=float(np.mean(prec_bf16)),
-        precision_bf16_matrix_min=float(np.min(prec_bf16)),
-        query_e2e_ms_median=statistics.median(q_ms),
-        batch_precision_at_100_mean=float(np.mean(_precision(gold, bidx,
-                                                             k))),
-        batch_precision_bf16_matrix_mean=float(np.mean(bprec_bf16)),
-        agreement_with_query_mean=float(np.mean(same)),
-        batch_group_size=DEFAULT_GROUP,
-        batch_e2e_ms_per_query=b_ms / len(qs),
-        scores_e2e_ms=s_ms,
+    salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
+    k3_ms = cuda_ms(lambda: stream_words_device(eng.words, salt), reps=20,
+                    warmup=2)
+    res.update(
         scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
-        max_abs_exact=float(np.abs(exact).max()),
-        **times,
+        max_abs_exact=float(np.abs(exact).max()), **times,
         k7_words_gb_per_s=eng.hbm_bytes / (times["k7_ms"] * 1e-3) / 1e9,
+        k3_ms=k3_ms, k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
         launches=launches, nvidia_smi=smi_line())
     emit(res)
-    for key in ("precision_bf16_matrix_mean",
-                "batch_precision_bf16_matrix_mean"):
-        require(res[key] >= MIN_PRECISION_BF16,
-                f"default path {key} >= {MIN_PRECISION_BF16}")
-    for name, n in launches.items():
-        require(n > 0, f"the default path launched {name}")
+    if cfg.rescore_pool:
+        floor, keys = MIN_PRECISION, ("precision_at_100_mean",
+                                      "batch_precision_at_100_mean",
+                                      "agreement_with_query_mean")
+    else:
+        floor, keys = MIN_PRECISION_BF16, ("precision_bf16_matrix_mean",
+                                           "batch_precision_bf16_matrix_mean")
+    for key in keys:
+        require(res[key] >= floor, f"{name} path {key} >= {floor}")
+    for kname, n in launches.items():
+        require(n > 0, f"the {name} path launched {kname}")
+    del eng
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1125,7 +1130,7 @@ def phase_partition_small(dev):
 
     # f32 tables past shared memory: 65,536 columns, 256 KB a table
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    require(K.f32_tables_in_smem(F32_MAX_COLS, limit) == 0,
+    require(K.tables_in_smem(4 * F32_MAX_COLS, limit) == 0,
             "a 65,536-column f32 table exceeds a CUDA block's shared memory")
     wcoo = create_sparse_matrix(20_000, F32_MAX_COLS, AVG_DEG, "gamma",
                                 seed=19)
@@ -1144,6 +1149,240 @@ def phase_partition_small(dev):
                shared_memory_per_block_optin=limit)
     emit(out)
     return out
+
+
+# ------------------------------------------------------------ query codecs
+
+def _octet_agree(eng, cfg, q, qs, dev):
+    """K1 (query q), K6 (queries qs in one group) and K4 (query q) of one
+    octet engine under cfg (tie-safe buffers) against their plain versions,
+    which add in the kernels' order: per-lane values and K4's slice scores
+    bit-equal, (value, tag) pairs equal above each lane's floor. Returns the
+    three max abs errors."""
+    import torch
+
+    table, _ = eng._table(q)
+    (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, cfg)
+    (bv, bt), (bpv, bpt) = _batch_plain_and_kernel(
+        eng, _tables(qs, dev, cfg.query_codec), cfg)
+    torch.cuda.synchronize()
+    return (compare_pools(kv, kt, pv, pt), compare_pools(bv, bt, bpv, bpt),
+            _scores_plain_and_kernel(eng, table))
+
+
+def phase_codecs_small(dev):
+    """The query codecs against their plain versions on a 50k-row corpus,
+    tie-safe, bit for bit: K7, K8 (5 queries in subgroups of 2) and K9 on
+    the slice stream for int8x4, i8s and i4s; K1, K6 and K4 on the octet
+    stream for f32, int8x4, i8s and i4s at fold 8 and, with wide octets
+    (small blocks), fold 1; wide slices; int8x4 at 1536 columns (3 table
+    rows) and i4s at 2048 (2 rows, the sign select) on both streams; P = 3
+    partitions of each stream, with a partition holding a bucket with no
+    real slice."""
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    slice_q4 = dict(k=100, max_cols=NUM_COLS, width_quantum=4,
+                    tie_safe_topk=True, batch_subgroup=2)
+    octet = dict(HEADLINE, tie_safe_topk=True, rescore_pool=None,
+                 batch_subgroup=2)
+    cases = [(f"slice_{c}", dict(slice_q4, query_codec=c), 1)
+             for c in ("i8s", "i4s", "int8x4")]
+    cases += [("slice_i4s_fold8", dict(slice_q4, query_codec="i4s",
+                                       fold_tile=8), 1),
+              ("slice_int8x4_wide", dict(slice_q4, query_codec="int8x4",
+                                         fused_block_sublanes=32), 1)]
+    for c in ("f32", "int8x4", "i8s", "i4s"):
+        cases += [(f"octet_{c}_fold8", dict(octet, query_codec=c), 1),
+                  (f"octet_{c}_fold1_wide", dict(
+                      octet, query_codec=c, fold_tile=1,
+                      fused_block_sublanes=64), 1)]
+    cases += [("slice_i8s_p3", dict(slice_q4, query_codec="i8s"), 3),
+              ("slice_int8x4_wide_p3", dict(slice_q4, query_codec="int8x4",
+                                            fused_block_sublanes=32), 3),
+              ("octet_i4s_p3", dict(octet, query_codec="i4s"), 3),
+              ("octet_f32_wide_p3", dict(octet, query_codec="f32",
+                                         fused_block_sublanes=64), 3)]
+    q = create_query_batch(1, NUM_COLS, seed=8)[0]
+    qs5 = create_query_batch(5, NUM_COLS, seed=9)
+    out = []
+    for name, kw, P in cases:
+        cfg = TopKSpMVConfig(**dict(kw, num_partitions=P))
+        eng = TopKSpMV(coo, cfg, device=dev)
+        out.append(_codec_case(name, eng, cfg, q, qs5, dev))
+        del eng
+    require(all(c["wide_buckets"] for c in out if "wide" in c["case"]),
+            "small blocks force wide octets and slices")
+    require(all(c["zero_real_buckets"] for c in out
+                if c["partitions"] > 1),
+            "a partition holds a bucket with no real slice")
+    # tables of several rows: int8x4 at 1536 columns, i4s at 2048
+    for codec, cols, rows in (("int8x4", 1536, 3), ("i4s", 2048, 2)):
+        wcoo = create_sparse_matrix(20_000, cols, AVG_DEG, "gamma", seed=10)
+        wq = create_query_batch(6, cols, seed=11)
+        for layout, base in (("slice", slice_q4), ("octet", octet)):
+            cfg = TopKSpMVConfig(**dict(base, query_codec=codec,
+                                        max_cols=cols))
+            eng = TopKSpMV(wcoo, cfg, device=dev)
+            require(eng._table(wq[0])[0].shape[0] == rows,
+                    f"{codec} at {cols} columns: {rows} table rows")
+            out.append(_codec_case(f"{layout}_{codec}_{cols}_cols", eng,
+                                   cfg, wq[0], wq[1:], dev))
+            del eng
+    res = dict(phase="codec_kernels_vs_plain_small", rows=coo.num_rows,
+               nnz=coo.nnz, cases=out)
+    emit(res)
+    return res
+
+
+def _codec_case(name, eng, cfg, q, qs, dev):
+    """One engine of phase_codecs_small, its three sweeps held to their
+    plain versions."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    octet = cfg.fused_layout == "octet"
+    plan = eng.fused.plan
+    if octet:
+        errs = _octet_agree(eng, cfg, q, qs, dev)
+        kinds = ("k1", "k6", "k4")
+    else:
+        errs = _slice_agree(eng, cfg, q, qs, dev)
+        kinds = ("k7", "k8", "k9")
+    return dict(case=name, codec=cfg.query_codec,
+                partitions=cfg.num_partitions, buckets=len(plan),
+                wide_buckets=sum((p.blocks_per_octet if octet
+                                  else p.blocks_per_slice) > 1 for p in plan),
+                zero_real_buckets=int((eng.nreal == 0).sum()),
+                table_rows=K._table_spec(cfg)[0],
+                **{f"{k}_max_abs_err": e for k, e in zip(kinds, errs)})
+
+
+def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
+                       p1_words_bytes):
+    """One octet-layout engine built from ``config`` on the full corpus:
+    the headline config with another query codec (kernels K1, K6, K4), or
+    with num_partitions > 1 (K10b, K10d and the partitioned K4). 32
+    query() against the exact top-100, query_batch of the 32 in one group
+    and the batch32_* numbers, one scores() against the exact f32
+    product, the three kernels held to (tie-safe) and timed against their
+    plain versions at the path's shapes (K6 on its group of 32), K3 on the
+    words, and the words against the one-partition h16 engine's."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import create_query_batch
+    from spmv_topk_tpu_torch.ops import kernel as K
+    from spmv_topk_tpu_torch.ops.streamprobe import stream_words_device
+
+    cfg = TopKSpMVConfig(**config)
+    P, codec = cfg.num_partitions, cfg.query_codec
+    t0 = time.perf_counter()
+    eng = TopKSpMV(coo, cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    k = cfg.k
+    eng.query(qs[0])                                      # warm
+    eng.query_batch(qs[:2], group_size=2)
+    eng.scores(qs[0])
+    torch.cuda.synchronize()
+    _reset_octet_counts()
+    single, _, q_ms, bidx, _, b_ms, s, s_ms = _drive(eng, qs, k, BATCH_GROUP)
+    torch.cuda.synchronize()
+    launches = _octet_counts(codec)
+    prec = _precision(gold, single, k)
+    bprec = _precision(gold, bidx, k)
+    same = [len(set(a.tolist()) & set(b.tolist())) / k
+            for a, b in zip(single, bidx)]
+    raw = [eng.query(q, rescore_pool=0)[0].cpu().numpy() for q in qs]
+    many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
+                              seed=BATCH_SEED)
+    e2e = _e2e_ms_per_query(eng, many, BATCH_GROUP)
+    e2e_raw = _e2e_ms_per_query(eng, many, BATCH_GROUP, rescore_pool=0)
+
+    # the kernels against their plain versions (tie-safe), then timed
+    group = qs[:BATCH_GROUP]
+    kinds = ("k10b", "k10d", "k4") if P > 1 else ("k1", "k6", "k4")
+    errs = _octet_agree(eng, dataclasses.replace(cfg, tie_safe_topk=True),
+                        qs[0], group, dev)
+    bs = eng.fused.block_sublanes
+    parts = eng.partition_kw
+    table, _ = eng._table(qs[0])
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bargs = (eng.words, _tables(group, dev, codec), eng.nreal, eng.plan_rows)
+    plain_kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                    tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
+                    codec=codec, **parts)
+    skw = dict(block_sublanes=bs, num_slices=eng.row_ids.shape[0],
+               num_partitions=P)
+    salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
+    k1, k6, k4 = kinds
+    times = {
+        f"{k1}_ms": cuda_ms(lambda: K.topk_spmv_fused_octet_device(
+            *args, cfg=cfg, block_sublanes=bs, **parts), reps=20, warmup=2),
+        f"{k1}_plain_ms": cuda_ms(lambda: K.octet_topk_plain(*args,
+                                                             **plain_kw),
+                                  reps=2),
+        f"{k6}_ms": cuda_ms(lambda: K.topk_spmv_fused_batch_octet_device(
+            *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
+        f"{k6}_plain_ms": cuda_ms(lambda: K.octet_topk_batch_plain(
+            *bargs, **plain_kw), reps=1, warmup=0),
+        f"{k4}_ms": cuda_ms(lambda: K.spmv_fused_scores_octet_device(
+            *args, cfg=cfg, **skw), reps=20, warmup=2),
+        f"{k4}_plain_ms": cuda_ms(lambda: K.octet_scores_plain(
+            *args, codec=codec, **skw), reps=2),
+        "k3_ms": cuda_ms(lambda: stream_words_device(eng.words, salt),
+                         reps=20, warmup=2)}
+    bounds = {k1: sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
+              k6: sweep_bound(eng, len(group),
+                              topk_out_bytes(eng, len(group))),
+              k4: sweep_bound(eng, 1, eng.row_ids.numel() * 4)}
+    exact = np.asarray(csr @ qs[0], np.float32)
+    per_query = times[f"{k6}_ms"] / len(group)
+    res = dict(
+        phase=f"{name}_path", config=config, rows=eng.num_rows,
+        buckets=len(eng.fused.plan),
+        zero_real_buckets=int((eng.nreal == 0).sum()),
+        table_rows=K._table_spec(cfg)[0],
+        words_bytes=eng.hbm_bytes, words_bytes_one_partition=p1_words_bytes,
+        words_bytes_added=eng.hbm_bytes - p1_words_bytes,
+        padding_words_per_nnz=eng.fused.padding_ratio,
+        pack_and_upload_s=build_s, queries=len(qs),
+        precision_at_100_mean=float(np.mean(prec)),
+        precision_at_100_min=float(np.min(prec)),
+        precision_raw_mean=float(np.mean(_precision(gold, raw, k))),
+        query_e2e_ms_median=statistics.median(q_ms),
+        batch_precision_at_100_mean=float(np.mean(bprec)),
+        batch_precision_at_100_min=float(np.min(bprec)),
+        agreement_with_query_mean=float(np.mean(same)),
+        group_of_32_e2e_ms=b_ms,
+        batch32_ms_per_query=per_query,
+        batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
+        batch32_e2e_ms_per_query=e2e,
+        batch32_e2e_raw_ms_per_query=e2e_raw,
+        scores_e2e_ms=s_ms,
+        scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
+        max_abs_exact=float(np.abs(exact).max()),
+        **{f"{kn}_max_abs_err": e for kn, e in zip(kinds, errs)},
+        **{f"{k6}_queries": len(group)}, **times,
+        **{f"{kn}_bound_ms": b[0] for kn, b in bounds.items()},
+        **{f"{kn}_bound_by": b[1] for kn, b in bounds.items()},
+        **{f"{k1}_words_gb_per_s": eng.hbm_bytes / (times[f"{k1}_ms"] * 1e-3)
+           / 1e9},
+        k3_gb_per_s=eng.hbm_bytes / (times["k3_ms"] * 1e-3) / 1e9,
+        launches=launches, nvidia_smi=smi_line())
+    emit(res)
+    for key in ("precision_at_100_mean", "batch_precision_at_100_mean"):
+        require(res[key] >= MIN_PRECISION,
+                f"{name} path {key} >= {MIN_PRECISION}")
+    for kname, n in launches.items():
+        require(n > 0, f"the {name} path launched {kname}")
+    del eng
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_library(csr, qs, dev):
@@ -1189,131 +1428,15 @@ def _reset_octet_counts():
         w.launches = 0
 
 
-def _octet_counts():
+def _octet_counts(codec):
+    """The octet wrappers' counts, under the kernels line's names of the
+    path's codec (octet_topk_<codec>, ...)."""
     from spmv_topk_tpu_torch.ops import kernel as K
 
-    return dict(octet_topk_h16=K.topk_spmv_fused_octet_device.launches,
-                octet_topk_batch_h16=(
-                    K.topk_spmv_fused_batch_octet_device.launches),
-                octet_scores_h16=K.spmv_fused_scores_octet_device.launches)
-
-
-def phase_partitioned_octet(coo, csr, qs, gold, p1_words_bytes, dev):
-    """The headline config with num_partitions=2 on the full corpus
-    (kernels K10b, K10d and the partitioned K4): 32 query() against the
-    exact top-100, query_batch of the 32 in one group, the batch32_*
-    numbers, one scores() against the exact f32 product, the three
-    kernels held to (tie-safe) and timed against their plain versions,
-    and the words against the one-partition engine's."""
-    import dataclasses
-
-    import torch
-
-    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
-    from spmv_topk_tpu_torch.formats import create_query_batch
-    from spmv_topk_tpu_torch.ops import kernel as K
-
-    cfg = TopKSpMVConfig(**dict(HEADLINE, num_partitions=PARTITIONS))
-    t0 = time.perf_counter()
-    eng = TopKSpMV(coo, cfg, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    k = cfg.k
-    eng.query(qs[0])                                      # warm
-    eng.query_batch(qs[:2], group_size=2)
-    eng.scores(qs[0])
-    torch.cuda.synchronize()
-    _reset_octet_counts()
-    single, _, q_ms, bidx, _, b_ms, s, s_ms = _drive(eng, qs, k, BATCH_GROUP)
-    torch.cuda.synchronize()
-    launches = _octet_counts()
-    prec = _precision(gold, single, k)
-    bprec = _precision(gold, bidx, k)
-    same = [len(set(a.tolist()) & set(b.tolist())) / k
-            for a, b in zip(single, bidx)]
-    raw = [eng.query(q, rescore_pool=0)[0].cpu().numpy() for q in qs]
-    many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
-                              seed=BATCH_SEED)
-    e2e = _e2e_ms_per_query(eng, many, BATCH_GROUP)
-    e2e_raw = _e2e_ms_per_query(eng, many, BATCH_GROUP, rescore_pool=0)
-
-    # the kernels against their plain versions (tie-safe), then timed
-    safe = dataclasses.replace(cfg, tie_safe_topk=True)
-    table, _ = eng._table(qs[0])
-    tables = _tables(qs, dev)
-    (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, safe)
-    (bv, bt), (bpv, bpt) = _batch_plain_and_kernel(eng, tables, safe)
-    torch.cuda.synchronize()
-    require(kv.shape == (PARTITIONS, cfg.lane_k, 128),
-            "K10b keeps a pool per partition")
-    k10b_err = compare_pools(kv, kt, pv, pt)
-    k10d_err = compare_pools(bv, bt, bpv, bpt)
-    k4_err = _scores_plain_and_kernel(eng, table)
-    bs = eng.fused.block_sublanes
-    parts = eng.partition_kw
-    args = (eng.words, table, eng.nreal, eng.plan_rows)
-    bargs = (eng.words, tables, eng.nreal, eng.plan_rows)
-    plain_kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
-                    tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
-                    **parts)
-    skw = dict(block_sublanes=bs, num_slices=eng.row_ids.shape[0],
-               num_partitions=PARTITIONS)
-    times = dict(
-        k10b_ms=cuda_ms(lambda: K.topk_spmv_fused_octet_device(
-            *args, cfg=cfg, block_sublanes=bs, **parts), reps=20, warmup=2),
-        k10b_plain_ms=cuda_ms(lambda: K.octet_topk_plain(*args, **plain_kw),
-                              reps=2),
-        k10d_ms=cuda_ms(lambda: K.topk_spmv_fused_batch_octet_device(
-            *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
-        k10d_plain_ms=cuda_ms(lambda: K.octet_topk_batch_plain(
-            *bargs, **plain_kw), reps=1, warmup=0),
-        k4_ms=cuda_ms(lambda: K.spmv_fused_scores_octet_device(
-            *args, cfg=cfg, **skw), reps=20, warmup=2),
-        k4_plain_ms=cuda_ms(lambda: K.octet_scores_plain(*args, **skw),
-                            reps=2))
-    bounds = dict(k10b=sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
-                  k10d=sweep_bound(eng, NUM_QUERIES,
-                                   topk_out_bytes(eng, NUM_QUERIES)),
-                  k4=sweep_bound(eng, 1, eng.row_ids.numel() * 4))
-    exact = np.asarray(csr @ qs[0], np.float32)
-    per_query = times["k10d_ms"] / NUM_QUERIES
-    res = dict(
-        phase="partitioned_octet_path",
-        config=dict(HEADLINE, num_partitions=PARTITIONS),
-        rows=eng.num_rows, buckets=len(eng.fused.plan),
-        zero_real_buckets=int((eng.nreal == 0).sum()),
-        words_bytes=eng.hbm_bytes, words_bytes_one_partition=p1_words_bytes,
-        words_bytes_added=eng.hbm_bytes - p1_words_bytes,
-        padding_words_per_nnz=eng.fused.padding_ratio,
-        pack_and_upload_s=build_s, queries=len(qs),
-        precision_at_100_mean=float(np.mean(prec)),
-        precision_at_100_min=float(np.min(prec)),
-        precision_raw_mean=float(np.mean(_precision(gold, raw, k))),
-        query_e2e_ms_median=statistics.median(q_ms),
-        batch_precision_at_100_mean=float(np.mean(bprec)),
-        batch_precision_at_100_min=float(np.min(bprec)),
-        agreement_with_query_mean=float(np.mean(same)),
-        group_of_32_e2e_ms=b_ms,
-        batch32_ms_per_query=per_query,
-        batch32_gnnz_per_query=eng.num_nnz / (per_query * 1e-3) / 1e9,
-        batch32_e2e_ms_per_query=e2e,
-        batch32_e2e_raw_ms_per_query=e2e_raw,
-        scores_e2e_ms=s_ms,
-        scores_max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
-        max_abs_exact=float(np.abs(exact).max()),
-        k10b_max_abs_err=k10b_err, k10d_max_abs_err=k10d_err,
-        k4_max_abs_err=k4_err, **times,
-        **{f"{k}_bound_ms": b[0] for k, b in bounds.items()},
-        **{f"{k}_bound_by": b[1] for k, b in bounds.items()},
-        k10b_words_gb_per_s=eng.hbm_bytes / (times["k10b_ms"] * 1e-3) / 1e9,
-        launches=launches, nvidia_smi=smi_line())
-    emit(res)
-    for key in ("precision_at_100_mean", "batch_precision_at_100_mean"):
-        require(res[key] >= MIN_PRECISION,
-                f"partitioned octet path {key} >= {MIN_PRECISION}")
-    for name, n in launches.items():
-        require(n > 0, f"the partitioned octet path launched {name}")
-    return res
+    return {f"octet_topk_{codec}": K.topk_spmv_fused_octet_device.launches,
+            f"octet_topk_batch_{codec}": (
+                K.topk_spmv_fused_batch_octet_device.launches),
+            f"octet_scores_{codec}": K.spmv_fused_scores_octet_device.launches}
 
 
 def kernel_entry(name, source, replaces, launches, res, key, library_ms,
@@ -1349,6 +1472,8 @@ def main():
     torch.cuda.synchronize()
     phase_partition_small(dev)
     torch.cuda.synchronize()
+    phase_codecs_small(dev)
+    torch.cuda.synchronize()
     coo, eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
     full = phase_kernels_full(eng, qs, dev)
@@ -1362,17 +1487,28 @@ def main():
     del eng                         # the octet engine's words leave the card
     torch.cuda.empty_cache()
     lib = phase_library(csr, qs, dev)
-    sl = phase_slice_path(coo, csr, qs, gold, dev)
-    torch.cuda.synchronize()
     gold_bf16 = _bf16_gold_sets(csr, qs, 100)
-    df = phase_default_path(coo, csr, qs, gold, gold_bf16, dev)
+    sl, df, pdf, c3, c8, i8 = (
+        phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
+                           group)
+        for name, config, group in (
+            ("slice", SLICE_BATCH, BATCH_GROUP),
+            ("default_config", DEFAULT, DEFAULT_GROUP),
+            ("partitioned_default", dict(DEFAULT, num_partitions=PARTITIONS),
+             DEFAULT_GROUP),
+            ("c3", C3, DEFAULT_GROUP), ("c8", C8, BATCH_GROUP),
+            ("int8x4", INT8X4, DEFAULT_GROUP)))
+    po = phase_octet_engine(coo, csr, qs, gold, dev, "partitioned_octet",
+                            dict(HEADLINE, num_partitions=PARTITIONS),
+                            p1_octet_bytes)
+    oc = {codec: phase_octet_engine(coo, csr, qs, gold, dev,
+                                    f"octet_{codec}",
+                                    dict(HEADLINE, query_codec=codec),
+                                    p1_octet_bytes)
+          for codec in ("f32", "int8x4", "i8s", "i4s")}
     torch.cuda.synchronize()
-    po = phase_partitioned_octet(coo, csr, qs, gold, p1_octet_bytes, dev)
-    torch.cuda.synchronize()
-    pdf = phase_default_path(coo, csr, qs, gold, gold_bf16, dev,
-                             partitions=PARTITIONS)
-    torch.cuda.synchronize()
-    summarize(main_res, full, batch, scores, lib, sl, df, po, pdf)
+    summarize(main_res, full, batch, scores, lib, sl, df, po, pdf,
+              dict(i8s=c3, i4s=c8, int8x4=i8), oc)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1380,9 +1516,10 @@ def main():
     return 0
 
 
-def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf):
+def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc):
     """Emit each path's launch counts and the kernel summary line; raise
-    unless every kernel of every path was launched there."""
+    unless every kernel of every path was launched there. sc: the slice
+    codec paths by codec, oc: the octet codec paths by codec."""
     require(pdf["words_bytes"] >= df["words_bytes"],
             "the partition skeleton adds words, never drops them")
     launches = dict(main_res["launches"],
@@ -1390,7 +1527,10 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf):
                     octet_scores_h16=scores["launches"])
     by_path = dict(slice_path=sl["launches"], default_path=df["launches"],
                    partitioned_octet_path=po["launches"],
-                   partitioned_default_path=pdf["launches"])
+                   partitioned_default_path=pdf["launches"],
+                   **{r["phase"]: r["launches"] for r in sc.values()},
+                   **{f"octet_{c}_path": r["launches"]
+                      for c, r in oc.items()})
     emit(dict(phase="launch_counts", main_path=launches, **by_path,
               words_bytes=dict(
                   octet_one_partition=po["words_bytes_one_partition"],
@@ -1407,37 +1547,58 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf):
     two = dict(library_calls="torch.sparse.mm + torch.topk")
     one = dict(library_calls="torch.sparse.mm")
     ker = "ops/kernel.py"
+
+    def octet_codecs(name, source, line, kn, library, **extra):
+        """The octet kernel's entry of each codec but h16 (its path's
+        launches and times)."""
+        return {c: kernel_entry(name.replace("h16", c), source,
+                                f"{ker}:{line}",
+                                r["launches"][name.replace("h16", c)], r, kn,
+                                library, **extra) for c, r in oc.items()}
+
     emit({"kernels": [
-        kernel_entry("octet_topk_h16", "octet_topk.cu", f"{ker}:1057",
-                     launches["octet_topk_h16"], full, "k1", topk1, **two),
-        kernel_entry("octet_topk_batch_h16", "octet_topk_batch.cu",
+        kernel_entry("octet_topk_h16", "octet_topk.cuh", f"{ker}:1057",
+                     launches["octet_topk_h16"], full, "k1", topk1, **two,
+                     **octet_codecs("octet_topk_h16", "octet_topk.cuh", 1057,
+                                    "k1", topk1, **two)),
+        kernel_entry("octet_topk_batch_h16", "octet_topk_batch.cuh",
                      f"{ker}:1641", launches["octet_topk_batch_h16"], batch,
                      "k6", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
-                     queries=BATCH_GROUP, **two),
+                     queries=BATCH_GROUP, **two,
+                     **octet_codecs("octet_topk_batch_h16",
+                                    "octet_topk_batch.cuh", 1641, "k6",
+                                    lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                                    queries=BATCH_GROUP, **two)),
         kernel_entry("octet_scores_h16", "octet_scores.cu", f"{ker}:2039",
                      launches["octet_scores_h16"], scores, "k4", spmv,
-                     **one),
+                     **one, **octet_codecs("octet_scores_h16",
+                                           "octet_scores.cu", 2039, "k4",
+                                           spmv, **one)),
         kernel_entry("stream_words", "stream_probe.cu",
                      "ops/streamprobe.py:54", launches["stream_words"],
                      full, "k3", None),
         *(kernel_entry(
-            name, f"{name}.cu", f"{ker}:{line}", sl["launches"][name], sl,
+            name, src, f"{ker}:{line}", sl["launches"][name], sl,
             kn, lib[f"spmv_topk_{q}_ms"] if kn != "k9" else spmv,
-            f32=kernel_entry(name, f"{name}.cu", f"{ker}:{line}",
-                             df["launches"][name], df, kn,
-                             lib[f"spmv_topk_{fq}_ms"] if kn != "k9"
-                             else spmv))
-          for name, kn, line, q, fq in (
-              ("slice_topk", "k7", 864, 1, 1),
-              ("slice_topk_batch", "k8", 1381, BATCH_GROUP, DEFAULT_GROUP),
-              ("slice_scores", "k9", 1909, 1, 1))),
+            **{codec: kernel_entry(name, src, f"{ker}:{line}",
+                                   r["launches"][name], r, kn,
+                                   lib[f"spmv_topk_{cq}_ms"] if kn != "k9"
+                                   else spmv)
+               for codec, r, cq in (
+                   ("f32", df, fq), ("i8s", sc["i8s"], fq),
+                   ("i4s", sc["i4s"], q), ("int8x4", sc["int8x4"], fq))})
+          for name, src, kn, line, q, fq in (
+              ("slice_topk", "slice_topk.cu", "k7", 864, 1, 1),
+              ("slice_topk_batch", "slice_topk_batch.cuh", "k8", 1381,
+               BATCH_GROUP, DEFAULT_GROUP),
+              ("slice_scores", "slice_scores.cu", "k9", 1909, 1, 1))),
         # K10a-d and the partitioned K4/K9: the same kernels with a
         # partition axis, on the partitioned paths
-        kernel_entry("octet_topk_h16_partitioned", "octet_topk.cu",
+        kernel_entry("octet_topk_h16_partitioned", "octet_topk.cuh",
                      f"{ker}:1116", po["launches"]["octet_topk_h16"], po,
                      "k10b", topk1, partitions=PARTITIONS, **two),
         kernel_entry("octet_topk_batch_h16_partitioned",
-                     "octet_topk_batch.cu", f"{ker}:1693",
+                     "octet_topk_batch.cuh", f"{ker}:1693",
                      po["launches"]["octet_topk_batch_h16"], po, "k10d",
                      lib[f"spmv_topk_{BATCH_GROUP}_ms"],
                      partitions=PARTITIONS, queries=BATCH_GROUP, **two),
@@ -1447,7 +1608,7 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf):
         kernel_entry("slice_topk_partitioned", "slice_topk.cu",
                      f"{ker}:927", pdf["launches"]["slice_topk"], pdf, "k7",
                      topk1, partitions=PARTITIONS, **two),
-        kernel_entry("slice_topk_batch_partitioned", "slice_topk_batch.cu",
+        kernel_entry("slice_topk_batch_partitioned", "slice_topk_batch.cuh",
                      f"{ker}:1440", pdf["launches"]["slice_topk_batch"], pdf,
                      "k8", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
                      partitions=PARTITIONS, queries=DEFAULT_GROUP, **two),

@@ -1,11 +1,11 @@
 """User-facing engine: matrix-resident Top-K SpMV on one device.
 
-The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV``, for two
-engines: the slice stream (``fused_layout="slice"``, the default) with
-the ``f32`` (the default) or ``h16`` query codec, and the octet stream
-(``fused_layout="octet"``) with ``h16``; each on one partition or, with
-``num_partitions`` P > 1, on P row partitions that share one plan and
-keep a Top-K pool each (``pack_fused_partitions``). ``TopKSpMV`` is an
+The PyTorch counterpart of ``spmv_topk_tpu.api.TopKSpMV``, for every
+valid ``TopKSpMVConfig``: the slice stream (``fused_layout="slice"``, the
+default) or the octet stream (``fused_layout="octet"``), with any query
+codec (``f32``, the default; ``h16``; ``int8x4``; ``i8s``; ``i4s``), on one
+partition or, with ``num_partitions`` P > 1, on P row partitions that
+share one plan and keep a Top-K pool each (``pack_fused_partitions``). ``TopKSpMV`` is an
 ``nn.Module`` whose buffers hold the packed stream (``words``), the real
 slices per bucket (``nreal``), the slice -> row map (``row_ids``) and the
 kernels' bucket plan (``plan_rows``) on the device it was built for. A
@@ -47,7 +47,7 @@ from .formats.sell_buckets import (FusedSellMatrix, PartitionedFusedMatrix,
                                    octet_plan_array, octet_plan_from_array,
                                    pack_fused_partitions, pack_sell_buckets,
                                    slice_plan_array, slice_plan_from_array)
-from .ops.kernel import (SLICE_CODECS, finalize_topk, finalize_topk_batch,
+from .ops.kernel import (finalize_topk, finalize_topk_batch,
                          octet_plan_rows, slice_plan_rows,
                          spmv_fused_scores_device,
                          spmv_fused_scores_octet_device,
@@ -127,17 +127,6 @@ def exact_rescore(csr, idx, vec, k):
     return out_i, out_v
 
 
-def _check_slice(config: TopKSpMVConfig) -> None:
-    """Raise for configurations the port does not run yet."""
-    ported = SLICE_CODECS if config.fused_layout == "slice" else ("h16",)
-    if config.query_codec not in ported:
-        raise NotImplementedError(
-            f"query_codec={config.query_codec!r} on the "
-            f"fused_layout={config.fused_layout!r} stream is not ported yet "
-            "(ROADMAP.md Queue 1 item 5, other query codecs): use one of "
-            f"{ported}")
-
-
 class TopKSpMV(torch.nn.Module):
     """Matrix-resident approximate Top-K SpMV engine (single device).
 
@@ -154,7 +143,6 @@ class TopKSpMV(torch.nn.Module):
         if config.max_cols < matrix.num_cols:
             config = dataclasses.replace(
                 config, max_cols=-(-matrix.num_cols // LANES) * LANES)
-        _check_slice(config)
         # exact rescoring keeps the host CSR; the sorted COO's arrays back
         # it without a copy
         csr = matrix.to_scipy_csr() if config.rescore_pool else None
@@ -240,7 +228,6 @@ class TopKSpMV(torch.nn.Module):
                 "matrix= to restore exact rescoring)", stacklevel=2)
             cfg_d["rescore_pool"] = None
         config = TopKSpMVConfig(**cfg_d)
-        _check_slice(config)
         plan_rows = np.asarray(plan_rows)
         cols = 6 if config.fused_layout == "slice" else 7
         if plan_rows.ndim != 2 or plan_rows.shape[1] != cols:
@@ -318,7 +305,8 @@ class TopKSpMV(torch.nn.Module):
     def candidates(self, vec):
         """Per-lane Top-K candidates (topv, topt), each (lane_k, 128), or
         (P, lane_k, 128) on P > 1 partitions (a pool per partition),
-        before the global merge; values are unscaled (h16: integer sums)."""
+        before the global merge; values are unscaled (h16: integer sums;
+        the quantized codecs: sums against the integer query table)."""
         table, self._last_scale = self._table(vec)
         return self._layout.sweep(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
@@ -361,9 +349,9 @@ class TopKSpMV(torch.nn.Module):
     def batch_candidates(self, tables):
         """Per-lane candidates of a query group: (topv, topt), each
         (Q, lane_k, 128), or (Q, P, lane_k, 128) on P > 1 partitions,
-        values unscaled (h16: integer sums). tables: the group's (Q,
-        rows, 128) tables (``pack_query_tables``: int32 for h16, float32
-        for f32) on the engine's device."""
+        values unscaled. tables: the group's (Q, rows, 128) tables
+        (``pack_query_tables``: float32 for f32, int32 for the other
+        codecs) on the engine's device."""
         return self._layout.batch_sweep(
             self.words, tables, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes, **self._parts)
@@ -441,7 +429,9 @@ class TopKSpMV(torch.nn.Module):
         load()ed and from_reference_arrays engines too. The scores are
         the sweep's: for h16, 6-bit matrix values times the 4-bit query,
         scaled by the query scale times value_scale; for f32, bf16 matrix
-        values times the f32 query. Rows absent from the stream are 0.
+        values times the f32 query; for int8x4, i8s and i4s, bf16 matrix
+        values times the 8- or 4-bit query, scaled by the query scale.
+        Rows absent from the stream are 0.
         Materializes num_rows floats; prefer query() for similarity
         lookup."""
         table, scale = self._table(vec)

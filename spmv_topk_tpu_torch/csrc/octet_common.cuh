@@ -1,5 +1,6 @@
-// Pieces shared by the octet-stream kernels: K1 (octet_topk.cu), K6
-// (octet_topk_batch.cu) and K4 (octet_scores.cu).
+// Pieces shared by the octet-stream kernels: K1 (octet_topk.cuh), K6
+// (octet_topk_batch.cuh) and K4 (octet_scores.cu); the Top-K buffers and
+// partitions serve the slice kernels too.
 //
 // The stream (formats/sell_buckets.py::fuse_buckets_octet) is a sequence
 // of octets; chunk j (8 sublanes x 128 lanes of int32) of octet o holds
@@ -17,6 +18,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "codecs.cuh"
+
 namespace octet {
 
 constexpr int kLanes = 128;
@@ -25,63 +28,6 @@ constexpr int kPlanCols = 8;
 constexpr int kHarvest = 3;    // top 3 of 8 per octet
 enum PlanCol { kWidth, kOpb, kBpo, kStride, kSliceBase, kBlkStart,
                kNumBlocks, kOctStart };
-
-// h16 word: two halves, each col[0:10) | val6[10:16) (two's complement).
-// The table index is masked to 7 bits (the TPU gather wraps, CUDA would
-// read out of bounds); shifts that must not sign-extend run on uint32_t.
-__device__ __forceinline__ int32_t prod_h16(int32_t w, const int32_t* tab) {
-  const uint32_t u = static_cast<uint32_t>(w);
-  const int32_t g0 = tab[u & 0x7Fu];
-  const int32_t g1 = tab[(u >> 16) & 0x7Fu];
-  const uint32_t sh0 = (~u >> 5) & 28u;    // 28 - 4 * (col0 >> 7)
-  const uint32_t sh1 = (~u >> 21) & 28u;
-  const int32_t n0 = static_cast<int32_t>(static_cast<uint32_t>(g0) << sh0) >> 28;
-  const int32_t n1 = static_cast<int32_t>(static_cast<uint32_t>(g1) << sh1) >> 28;
-  const int32_t v0 = static_cast<int32_t>(u << 16) >> 26;
-  const int32_t v1 = w >> 26;
-  return v0 * n0 + v1 * n1;
-}
-
-// Multi-query h16 (K6, K8). A subgroup's QG int4x8 tables (int32 (Q, 128),
-// queries q0 .. q0 + nq - 1) repacked into tab[1024]: entry c (a 10-bit
-// column) holds that column's signed nibble for every query, query dq at
-// bits [4dq, 4dq+4), so one shared-memory gather per nnz serves the whole
-// subgroup. Column c = n*128 + lane is nibble n of word `lane` of each
-// table; a block's 128 threads (one per lane) fill it together.
-constexpr int kH16Cols = 1024;   // h16 columns: 10-bit field
-
-template <int QG>
-__device__ __forceinline__ void repack_h16_tables(uint32_t* tab, const int32_t* tables, int q0,
-                                                  int nq, int lane) {
-  uint32_t qt[QG];
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq)
-    qt[dq] = dq < nq ? static_cast<uint32_t>(__ldg(tables + (q0 + dq) * kLanes + lane)) : 0u;
-#pragma unroll
-  for (int n = 0; n < kH16Cols / kLanes; ++n) {
-    uint32_t e = 0;
-#pragma unroll
-    for (int dq = 0; dq < QG; ++dq) e |= ((qt[dq] >> (4 * n)) & 0xFu) << (4 * dq);
-    tab[n * kLanes + lane] = e;
-  }
-}
-
-// Word u's product for each query of a repacked table: the decode of its
-// two nnz (columns, 6-bit values) once, then per query its nibble to the
-// top and sign-extended down (_h16_shared, _h16_apply).
-template <int QG>
-__device__ __forceinline__ void prod_h16_batch(uint32_t u, const uint32_t* tab, int32_t (&p)[QG]) {
-  const uint32_t g0 = tab[u & 0x3FFu];
-  const uint32_t g1 = tab[(u >> 16) & 0x3FFu];
-  const int32_t v0 = static_cast<int32_t>(u << 16) >> 26;
-  const int32_t v1 = static_cast<int32_t>(u) >> 26;
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq) {
-    const int32_t n0 = static_cast<int32_t>(g0 << (28 - 4 * dq)) >> 28;
-    const int32_t n1 = static_cast<int32_t>(g1 << (28 - 4 * dq)) >> 28;
-    p[dq] = v0 * n0 + v1 * n1;
-  }
-}
 
 // _topk_init's distinct sentinels (rounded as f32 mul then f32 sub), or
 // -inf for tie-safe buffers.
@@ -207,17 +153,117 @@ __device__ __forceinline__ Octet locate(const int32_t* words,
   return oc;
 }
 
-// The octet's 8 member sums of h16 products over its W chunks (int32,
-// exact in any order).
-__device__ __forceinline__ void octet_sums(const Octet& oc, const int32_t* tab,
-                                           int32_t (&acc)[kMembers]) {
+// The octet's 8 member scores for a single-query codec C, in the JAX
+// kernels' order (_fused_kernel_octet, _fused_scores_kernel_octet): h16
+// sums its W chunks in int32 (exact in any order) and converts once. The
+// float codecs add the even and the odd chunks of each block span (the
+// octet's chunks in one block; a wide octet spans several) into two
+// accumulators from 0 and then the two together; a wide octet adds its
+// span sums in block order from 0 (the TPU kernel's carry).
+template <class C>
+__device__ __forceinline__ void octet_sums(const Octet& oc, const codec::Table<typename C::Tab>& t,
+                                           int chunks_per_block, float (&sc)[kMembers]) {
+  if constexpr (C::kExact) {
+    typename C::Acc acc[kMembers];
 #pragma unroll
-  for (int m = 0; m < kMembers; ++m) acc[m] = 0;
+    for (int m = 0; m < kMembers; ++m) acc[m] = 0;
 #pragma unroll 2
-  for (int j = 0; j < oc.width; ++j) {
-    const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
+    for (int j = 0; j < oc.width; ++j) {
+      const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
 #pragma unroll
-    for (int m = 0; m < kMembers; ++m) acc[m] += prod_h16(__ldg(row + m * kLanes), tab);
+      for (int m = 0; m < kMembers; ++m)
+        acc[m] = C::add(acc[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t);
+    }
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m) sc[m] = C::finish(acc[m]);
+  } else {
+    const bool wide = oc.width > chunks_per_block;
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m) sc[m] = 0.0f;
+    for (int j0 = 0; j0 < oc.width; j0 += chunks_per_block) {
+      const int j1 = min(oc.width, j0 + chunks_per_block);
+      float even[kMembers], odd[kMembers];
+#pragma unroll
+      for (int m = 0; m < kMembers; ++m) even[m] = odd[m] = 0.0f;
+      int j = j0;
+      for (; j + 1 < j1; j += 2) {
+        const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
+#pragma unroll
+        for (int m = 0; m < kMembers; ++m) {
+          even[m] = C::add(even[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t);
+          odd[m] = C::add(odd[m], static_cast<uint32_t>(__ldg(row + (kMembers + m) * kLanes)), t);
+        }
+      }
+      if (j < j1) {
+        const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
+#pragma unroll
+        for (int m = 0; m < kMembers; ++m)
+          even[m] = C::add(even[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t);
+      }
+#pragma unroll
+      for (int m = 0; m < kMembers; ++m) {
+        const float part = __fadd_rn(even[m], odd[m]);
+        sc[m] = wide ? __fadd_rn(sc[m], part) : part;
+      }
+    }
+  }
+}
+
+// The same for each query of a batch subgroup (batch codec B, K6's order,
+// _fused_kernel_batch_octet): h16 in int32 as above; the float codecs add
+// each block span's chunks into one accumulator per query from 0, in chunk
+// order, and a wide octet its span sums in block order.
+template <class B, int QG>
+__device__ __forceinline__ void octet_sums_batch(const Octet& oc,
+                                                 const codec::Table<unsigned char>& t, int nq,
+                                                 int chunks_per_block,
+                                                 float (&sc)[kMembers][QG]) {
+  if constexpr (B::kExact) {
+    // one loop over the W chunks, as K1's h16 sums (with the block spans'
+    // loop nest around it, nvcc scheduled QG = 2 with half the loads in
+    // flight, and the sweep took twice as long)
+    typename B::Acc acc[kMembers][QG];
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m)
+#pragma unroll
+      for (int dq = 0; dq < QG; ++dq) acc[m][dq] = 0;
+#pragma unroll 2
+    for (int j = 0; j < oc.width; ++j) {
+      const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
+#pragma unroll
+      for (int m = 0; m < kMembers; ++m)
+        B::template add<QG>(acc[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t, nq);
+    }
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m)
+#pragma unroll
+      for (int dq = 0; dq < QG; ++dq) sc[m][dq] = B::finish(acc[m][dq]);
+  } else {
+    const bool wide = oc.width > chunks_per_block;
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m)
+#pragma unroll
+      for (int dq = 0; dq < QG; ++dq) sc[m][dq] = 0.0f;
+    for (int j0 = 0; j0 < oc.width; j0 += chunks_per_block) {
+      const int j1 = min(oc.width, j0 + chunks_per_block);
+      float acc[kMembers][QG];
+#pragma unroll
+      for (int m = 0; m < kMembers; ++m)
+#pragma unroll
+        for (int dq = 0; dq < QG; ++dq) acc[m][dq] = 0.0f;
+#pragma unroll 2
+      for (int j = j0; j < j1; ++j) {
+        const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
+#pragma unroll
+        for (int m = 0; m < kMembers; ++m)
+          B::template add<QG>(acc[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t, nq);
+      }
+#pragma unroll
+      for (int m = 0; m < kMembers; ++m)
+#pragma unroll
+        for (int dq = 0; dq < QG; ++dq)
+          sc[m][dq] = wide ? __fadd_rn(sc[m][dq], acc[m][dq]) : acc[m][dq];
+    }
   }
 }
 

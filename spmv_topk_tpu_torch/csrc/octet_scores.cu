@@ -1,28 +1,29 @@
-// Plain SpMV over the octet stream of the h16 codec (kernel K4) for Hopper
-// (sm_90a).
+// Plain SpMV over the octet stream (kernel K4) for Hopper (sm_90a), every
+// query codec (codecs.cuh).
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_scores_kernel_octet (the
 // pallas_call of spmv_fused_scores_octet_device, with its (P, num_blocks)
 // partition grid too: the partition is the grid's y index, and partition
 // p's slices land part_slices * p rows down, against the stacked row_ids).
 //
-// What it computes. Every octet's 8 member sums of h16 products (the same
-// sums K1 harvests, octet_common.cuh::octet_sums), converted to float
-// once and written straight to slice order: member m of octet o of a
-// bucket is slice slice_base + o + m*stride, row `slice` of a
-// (num_slices, 128) f32 output. Members past the bucket's real slices
-// are not written (their ids belong to the next bucket). The TPU kernel
-// wrote (num_blocks, 8 * octets_per_block, 128) tiles that the host then
-// transposed into slice order; here the kernel's store does it. int32
-// sums are exact in any order, so the JAX kernel's two alternating
-// accumulators have no counterpart.
+// What it computes. Every octet's 8 member scores (the same sums K1
+// harvests, octet_common.cuh::octet_sums: h16 in int32 converted once,
+// the float codecs in the JAX kernel's order of two alternating
+// accumulators and block sums carried in f32), written straight to slice
+// order: member m of octet o of a bucket is slice slice_base + o +
+// m*stride, row `slice` of a (num_slices, 128) f32 output. Members past
+// the bucket's real slices are not written (their ids belong to the next
+// bucket). The TPU kernel wrote (num_blocks, 8 * octets_per_block, 128)
+// tiles that the host then transposed into slice order; here the kernel's
+// store does it.
 //
 // Design and bound: K1's sweep (one CUDA block = the 128 lanes of one
 // octet at a time, grid-stride over all octets, the query table in
-// shared memory) with K1's harvest replaced by 8 coalesced 512-byte row
-// stores per octet. It reads the stream once and writes 4 bytes per
-// slice row (~40 MB at the 10M-row headline corpus against ~450 MB of
-// words), so it should be bound by device memory bytes like K1.
+// shared memory or, for f32 past it, global memory) with K1's harvest
+// replaced by 8 coalesced 512-byte row stores per octet. It reads the
+// stream once and writes 4 bytes per slice row (~40 MB at the 10M-row
+// headline corpus against ~450 MB of h16 words), so it should be bound by
+// device memory bytes like K1.
 
 #include "octet_common.cuh"
 
@@ -30,17 +31,17 @@ namespace {
 
 using namespace octet;
 
+template <class C>
 __global__ void __launch_bounds__(kLanes)
 octet_scores_kernel(const int32_t* __restrict__ words,
-                    const int32_t* __restrict__ table,
+                    const typename C::Tab* __restrict__ table,
                     const int32_t* __restrict__ nreal,
                     const int32_t* __restrict__ plan, int num_buckets,
-                    int block_sublanes, int part_rows, int part_slices,
-                    float* __restrict__ out) {
-  __shared__ int32_t tab[kLanes];
+                    int block_sublanes, int table_rows, int shift, int part_rows,
+                    int part_slices, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
-  tab[lane] = table[lane];
-  __syncthreads();
+  const auto tab = codec::stage_table<C, true>(smem, table, table_rows, shift, lane);
 
   const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
   const int total = total_octets(plan, num_buckets);
@@ -48,14 +49,38 @@ octet_scores_kernel(const int32_t* __restrict__ words,
   for (int g = blockIdx.x; g < total; g += gridDim.x) {
     const Octet oc = locate(part.words, plan, part.nreal, num_buckets, block_sublanes, g, b, lane);
     if (oc.index >= oc.n_real) continue;   // skeleton padding: no real member
-    int32_t acc[kMembers];
-    octet_sums(oc, tab, acc);
+    float sc[kMembers];
+    octet_sums<C>(oc, tab, block_sublanes / kMembers, sc);
     const int64_t row0 = part.tag_offset + oc.slice0;
 #pragma unroll
     for (int m = 0; m < kMembers; ++m)
       if (oc.index + m * oc.stride < oc.n_real)
-        out[(row0 + m * oc.stride) * kLanes + lane] = static_cast<float>(acc[m]);
+        out[(row0 + m * oc.stride) * kLanes + lane] = sc[m];
   }
+}
+
+struct Args {
+  const int32_t* words;
+  const void* table;
+  const int32_t* nreal;
+  const int32_t* plan;
+  int num_buckets, block_sublanes, table_rows, shift, num_cuda_blocks, num_partitions, part_rows,
+      part_slices;
+  float* out;
+  cudaStream_t stream;
+};
+
+template <class C>
+cudaError_t launch(const Args& a) {
+  auto kernel = octet_scores_kernel<C>;
+  const size_t smem = codec::table_smem_bytes<C, true>(a.table_rows);
+  const cudaError_t err = codec::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.num_cuda_blocks, a.num_partitions);
+  kernel<<<grid, kLanes, smem, a.stream>>>(
+      a.words, static_cast<const typename C::Tab*>(a.table), a.nreal, a.plan, a.num_buckets,
+      a.block_sublanes, a.table_rows, a.shift, a.part_rows, a.part_slices, a.out);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -63,20 +88,24 @@ octet_scores_kernel(const int32_t* __restrict__ words,
 extern "C" {
 
 // words: (num_partitions * part_rows, 128) int32, part_rows a whole
-// number of blocks; table: (1, 128) int32; nreal: (num_partitions,
+// number of blocks; table: (table_rows, 128), int32 (f32 for the f32
+// codecs), codec one of codecs.cuh::Codec; nreal: (num_partitions,
 // num_buckets) int32; plan: (num_buckets, 8) int32; out: (num_partitions
 // * part_slices, 128) f32, rows of real slices written, others left.
-// Returns cudaGetLastError().
-int octet_scores_h16(const int32_t* words, const int32_t* table,
-                     const int32_t* nreal, const int32_t* plan,
-                     int num_buckets, int block_sublanes, int num_cuda_blocks,
-                     int num_partitions, int part_rows, int part_slices,
-                     float* out, void* stream) {
-  if (num_buckets < 1 || num_cuda_blocks < 1 || num_partitions < 1 || num_partitions > 65535)
+// Returns cudaGetLastError() (or the error of a refused launch).
+int octet_scores(const int32_t* words, const void* table, const int32_t* nreal,
+                 const int32_t* plan, int num_buckets, int block_sublanes, int table_rows,
+                 int codec, int num_cuda_blocks, int num_partitions, int part_rows,
+                 int part_slices, float* out, void* stream) {
+  if (num_buckets < 1 || num_cuda_blocks < 1 || num_partitions < 1 || num_partitions > 65535 ||
+      !codec::table_rows_ok(codec, table_rows))
     return cudaErrorInvalidValue;
-  const dim3 grid(num_cuda_blocks, num_partitions);
-  octet_scores_kernel<<<grid, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      words, table, nreal, plan, num_buckets, block_sublanes, part_rows, part_slices, out);
+  const Args a{words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
+               codec::sign_shift(codec), num_cuda_blocks, num_partitions, part_rows,
+               part_slices, out, static_cast<cudaStream_t>(stream)};
+  const cudaError_t err =
+      codec::dispatch(codec, [&](auto tag) { return launch<typename decltype(tag)::type>(a); });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

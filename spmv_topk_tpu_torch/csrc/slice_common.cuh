@@ -37,66 +37,7 @@ constexpr int kUnrollChunks = 128;  // ops/kernel.py::_UNROLL_CHUNKS
 enum PlanCol { kWidth, kSpb, kBps, kSliceBase, kBlkStart, kNumBlocks };
 enum Mode { kWide, kRuns, kTiled };  // ops/kernel.py: WIDE, RUNS, TILED
 
-// Single-query codecs: the per-word product added to a lane's sum.
-// kShared says whether the sweeps copy the query table into shared
-// memory first (else each gather reads it from global memory).
-// h16: two nnz per word against the int4x8 table (128 int32), summed in
-// int32 (exact in any order) and converted to float once per slice, or
-// once per block of a wide slice, as the JAX kernel does.
-struct H16 {
-  using Tab = int32_t;
-  using Acc = int32_t;
-  static constexpr bool kShared = true;
-  __device__ static __forceinline__ Acc add(Acc a, uint32_t u, const Tab* tab, int) {
-    return a + octet::prod_h16(static_cast<int32_t>(u), tab);
-  }
-  __device__ static __forceinline__ float finish(Acc a) { return static_cast<float>(a); }
-};
-
-// f32: one nnz per word, col[16:32) | bf16 value[0:16), against the
-// (table_rows x 128) f32 table; lane col & 127 of row col >> 7, or of
-// row 0 past the table (_gather_from_bcs). Multiply, then add, each
-// rounded: no FMA contraction, as on the TPU. The sum runs in row order
-// from 0, so it agrees with the TPU's two interleaved accumulators to
-// rounding, and with the plain version (ops/kernel.py::_row_sum) bit for
-// bit. SHARED: the table sits in shared memory; otherwise (a table larger
-// than a block's shared memory, ops/kernel.py::f32_tables_in_smem) each
-// gather reads global memory through the read-only path: 256 KB at the
-// widest table (65,536 columns), which stays in L2 and L1. The arithmetic
-// is the same either way.
-template <bool SHARED>
-struct F32T {
-  using Tab = float;
-  using Acc = float;
-  static constexpr bool kShared = SHARED;
-  __device__ static __forceinline__ Acc add(Acc a, uint32_t u, const Tab* tab, int table_rows) {
-    const uint32_t col = u >> 16;
-    const uint32_t idx = (col >> 7) < static_cast<uint32_t>(table_rows) ? col : (col & 0x7Fu);
-    const float q = SHARED ? tab[idx] : __ldg(tab + idx);
-    return __fadd_rn(a, __fmul_rn(__uint_as_float(u << 16), q));
-  }
-  __device__ static __forceinline__ float finish(Acc a) { return a; }
-};
-using F32 = F32T<true>;
-using F32Global = F32T<false>;
-
-// The query table a sweep gathers from: copied into shared memory by
-// the block's threads (C::kShared), else the global table itself.
-template <class C>
-__device__ __forceinline__ const typename C::Tab* stage_table(unsigned char* smem,
-                                                            const typename C::Tab* table,
-                                                            int table_rows, int lane) {
-  if (!C::kShared) return table;
-  typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
-  for (int i = lane; i < table_rows * kLanes; i += kLanes) tab[i] = table[i];
-  __syncthreads();
-  return tab;
-}
-
-template <class C>
-inline size_t table_smem_bytes(int table_rows) {
-  return C::kShared ? sizeof(typename C::Tab) * table_rows * kLanes : 0;
-}
+using codec::Table;
 
 using octet::Partition;
 using octet::partition;
@@ -222,13 +163,15 @@ struct Walker {
   }
 };
 
+// A slice's rows summed in row order from 0 (h16 in int32; the float
+// codecs one rounded add at a time, ops/kernel.py::_row_sum).
 template <class C>
 __device__ __forceinline__ typename C::Acc rows_sum(const int32_t* src, int rows,
-                                                    const typename C::Tab* tab, int table_rows) {
+                                                    const Table<typename C::Tab>& tab) {
   typename C::Acc acc = 0;
 #pragma unroll 4
   for (int r = 0; r < rows; ++r)
-    acc = C::add(acc, static_cast<uint32_t>(__ldg(src + (int64_t)r * kLanes)), tab, table_rows);
+    acc = C::add(acc, static_cast<uint32_t>(__ldg(src + (int64_t)r * kLanes)), tab);
   return acc;
 }
 
@@ -237,24 +180,16 @@ __device__ __forceinline__ typename C::Acc rows_sum(const int32_t* src, int rows
 // kernel's carry).
 template <class C>
 __device__ __forceinline__ float member_score(const Walker& w, const Item& it, int m,
-                                              const typename C::Tab* tab, int table_rows) {
+                                              const Table<typename C::Tab>& tab) {
   const int32_t* src = w.rows_of(it, m);
-  if (w.k.mode != kWide) return C::finish(rows_sum<C>(src, w.k.width, tab, table_rows));
+  if (w.k.mode != kWide) return C::finish(rows_sum<C>(src, w.k.width, tab));
   float carry = 0.0f;
   for (int blk = 0; blk < w.k.bps; ++blk) {
     const int rows = min(w.block_sublanes, w.k.width - blk * w.block_sublanes);
     carry = __fadd_rn(carry, C::finish(rows_sum<C>(
-        src + (int64_t)blk * w.block_sublanes * kLanes, rows, tab, table_rows)));
+        src + (int64_t)blk * w.block_sublanes * kLanes, rows, tab)));
   }
   return carry;
-}
-
-// Shared memory beyond the 48 KB default needs opting in per kernel.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 }  // namespace slice

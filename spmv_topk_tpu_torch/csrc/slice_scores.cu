@@ -1,5 +1,5 @@
 // Plain SpMV over the slice stream (kernel K9) for Hopper (sm_90a),
-// codecs h16 and f32.
+// every query codec (codecs.cuh).
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_scores_kernel (the
 // pallas_call of spmv_fused_scores_device, with its (P, num_blocks)
@@ -34,11 +34,11 @@ slice_scores_kernel(const int32_t* __restrict__ words,
                     const typename C::Tab* __restrict__ table,
                     const int32_t* __restrict__ nreal,
                     const int32_t* __restrict__ plan, int num_buckets,
-                    int block_sublanes, int table_rows, int part_rows,
+                    int block_sublanes, int table_rows, int shift, int part_rows,
                     int part_slices, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
-  const typename C::Tab* tab = stage_table<C>(smem, table, table_rows, lane);
+  const auto tab = codec::stage_table<C, false>(smem, table, table_rows, shift, lane);
 
   // fold_tile 1: runs of slices and wide slices, every slice on its own
   const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
@@ -48,7 +48,7 @@ slice_scores_kernel(const int32_t* __restrict__ words,
     for (int m = 0; m < it.count; ++m) {
       if (!w.real(it, m)) continue;
       out[((int64_t)part.tag_offset + w.tag(it, m)) * kLanes + lane] =
-          member_score<C>(w, it, m, tab, table_rows);
+          member_score<C>(w, it, m, tab);
     }
   }
 }
@@ -58,8 +58,8 @@ struct Args {
   const void* table;
   const int32_t* nreal;
   const int32_t* plan;
-  int num_buckets, block_sublanes, table_rows, num_cuda_blocks, num_partitions, part_rows,
-      part_slices;
+  int num_buckets, block_sublanes, table_rows, shift, num_cuda_blocks, num_partitions,
+      part_rows, part_slices;
   float* out;
   cudaStream_t stream;
 };
@@ -67,13 +67,13 @@ struct Args {
 template <class C>
 cudaError_t launch(const Args& a) {
   auto kernel = slice_scores_kernel<C>;
-  const size_t smem = table_smem_bytes<C>(a.table_rows);
-  const cudaError_t err = allow_smem(kernel, smem);
+  const size_t smem = codec::table_smem_bytes<C, false>(a.table_rows);
+  const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.num_cuda_blocks, a.num_partitions);
   kernel<<<grid, kLanes, smem, a.stream>>>(
       a.words, static_cast<const typename C::Tab*>(a.table), a.nreal, a.plan, a.num_buckets,
-      a.block_sublanes, a.table_rows, a.part_rows, a.part_slices, a.out);
+      a.block_sublanes, a.table_rows, a.shift, a.part_rows, a.part_slices, a.out);
   return cudaSuccess;
 }
 
@@ -82,9 +82,9 @@ cudaError_t launch(const Args& a) {
 extern "C" {
 
 // words: (num_partitions * part_rows, 128) int32, part_rows a whole
-// number of blocks; table: (1, 128) int32 (codec 0, h16) or (table_rows,
-// 128) f32 (codec 1, f32 in shared memory; codec 2, f32 read from global
-// memory); nreal: (num_partitions, num_buckets) int32; plan:
+// number of blocks; table: (table_rows, 128), int32 (f32 for the f32
+// codecs), codec one of codecs.cuh::Codec; nreal: (num_partitions,
+// num_buckets) int32; plan:
 // (num_buckets, 6) int32; out: (num_partitions * part_slices, 128) f32,
 // rows of real slices written, others left. Returns cudaGetLastError()
 // (or the error of a refused launch).
@@ -93,16 +93,13 @@ int slice_scores(const int32_t* words, const void* table, const int32_t* nreal,
                  int table_rows, int codec, int num_cuda_blocks, int num_partitions,
                  int part_rows, int part_slices, float* out, void* stream) {
   if (num_buckets < 1 || num_cuda_blocks < 1 || table_rows < 1 || num_partitions < 1 ||
-      num_partitions > 65535 || (codec == 0 && table_rows != 1))
+      num_partitions > 65535 || !codec::table_rows_ok(codec, table_rows))
     return cudaErrorInvalidValue;
   const Args a{words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
-               num_cuda_blocks, num_partitions, part_rows, part_slices, out,
-               static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (codec == 0) err = launch<H16>(a);
-  else if (codec == 1) err = launch<F32>(a);
-  else if (codec == 2) err = launch<F32Global>(a);
-  else err = cudaErrorInvalidValue;
+               codec::sign_shift(codec), num_cuda_blocks, num_partitions, part_rows,
+               part_slices, out, static_cast<cudaStream_t>(stream)};
+  const cudaError_t err =
+      codec::dispatch(codec, [&](auto tag) { return launch<typename decltype(tag)::type>(a); });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Slice-stream Top-K sweep of one query (kernel K7; K10a with
-// partitions) for Hopper (sm_90a), codecs h16 and f32.
+// partitions) for Hopper (sm_90a), every query codec (codecs.cuh).
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel (the pallas_calls
 // of topk_spmv_fused_device and, with P row partitions,
@@ -21,7 +21,8 @@
 //
 // Design. One CUDA block of 128 threads, one per lane; the query table
 // in shared memory (128 int32 for h16; table_rows x 128 floats for f32,
-// 4 KB at 1024 columns; an f32 table past a block's shared memory, above
+// 4 KB at 1024 columns; table_rows x 128 int32 for int8x4, i8s and i4s,
+// 1 KB at 1024 columns; an f32 table past a block's shared memory, above
 // 58,112 columns on the H100, is gathered from global memory through the
 // read-only path, F32Global); the lane buffers in registers (lane_k is a
 // template parameter). Blocks grid-stride over the work items of all
@@ -51,12 +52,12 @@ slice_topk_kernel(const int32_t* __restrict__ words,
                   const typename C::Tab* __restrict__ table,
                   const int32_t* __restrict__ nreal,
                   const int32_t* __restrict__ plan, int num_buckets,
-                  int block_sublanes, int table_rows, int fold_tile,
+                  int block_sublanes, int table_rows, int shift, int fold_tile,
                   int part_rows, int part_slices,
                   float* __restrict__ out_v, int32_t* __restrict__ out_t) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
-  const typename C::Tab* tab = stage_table<C>(smem, table, table_rows, lane);
+  const auto tab = codec::stage_table<C, false>(smem, table, table_rows, shift, lane);
 
   float tv[K];
   int32_t tt[K];
@@ -71,7 +72,7 @@ slice_topk_kernel(const int32_t* __restrict__ words,
       int i1 = -1, i2 = -1;
       for (int m = 0; m < it.count; ++m) {
         if (!w.real(it, m)) continue;
-        const float s = member_score<C>(w, it, m, tab, table_rows);
+        const float s = member_score<C>(w, it, m, tab);
         if (i1 < 0 || s > m1) {
           m2 = m1;
           i2 = i1;
@@ -87,7 +88,7 @@ slice_topk_kernel(const int32_t* __restrict__ words,
     } else {
       for (int m = 0; m < it.count; ++m) {
         if (!w.real(it, m)) continue;
-        octet::topk_update<K, TIE_SAFE>(tv, tt, member_score<C>(w, it, m, tab, table_rows),
+        octet::topk_update<K, TIE_SAFE>(tv, tt, member_score<C>(w, it, m, tab),
                                         part.tag_offset + w.tag(it, m));
       }
     }
@@ -106,8 +107,8 @@ struct Args {
   const void* table;
   const int32_t* nreal;
   const int32_t* plan;
-  int num_buckets, block_sublanes, table_rows, fold_tile, num_cuda_blocks, num_partitions,
-      part_rows, part_slices;
+  int num_buckets, block_sublanes, table_rows, shift, fold_tile, num_cuda_blocks,
+      num_partitions, part_rows, part_slices;
   float* out_v;
   int32_t* out_t;
   cudaStream_t stream;
@@ -116,14 +117,14 @@ struct Args {
 template <class C, int K, bool TIE_SAFE>
 cudaError_t launch(const Args& a) {
   auto kernel = slice_topk_kernel<C, K, TIE_SAFE>;
-  const size_t smem = table_smem_bytes<C>(a.table_rows);
-  const cudaError_t err = allow_smem(kernel, smem);
+  const size_t smem = codec::table_smem_bytes<C, false>(a.table_rows);
+  const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.num_cuda_blocks, a.num_partitions);
   kernel<<<grid, kLanes, smem, a.stream>>>(
       a.words, static_cast<const typename C::Tab*>(a.table), a.nreal, a.plan, a.num_buckets,
-      a.block_sublanes, a.table_rows, a.fold_tile, a.part_rows, a.part_slices, a.out_v,
-      a.out_t);
+      a.block_sublanes, a.table_rows, a.shift, a.fold_tile, a.part_rows, a.part_slices,
+      a.out_v, a.out_t);
   return cudaSuccess;
 }
 
@@ -147,9 +148,9 @@ cudaError_t launch_c(int lane_k, bool tie_safe, const Args& a) {
 extern "C" {
 
 // words: (num_partitions * part_rows, 128) int32, part_rows a whole
-// number of blocks; table: (1, 128) int32 (codec 0, h16) or (table_rows,
-// 128) f32 (codec 1, f32 in shared memory; codec 2, f32 read from global
-// memory); nreal: (num_partitions, num_buckets) int32; plan:
+// number of blocks; table: (table_rows, 128), int32 (f32 for the f32
+// codecs), codec one of codecs.cuh::Codec; nreal: (num_partitions,
+// num_buckets) int32; plan:
 // (num_buckets, 6) int32; fold_tile: 1, 2, 4 or 8; part_slices: slice
 // tags per partition; out_v/out_t: (num_partitions, num_cuda_blocks,
 // lane_k, 128). Returns cudaGetLastError() (or the error of a refused
@@ -161,16 +162,14 @@ int slice_topk(const int32_t* words, const void* table, const int32_t* nreal,
                int part_rows, int part_slices, float* out_v, int32_t* out_t,
                void* stream) {
   if (num_buckets < 1 || num_cuda_blocks < 1 || table_rows < 1 || fold_tile < 1 ||
-      num_partitions < 1 || num_partitions > 65535 || (codec == 0 && table_rows != 1))
+      num_partitions < 1 || num_partitions > 65535 || !codec::table_rows_ok(codec, table_rows))
     return cudaErrorInvalidValue;
   const Args a{words, table, nreal, plan, num_buckets, block_sublanes, table_rows,
-               fold_tile, num_cuda_blocks, num_partitions, part_rows, part_slices, out_v,
-               out_t, static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (codec == 0) err = launch_c<H16>(lane_k, tie_safe, a);
-  else if (codec == 1) err = launch_c<F32>(lane_k, tie_safe, a);
-  else if (codec == 2) err = launch_c<F32Global>(lane_k, tie_safe, a);
-  else err = cudaErrorInvalidValue;
+               codec::sign_shift(codec), fold_tile, num_cuda_blocks, num_partitions,
+               part_rows, part_slices, out_v, out_t, static_cast<cudaStream_t>(stream)};
+  const cudaError_t err = codec::dispatch(codec, [&](auto tag) {
+    return launch_c<typename decltype(tag)::type>(lane_k, tie_safe, a);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

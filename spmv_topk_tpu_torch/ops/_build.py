@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
 ``csrc/*.cu`` compile with nvcc, one process per source, all started
-together, and link into one shared library with a plain C interface
+together (``source_seconds`` keeps each one's wall time), and link into one shared library with a plain C interface
 under ``build/spmv_topk_tpu_torch/`` beside the package, at the first
 launch of any kernel. The file name carries a hash of the sources
 (headers included) and flags, so an edited source builds anew. Nothing
@@ -24,6 +24,7 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -36,15 +37,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIB = None
 build_seconds = None   # wall seconds of the nvcc build in this process
                        # (0.0 when a built library was reused)
+source_seconds = {}    # source -> wall seconds of its nvcc process (a
+                       # build in this process)
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
 # name -> argtypes of each C entry point (all return int: cudaError_t)
 _SIGNATURES = {
-    "octet_topk_h16": [_vp] * 4 + [_i32] * 9 + [_vp] * 3,
-    "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
-    "octet_scores_h16": [_vp] * 4 + [_i32] * 6 + [_vp] * 2,
+    "octet_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
+    "octet_topk_batch": [_vp] * 4 + [_i32] * 13 + [_vp] * 3,
+    "octet_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
     "slice_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
     "slice_topk_batch": [_vp] * 4 + [_i32] * 12 + [_vp] * 3,
     "slice_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
@@ -99,6 +102,13 @@ def lib():
     return so
 
 
+def _compile(cmd):
+    """Run one nvcc command: (CompletedProcess, wall seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    return res, time.perf_counter() - t0
+
+
 def _build(path: str) -> None:
     """nvcc each source to an object, all at once, then link ``path``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -106,22 +116,19 @@ def _build(path: str) -> None:
     nvcc = _nvcc()
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(srcs, objs)]
+    # one thread per nvcc process: each waits on its own, so every source
+    # gets its own wall time
+    with ThreadPoolExecutor(max_workers=len(srcs)) as ex:
+        results = list(ex.map(_compile, [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]))
     logs, failed = [], []
-    try:
-        for src, p in zip(srcs, procs):
-            out, err = p.communicate(timeout=900)
-            logs.append(f"== {os.path.basename(src)}\n{out}{err}")
-            if p.returncode != 0:
-                failed.append(logs[-1])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    for src, (res, secs) in zip(srcs, results):
+        name = os.path.basename(src)
+        source_seconds[name] = secs
+        logs.append(f"== {name}\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(logs[-1])
     try:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -2,9 +2,21 @@
 octet stream; K7, K8, K9 on the slice stream), their per-lane merge and
 ``finalize_topk``.
 
-Octet stream (h16 codec). Each sweep adds up, for every octet of the
-slice-transposed stream (formats/sell_buckets.py::fuse_buckets_octet),
-its W decoded h16 chunks into 8 member scores per lane:
+Query codecs. Every sweep takes every codec of the config (``h16``,
+``f32``, ``int8x4``, ``i8s``, ``i4s``): a word's product against the query
+table is ``prod_h16`` (two nnz per word, int32), ``prod_f32``,
+``prod_int8x4`` or ``prod_sign`` (one nnz, the bf16 value times the
+decoded query entry in float32); ``_table_spec`` gives each codec's table
+and ``KERNEL_CODECS`` the kernels' codec argument. h16 sums are int32,
+exact in any order. The float codecs are summed in a fixed order, each
+product and each add rounded, the same in a kernel and its plain version
+(bit-equal): on the octet stream the JAX kernels' own order (K1 and K4 two
+alternating accumulators per block, K6 one; a wide octet's block sums
+added in block order), on the slice stream row order (``_row_sum``).
+
+Octet stream. Each sweep adds up, for every octet of the slice-transposed
+stream (formats/sell_buckets.py::fuse_buckets_octet), its W decoded
+chunks into 8 member scores per lane:
 
   - ``topk_spmv_fused_octet_device`` (K1, one query) harvests the top 3
     of the 8 (or all 8 with ``fold_tile=1``) into per-lane (value, slice)
@@ -15,8 +27,7 @@ its W decoded h16 chunks into 8 member scores per lane:
   - ``spmv_fused_scores_octet_device`` (K4) writes the 8 member scores
     themselves, in slice order: plain SpMV.
 
-Slice stream (h16 and f32 codecs; formats/sell_buckets.py::
-fuse_buckets). A slice's W words sit on W consecutive rows; each sweep
+Slice stream (formats/sell_buckets.py::fuse_buckets). A slice's W words sit on W consecutive rows; each sweep
 adds up every slice's W decoded words into its 128 row scores (one
 lane per row):
 
@@ -29,9 +40,10 @@ lane per row):
   - ``spmv_fused_scores_device`` (K9) writes the slice scores: plain SpMV.
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
-``octet_topk.cu``, K6 ``octet_topk_batch.cu``, K4 ``octet_scores.cu``,
-K7 ``slice_topk.cu``, K8 ``slice_topk_batch.cu``, K9
-``slice_scores.cu``; they replace the pallas_calls of
+``octet_topk.cuh``, K6 ``octet_topk_batch.cuh``, K4 ``octet_scores.cu``,
+K7 ``slice_topk.cu``, K8 ``slice_topk_batch.cuh``, K9
+``slice_scores.cu``, the codecs in ``codecs.cuh``; they replace the
+pallas_calls of
 ``spmv_topk_tpu/ops/kernel.py``) and the Top-K sweeps then merge their
 per-CUDA-block buffers with one per-lane ``torch.topk``, the same
 algebra as the JAX package's per-lane ``lax.top_k`` over its per-bucket
@@ -60,6 +72,7 @@ merged across partitions, and the SpMV sweeps write ``(P * part_slices,
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -95,8 +108,17 @@ _STEP_WORDS = 1 << 24
 
 SLICE_PLAN_COLUMNS = ("width", "slices_per_block", "blocks_per_slice",
                       "slice_base", "blk_start", "num_blocks")
-# codecs of the slice sweeps, in the order of the kernels' codec argument
-SLICE_CODECS = ("h16", "f32")
+# The kernels' codec argument is an index in this table (csrc/codecs.cuh,
+# enum Codec, in the same order): the config's codecs, and f32 with its
+# tables read from global memory (a table past a CUDA block's shared
+# memory, ``tables_in_smem``)
+KERNEL_CODECS = ("h16", "f32", "f32_global", "int8x4", "i8s", "i4s")
+# the sign-layout codecs' final arithmetic shift (``prod_sign``)
+SIGN_SHIFTS = {"i8s": 24, "i4s": 28}
+# summation orders of the octet sweeps' float codecs: K1 and K4 add the
+# even and the odd chunks of a block in two accumulators (PAIRS), K6 a
+# block's chunks in one (CHAIN), as the JAX kernels do
+PAIRS, CHAIN = "pairs", "chain"
 _S = 8          # rows per chunk of the JAX kernels (cfg.chunk_sublanes)
 _RUN = 8        # slices per work item where each slice is folded alone
 # The JAX slice kernel folds in tiles only where it unrolled a block's
@@ -181,14 +203,32 @@ def _octet_tiles(words, row, block_sublanes, S):
         G, W, S, LANES)
 
 
-def _octet_sums(words, tab, row, block_sublanes, S):
-    """Yield (o0, sums) over one bucket: the int member sums (g, S, 128)
-    of octets o0 .. o0 + g - 1, a bounded number of words at a time."""
+def _octet_sums(words, table, row, block_sublanes, S, codec="h16",
+                sum_order=PAIRS):
+    """Yield (o0, sums) over one bucket: the member sums (g, S, 128) of
+    octets o0 .. o0 + g - 1, a bounded number of words at a time. h16:
+    int32 sums. The float codecs: float32 sums of each block span of the
+    octet's chunks (all of them for a narrow octet), in two accumulators of
+    the even and the odd chunks added together (PAIRS, K1 and K4) or in one
+    (CHAIN, K6), each from 0; a wide octet's span sums added in block order
+    from 0 (the JAX kernels' carry)."""
     W, G = row[0], row[3]
     tiles = _octet_tiles(words, row, block_sublanes, S)
+    prod = codec_prod(codec)
     per = max(1, _STEP_WORDS // (W * S * LANES))
+    span = block_sublanes // S
     for o0 in range(0, G, per):
-        yield o0, prod_h16(tiles[o0:o0 + per], tab).sum(dim=1)
+        p = prod(tiles[o0:o0 + per], table)                  # (g, W, S, L)
+        if codec == "h16":
+            yield o0, p.sum(dim=1)
+            continue
+        parts = []
+        for j0 in range(0, W, span):
+            blk = p[:, j0:j0 + span]
+            parts.append(_row_sum(blk[:, 0::2], 1) + _row_sum(blk[:, 1::2], 1)
+                         if sum_order == PAIRS else _row_sum(blk, 1))
+        yield o0, parts[0] if len(parts) == 1 else _row_sum(
+            torch.stack(parts, dim=1), 1)
 
 
 def _partitions(words, nreal, num_partitions: int):
@@ -219,7 +259,8 @@ def octet_topk_plain(words, table, nreal, plan_rows, *,
     """Plain PyTorch version of the octet sweep: (topv, topt), each
     (lane_k, 128) ((P, lane_k, 128) with num_partitions P > 1), values
     sorted descending per lane. Keywords: lane_k, fold_tile, tie_safe,
-    block_sublanes, chunk_sublanes (8).
+    block_sublanes, chunk_sublanes (8), codec (h16), sum_order (PAIRS, K1's;
+    CHAIN is K6's, ``_octet_sums``).
 
     Harvests the same candidates as the kernel and gives each lane its
     exact top-``lane_k`` of them, the initial sentinels included (``-inf``
@@ -235,18 +276,19 @@ def octet_topk_plain(words, table, nreal, plan_rows, *,
 
 def _octet_topk_one(words, table, nreal, plan_rows, *, lane_k: int,
                     fold_tile: int, tie_safe: bool, block_sublanes: int,
-                    chunk_sublanes: int = 8, tag_offset: int = 0):
+                    chunk_sublanes: int = 8, codec: str = "h16",
+                    sum_order: str = PAIRS, tag_offset: int = 0):
     """``octet_topk_plain`` of one partition, tags offset by tag_offset
     (the buffers' initial tags stay 0, as in the kernels)."""
     S = chunk_sublanes
     dev = words.device
-    tab = table.reshape(-1)[:LANES]
     miota = torch.arange(S, device=dev, dtype=torch.int32).view(1, S, 1)
     cand_v, cand_t = [], []
     for b, row in enumerate(plan_rows.tolist()):
         G, slice_base = row[3], row[4] + tag_offset
         n_real = int(nreal.reshape(-1)[b])
-        for o0, sums in _octet_sums(words, tab, row, block_sublanes, S):
+        for o0, sums in _octet_sums(words, table, row, block_sublanes, S,
+                                    codec, sum_order):
             acc = sums.to(torch.float32)                       # (g, S, L)
             oidx = torch.arange(o0, o0 + acc.shape[0], device=dev,
                                 dtype=torch.int32).view(-1, 1, 1)
@@ -294,24 +336,24 @@ def _merge_with_init(cand_v, cand_t, lane_k, tie_safe, dev):
 
 def octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     """Plain PyTorch version of the multi-query sweep: ``octet_topk_plain``
-    for each query of the (Q, 1, 128) tables -> (topv, topt), each
-    (Q, lane_k, 128) ((Q, P, lane_k, 128) with P > 1 partitions). Keyword
-    arguments as for ``octet_topk_plain``."""
-    outs = [octet_topk_plain(words, t, nreal, plan_rows, **kw)
-            for t in tables]
+    in K6's summation order (CHAIN) for each query of the (Q, rows, 128)
+    tables -> (topv, topt), each (Q, lane_k, 128) ((Q, P, lane_k, 128)
+    with P > 1 partitions). Keyword arguments as for ``octet_topk_plain``
+    but sum_order."""
+    outs = [octet_topk_plain(words, t, nreal, plan_rows, sum_order=CHAIN,
+                             **kw) for t in tables]
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
 def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
                        block_sublanes: int, chunk_sublanes: int = 8,
-                       num_partitions: int = 1):
+                       num_partitions: int = 1, codec: str = "h16"):
     """Plain PyTorch version of the octet SpMV: (num_slices, 128) f32, row
-    s holding slice s's 128 unscaled h16 row scores. Member m of octet o
-    of a bucket is slice slice_base + o + m * stride; rows of no real
-    slice (the sentinel slice) stay 0. With P partitions, partition p's
-    slices fill rows p * part_slices .., part_slices = num_slices / P."""
+    s holding slice s's 128 unscaled row scores (K1's sums). Member m of
+    octet o of a bucket is slice slice_base + o + m * stride; rows of no
+    real slice (the sentinel slice) stay 0. With P partitions, partition
+    p's slices fill rows p * part_slices .., part_slices = num_slices / P."""
     S = chunk_sublanes
-    tab = table.reshape(-1)[:LANES]
     out = torch.zeros((num_slices, LANES), dtype=torch.float32,
                       device=words.device)
     part_slices = num_slices // num_partitions
@@ -319,8 +361,9 @@ def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
         for b, row in enumerate(plan_rows.tolist()):
             slice_base = p * part_slices + row[4]
             n_real = int(nr[b])
-            sums = torch.cat([s for _, s in _octet_sums(w, tab, row,
-                                                         block_sublanes, S)])
+            sums = torch.cat([s for _, s in _octet_sums(w, table, row,
+                                                         block_sublanes, S,
+                                                         codec)])
             # (octet, member) -> (member, octet): the flat index is the slice
             out[slice_base:slice_base + n_real] = sums.transpose(
                 0, 1).reshape(-1, LANES)[:n_real].to(torch.float32)
@@ -339,11 +382,46 @@ def merge_lane_topk(topv, topt, lane_k: int, lead: int = 0):
     return mv, torch.gather(allt, lead, mi)
 
 
-def _check_codec(cfg: TopKSpMVConfig) -> None:
-    if cfg.query_codec != "h16":
-        raise NotImplementedError(
-            f"query_codec={cfg.query_codec!r}: the octet sweeps are ported "
-            "for h16 only (ROADMAP.md Queue 1 item 5, other query codecs)")
+def _table_spec(cfg: TopKSpMVConfig):
+    """(rows, dtype) of one query table of the codec (``pack_query_table``:
+    h16 one int4x8 row; f32 a row per 128 columns; int8x4 and i8s a row of
+    4-byte words per 512 columns, i4s of 8-nibble words per 1024)."""
+    per_row = {"h16": cfg.max_cols, "f32": LANES, "int8x4": 4 * LANES,
+               "i8s": 4 * LANES, "i4s": 8 * LANES}[cfg.query_codec]
+    dtype = torch.float32 if cfg.query_codec == "f32" else torch.int32
+    return -(-cfg.max_cols // per_row), dtype
+
+
+def tables_in_smem(table_bytes: int, smem_limit: int) -> int:
+    """How many query tables of ``table_bytes`` bytes a CUDA block can
+    hold in ``smem_limit`` bytes of shared memory: the largest power of two
+    up to MAX_BATCH_SUBGROUP (the batch sweeps size their tables for their
+    subgroup rounded up to one, and cut the subgroup to it), or 0 when not
+    even one fits: the sweeps then gather from the tables in global memory
+    (f32 only, codec "f32_global": no other codec's table comes near)."""
+    if table_bytes > smem_limit:
+        return 0
+    fit = 1
+    while fit < MAX_BATCH_SUBGROUP and 2 * fit * table_bytes <= smem_limit:
+        fit *= 2
+    return fit
+
+
+def _kernel_codec(dev, cfg: TopKSpMVConfig):
+    """(codec argument of the kernels, tables per CUDA block) on ``dev``:
+    the codec's index in KERNEL_CODECS and ``tables_in_smem`` of its
+    table (h16's batch sweeps repack a subgroup's 512-byte tables into one
+    of 4 KB: always 8); with none, f32 read from global memory and a
+    subgroup of any size."""
+    rows, _ = _table_spec(cfg)
+    props = torch.cuda.get_device_properties(dev)
+    fit = tables_in_smem(rows * LANES * 4, props.shared_memory_per_block_optin)
+    if fit:
+        return KERNEL_CODECS.index(cfg.query_codec), fit
+    if cfg.query_codec != "f32":
+        raise ValueError(f"a {cfg.query_codec} table of {rows} rows does "
+                         "not fit shared memory")
+    return KERNEL_CODECS.index("f32_global"), MAX_BATCH_SUBGROUP
 
 
 def _check_inputs(words, nreal, plan_rows, block_sublanes, num_partitions,
@@ -409,7 +487,7 @@ def _check_sweep(lane_k, fold_tile, chunk_sublanes):
 def _sweep_kw(cfg: TopKSpMVConfig, block_sublanes: int) -> dict:
     return dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
                 tie_safe=bool(cfg.tie_safe_topk), block_sublanes=block_sublanes,
-                chunk_sublanes=cfg.chunk_sublanes)
+                chunk_sublanes=cfg.chunk_sublanes, codec=cfg.query_codec)
 
 
 def _part_slices(num_partitions: int, part_slices: int) -> int:
@@ -425,11 +503,13 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
                                  cfg: TopKSpMVConfig, block_sublanes: int,
                                  num_partitions: int = 1,
                                  part_slices: int = 0):
-    """Octet sweep of the h16 stream: per-lane (topv, topt) candidates
-    (K1; with P = num_partitions > 1, K10b).
+    """Octet sweep: per-lane (topv, topt) candidates (K1; with P =
+    num_partitions > 1, K10b).
 
     words: (P * num_blocks * block_sublanes, 128) int32 octet stream.
-    table: (1, 128) int32 h16 query table (int4x8).
+    table: the query table of cfg.query_codec (``pack_query_table``;
+    ``_table_spec``: (1, 128) int32 for h16, (max_cols / 128, 128) float32
+    for f32, (rows, 128) int32 for int8x4, i8s, i4s).
     nreal: (B, 1) int32 real slices per bucket; (P, B, 1) for P > 1.
     plan_rows: (B, 8) int32 plan table (octet_plan_rows).
     part_slices: slice tags per partition (P > 1): partition p's tags are
@@ -439,7 +519,6 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    _check_codec(cfg)
     kw = _sweep_kw(cfg, block_sublanes)
     ps = _part_slices(num_partitions, part_slices)
     if words.device.type == "cpu":
@@ -447,27 +526,29 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
                                 num_partitions=num_partitions,
                                 part_slices=ps, **kw)
     return _octet_topk_cuda(words, table, nreal, plan_rows, num_partitions,
-                            ps, **kw)
+                            ps, cfg, **kw)
 
 
-def _octet_topk_cuda(words, table, nreal, plan_rows, P, part_slices, *,
+def _octet_topk_cuda(words, table, nreal, plan_rows, P, part_slices, cfg, *,
                      lane_k, fold_tile, tie_safe, block_sublanes,
-                     chunk_sublanes):
+                     chunk_sublanes, codec):
     B = plan_rows.shape[0]
+    rows, dtype = _table_spec(cfg)
     sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("table", table, (1, LANES)))
+                        ("table", table, (rows, LANES), dtype))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
+    arg, _ = _kernel_codec(dev, cfg)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out_v = torch.empty((P, nblk, lane_k, LANES), dtype=torch.float32,
                         device=dev)
     out_t = torch.empty((P, nblk, lane_k, LANES), dtype=torch.int32,
                         device=dev)
-    _launch(dev, "octet_topk_h16", words.data_ptr(), table.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes,
-            lane_k, int(fold_tile == 1), int(tie_safe), nblk, P, part_rows,
-            part_slices, out_v.data_ptr(), out_t.data_ptr())
+    _launch(dev, "octet_topk", words.data_ptr(), table.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
+            arg, lane_k, int(fold_tile == 1), int(tie_safe), nblk, P,
+            part_rows, part_slices, out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_octet_device.launches += 1
     return merge_lane_topk(out_v, out_t, lane_k, lead=int(P > 1))
 
@@ -499,19 +580,20 @@ def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
                                        block_sublanes: int,
                                        num_partitions: int = 1,
                                        part_slices: int = 0):
-    """Multi-query octet sweep of the h16 stream (K6; with P > 1
-    partitions, K10d).
+    """Multi-query octet sweep (K6; with P > 1 partitions, K10d).
 
-    tables: (Q, 1, 128) int32 h16 query tables (``pack_query_tables``);
-    the other arguments as for ``topk_spmv_fused_octet_device``. Returns
-    (topv f32, topt i32), each (Q, lane_k, 128) ((Q, P, lane_k, 128) for
-    P > 1), sorted descending per lane: each query's candidates are those
-    of the single-query sweep, whatever ``cfg.batch_subgroup`` is (it
-    only sets how many queries share a CUDA block; see ``batch_grid``).
+    tables: (Q, rows, 128) query tables of cfg.query_codec
+    (``pack_query_tables``); the other arguments as for
+    ``topk_spmv_fused_octet_device``. Returns (topv f32, topt i32), each
+    (Q, lane_k, 128) ((Q, P, lane_k, 128) for P > 1), sorted descending
+    per lane: each query's candidates are those of the single-query sweep
+    (for the float codecs, summed in K6's order, CHAIN), whatever
+    ``cfg.batch_subgroup`` is (it only sets how many queries share a CUDA
+    block; see ``batch_grid``; subgroups are cut to the tables that fit
+    shared memory, ``tables_in_smem``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    _check_codec(cfg)
     kw = _sweep_kw(cfg, block_sublanes)
     ps = _part_slices(num_partitions, part_slices)
     if words.device.type == "cpu":
@@ -519,32 +601,34 @@ def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
                                       num_partitions=num_partitions,
                                       part_slices=ps, **kw)
     return _octet_topk_batch_cuda(words, tables, nreal, plan_rows,
-                                  num_partitions, ps,
-                                  subgroup=cfg.batch_subgroup, **kw)
+                                  num_partitions, ps, cfg, **kw)
 
 
 def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
-                           *, subgroup, lane_k, fold_tile, tie_safe,
-                           block_sublanes, chunk_sublanes):
+                           cfg, *, lane_k, fold_tile, tie_safe,
+                           block_sublanes, chunk_sublanes, codec):
     B = plan_rows.shape[0]
     Q = tables.shape[0]
     if Q < 1:
         raise ValueError("no queries")
+    rows, dtype = _table_spec(cfg)
     sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("tables", tables, (Q, 1, LANES)))
+                        ("tables", tables, (Q, rows, LANES), dtype))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
+    arg, fit = _kernel_codec(dev, cfg)
     part_rows = words.shape[0] // P
-    sub, n_sub, slots = batch_grid(Q, subgroup, sms,
-                                   part_rows // chunk_sublanes, P)
+    sub, n_sub, slots = batch_grid(
+        Q, min(cfg.batch_subgroup or BATCH_SUBGROUP, fit), sms,
+        part_rows // chunk_sublanes, P)
     out_v = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.float32,
                         device=dev)
     out_t = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.int32,
                         device=dev)
-    _launch(dev, "octet_topk_batch_h16", words.data_ptr(),
-            tables.data_ptr(), nreal.data_ptr(), plan_rows.data_ptr(), B,
-            block_sublanes, lane_k, int(fold_tile == 1), int(tie_safe), Q,
-            sub, slots * n_sub, P, part_rows, part_slices, out_v.data_ptr(),
+    _launch(dev, "octet_topk_batch", words.data_ptr(), tables.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
+            arg, lane_k, int(fold_tile == 1), int(tie_safe), Q, sub,
+            slots * n_sub, P, part_rows, part_slices, out_v.data_ptr(),
             out_t.data_ptr())
     topk_spmv_fused_batch_octet_device.launches += 1
     return merge_lane_topk(out_v, out_t, lane_k, lead=1 + int(P > 1))
@@ -558,39 +642,40 @@ def spmv_fused_scores_octet_device(words, table, nreal, plan_rows, *,
                                    num_slices: int, num_partitions: int = 1):
     """Plain SpMV over the octet stream (K4, over every partition when
     P = num_partitions > 1): (num_slices, 128) f32, row s the unscaled
-    h16 scores of slice s's 128 rows (rows of no real slice are 0).
-    Arguments as for ``topk_spmv_fused_octet_device``; num_slices is
-    ``row_ids.shape[0]``, P * part_slices for P partitions.
+    scores of slice s's 128 rows (rows of no real slice are 0), summed as
+    K1 sums them. Arguments as for ``topk_spmv_fused_octet_device``;
+    num_slices is ``row_ids.shape[0]``, P * part_slices for P partitions.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    _check_codec(cfg)
     if num_slices % num_partitions:
         raise ValueError(f"{num_slices} slices in {num_partitions} "
                          "partitions")
     kw = dict(num_slices=num_slices, block_sublanes=block_sublanes,
               chunk_sublanes=cfg.chunk_sublanes,
-              num_partitions=num_partitions)
+              num_partitions=num_partitions, codec=cfg.query_codec)
     if words.device.type == "cpu":
         return octet_scores_plain(words, table, nreal, plan_rows, **kw)
-    return _octet_scores_cuda(words, table, nreal, plan_rows, **kw)
+    return _octet_scores_cuda(words, table, nreal, plan_rows, cfg, **kw)
 
 
-def _octet_scores_cuda(words, table, nreal, plan_rows, *, num_slices,
-                       block_sublanes, chunk_sublanes, num_partitions):
+def _octet_scores_cuda(words, table, nreal, plan_rows, cfg, *, num_slices,
+                       block_sublanes, chunk_sublanes, num_partitions, codec):
     B = plan_rows.shape[0]
     P = num_partitions
+    rows, dtype = _table_spec(cfg)
     sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("table", table, (1, LANES)))
+                        ("table", table, (rows, LANES), dtype))
     if chunk_sublanes != 8:
         raise ValueError("the octet kernels need chunk_sublanes=8")
     dev = words.device
+    arg, _ = _kernel_codec(dev, cfg)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
-    _launch(dev, "octet_scores_h16", words.data_ptr(), table.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, nblk,
-            P, part_rows, num_slices // P, out.data_ptr())
+    _launch(dev, "octet_scores", words.data_ptr(), table.data_ptr(),
+            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
+            arg, nblk, P, part_rows, num_slices // P, out.data_ptr())
     spmv_fused_scores_octet_device.launches += 1
     return out
 
@@ -691,13 +776,61 @@ def prod_f32(w: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     does not exist."""
     col = (w >> 16) & 0xFFFF
     idx = torch.where((col >> 7) < table.shape[0], col, col & 0x7F)
-    return (w << 16).view(torch.float32) * table.reshape(-1)[idx.long()]
+    return _bf16_value(w) * table.reshape(-1)[idx.long()]
+
+
+def prod_int8x4(w: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Per-word score contribution of the int8x4 codec: one nnz per word.
+
+    The word is col[16:32) | bf16 value[0:16) against (TR, 128) int32 rows
+    of 4 biased bytes (``pack_query_int8``): lane (w >> 16) & 127 of row
+    w >> 25 (col >> 9), or of row 0 past the table; byte (w >> 20) & 24
+    ((col >> 7) & 3); the value times (byte - 128) in float32
+    (``_gather_from_bcs_int8``)."""
+    row = (w >> 25) & 0x7F
+    row = torch.where(row < table.shape[0], row, 0)
+    g = table.reshape(-1)[(row * LANES + ((w >> 16) & 0x7F)).long()]
+    byte = (g >> ((w >> 20) & 24)) & 0xFF
+    return _bf16_value(w) * (byte - 128).to(torch.float32)
+
+
+def prod_sign(w: torch.Tensor, table: torch.Tensor,
+              shift: int) -> torch.Tensor:
+    """Per-word score contribution of the sign-layout codecs (i8s: shift
+    24, i4s: 28; ``encode_words_sign_layout``): one nnz per word.
+
+    Lane (w >> 16) & 127 of table row 1 when w < 0 and the (TR, 128) int32
+    table has that row, else of row 0; the entry shifted left by
+    (w >> 24) & 31 and arithmetically right by ``shift`` (a signed byte or
+    nibble), times the bf16 value in float32 (``_gather_from_bcs_sign``)."""
+    row = ((w < 0) & (table.shape[0] > 1)).to(torch.int32)
+    sel = table.reshape(-1)[(row * LANES + ((w >> 16) & 0x7F)).long()]
+    q = (sel << ((w >> 24) & 31)) >> shift
+    return _bf16_value(w) * q.to(torch.float32)
+
+
+def _bf16_value(w: torch.Tensor) -> torch.Tensor:
+    return (w << 16).view(torch.float32)
+
+
+def codec_prod(codec: str):
+    """(words, table) -> per-word products of a codec: int32 for h16
+    (against the table's one row), float32 for the others."""
+    if codec == "h16":
+        return lambda w, table: prod_h16(w, table.reshape(-1)[:LANES])
+    if codec == "f32":
+        return prod_f32
+    if codec == "int8x4":
+        return prod_int8x4
+    if codec in SIGN_SHIFTS:
+        return functools.partial(prod_sign, shift=SIGN_SHIFTS[codec])
+    raise ValueError(f"unknown query codec {codec!r}")
 
 
 def _row_sum(p: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum over ``dim`` in index order, one rounded float32 add at a time
     from 0 (the kernels' order, csrc/slice_common.cuh::rows_sum)."""
-    acc = torch.zeros_like(p.select(dim, 0))
+    acc = p.new_zeros(p.shape[:dim] + p.shape[dim + 1:])
     for r in range(p.shape[dim]):
         acc = acc + p.select(dim, r)
     return acc
@@ -710,15 +843,13 @@ def _bucket_scores(words, table, row, codec: str, block_sublanes: int):
 
     h16 sums are exact integers converted once, and once per block for
     a wide slice, whose block sums then add up in float32 in block order
-    (the JAX kernel's carry). f32 sums run in row order, each product and
-    each add rounded (``_row_sum``), as the kernels add them, so their
-    f32 scores are bit-equal to these on any data."""
+    (the JAX kernel's carry). The float codecs' sums run in row order, each
+    product and each add rounded (``_row_sum``), as the kernels add them,
+    so their scores are bit-equal to these on any data."""
     W, spb, bps, _, blk_start, nb = row
     bs = block_sublanes
-    if codec == "h16":
-        prod, tab, total = prod_h16, table.reshape(-1)[:LANES], torch.sum
-    else:
-        prod, tab, total = prod_f32, table, _row_sum
+    prod = codec_prod(codec)
+    total = torch.sum if codec == "h16" else _row_sum
     blocks = words[blk_start * bs:(blk_start + nb) * bs]
     out = []
     if bps == 1:
@@ -726,13 +857,14 @@ def _bucket_scores(words, table, row, codec: str, block_sublanes: int):
             nb * spb, W, LANES)
         per = max(1, _STEP_WORDS // (W * LANES))
         for s0 in range(0, nb * spb, per):
-            out.append(total(prod(tiles[s0:s0 + per], tab), dim=1)
+            out.append(total(prod(tiles[s0:s0 + per], table), dim=1)
                        .to(torch.float32))
         return torch.cat(out)
     tiles = blocks.reshape(nb // bps, bps, bs, LANES)
     per = max(1, _STEP_WORDS // (bps * bs * LANES))
     for s0 in range(0, nb // bps, per):
-        part = total(prod(tiles[s0:s0 + per], tab), dim=2).to(torch.float32)
+        part = total(prod(tiles[s0:s0 + per], table), dim=2).to(
+            torch.float32)
         acc = torch.zeros_like(part[:, 0])
         for k in range(bps):
             acc = acc + part[:, k]
@@ -830,58 +962,9 @@ def slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
-def _check_slice_codec(cfg: TopKSpMVConfig) -> None:
-    if cfg.query_codec not in SLICE_CODECS:
-        raise NotImplementedError(
-            f"query_codec={cfg.query_codec!r}: the slice sweeps are ported "
-            f"for {SLICE_CODECS} (ROADMAP.md Queue 1 item 5, other query "
-            "codecs)")
+def _check_slice(cfg: TopKSpMVConfig) -> None:
     if cfg.chunk_sublanes != _S:
         raise ValueError(f"the slice sweeps need chunk_sublanes={_S}")
-
-
-def _table_spec(cfg: TopKSpMVConfig):
-    """(rows, dtype) of one query table of the codec."""
-    if cfg.query_codec == "h16":
-        return 1, torch.int32
-    return cfg.max_cols // LANES, torch.float32
-
-
-def f32_tables_in_smem(max_cols: int, smem_limit: int) -> int:
-    """How many f32 query tables of ``max_cols`` columns (4 bytes each) a
-    CUDA block of the slice sweeps can hold in ``smem_limit`` bytes of
-    shared memory: the largest power of two up to MAX_BATCH_SUBGROUP (K8
-    sizes its tables for its subgroup rounded up to one), or 0 when not
-    even one fits: the sweeps then gather from the tables in global
-    memory (``F32_GLOBAL``)."""
-    table = 4 * max_cols
-    if table > smem_limit:
-        return 0
-    fit = 1
-    while fit < MAX_BATCH_SUBGROUP and 2 * fit * table <= smem_limit:
-        fit *= 2
-    return fit
-
-
-# codec argument of the slice kernels for f32 tables read from global
-# memory (the first two are SLICE_CODECS' indices, tables in shared memory)
-F32_GLOBAL = 2
-
-
-def _slice_codec(dev, cfg: TopKSpMVConfig):
-    """(codec argument of the slice kernels, tables per CUDA block): h16
-    tables are 512 bytes (K8 repacks a subgroup's into one of 4 KB), and
-    all of a subgroup's fit shared memory; f32 ones as many as
-    ``f32_tables_in_smem`` says on ``dev``, and with none, F32_GLOBAL and
-    a subgroup of any size."""
-    if cfg.query_codec == "h16":
-        return SLICE_CODECS.index("h16"), MAX_BATCH_SUBGROUP
-    props = torch.cuda.get_device_properties(dev)
-    fit = f32_tables_in_smem(_table_spec(cfg)[0] * LANES,
-                             props.shared_memory_per_block_optin)
-    if fit == 0:
-        return F32_GLOBAL, MAX_BATCH_SUBGROUP
-    return SLICE_CODECS.index("f32"), fit
 
 
 def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
@@ -891,8 +974,8 @@ def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
     (topv, topt) candidates of one query.
 
     words: (P * num_blocks * block_sublanes, 128) int32 slice stream.
-    table: the query table, (1, 128) int32 (h16) or (max_cols / 128,
-    128) float32 (f32). nreal: (B, 1) int32 real slices per bucket; (P,
+    table: the query table of cfg.query_codec (``_table_spec``, as for
+    ``topk_spmv_fused_octet_device``). nreal: (B, 1) int32 real slices per bucket; (P,
     B, 1) for P > 1. plan_rows: (B, 6) int32 plan table
     (slice_plan_rows). part_slices: slice tags per partition (P > 1).
     Returns (topv f32, topt i32), each (lane_k, 128) ((P, lane_k, 128)
@@ -900,9 +983,9 @@ def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel (an
     f32 table larger than a CUDA block's shared memory is read from
-    global memory, ``f32_tables_in_smem``).
+    global memory, ``tables_in_smem``).
     """
-    _check_slice_codec(cfg)
+    _check_slice(cfg)
     P = num_partitions
     ps = _part_slices(P, part_slices)
     kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
@@ -918,7 +1001,7 @@ def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     _check_lane_k(cfg.lane_k)
     dev = words.device
-    codec, _ = _slice_codec(dev, cfg)
+    codec, _ = _kernel_codec(dev, cfg)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out_v = torch.empty((P, nblk, cfg.lane_k, LANES), dtype=torch.float32,
@@ -942,20 +1025,20 @@ def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
                                  part_slices: int = 0):
     """Multi-query slice sweep (K8; with P = num_partitions > 1, K10c).
 
-    tables: (Q, TR, 128) query tables (``pack_query_tables``: int32 for
-    h16, float32 for f32); the other arguments as for
+    tables: (Q, rows, 128) query tables of cfg.query_codec
+    (``pack_query_tables``); the other arguments as for
     ``topk_spmv_fused_device``. Returns (topv f32, topt i32), each (Q,
     lane_k, 128) ((Q, P, lane_k, 128) for P > 1), sorted descending per
     lane. Every slice is folded, whatever ``cfg.fold_tile`` is (as in the
     JAX batch kernel), and each query's candidates do not depend on
     ``cfg.batch_subgroup`` (it only sets how many queries share a CUDA
-    block; see ``batch_grid``; f32 subgroups are cut to the tables that
-    fit shared memory, ``f32_tables_in_smem``, or read from global
+    block; see ``batch_grid``; subgroups are cut to the tables that fit
+    shared memory, ``tables_in_smem``, and f32 tables are read from global
     memory when none fits).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    _check_slice_codec(cfg)
+    _check_slice(cfg)
     P = num_partitions
     ps = _part_slices(P, part_slices)
     kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
@@ -973,7 +1056,7 @@ def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     _check_lane_k(cfg.lane_k)
     dev = words.device
-    codec, fit = _slice_codec(dev, cfg)
+    codec, fit = _kernel_codec(dev, cfg)
     part_rows = words.shape[0] // P
     sub, n_sub, slots = batch_grid(Q, min(cfg.batch_subgroup
                                           or BATCH_SUBGROUP, fit),
@@ -1004,7 +1087,7 @@ def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
-    _check_slice_codec(cfg)
+    _check_slice(cfg)
     P = num_partitions
     if num_slices % P:
         raise ValueError(f"{num_slices} slices in {P} partitions")
@@ -1019,7 +1102,7 @@ def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
                         ("table", table, (rows, LANES), dtype),
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     dev = words.device
-    codec, _ = _slice_codec(dev, cfg)
+    codec, _ = _kernel_codec(dev, cfg)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)

@@ -31,6 +31,7 @@ import spmv_topk_tpu_torch as pt
 from spmv_topk_tpu_torch.formats import (create_query_batch,
                                          create_sparse_matrix)
 from spmv_topk_tpu_torch.formats.sell_buckets import octet_plan_array
+from spmv_topk_tpu_torch.ops import kernel as pkernel
 
 HEADLINE = dict(k=100, lane_k=8, max_cols=1024, query_codec="h16",
                 fused_layout="octet", width_quantum=2, fold_tile=8,
@@ -152,51 +153,92 @@ def test_query_shape_and_k_override(ref):
     assert (np.diff(_np(vals)) <= 0).all()
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(fused_layout="slice", query_codec="i8s"), "item 5"),
-    (dict(query_codec="f32"), "item 5"),
-    (dict(query_codec="i4s"), "item 5"),
-    (dict(fused_layout="slice", query_codec="int8x4"), "item 5"),
-    # ids kept from before partitioned engines ran in the port
-    pytest.param(dict(num_partitions=2, query_codec="i4s"), "item 5",
-                 id="kw4-item 8"),
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(fused_layout="slice", query_codec="i8s"),
+                 id="kw0-item 5"),
+    pytest.param(dict(query_codec="f32"), id="kw1-item 5"),
+    pytest.param(dict(query_codec="i4s"), id="kw2-item 5"),
+    pytest.param(dict(fused_layout="slice", query_codec="int8x4"),
+                 id="kw3-item 5"),
+    pytest.param(dict(num_partitions=2, query_codec="i4s"), id="kw4-item 8"),
     pytest.param(dict(fused_layout="slice", num_partitions=2,
-                      query_codec="i8s"), "item 5", id="kw5-item 8")])
-def test_unported_configs_raise(kw, match):
-    """The octet stream runs h16 only, the slice stream h16 and f32, on
-    one partition or several (HEADLINE is the octet engine)."""
+                      query_codec="i8s"), id="kw5-item 8")])
+def test_unported_configs_raise(kw):
+    """The configurations that raised before every codec ran in the port
+    build, and answer a query with the plain path's top 100: the
+    un-rescored query() equals finalize_topk of the plain sweep, scaled by
+    the query scale. The name and ids are those of the earlier test that
+    held these configurations to NotImplementedError; they are kept so the
+    test keeps its identity."""
     coo = create_sparse_matrix(300, 256, 8, "gamma", seed=1)
     cfg = pt.TopKSpMVConfig(**dict(HEADLINE, **kw))
-    with pytest.raises(NotImplementedError, match=match):
-        pt.TopKSpMV(coo, cfg, device="cpu")
+    eng = pt.TopKSpMV(coo, cfg, device="cpu")
+    q = create_query_batch(1, 256, seed=2)[0]
+    idx, vals = map(_np, eng.query(q, rescore_pool=0))
+    table, scale = eng._table(q)
+    kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+              tie_safe=bool(cfg.tie_safe_topk),
+              block_sublanes=cfg.fused_block_sublanes,
+              codec=cfg.query_codec, **eng.partition_kw)
+    plain = (pkernel.octet_topk_plain if cfg.fused_layout == "octet"
+             else pkernel.slice_topk_plain)
+    tv, tt = plain(eng.words, table, eng.nreal, eng.plan_rows, **kw)
+    pi, pv = map(_np, pkernel.finalize_topk(tv, tt, eng.row_ids, k=100))
+    np.testing.assert_array_equal(idx, pi)
+    np.testing.assert_array_equal(vals, pv * np.float32(scale))
+    assert (idx >= 0).all() and np.isfinite(vals).all()
 
 
-def test_unported_entry_points_raise(ref):
-    """The sweeps raise for the query codecs that are not ported yet: the
-    octet ones for all but h16, the slice ones for all but h16 and f32."""
-    from spmv_topk_tpu_torch.ops import kernel as pkernel
+@pytest.mark.parametrize("layout", ["octet", "slice"])
+def test_unported_entry_points_raise(layout):
+    """Each sweep takes each codec's query table (``_table_spec``: rows and
+    dtype) and returns its shapes: candidates (lane_k, 128), a batch's
+    (Q, lane_k, 128), scores (num_slices, 128). The name is that of the
+    earlier test that held the sweeps to NotImplementedError for the codecs
+    not yet ported; it is kept so the test keeps its identity."""
+    coo = create_sparse_matrix(300, 256, 8, "gamma", seed=1)
+    eng = pt.TopKSpMV(coo, pt.TopKSpMVConfig(**dict(
+        HEADLINE, fused_layout=layout)), device="cpu")
+    n = eng.row_ids.shape[0]
+    bs = eng.fused.block_sublanes
+    if layout == "octet":
+        sweeps = (pkernel.topk_spmv_fused_octet_device,
+                  pkernel.topk_spmv_fused_batch_octet_device,
+                  pkernel.spmv_fused_scores_octet_device)
+    else:
+        sweeps = (pkernel.topk_spmv_fused_device,
+                  pkernel.topk_spmv_fused_batch_device,
+                  pkernel.spmv_fused_scores_device)
+    for codec in ("h16", "f32", "int8x4", "i8s", "i4s"):
+        cfg = dataclasses.replace(eng.config, query_codec=codec)
+        rows, dtype = pkernel._table_spec(cfg)
+        table = torch.zeros((rows, 128), dtype=dtype)
+        args = (eng.words, table, eng.nreal, eng.plan_rows)
+        tv, tt = sweeps[0](*args, cfg=cfg, block_sublanes=bs)
+        assert tv.shape == tt.shape == (cfg.lane_k, 128), codec
+        bv, _ = sweeps[1](args[0], torch.stack([table] * 2), *args[2:],
+                          cfg=cfg, block_sublanes=bs)
+        assert bv.shape == (2, cfg.lane_k, 128), codec
+        sc = sweeps[2](*args, cfg=cfg, block_sublanes=bs, num_slices=n)
+        assert sc.shape == (n, 128) and sc.dtype == torch.float32, codec
 
-    peng = ref["peng"]
-    cfg = dataclasses.replace(peng.config, query_codec="f32")
-    args = (peng.words, torch.zeros((1, 1, 128), dtype=torch.int32),
-            peng.nreal, peng.plan_rows)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pkernel.topk_spmv_fused_batch_octet_device(
-            *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pkernel.spmv_fused_scores_octet_device(
-            *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes,
-            num_slices=peng.row_ids.shape[0])
-    cfg = dataclasses.replace(peng.config, fused_layout="slice",
-                              query_codec="i8s")
-    for sweep in (pkernel.topk_spmv_fused_device,
-                  pkernel.topk_spmv_fused_batch_device):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            sweep(*args, cfg=cfg, block_sublanes=peng.fused.block_sublanes)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pkernel.spmv_fused_scores_device(
-            *args, cfg=cfg, block_sublanes=peng.fused.block_sublanes,
-            num_slices=peng.row_ids.shape[0])
+
+@pytest.mark.parametrize("codec,cols", [("i8s", 1152), ("i4s", 2176),
+                                        ("int4", None)],
+                         ids=["i8s_past_1024", "i4s_past_2048", "unknown"])
+def test_codec_limits_raise(codec, cols):
+    """The config's own limits still refuse a codec: i8s past 1024
+    columns, i4s past 2048 (also when the engine widens max_cols to the
+    matrix), and a codec that does not exist."""
+    match = "unknown query codec" if cols is None else codec
+    with pytest.raises(ValueError, match=match):
+        pt.TopKSpMVConfig(**dict(HEADLINE, query_codec=codec,
+                                 max_cols=cols or 1024))
+    if cols:
+        coo = create_sparse_matrix(300, cols, 8, "gamma", seed=1)
+        with pytest.raises(ValueError, match=match):
+            pt.TopKSpMV(coo, pt.TopKSpMVConfig(**dict(
+                HEADLINE, query_codec=codec)), device="cpu")
 
 
 def test_device_is_required():

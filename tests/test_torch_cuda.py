@@ -9,7 +9,9 @@ file imports no jax, so it runs on a GPU host without the JAX package
 Kernels: K1 (single-query octet sweep), K6 (multi-query octet sweep),
 K4 (octet SpMV), K3 (stream probe), on the slice stream K7
 (single-query sweep), K8 (multi-query sweep) and K9 (SpMV), and all six
-on partitioned streams (K10a-d and the partitioned K4/K9). Tolerances:
+on partitioned streams (K10a-d and the partitioned K4/K9), with every
+query codec (the last section: int8x4, i8s, i4s on both streams, f32 on
+the octet stream). Tolerances:
 none against the plain versions. h16 scores are int32 sums converted to
 f32 once, so with tie-safe buffers the per-lane sorted values are
 bit-equal, and (value, slice) pairs are equal above each lane's smallest
@@ -624,7 +626,7 @@ def test_slice_f32_kernels_at_the_shared_memory_limit(gpu, cols):
     their plain versions, bit-equal."""
     limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
     ncols = 16384 if cols == "16384" else limit // 512 * 128
-    fit = pkernel.f32_tables_in_smem(ncols, limit)
+    fit = pkernel.tables_in_smem(4 * ncols, limit)
     assert fit == (2 if cols == "16384" else 1)
     coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=33)
     qs = create_query_batch(5, ncols, seed=34)
@@ -663,7 +665,7 @@ def test_slice_f32_tables_past_shared_memory_read_global(gpu, cols, P):
     two; the engine's query, query_batch and scores launch them."""
     limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
     ncols = limit // 512 * 128 + 128 if cols == "past_limit" else 65536
-    assert pkernel.f32_tables_in_smem(ncols, limit) == 0
+    assert pkernel.tables_in_smem(4 * ncols, limit) == 0
     coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=35)
     qs = create_query_batch(5, ncols, seed=36)
     cfg = pt.TopKSpMVConfig(k=100, max_cols=ncols, tie_safe_topk=True,
@@ -880,3 +882,156 @@ def test_partitioned_engines_on_gpu_match_cpu(gpu, corpus, name, kw):
                 set(ci[cv > cv[-1]].tolist())
     np.testing.assert_array_equal(on_gpu.scores(qs[1]).cpu().numpy(),
                                   on_cpu.scores(qs[1]).numpy())
+
+
+# ---------------------------------------------------------------- codecs
+# The quantized query codecs (int8x4, i8s, i4s) on both streams and f32 on
+# the octet stream, through every sweep: K1/K7 (one query), K6/K8 (5
+# queries in subgroups of 2), K4/K9, on one partition and on two (K10a-d).
+# The plain versions add in the kernels' order, each product and add
+# rounded, so everything is held bit for bit, on real values.
+
+CODEC_CASES = [("octet", "f32"), ("octet", "int8x4"), ("octet", "i8s"),
+               ("octet", "i4s"), ("slice", "int8x4"), ("slice", "i8s"),
+               ("slice", "i4s")]
+
+
+def _sweeps(octet):
+    if octet:
+        return (pkernel.topk_spmv_fused_octet_device,
+                pkernel.topk_spmv_fused_batch_octet_device,
+                pkernel.spmv_fused_scores_octet_device)
+    return (pkernel.topk_spmv_fused_device,
+            pkernel.topk_spmv_fused_batch_device,
+            pkernel.spmv_fused_scores_device)
+
+
+def _codec_agree(eng, cfg, q, qs):
+    """The three sweeps of eng under cfg (tie-safe) against their plain
+    versions: pools and scores bit-equal; one launch each."""
+    octet = cfg.fused_layout == "octet"
+    bs = cfg.fused_block_sublanes
+    P = cfg.num_partitions
+    parts = eng.partition_kw
+    table, _ = eng._table(q)
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bargs = (eng.words, _slice_tables(cfg, qs, eng.device), eng.nreal,
+             eng.plan_rows)
+    n = eng.row_ids.shape[0]
+    pkw = dict(lane_k=cfg.lane_k, tie_safe=True, block_sublanes=bs,
+               codec=cfg.query_codec, **parts)
+    if octet:
+        plain = (pkernel.octet_topk_plain(*args, fold_tile=cfg.fold_tile,
+                                          **pkw),
+                 pkernel.octet_topk_batch_plain(*bargs,
+                                                fold_tile=cfg.fold_tile,
+                                                **pkw),
+                 pkernel.octet_scores_plain(*args, num_slices=n,
+                                            block_sublanes=bs,
+                                            num_partitions=P,
+                                            codec=cfg.query_codec))
+    else:
+        plain = (pkernel.slice_topk_plain(*args, fold_tile=cfg.fold_tile,
+                                          **pkw),
+                 pkernel.slice_topk_batch_plain(*bargs, **pkw),
+                 pkernel.slice_scores_plain(*args, num_slices=n,
+                                            block_sublanes=bs,
+                                            codec=cfg.query_codec,
+                                            num_partitions=P))
+    sweeps = _sweeps(octet)
+    before = [w.launches for w in sweeps]
+    kv, kt = sweeps[0](*args, cfg=cfg, block_sublanes=bs, **parts)
+    bv, bt = sweeps[1](*bargs, cfg=cfg, block_sublanes=bs, **parts)
+    ks = sweeps[2](*args, cfg=cfg, block_sublanes=bs, num_slices=n,
+                   num_partitions=P)
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(sweeps, before)] == [1, 1, 1]
+    _pools_equal(kv, kt, *plain[0])
+    _pools_equal(bv, bt, *plain[1])
+    assert torch.equal(ks, plain[2])
+
+
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("layout,codec", CODEC_CASES,
+                         ids=[f"{a}_{b}" for a, b in CODEC_CASES])
+def test_codec_kernels_match_plain(gpu, corpus, layout, codec, wide, P):
+    """Every sweep of each (layout, codec) against its plain version, the
+    octet ones at fold 8 on narrow blocks and fold 1 with wide octets."""
+    octet = layout == "octet"
+    base = HEADLINE if octet else SLICE_BENCH
+    fbs = (64 if octet else 32) if wide else 1024
+    cfg = pt.TopKSpMVConfig(**dict(
+        base, query_codec=codec, rescore_pool=None, tie_safe_topk=True,
+        batch_subgroup=2, fused_block_sublanes=fbs, num_partitions=P,
+        fold_tile=1 if octet and wide else base["fold_tile"]))
+    eng = pt.TopKSpMV(corpus[0], cfg, device=gpu)
+    if wide:
+        assert any((p.blocks_per_octet if octet else p.blocks_per_slice) > 1
+                   for p in eng.fused.plan)
+    qs = create_query_batch(6, 1024, seed=37)
+    _codec_agree(eng, cfg, qs[0], qs[1:])
+
+
+@pytest.mark.parametrize("layout", ["octet", "slice"])
+@pytest.mark.parametrize("codec,cols", [("int8x4", 1536), ("i4s", 2048),
+                                        ("i8s", 1024)])
+def test_codec_kernels_take_multi_row_tables(gpu, layout, codec, cols):
+    """Tables of more than one row: int8x4 at 1536 columns (3 rows, the
+    row select w >> 25), i4s at 2048 and i8s at 1024 (2 rows, the sign
+    select), every sweep against its plain version."""
+    coo = create_sparse_matrix(5000, cols, 20, "gamma", seed=38)
+    base = HEADLINE if layout == "octet" else SLICE_BENCH
+    cfg = pt.TopKSpMVConfig(**dict(base, query_codec=codec, max_cols=cols,
+                                   rescore_pool=None, tie_safe_topk=True,
+                                   batch_subgroup=2))
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    qs = create_query_batch(6, cols, seed=39)
+    assert eng._table(qs[0])[0].shape[0] == (3 if codec == "int8x4" else 2)
+    _codec_agree(eng, cfg, qs[0], qs[1:])
+
+
+@pytest.mark.parametrize("name", ["c3", "c8"])
+def test_codec_engines_on_gpu_match_cpu(gpu, corpus, name):
+    """The deployments c3 (i8s, quantum 4) and c8 (i4s, quantum 4, pool
+    400) of bench/full_eval.py: query, query_batch (groups of 2, a tail
+    group) and scores on the card equal the plain path's on the CPU."""
+    coo, qs = corpus
+    kw = dict(k=100, query_codec="i8s", width_quantum=4)
+    if name == "c8":
+        kw.update(query_codec="i4s", rescore_pool=400)
+    cfg = pt.TopKSpMVConfig(**kw)
+    on_gpu = pt.TopKSpMV(coo, cfg, device=gpu)
+    on_cpu = pt.TopKSpMV(coo, cfg, device="cpu")
+    batch = create_query_batch(5, 1024, seed=40)
+    pairs = [(on_gpu.query(qs[0]), on_cpu.query(qs[0])),
+             *zip(zip(*on_gpu.query_batch(batch, group_size=2)),
+                  zip(*on_cpu.query_batch(batch, group_size=2)))]
+    for (gi, gv), (ci, cv) in pairs:
+        assert gi.device.type == "cuda"
+        gi, gv, ci, cv = (x.cpu().numpy() for x in (gi, gv, ci, cv))
+        np.testing.assert_array_equal(gv, cv)
+        if cfg.rescore_pool:
+            np.testing.assert_array_equal(gi, ci)
+        else:
+            assert set(gi[gv > cv[-1]].tolist()) == \
+                set(ci[cv > cv[-1]].tolist())
+    np.testing.assert_array_equal(on_gpu.scores(qs[1]).cpu().numpy(),
+                                  on_cpu.scores(qs[1]).numpy())
+
+
+@pytest.mark.parametrize("P", [1, 2])
+def test_octet_f32_tables_past_shared_memory_read_global(gpu, P):
+    """The octet stream with f32 tables of 65,536 columns (256 KB, past a
+    CUDA block's shared memory): K1, K6 (5 queries in subgroups of 2) and
+    K4 gather from the tables in global memory (codec "f32_global"),
+    bit-equal to their plain versions, on one partition and on two."""
+    limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
+    assert pkernel.tables_in_smem(4 * 65536, limit) == 0
+    coo = create_sparse_matrix(3000, 65536, 20, "gamma", seed=41)
+    cfg = pt.TopKSpMVConfig(**dict(HEADLINE, query_codec="f32", max_cols=65536,
+                                   rescore_pool=None, tie_safe_topk=True,
+                                   batch_subgroup=2, num_partitions=P))
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    qs = create_query_batch(6, 65536, seed=42)
+    _codec_agree(eng, cfg, qs[0], qs[1:])

@@ -470,10 +470,10 @@ H100_SMEM = 232448
     (1024, 8), (14464, 4), (14592, 2), (29056, 2), (29184, 1), (58112, 1),
     (58240, None), (65536, None)])
 def test_f32_tables_in_smem_at_the_limit(max_cols, fit):
-    """How many f32 tables a CUDA block of the slice sweeps holds (K8 cuts
-    its subgroup to it), at each power of two's boundary; past one table
-    (fit None) none: the sweeps gather from the tables in global memory
-    (0, codec argument F32_GLOBAL), up to the 65,536 columns of the f32
-    column field."""
+    """How many f32 tables (4 bytes a column) a CUDA block of the sweeps
+    holds (K6 and K8 cut their subgroup to it), at each power of two's
+    boundary; past one table (fit None) none: the sweeps gather from the
+    tables in global memory (0, codec argument "f32_global"), up to the
+    65,536 columns of the f32 column field."""
     want = 0 if fit is None else fit
-    assert pkernel.f32_tables_in_smem(max_cols, H100_SMEM) == want
+    assert pkernel.tables_in_smem(4 * max_cols, H100_SMEM) == want
