@@ -71,7 +71,17 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      and the ``batch32_*`` numbers, one ``scores()``, the three kernels
      held to and timed against their plain versions on the path's
      shapes (K6 on its group of 32), K3 on the words;
- 12. the launch counts of each path's run (counts set to 0 just before
+ 12. the per-bucket ops K11, K13, K12 over every bucket of
+     ``pack_sell_buckets``: at 50k rows every codec against their plain
+     versions, tie-safe, bit for bit (lane_k 4, 8, 16; a bucket of one
+     slice per block; quantum 2, widths below 8 scoring 0; 2-3-row
+     tables; 65,536 columns); on the 10M corpus the default config (32
+     queries through K13, stacked and finalized once, against
+     ``merge_candidates_host``, the bf16 top 100 and the default engine;
+     K12 on a group of 8 against K13; K11 against K9) and h16 at quantum
+     8 (K13, the exact rescore of a pool of 400), each op timed summed
+     over its buckets, with K13's host enqueue time;
+ 13. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
 Then the kernel summary (each kernel's time, its plain version's, the
@@ -1385,6 +1395,446 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
     return res
 
 
+# ------------------------------------------------------------ per-bucket ops
+
+def _with_dense_rows(coo, degrees, seed):
+    """coo with one row more per degree, each of that many nnz: a bucket
+    of one slice per block, wider than the 512-row block target for the
+    one-nnz codecs."""
+    from spmv_topk_tpu_torch.formats import CooMatrix
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [coo.rows], [coo.cols], [coo.vals]
+    for i, d in enumerate(degrees):
+        rows.append(np.full(d, coo.num_rows + i, np.int32))
+        cols.append(np.sort(rng.choice(coo.num_cols, d, replace=False)))
+        vals.append(rng.standard_normal(d).astype(np.float32) * 0.1)
+    return CooMatrix(np.concatenate(rows), np.concatenate(cols),
+                     np.concatenate(vals), coo.num_rows + len(degrees),
+                     coo.num_cols)
+
+
+def _bucket_tensors(m, dev):
+    """Every bucket of ``m`` in one device tensor: (words, [(the bucket's
+    rows of words, num_real (1, 1), geometry keywords with slice_base)])."""
+    import torch
+
+    words = torch.empty((sum(b.words.shape[0] for b in m.buckets), 128),
+                        dtype=torch.int32, device=dev)
+    out, r0 = [], 0
+    for b in m.buckets:
+        n = b.words.shape[0]
+        words[r0:r0 + n].copy_(torch.from_numpy(b.words))
+        out.append((words[r0:r0 + n],
+                    torch.tensor([[b.num_slices]], dtype=torch.int32,
+                                 device=dev),
+                    dict(width=b.width,
+                         slices_per_block=b.block_sublanes // b.width,
+                         num_blocks=b.num_blocks, slice_base=b.slice_base)))
+        r0 += n
+    return words, out
+
+
+def _table1(q, dev, codec):
+    import torch
+
+    from spmv_topk_tpu_torch.ops.quantized_query import pack_query_table
+
+    tab, scale = pack_query_table(q, codec)
+    return torch.from_numpy(np.ascontiguousarray(tab)).to(dev), scale
+
+
+def _bucket_topk(bks, table, cfg, codec, plain=False):
+    """K13 (or its plain version) over every bucket: (B, lane_k, 128)
+    values and global slice tags."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    outs = []
+    for w, nr, geo in bks:
+        if plain:
+            outs.append(K.bucket_topk_plain(
+                w, table, nr, lane_k=cfg.lane_k,
+                tie_safe=bool(cfg.tie_safe_topk), codec=codec, **geo))
+        else:
+            outs.append(K.topk_spmv_bucket_device(
+                w, table, nr, cfg=cfg, num_groups=table.shape[0],
+                codec=codec, **geo))
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def _bucket_topk_batch(bks, tables, cfg, codec, plain=False):
+    """K12 (or its plain version) over every bucket: (Q, B, lane_k, 128)."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    outs = []
+    for w, nr, geo in bks:
+        if plain:
+            outs.append(K.bucket_topk_batch_plain(
+                w, tables, nr, lane_k=cfg.lane_k,
+                tie_safe=bool(cfg.tie_safe_topk), codec=codec, **geo))
+        else:
+            outs.append(K.topk_spmv_bucket_batch_device(
+                w, tables, nr, cfg=cfg, codec=codec, **geo))
+    return (torch.stack([v for v, _ in outs], dim=1),
+            torch.stack([t for _, t in outs], dim=1))
+
+
+def _bucket_scores(bks, table, cfg, codec, plain=False):
+    """K11 (or its plain version) of every bucket: a list of (slices,
+    128) f32 score rows."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    out = []
+    for w, _, geo in bks:
+        kw = {k: v for k, v in geo.items() if k != "slice_base"}
+        out.append(K.bucket_scores_plain(w, table, codec=codec, **kw) if plain
+                   else K.spmv_bucket_scores_device(w, table, cfg=cfg,
+                                                    codec=codec, **kw))
+    return out
+
+
+def _bucket_agree(bks, table, tables, cfg, codec):
+    """K11, K13 and K12 over every bucket against their plain versions
+    (tie-safe buffers): scores and per-lane values bit-equal, (value, tag)
+    pairs equal above each lane's floor. Returns the three max errors."""
+    import dataclasses
+
+    import torch
+
+    safe = dataclasses.replace(cfg, tie_safe_topk=True)
+    ks = _bucket_scores(bks, table, cfg, codec)
+    kv, kt = _bucket_topk(bks, table, safe, codec)
+    bv, bt = _bucket_topk_batch(bks, tables, safe, codec)
+    torch.cuda.synchronize()
+    for k, p in zip(ks, _bucket_scores(bks, table, cfg, codec, plain=True)):
+        require(torch.equal(k, p), "K11 scores equal the plain version's "
+                "bit for bit")
+    return (0.0, compare_pools(kv, kt, *_bucket_topk(bks, table, safe, codec,
+                                                     plain=True)),
+            compare_pools(bv, bt, *_bucket_topk_batch(bks, tables, safe,
+                                                      codec, plain=True)))
+
+
+def phase_bucket_small(dev):
+    """K11, K13 and K12 (5 queries in subgroups of 2) over every bucket of
+    pack_sell_buckets against their plain versions, tie-safe, bit for bit:
+    every codec on the 50k-row corpus with three dense rows (a bucket of
+    one slice per block, wider than 512 rows for the one-nnz codecs) at
+    lane_k 4, 8 and 16; f32 at width_quantum 2 (widths not multiples of
+    8: their last width % 8 rows are dropped, widths below 8 score 0);
+    int8x4 at 1536 columns and i4s at 2048 (tables of 3 and 2 rows); f32
+    at 65,536 columns (tables read from global memory)."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.formats.sell_buckets import pack_sell_buckets
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    dense = _with_dense_rows(coo, (700, 900, 1000), 46)
+    cases = [(c, c, dense, (4, 8, 16))
+             for c in ("h16", "f32", "int8x4", "i8s", "i4s")]
+    cases.append(("f32_quantum2", "f32", coo, (8,)))
+    for name, codec, cols in (("int8x4_1536_cols", "int8x4", 1536),
+                              ("i4s_2048_cols", "i4s", 2048),
+                              ("f32_65536_cols", "f32", F32_MAX_COLS)):
+        cases.append((name, codec, create_sparse_matrix(
+            20_000, cols, AVG_DEG, "gamma", seed=10), (8,)))
+    out = []
+    for name, codec, corpus, lane_ks in cases:
+        cfg = TopKSpMVConfig(k=100, max_cols=corpus.num_cols,
+                             query_codec=codec, batch_subgroup=2,
+                             width_quantum=2 if "quantum2" in name else 8)
+        m = pack_sell_buckets(corpus, cfg)
+        qs = create_query_batch(6, corpus.num_cols, seed=11)
+        words, bks = _bucket_tensors(m, dev)
+        table, _ = _table1(qs[0], dev, codec)
+        tables = _tables(qs[1:], dev, codec)
+        errs = [_bucket_agree(bks, table, tables,
+                              dataclasses.replace(cfg, lane_k=lk), codec)
+                for lk in lane_ks]
+        widths = [b.width for b in m.buckets]
+        short = [s for s, b in zip(_bucket_scores(bks, table, cfg, codec),
+                                   m.buckets) if b.width < 8]
+        out.append(dict(
+            case=name, codec=codec, rows=corpus.num_rows,
+            cols=corpus.num_cols, buckets=len(m.buckets), widths=widths,
+            one_slice_per_block=sum(b.block_sublanes == b.width
+                                    for b in m.buckets),
+            padded_buckets=sum(b.num_slices < b.num_blocks * (
+                b.block_sublanes // b.width) for b in m.buckets),
+            table_rows=table.shape[0], lane_k=list(lane_ks),
+            short_buckets_all_zero=all(not s.any() for s in short),
+            k11_max_abs_err=max(e[0] for e in errs),
+            k13_max_abs_err=max(e[1] for e in errs),
+            k12_max_abs_err=max(e[2] for e in errs)))
+        require(out[-1]["padded_buckets"] > 0,
+                f"{name}: a last block holds padding slices")
+        if corpus is dense:
+            require(out[-1]["one_slice_per_block"] > 0 and
+                    (codec == "h16" or max(widths) > 512),
+                    f"{name}: a bucket of one slice per block, past 512 "
+                    "rows for the one-nnz codecs")
+        if "quantum2" in name:
+            require(any(w % 8 for w in widths) and short and
+                    out[-1]["short_buckets_all_zero"],
+                    "quantum 2: widths past multiples of 8, and those "
+                    "below 8 score 0")
+        del words, bks
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    require(K.tables_in_smem(4 * F32_MAX_COLS, limit) == 0,
+            "a 65,536-column f32 table is read from global memory")
+    res = dict(phase="bucket_kernels_vs_plain_small", cases=out)
+    emit(res)
+    return res
+
+
+def _reset_bucket_counts():
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    for w in (K.spmv_bucket_scores_device, K.topk_spmv_bucket_device,
+              K.topk_spmv_bucket_batch_device):
+        w.launches = 0
+
+
+def _bucket_counts():
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    return dict(bucket_scores=K.spmv_bucket_scores_device.launches,
+                bucket_topk=K.topk_spmv_bucket_device.launches,
+                bucket_topk_batch=K.topk_spmv_bucket_batch_device.launches)
+
+
+def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
+    """K13 and K11 (and K12 on ``tables``) per query over every bucket,
+    each summed over its bucket launches and merges, between CUDA events,
+    against their plain versions; K13's host clock per query (enqueue
+    alone, and to a synchronize) for the launch overhead; K3 on the same
+    words; the bounds."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops.streamprobe import stream_words_device
+
+    nb = len(bks)
+    wbytes = words.numel() * 4
+    tbytes = table.numel() * 4
+    slices = sum(g["num_blocks"] * g["slices_per_block"] for _, _, g in bks)
+    pairs = nb * cfg.lane_k * 128 * 8
+    res = dict(buckets=nb, words_bytes=wbytes)
+    kinds = [("k13", lambda: _bucket_topk(bks, table, cfg, codec),
+              lambda: _bucket_topk(bks, table, cfg, codec, plain=True),
+              bound(wbytes + nb * tbytes + pairs, 2 * num_nnz)),
+             ("k11", lambda: _bucket_scores(bks, table, cfg, codec),
+              lambda: _bucket_scores(bks, table, cfg, codec, plain=True),
+              bound(wbytes + nb * tbytes + slices * 128 * 4, 2 * num_nnz))]
+    if tables is not None:
+        Q = len(tables)
+        kinds.append(("k12", lambda: _bucket_topk_batch(bks, tables, cfg,
+                                                        codec),
+                      lambda: _bucket_topk_batch(bks, tables, cfg, codec,
+                                                 plain=True),
+                      bound(wbytes + Q * nb * tbytes + Q * pairs,
+                            2 * num_nnz * Q)))
+        res["k12_queries"] = Q
+    for kn, fn, plain, b in kinds:
+        res[f"{kn}_ms"] = cuda_ms(fn, reps=10, warmup=2)
+        res[f"{kn}_plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
+        res[f"{kn}_bound_ms"], res[f"{kn}_bound_by"] = b
+    enq, sync = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _bucket_topk(bks, table, cfg, codec)
+        enq.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        sync.append((time.perf_counter() - t0) * 1e3)
+    salt = torch.arange(128, dtype=torch.int32, device=words.device).reshape(
+        1, 128)
+    k3 = cuda_ms(lambda: stream_words_device(words, salt), reps=20, warmup=2)
+    res.update(k13_host_enqueue_ms_median=statistics.median(enq),
+               k13_host_ms_median=statistics.median(sync),
+               launches_per_query=nb, k3_ms=k3,
+               k3_gb_per_s=wbytes / (k3 * 1e-3) / 1e9,
+               k13_words_gb_per_s=wbytes / (res["k13_ms"] * 1e-3) / 1e9)
+    return res
+
+
+def phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev):
+    """The per-bucket ops on the 10M corpus. Engine (a): pack_sell_buckets
+    of the default config (f32, quantum 8): for each of the 32 queries K13
+    over every bucket, the buffers stacked and finalized once (precision@100
+    against the bf16 matrix's top 100 >= MIN_PRECISION_BF16, and not below
+    the default engine's query() by more than 0.005 mean), and
+    merge_candidates_host over each bucket's own top 100 giving the same
+    rows; K12 on the default group of 8 (each query's sorted lane values
+    equal K13's to rtol 1e-6: the two sum in different orders); K11 on
+    one query against the default engine's K9 scores of the same slices
+    (rtol 1e-6) and the bf16 matrix product. Engine (b): h16 at quantum 8
+    with the headline's other settings: K13 over every bucket, the exact
+    rescore of a pool of 400 (precision@100 >= MIN_PRECISION), K11 and K13
+    against their plain versions. Each: times, launches, K3."""
+    import scipy.sparse
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMVConfig
+    from spmv_topk_tpu_torch.api import exact_rescore
+    from spmv_topk_tpu_torch.formats.sell_buckets import (fuse_buckets,
+                                                          pack_sell_buckets)
+    from spmv_topk_tpu_torch.ops import kernel as K
+    from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
+    from spmv_topk_tpu_torch.topk import merge_candidates_host
+
+    k = 100
+    group = qs[:DEFAULT_GROUP]
+    out = {}
+    for name, config in (("bucket", DEFAULT),
+                         ("bucket_h16", dict(HEADLINE, width_quantum=8))):
+        cfg = TopKSpMVConfig(**config)
+        codec = cfg.query_codec
+        t0 = time.perf_counter()
+        m = pack_sell_buckets(coo, cfg)
+        words, bks = _bucket_tensors(m, dev)
+        row_ids = torch.from_numpy(m.row_ids).to(dev)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        _bucket_topk(bks, _table1(qs[0], dev, codec)[0], cfg, codec)  # warm
+        torch.cuda.synchronize()
+
+        _reset_bucket_counts()
+        pools, idx, raw, host_ms = [], [], [], []
+        for q in qs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            table, _ = _table1(q, dev, codec)
+            tv, tt = _bucket_topk(bks, table, cfg, codec)
+            pool = cfg.rescore_pool or k
+            ri, _ = K.finalize_topk(tv, tt, row_ids, pool)
+            ri = ri.cpu().numpy()
+            if cfg.rescore_pool:
+                ri = exact_rescore(csr, ri, q, k)[0]
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            idx.append(ri)
+            raw.append(ri if not cfg.rescore_pool else
+                       K.finalize_topk(tv, tt, row_ids, k)[0].cpu().numpy())
+            pools.append((tv, tt))
+        if codec == "f32":
+            tables = _tables(group, dev, codec)
+            bv, bt = _bucket_topk_batch(bks, tables, cfg, codec)
+        ks = _bucket_scores(bks, _table1(qs[0], dev, codec)[0], cfg, codec)
+        torch.cuda.synchronize()
+        launches = _bucket_counts()
+        if codec != "f32":
+            del launches["bucket_topk_batch"]
+
+        prec = _precision(gold, idx, k)
+        res = dict(phase=f"{name}_path", config=config, rows=m.num_rows,
+                   widths=[b.width for b in m.buckets],
+                   pack_and_upload_s=pack_s, queries=len(qs),
+                   precision_at_100_mean=float(np.mean(prec)),
+                   precision_at_100_min=float(np.min(prec)),
+                   precision_raw_mean=float(np.mean(_precision(gold, raw,
+                                                               k))),
+                   precision_bf16_matrix_mean=float(np.mean(_precision(
+                       gold_bf16, raw, k))),
+                   query_e2e_ms_median=statistics.median(host_ms))
+        if codec == "f32":
+            # the stacked finalize against the host merge of each
+            # bucket's own top 100
+            for (tv, tt), ri in zip(pools, idx):
+                lists = [K.finalize_topk(v, t, row_ids, k)
+                         for v, t in zip(tv, tt)]
+                mi, _ = merge_candidates_host(
+                    [i.cpu().numpy() for i, _ in lists],
+                    [v.cpu().numpy() for _, v in lists], k)
+                require(set(mi.tolist()) == set(ri.tolist()),
+                        "merge_candidates_host over the per-bucket top 100 "
+                        "gives the stacked finalize's rows")
+            res["default_query_precision_bf16_mean"] = \
+                df["precision_bf16_matrix_mean"]
+            require(res["precision_bf16_matrix_mean"] >= MIN_PRECISION_BF16,
+                    f"{name} precision@100 vs the bf16 matrix >= "
+                    f"{MIN_PRECISION_BF16}")
+            require(res["precision_bf16_matrix_mean"] >=
+                    df["precision_bf16_matrix_mean"] - 0.005,
+                    "the per-bucket pool ranks at least as well as the "
+                    "default engine's query() (within 0.005)")
+            # K12 against K13, each query's sorted lane values: rtol 1e-6
+            # (the two sum in different orders), atol 1e-6 for sums that
+            # cancel to near 0 (a bucket of few slices keeps them all)
+            for j in range(len(group)):
+                require(np.allclose(bv[j].cpu().numpy(),
+                                    pools[j][0].cpu().numpy(), rtol=1e-6,
+                                    atol=1e-6),
+                        "K12's sorted lane values equal K13's to rtol 1e-6")
+            res["k12_vs_k13_max_abs_diff"] = float(max(
+                (bv[j] - pools[j][0]).abs().max() for j in range(len(group))))
+            # K11 against the default engine's K9 over the same slices
+            fused = fuse_buckets(m, block_sublanes=cfg.fused_block_sublanes)
+            fwords = torch.from_numpy(fused.words).to(dev)
+            plan = torch.from_numpy(K.slice_plan_rows(
+                fused.plan, fused.num_blocks, fused.nreal,
+                fused.block_sublanes)).to(dev)
+            k9 = K.spmv_fused_scores_device(
+                fwords, _table1(qs[0], dev, codec)[0],
+                torch.from_numpy(fused.nreal).to(dev), plan, cfg=cfg,
+                block_sublanes=fused.block_sublanes,
+                num_slices=row_ids.shape[0])
+            diff = 0.0
+            rows = torch.zeros(m.num_rows + 1, dtype=torch.float32,
+                               device=dev)
+            for s, b in zip(ks, m.buckets):
+                want = k9[b.slice_base:b.slice_base + b.num_slices]
+                got = s[:b.num_slices]
+                require(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+                        "K11 equals K9 on the same slices to rtol 1e-6")
+                diff = max(diff, float((got - want).abs().max()))
+                ids = row_ids[b.slice_base:b.slice_base + b.num_slices]
+                ids = ids.reshape(-1).long()
+                rows.scatter_(0, torch.where(ids >= 0, ids, m.num_rows),
+                              got.reshape(-1))
+            del fwords, k9
+            rows = rows[:m.num_rows].cpu().numpy()
+            bf16 = scipy.sparse.csr_matrix(
+                (quantize_bf16(csr.data), csr.indices, csr.indptr),
+                shape=csr.shape)
+            exact_bf16 = np.asarray(bf16 @ qs[0].astype(np.float64))
+            exact = np.asarray(csr @ qs[0], np.float32)
+            require(np.allclose(rows, exact_bf16, rtol=1e-5, atol=1e-5),
+                    "K11 scattered to rows equals the bf16 matrix product")
+            res.update(k11_vs_k9_max_abs_diff=diff,
+                       k11_max_abs_diff_vs_exact_f32=float(
+                           np.abs(rows - exact).max()),
+                       max_abs_exact=float(np.abs(exact).max()))
+        else:
+            require(res["precision_at_100_mean"] >= MIN_PRECISION,
+                    f"{name} rescored precision@100 >= {MIN_PRECISION}")
+        # the kernels against their plain versions, then timed
+        table, _ = _table1(qs[0], dev, codec)
+        errs = _bucket_agree(bks, table, _tables(qs[1:6], dev, codec), cfg,
+                             codec)
+        res.update(k11_max_abs_err=errs[0], k13_max_abs_err=errs[1],
+                   k12_max_abs_err=errs[2],
+                   **_bucket_times(bks, words, table, cfg, codec,
+                                   coo.nnz,
+                                   tables if codec == "f32" else None),
+                   launches=launches, nvidia_smi=smi_line())
+        emit(res)
+        for kname, n in launches.items():
+            require(n > 0, f"the {name} path launched {kname}")
+        out[name] = res
+        del words, bks, row_ids, pools, m
+        torch.cuda.empty_cache()
+    return out["bucket"], out["bucket_h16"]
+
+
 def phase_library(csr, qs, dev):
     """The library yardsticks on the corpus, timed only: one
     ``torch.sparse.mm`` of its f32 CSR with 1 query (the SpMV kernels'
@@ -1474,6 +1924,8 @@ def main():
     torch.cuda.synchronize()
     phase_codecs_small(dev)
     torch.cuda.synchronize()
+    phase_bucket_small(dev)
+    torch.cuda.synchronize()
     coo, eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
     full = phase_kernels_full(eng, qs, dev)
@@ -1498,6 +1950,7 @@ def main():
              DEFAULT_GROUP),
             ("c3", C3, DEFAULT_GROUP), ("c8", C8, BATCH_GROUP),
             ("int8x4", INT8X4, DEFAULT_GROUP)))
+    bk, bkh = phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev)
     po = phase_octet_engine(coo, csr, qs, gold, dev, "partitioned_octet",
                             dict(HEADLINE, num_partitions=PARTITIONS),
                             p1_octet_bytes)
@@ -1508,7 +1961,7 @@ def main():
           for codec in ("f32", "int8x4", "i8s", "i4s")}
     torch.cuda.synchronize()
     summarize(main_res, full, batch, scores, lib, sl, df, po, pdf,
-              dict(i8s=c3, i4s=c8, int8x4=i8), oc)
+              dict(i8s=c3, i4s=c8, int8x4=i8), oc, bk, bkh)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1516,10 +1969,12 @@ def main():
     return 0
 
 
-def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc):
+def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
+              bk, bkh):
     """Emit each path's launch counts and the kernel summary line; raise
     unless every kernel of every path was launched there. sc: the slice
-    codec paths by codec, oc: the octet codec paths by codec."""
+    codec paths by codec, oc: the octet codec paths by codec, bk and bkh:
+    the per-bucket paths (f32 and h16)."""
     require(pdf["words_bytes"] >= df["words_bytes"],
             "the partition skeleton adds words, never drops them")
     launches = dict(main_res["launches"],
@@ -1530,7 +1985,8 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc):
                    partitioned_default_path=pdf["launches"],
                    **{r["phase"]: r["launches"] for r in sc.values()},
                    **{f"octet_{c}_path": r["launches"]
-                      for c, r in oc.items()})
+                      for c, r in oc.items()},
+                   bucket_path=bk["launches"], bucket_h16_path=bkh["launches"])
     emit(dict(phase="launch_counts", main_path=launches, **by_path,
               words_bytes=dict(
                   octet_one_partition=po["words_bytes_one_partition"],
@@ -1615,6 +2071,28 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc):
         kernel_entry("slice_scores_partitioned", "slice_scores.cu",
                      f"{ker}:1909", pdf["launches"]["slice_scores"], pdf,
                      "k9", spmv, partitions=PARTITIONS, **one),
+        # the per-bucket ops over every bucket of pack_sell_buckets: f32
+        # (the default config), h16 nested; times summed over the buckets
+        kernel_entry("bucket_scores", "bucket_scores.cu", f"{ker}:2107",
+                     bk["launches"]["bucket_scores"], bk, "k11", spmv,
+                     buckets=bk["buckets"], **one,
+                     h16=kernel_entry("bucket_scores", "bucket_scores.cu",
+                                      f"{ker}:2107",
+                                      bkh["launches"]["bucket_scores"], bkh,
+                                      "k11", spmv, buckets=bkh["buckets"],
+                                      **one)),
+        kernel_entry("bucket_topk", "bucket_topk.cu", f"{ker}:2276",
+                     bk["launches"]["bucket_topk"], bk, "k13", topk1,
+                     buckets=bk["buckets"], **two,
+                     h16=kernel_entry("bucket_topk", "bucket_topk.cu",
+                                      f"{ker}:2276",
+                                      bkh["launches"]["bucket_topk"], bkh,
+                                      "k13", topk1, buckets=bkh["buckets"],
+                                      **two)),
+        kernel_entry("bucket_topk_batch", "bucket_topk_batch.cuh",
+                     f"{ker}:2225", bk["launches"]["bucket_topk_batch"], bk,
+                     "k12", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
+                     buckets=bk["buckets"], queries=DEFAULT_GROUP, **two),
     ]})
 
 

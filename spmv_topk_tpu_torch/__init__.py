@@ -1,11 +1,17 @@
 """spmv-topk-tpu-torch: the PyTorch/CUDA port of spmv_topk_tpu.
 
-The JAX package's engines on one partition, the slice layout (codecs
-f32 and h16; the default ``TopKSpMVConfig()``) and the h16 octet layout:
-single queries, batched queries and plain SpMV, with their device sweeps
-written as CUDA kernels for Hopper (``csrc/``). Imports torch, numpy and
-scipy only; corpora and queries come from numpy generators seeded as in
-the JAX package, so both packages see the same data.
+The JAX package's engine (``TopKSpMV``) for every valid
+``TopKSpMVConfig``: both fused layouts (slice, the default, and octet),
+every query codec (f32, h16, int8x4, i8s, i4s), one partition or several
+(``num_partitions``); single queries, batched queries and plain SpMV. Its
+device sweeps, and the per-bucket ops over ``pack_sell_buckets``'
+buckets (``ops.kernel.topk_spmv_bucket_device`` and its two siblings),
+are CUDA kernels written for Hopper (``csrc/``). Beside them the host
+modules of the JAX package: the formats (``formats``: SELL, BS-CSR, MTX),
+the oracles (``ops.gold``, ``ops.xla_ref``), the host merge (``topk``)
+and the metrics (``eval``). Imports torch, numpy and scipy only; corpora
+and queries come from numpy generators seeded as in the JAX package, so
+both packages see the same data.
 """
 
 from .config import (

@@ -85,6 +85,11 @@ class CooMatrix:
         return sp.csr_matrix(
             (vals, cols, row_ptr), shape=(m.num_rows, m.num_cols))
 
+    def to_dense(self) -> np.ndarray:
+        dense = np.zeros((self.num_rows, self.num_cols), dtype=np.float32)
+        np.add.at(dense, (self.rows, self.cols), self.vals)
+        return dense
+
     def row_degrees(self) -> np.ndarray:
         return np.bincount(self.rows, minlength=self.num_rows).astype(np.int32)
 
@@ -106,4 +111,12 @@ def from_scipy(mat) -> CooMatrix:
         coo.row.astype(np.int32), coo.col.astype(np.int32),
         coo.data.astype(np.float32), coo.shape[0], coo.shape[1],
     ).sort_row_major()
+
+
+def from_dense(dense: np.ndarray) -> CooMatrix:
+    rows, cols = np.nonzero(dense)
+    return CooMatrix(
+        rows.astype(np.int32), cols.astype(np.int32),
+        dense[rows, cols].astype(np.float32), dense.shape[0], dense.shape[1],
+    )
 

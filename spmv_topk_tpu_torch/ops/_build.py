@@ -52,6 +52,9 @@ _SIGNATURES = {
     "slice_topk_batch": [_vp] * 4 + [_i32] * 12 + [_vp] * 3,
     "slice_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
     "stream_words": [_vp, _i64, _vp, _i32, _vp],
+    "bucket_scores": [_vp] * 2 + [_i32] * 5 + [_vp] * 2,
+    "bucket_topk": [_vp] * 3 + [_i32] * 8 + [_vp] * 3,
+    "bucket_topk_batch": [_vp] * 3 + [_i32] * 10 + [_vp] * 3,
 }
 
 

@@ -1,6 +1,7 @@
 """The device sweeps of the two fused streams (kernels K1, K6, K4 on the
-octet stream; K7, K8, K9 on the slice stream), their per-lane merge and
-``finalize_topk``.
+octet stream; K7, K8, K9 on the slice stream), the per-bucket ops over
+one bucket of ``pack_sell_buckets`` (K11, K12, K13), their per-lane
+merge and ``finalize_topk``.
 
 Query codecs. Every sweep takes every codec of the config (``h16``,
 ``f32``, ``int8x4``, ``i8s``, ``i4s``): a word's product against the query
@@ -57,6 +58,16 @@ Plan rows: the kernels read the bucket plan from an int32 tensor, ``(B,
 8)`` for the octet stream (``octet_plan_rows``, columns
 ``PLAN_COLUMNS``) and ``(B, 6)`` for the slice stream
 (``slice_plan_rows``, columns ``SLICE_PLAN_COLUMNS``).
+
+Per-bucket ops (the JAX package's ``_bucket_scores_kernel``,
+``_bucket_kernel_batch``, ``_bucket_kernel``): ``spmv_bucket_scores_device``
+(K11, ``csrc/bucket_scores.cu``) writes one bucket's slice scores,
+``topk_spmv_bucket_device`` (K13, ``csrc/bucket_topk.cu``) and
+``topk_spmv_bucket_batch_device`` (K12, ``csrc/bucket_topk_batch.cuh``)
+harvest them into per-lane buffers with global slice tags; plain versions
+``bucket_scores_plain``, ``bucket_topk_plain``, ``bucket_topk_batch_plain``.
+Their codec is a keyword of its own, and they sum in the JAX kernels'
+order (``_bucket_sums``).
 
 Partitions (kernels K10a-K10d of the JAX package, and its partitioned
 K4/K9 grids): with ``num_partitions`` P > 1 the words are P equal runs
@@ -407,20 +418,19 @@ def tables_in_smem(table_bytes: int, smem_limit: int) -> int:
     return fit
 
 
-def _kernel_codec(dev, cfg: TopKSpMVConfig):
-    """(codec argument of the kernels, tables per CUDA block) on ``dev``:
-    the codec's index in KERNEL_CODECS and ``tables_in_smem`` of its
-    table (h16's batch sweeps repack a subgroup's 512-byte tables into one
-    of 4 KB: always 8); with none, f32 read from global memory and a
-    subgroup of any size."""
-    rows, _ = _table_spec(cfg)
+def _kernel_codec(dev, codec: str, rows: int):
+    """(codec argument of the kernels, tables per CUDA block) on ``dev``
+    for a table of ``rows`` rows: the codec's index in KERNEL_CODECS and
+    ``tables_in_smem`` of its table (h16's batch sweeps repack a
+    subgroup's 512-byte tables into one of 4 KB: always 8); with none, f32
+    read from global memory and a subgroup of any size."""
     props = torch.cuda.get_device_properties(dev)
     fit = tables_in_smem(rows * LANES * 4, props.shared_memory_per_block_optin)
     if fit:
-        return KERNEL_CODECS.index(cfg.query_codec), fit
-    if cfg.query_codec != "f32":
-        raise ValueError(f"a {cfg.query_codec} table of {rows} rows does "
-                         "not fit shared memory")
+        return KERNEL_CODECS.index(codec), fit
+    if codec != "f32":
+        raise ValueError(f"a {codec} table of {rows} rows does not fit "
+                         "shared memory")
     return KERNEL_CODECS.index("f32_global"), MAX_BATCH_SUBGROUP
 
 
@@ -538,7 +548,7 @@ def _octet_topk_cuda(words, table, nreal, plan_rows, P, part_slices, cfg, *,
                         ("table", table, (rows, LANES), dtype))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
-    arg, _ = _kernel_codec(dev, cfg)
+    arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out_v = torch.empty((P, nblk, lane_k, LANES), dtype=torch.float32,
@@ -616,7 +626,7 @@ def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
                         ("tables", tables, (Q, rows, LANES), dtype))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
-    arg, fit = _kernel_codec(dev, cfg)
+    arg, fit = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     sub, n_sub, slots = batch_grid(
         Q, min(cfg.batch_subgroup or BATCH_SUBGROUP, fit), sms,
@@ -669,7 +679,7 @@ def _octet_scores_cuda(words, table, nreal, plan_rows, cfg, *, num_slices,
     if chunk_sublanes != 8:
         raise ValueError("the octet kernels need chunk_sublanes=8")
     dev = words.device
-    arg, _ = _kernel_codec(dev, cfg)
+    arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
@@ -1001,7 +1011,7 @@ def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     _check_lane_k(cfg.lane_k)
     dev = words.device
-    codec, _ = _kernel_codec(dev, cfg)
+    codec, _ = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out_v = torch.empty((P, nblk, cfg.lane_k, LANES), dtype=torch.float32,
@@ -1056,7 +1066,7 @@ def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     _check_lane_k(cfg.lane_k)
     dev = words.device
-    codec, fit = _kernel_codec(dev, cfg)
+    codec, fit = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     sub, n_sub, slots = batch_grid(Q, min(cfg.batch_subgroup
                                           or BATCH_SUBGROUP, fit),
@@ -1102,7 +1112,7 @@ def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
                         ("table", table, (rows, LANES), dtype),
                         plan_cols=len(SLICE_PLAN_COLUMNS))
     dev = words.device
-    codec, _ = _kernel_codec(dev, cfg)
+    codec, _ = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
     out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
@@ -1114,6 +1124,277 @@ def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
 
 
 spmv_fused_scores_device.launches = 0
+
+
+# ------------------------------------------------------------ per-bucket ops
+# One bucket of pack_sell_buckets (formats/sell_buckets.py::SellBucket):
+# num_blocks * slices_per_block slices of ``width`` rows each, slice s on
+# rows s * width .. (s + 1) * width - 1 (a block holds slices_per_block
+# consecutive slices), padding slices past the bucket's real count zero.
+# As the JAX kernels do, every op reads only width // 8 chunks of 8 rows
+# of a slice: with width_quantum < 8 a width that is not a multiple of 8
+# loses its last width % 8 rows, and a width below 8 scores 0.
+
+def _halving_sum(acc):
+    """(n, 8, 128) -> (n, 128): the 8 rows added as a halving tree,
+    ((r0 + r4) + (r2 + r6)) + ((r1 + r5) + (r3 + r7)), each add rounded:
+    the order in which XLA's CPU backend reduces the JAX kernels' (8, 128)
+    accumulator over its rows (``jnp.sum(acc, axis=0)``) in most
+    interpret-mode programs (index order left the quantized codecs a few
+    ulps apart in most of them; XLA fuses a few programs otherwise)."""
+    b = acc[:, :4] + acc[:, 4:]
+    c = b[:, :2] + b[:, 2:]
+    return c[:, 0] + c[:, 1]
+
+
+def _bucket_sums(words, table, *, width: int, num_slices: int, codec: str,
+                 pairs: bool):
+    """f32 scores (num_slices, 128) of a bucket's first ``num_slices``
+    slices, in the per-bucket kernels' order. h16: int32 sums (exact in
+    any order) converted once. The float codecs: for each of the 8 rows
+    of a chunk, its products summed over the chunks in chunk order, in
+    two accumulators by chunk parity added together (``pairs``: K11 and
+    K13, ``_bucket_kernel``'s two alternating accumulators) or in one
+    (K12), each from 0; then the 8 row sums by ``_halving_sum``
+    (csrc/bucket_common.cuh::halving_sum)."""
+    chunks = width // _S
+    prod = codec_prod(codec)
+    per = max(1, _STEP_WORDS // (width * LANES))
+    out = [torch.zeros((0, LANES), dtype=torch.float32, device=words.device)]
+    for s0 in range(0, num_slices, per):
+        n = min(per, num_slices - s0)
+        tiles = words[s0 * width:(s0 + n) * width].reshape(
+            n, width, LANES)[:, :chunks * _S].reshape(n, chunks, _S, LANES)
+        p = prod(tiles, table)                              # (n, chunks, 8, L)
+        if codec == "h16":
+            out.append(p.sum(dim=(1, 2)).to(torch.float32))
+            continue
+        acc = (_row_sum(p[:, 0::2], 1) + _row_sum(p[:, 1::2], 1) if pairs
+               else _row_sum(p, 1))
+        out.append(_halving_sum(acc))
+    return torch.cat(out)
+
+
+def bucket_scores_plain(words, table, *, width: int, slices_per_block: int,
+                        num_blocks: int, codec: str = "f32"):
+    """Plain PyTorch version of the per-bucket SpMV (K11): (num_blocks *
+    slices_per_block, 128) f32, row s the unscaled scores of slice s,
+    padding slices included (zero words score 0)."""
+    return _bucket_sums(words, table, width=width,
+                        num_slices=num_blocks * slices_per_block,
+                        codec=codec, pairs=True)
+
+
+def _bucket_topk_one(words, table, num_real, *, lane_k: int, tie_safe: bool,
+                     width: int, slices_per_block: int, slice_base: int,
+                     num_blocks: int, codec: str, pairs: bool):
+    n = min(max(int(num_real.reshape(-1)[0]), 0),
+            num_blocks * slices_per_block)
+    sc = _bucket_sums(words, table, width=width, num_slices=n, codec=codec,
+                      pairs=pairs)
+    tags = slice_base + torch.arange(n, device=words.device,
+                                     dtype=torch.int32).view(-1, 1)
+    return _merge_with_init([sc], [tags.expand_as(sc)], lane_k, tie_safe,
+                            words.device)
+
+
+def bucket_topk_plain(words, table, num_real, *, lane_k: int, tie_safe: bool,
+                      width: int, slices_per_block: int, slice_base: int,
+                      num_blocks: int, codec: str = "f32"):
+    """Plain PyTorch version of the per-bucket Top-K (K13): (topv, topt),
+    each (lane_k, 128), values sorted descending per lane, tags the global
+    slice ids slice_base + s.
+
+    Each lane keeps its exact top-``lane_k`` of the real slices' scores
+    (s < num_real) and the initial sentinels (-inf when ``tie_safe``, else
+    ``topk_init``). The JAX kernel also folds the padding slices, at -inf:
+    that changes no value, only which tag a -inf slot of a tie-safe buffer
+    holds. As for the fused sweeps, this equals the sequential argmin
+    replacement whenever values are distinct; at exact ties only values
+    above a lane's smallest kept value are comparable entry for entry."""
+    return _bucket_topk_one(words, table, num_real, lane_k=lane_k,
+                            tie_safe=tie_safe, width=width,
+                            slices_per_block=slices_per_block,
+                            slice_base=slice_base, num_blocks=num_blocks,
+                            codec=codec, pairs=True)
+
+
+def bucket_topk_batch_plain(words, tables, num_real, **kw):
+    """Plain PyTorch version of the multi-query per-bucket Top-K (K12):
+    ``bucket_topk_plain`` for each query of the (Q, rows, 128) tables, its
+    sums in K12's order (one accumulator per query) -> (topv, topt), each
+    (Q, lane_k, 128). Keyword arguments as for ``bucket_topk_plain``."""
+    outs = [_bucket_topk_one(words, t, num_real, pairs=False, **kw)
+            for t in tables]
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def _check_bucket(words, num_slices: int, width: int, codec: str, name,
+                  tables, lead, *extra):
+    """Raise unless ``words`` is a contiguous int32 (num_slices * width,
+    128) tensor on a CUDA device and ``tables`` ((*lead, rows, 128),
+    float32 for f32, else int32) and each (name, tensor, shape) of
+    ``extra`` (int32) are contiguous tensors on the same device, the
+    table's rows ones the codec takes. Returns (table rows, SM count)."""
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError(f"words on {dev}: the kernels need CUDA")
+    if min(num_slices, width) < 1:
+        raise ValueError(f"bucket of {num_slices} slices of width {width}")
+    if codec not in KERNEL_CODECS or codec == "f32_global":
+        raise ValueError(f"unknown query codec {codec!r}")
+    rows = tables.shape[-2] if tables.dim() == len(lead) + 2 else 0
+    limit = 1 if codec == "h16" else 2 if codec in SIGN_SHIFTS else None
+    if rows < 1 or (limit and rows > limit):
+        raise ValueError(f"{name}: a {codec} table of shape "
+                         f"{tuple(tables.shape)}")
+    dtype = torch.float32 if codec == "f32" else torch.int32
+    for what, t, shape, want in (
+            ("words", words, (num_slices * width, LANES), torch.int32),
+            (name, tables, (*lead, rows, LANES), dtype),
+            *(e + (torch.int32,) for e in extra)):
+        if t.device != dev or t.dtype != want or \
+                tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{what}: need contiguous {want} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    return rows, torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def spmv_bucket_scores_device(words, table, *, cfg: TopKSpMVConfig,
+                              width: int, slices_per_block: int,
+                              num_blocks: int, codec: str = "f32"):
+    """Plain SpMV over one bucket (K11): (num_blocks * slices_per_block,
+    128) f32, row s the unscaled scores of the bucket's slice s in slice
+    order; no Top-K and no real-slice mask (padding slices score 0).
+
+    words: (num_blocks * slices_per_block * width, 128) int32, one bucket
+    of ``pack_sell_buckets`` (``SellBucket.words``). table: one query's
+    table of ``codec`` (``pack_query_table``: (1, 128) int32 for h16,
+    (max_cols / 128, 128) float32 for f32, int32 rows for int8x4, i8s,
+    i4s); its rows are read whatever they are, as in the JAX kernel.
+    ``codec`` is a keyword of its own, not cfg.query_codec.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_slice(cfg)
+    n = num_blocks * slices_per_block
+    if words.device.type == "cpu":
+        return bucket_scores_plain(words, table, width=width,
+                                   slices_per_block=slices_per_block,
+                                   num_blocks=num_blocks, codec=codec)
+    rows, sms = _check_bucket(words, n, width, codec, "table", table, ())
+    dev = words.device
+    arg, _ = _kernel_codec(dev, codec, rows)
+    out = torch.empty((n, LANES), dtype=torch.float32, device=dev)
+    _launch(dev, "bucket_scores", words.data_ptr(), table.data_ptr(), n,
+            width, rows, arg, _bucket_blocks(sms, n), out.data_ptr())
+    spmv_bucket_scores_device.launches += 1
+    return out
+
+
+spmv_bucket_scores_device.launches = 0
+
+
+def _bucket_blocks(sms: int, num_slices: int) -> int:
+    """CUDA blocks of a single-query per-bucket op: the card's sms *
+    _BLOCKS_PER_SM, no more than the bucket has slices."""
+    return max(1, min(sms * _BLOCKS_PER_SM, num_slices))
+
+
+def topk_spmv_bucket_device(words, table, num_real, *, cfg: TopKSpMVConfig,
+                            num_groups: int, width: int,
+                            slices_per_block: int, slice_base: int,
+                            num_blocks: int, codec: str = "f32"):
+    """Per-bucket Top-K of one query (K13): (topv f32, topt i32), each
+    (lane_k, 128), sorted descending per lane; tags are global slice ids
+    slice_base + s, so the buffers of every bucket stack and finalize
+    together (``finalize_topk`` with the matrix's ``row_ids``).
+
+    words and table as for ``spmv_bucket_scores_device``; num_real: (1, 1)
+    int32, the bucket's real slices (slices at or past it are left out).
+    num_groups is accepted and unused: as in the JAX kernel, the table's
+    rows decide. cfg gives lane_k and tie_safe_topk.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel:
+    CUDA blocks take slices in turn into lane buffers of their own, merged
+    by one per-lane ``torch.topk`` (``merge_lane_topk``).
+    """
+    del num_groups
+    _check_slice(cfg)
+    kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+              width=width, slices_per_block=slices_per_block,
+              slice_base=slice_base, num_blocks=num_blocks, codec=codec)
+    if words.device.type == "cpu":
+        return bucket_topk_plain(words, table, num_real, **kw)
+    n = num_blocks * slices_per_block
+    rows, sms = _check_bucket(words, n, width, codec, "table", table, (),
+                              ("num_real", num_real, (1, 1)))
+    _check_lane_k(cfg.lane_k)
+    dev = words.device
+    arg, _ = _kernel_codec(dev, codec, rows)
+    nblk = _bucket_blocks(sms, n)
+    out_v = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.float32,
+                        device=dev)
+    out_t = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.int32,
+                        device=dev)
+    _launch(dev, "bucket_topk", words.data_ptr(), table.data_ptr(),
+            num_real.data_ptr(), n, width, rows, arg, cfg.lane_k,
+            int(kw["tie_safe"]), slice_base, nblk, out_v.data_ptr(),
+            out_t.data_ptr())
+    topk_spmv_bucket_device.launches += 1
+    return merge_lane_topk(out_v, out_t, cfg.lane_k)
+
+
+topk_spmv_bucket_device.launches = 0
+
+
+def topk_spmv_bucket_batch_device(words, tables, num_real, *,
+                                  cfg: TopKSpMVConfig, width: int,
+                                  slices_per_block: int, slice_base: int,
+                                  num_blocks: int, codec: str = "f32"):
+    """Per-bucket Top-K of Q queries (K12): (topv f32, topt i32), each
+    (Q, lane_k, 128), sorted descending per lane. tables: (Q, rows, 128)
+    tables of ``codec`` (``pack_query_tables``); the other arguments as
+    for ``topk_spmv_bucket_device``. Each query's sums run in one
+    accumulator (the JAX batch kernel's order), so its values can differ
+    from K13's in the last bits; ``cfg.batch_subgroup`` only sets how many
+    queries share a CUDA block (``batch_grid``; cut to the tables that fit
+    shared memory, ``tables_in_smem``).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_slice(cfg)
+    kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+              width=width, slices_per_block=slices_per_block,
+              slice_base=slice_base, num_blocks=num_blocks, codec=codec)
+    if words.device.type == "cpu":
+        return bucket_topk_batch_plain(words, tables, num_real, **kw)
+    Q = tables.shape[0] if tables.dim() == 3 else 0
+    if Q < 1:
+        raise ValueError(f"tables of shape {tuple(tables.shape)}: need "
+                         "(Q >= 1, rows, 128)")
+    n = num_blocks * slices_per_block
+    rows, sms = _check_bucket(words, n, width, codec, "tables", tables, (Q,),
+                              ("num_real", num_real, (1, 1)))
+    _check_lane_k(cfg.lane_k)
+    dev = words.device
+    arg, fit = _kernel_codec(dev, codec, rows)
+    sub, n_sub, slots = batch_grid(
+        Q, min(cfg.batch_subgroup or BATCH_SUBGROUP, fit), sms, n)
+    out_v = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.float32,
+                        device=dev)
+    out_t = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.int32,
+                        device=dev)
+    _launch(dev, "bucket_topk_batch", words.data_ptr(), tables.data_ptr(),
+            num_real.data_ptr(), n, width, rows, arg, cfg.lane_k,
+            int(kw["tie_safe"]), slice_base, Q, sub, slots * n_sub,
+            out_v.data_ptr(), out_t.data_ptr())
+    topk_spmv_bucket_batch_device.launches += 1
+    return merge_lane_topk(out_v, out_t, cfg.lane_k, lead=1)
+
+
+topk_spmv_bucket_batch_device.launches = 0
 
 
 def finalize_topk_batch(topv, topt, row_ids, k: int):

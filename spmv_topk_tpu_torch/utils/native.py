@@ -59,6 +59,9 @@ def _load():
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
+    lib.mtx_parse.argtypes = [
+        ctypes.c_char_p, i64p, i64p, i64p, i32p, i32p, f32p]
+    lib.mtx_parse.restype = ctypes.c_int
     lib.sell_plan.argtypes = [
         i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
         i64p, i64p, i64p]
@@ -86,6 +89,31 @@ def available() -> bool:
 
 def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def mtx_parse(path: str):
+    """(rows, cols, vals, num_rows, num_cols) of an MTX file, or None if
+    the native library is unavailable or the file needs the NumPy path
+    (symmetric matrices)."""
+    lib = _load()
+    if lib is None:
+        return None
+    nr = ctypes.c_int64()
+    nc = ctypes.c_int64()
+    nnz = ctypes.c_int64()
+    rc = lib.mtx_parse(path.encode(), ctypes.byref(nr), ctypes.byref(nc),
+                       ctypes.byref(nnz), None, None, None)
+    if rc != 0:
+        return None
+    rows = np.empty(nnz.value, np.int32)
+    cols = np.empty(nnz.value, np.int32)
+    vals = np.empty(nnz.value, np.float32)
+    rc = lib.mtx_parse(path.encode(), ctypes.byref(nr), ctypes.byref(nc),
+                       ctypes.byref(nnz), _ptr(rows, ctypes.c_int32),
+                       _ptr(cols, ctypes.c_int32), _ptr(vals, ctypes.c_float))
+    if rc != 0:
+        return None
+    return rows, cols, vals, int(nr.value), int(nc.value)
 
 
 def sell_plan(degrees: np.ndarray, chunk_sublanes: int, sigma_sort: bool):

@@ -248,11 +248,17 @@ def test_device_is_required():
 
 
 def test_import_leaves_jax_out():
-    """The port imports neither jax nor the JAX package."""
-    code = ("import sys, spmv_topk_tpu_torch, spmv_topk_tpu_torch.api, "
-            "spmv_topk_tpu_torch.ops.kernel, "
-            "spmv_topk_tpu_torch.ops.streamprobe, "
-            "spmv_topk_tpu_torch.formats; "
+    """Every module of the port (walked with pkgutil) imports neither jax
+    nor the JAX package."""
+    code = ("import importlib, pkgutil, sys, spmv_topk_tpu_torch as p; "
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "p.__name__ + '.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "want = {p.__name__ + '.' + m for m in ('api', 'ops.kernel', "
+            "'ops.gold', 'ops.xla_ref', 'formats.sell', 'formats.bscsr', "
+            "'formats.mtx', 'topk.merge', 'eval.metrics', "
+            "'eval.accuracy_model', 'utils.native')}; "
+            "assert want <= set(mods), sorted(want - set(mods)); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'spmv_topk_tpu' or "
             "m.startswith('spmv_topk_tpu.')]; "

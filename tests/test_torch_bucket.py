@@ -1,0 +1,412 @@
+"""The port's per-bucket ops (kernels K11, K12, K13 over the buckets of
+pack_sell_buckets) against the JAX package on the CPU.
+
+The port runs the plain versions of its kernels here; the JAX package runs
+its Pallas kernels (spmv_bucket_scores_device, topk_spmv_bucket_device,
+topk_spmv_bucket_batch_device) in interpret mode, every program once, in
+the module fixture, on two buckets of each pack: the widest (one slice
+per block) and the narrowest whose last block holds padding slices.
+Tolerances:
+  - h16: int32 sums converted to f32 once per slice, so scores and
+    per-lane values are bit-equal, and (value, slice) pairs equal above
+    each lane's smallest kept value (tie-safe buffers: the replacement
+    order decides which tag a tied last slot keeps);
+  - every codec on integer-valued data (small integers, exact in bf16,
+    every product and partial sum an exact f32): bit-equal;
+  - f32 on real values: XLA on the CPU contracts some multiply-adds of the
+    interpret-mode reference into FMAs (one rounding where the port
+    rounds twice), so values agree to rtol 1e-6, with atol 1e-6 for sums
+    that cancel to near 0, and index sets above the smallest kept value
+    less that margin;
+  - int8x4, i8s, i4s on real values: each product is exact in f32 and the
+    port adds in the JAX kernels' order as XLA mostly runs it (two
+    chunk-parity accumulators, or one for K12, then a halving tree over
+    the 8 rows of a chunk), but XLA fuses some programs into another
+    order (one summed a slice's 16 products in sequence), so these too
+    are held to rtol 1e-6 (a few ulps of sums up to ~600).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import spmv_topk_tpu.config as jcfg
+from spmv_topk_tpu.formats import CooMatrix as JCoo
+from spmv_topk_tpu.formats import create_sparse_matrix as jax_matrix
+from spmv_topk_tpu.formats.sell_buckets import pack_sell_buckets as jpack
+from spmv_topk_tpu.ops import kernel as jkernel
+from spmv_topk_tpu.ops import xla_ref as jxla
+
+import spmv_topk_tpu_torch as pt
+from spmv_topk_tpu_torch.formats import (CooMatrix, create_query_batch,
+                                         create_sparse_matrix)
+from spmv_topk_tpu_torch.formats.sell_buckets import pack_sell_buckets
+from spmv_topk_tpu_torch.ops import gold, xla_ref
+from spmv_topk_tpu_torch.ops import kernel as pkernel
+from spmv_topk_tpu_torch.ops.fixedpoint import quantize_bf16
+from spmv_topk_tpu_torch.ops.quantized_query import (pack_query_table,
+                                                     pack_query_tables)
+from spmv_topk_tpu_torch.topk import merge_candidates_host
+
+ROWS, COLS = 1500, 256
+# explicit on both packages' configs (tests/conftest.py shrinks only the
+# JAX defaults)
+GEOM = dict(block_sublanes=64, fused_block_sublanes=128)
+# case -> (codec, integer-valued data)
+CASES = {c: (c, False) for c in ("h16", "f32", "int8x4", "i8s", "i4s")}
+CASES.update({f"{c}_integer": (c, True)
+              for c in ("f32", "int8x4", "i8s", "i4s")})
+LANE_K = 8
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _integer_valued(coo, cls):
+    vals = np.random.default_rng(7).integers(-8, 9, coo.nnz).astype(
+        np.float32)
+    return cls(coo.rows, coo.cols, vals, coo.num_rows, coo.num_cols)
+
+
+def _queries(n, integer, seed):
+    if integer:
+        return np.random.default_rng(seed).integers(
+            -8, 9, (n, COLS)).astype(np.float32)
+    return create_query_batch(n, COLS, seed=seed)
+
+
+def _config(cls, codec, **kw):
+    return cls.TopKSpMVConfig(**dict(dict(k=100, max_cols=COLS,
+                                          query_codec=codec, **GEOM), **kw))
+
+
+def _packs(codec, integer, rows=ROWS, deg=20, **kw):
+    """(JAX config, JAX pack, port config, port pack) of the corpus; the
+    two packs' words are bit-identical."""
+    jcoo = jax_matrix(rows, COLS, deg, "gamma", seed=5)
+    coo = create_sparse_matrix(rows, COLS, deg, "gamma", seed=5)
+    if integer:
+        jcoo, coo = _integer_valued(jcoo, JCoo), _integer_valued(coo,
+                                                                  CooMatrix)
+    jc, pc = _config(jcfg, codec, **kw), _config(pt, codec, **kw)
+    jm, pm = jpack(jcoo, jc), pack_sell_buckets(coo, pc)
+    assert len(jm.buckets) == len(pm.buckets)
+    for a, b in zip(jm.buckets, pm.buckets):
+        np.testing.assert_array_equal(a.words, b.words)
+    return jc, jm, pc, pm
+
+
+def _geometry(b):
+    return dict(width=b.width, slices_per_block=b.block_sublanes // b.width,
+                num_blocks=b.num_blocks)
+
+
+def _selected(buckets):
+    """Indices of the widest bucket and of the narrowest whose last block
+    holds padding slices."""
+    padded = [i for i, b in enumerate(buckets)
+              if b.num_slices < b.num_blocks * (b.block_sublanes // b.width)]
+    wide = max(range(len(buckets)), key=lambda i: buckets[i].width)
+    return [wide, min(padded, key=lambda i: buckets[i].width)]
+
+
+def _jax_k11(b, table, cfg, codec):
+    return np.asarray(jkernel.spmv_bucket_scores_device(
+        jnp.asarray(b.words), jnp.asarray(table), cfg=cfg, interpret=True,
+        codec=codec, **_geometry(b)))
+
+
+def _jax_k13(b, table, cfg, codec):
+    return tuple(map(np.asarray, jkernel.topk_spmv_bucket_device(
+        jnp.asarray(b.words), jnp.asarray(table),
+        jnp.asarray([[b.num_slices]], jnp.int32), cfg=cfg,
+        num_groups=table.shape[0], slice_base=b.slice_base, interpret=True,
+        codec=codec, **_geometry(b))))
+
+
+def _jax_k12(b, tables, cfg, codec):
+    return tuple(map(np.asarray, jkernel.topk_spmv_bucket_batch_device(
+        jnp.asarray(b.words), jnp.asarray(tables),
+        jnp.asarray([[b.num_slices]], jnp.int32), cfg=cfg,
+        slice_base=b.slice_base, interpret=True, codec=codec,
+        **_geometry(b))))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """Every interpret-mode program of the module, run once."""
+    out = {}
+    for name, (codec, integer) in CASES.items():
+        jc, jm, pc, pm = _packs(codec, integer, tie_safe_topk=True,
+                                batch_subgroup=2)
+        qs = _queries(4, integer, 3)
+        table, _ = pack_query_table(qs[0], codec)
+        tables, _ = pack_query_tables(qs[1:], codec)
+        sel = _selected(pm.buckets)
+        out[name] = dict(
+            pc=pc, pm=pm, q=qs[0], table=table, tables=tables, sel=sel,
+            k11={i: _jax_k11(jm.buckets[i], table, jc, codec) for i in sel},
+            k13={i: _jax_k13(jm.buckets[i], table, jc, codec) for i in sel},
+            k12=(sel[1], _jax_k12(jm.buckets[sel[1]], tables, jc, codec)))
+    # production buffers (not tie-safe) on tie-free data
+    jc, jm, pc, pm = _packs("f32", False, tie_safe_topk=False,
+                            batch_subgroup=2)
+    qs = _queries(4, False, 4)
+    table, _ = pack_query_table(qs[0], "f32")
+    tables, _ = pack_query_tables(qs[1:], "f32")
+    sel = _selected(pm.buckets)
+    out["production"] = dict(
+        pc=pc, pm=pm, table=table, tables=tables, sel=sel,
+        k13={i: _jax_k13(jm.buckets[i], table, jc, "f32") for i in sel},
+        k12=(sel[1], _jax_k12(jm.buckets[sel[1]], tables, jc, "f32")))
+    # width_quantum 2: buckets of width 10, 6, 4, 2 (not multiples of 8)
+    jc, jm, pc, pm = _packs("f32", False, rows=2000, deg=6, width_quantum=2)
+    q = _queries(1, False, 5)[0]
+    table, _ = pack_query_table(q, "f32")
+    short = [i for i, b in enumerate(pm.buckets) if b.width % 8]
+    out["quantum2"] = dict(
+        pc=pc, pm=pm, jm=jm, q=q, table=table,
+        k11={i: _jax_k11(jm.buckets[i], table, jc, "f32") for i in short})
+    return out
+
+
+def _exact(name):
+    """Whether a case's sums are bit-equal to the JAX package's."""
+    return name == "h16" or name.endswith("_integer")
+
+
+def _assert_scores(js, ps, exact):
+    if exact:
+        np.testing.assert_array_equal(js, ps)
+    else:
+        np.testing.assert_allclose(ps, js, rtol=1e-6, atol=1e-6)
+
+
+def _assert_lanes(jv, jt, pv, pt_, exact):
+    """Per-lane buffers of the JAX kernel (buffer order) against the
+    port's (sorted): sorted values equal (or close), and each lane's tags
+    above its smallest kept value (less the tolerance) equal as sets, or
+    as (value, tag) pairs when exact."""
+    sv = -np.sort(-jv, axis=0)
+    if exact:
+        np.testing.assert_array_equal(sv, pv)
+    else:
+        np.testing.assert_allclose(pv, sv, rtol=1e-6, atol=1e-6)
+    for lane in range(jv.shape[1]):
+        floor = pv[:, lane].min()
+        if not exact and np.isfinite(floor):
+            floor += 1e-6 + 1e-6 * abs(floor)
+        a = [(v, t) for v, t in zip(jv[:, lane], jt[:, lane]) if v > floor]
+        b = [(v, t) for v, t in zip(pv[:, lane], pt_[:, lane]) if v > floor]
+        if exact:
+            assert sorted(a) == sorted(b), f"lane {lane}"
+        else:
+            assert sorted(t for _, t in a) == sorted(t for _, t in b), \
+                f"lane {lane}"
+
+
+def _plain_kw(pc, b, codec):
+    return dict(_geometry(b), lane_k=pc.lane_k,
+                tie_safe=bool(pc.tie_safe_topk), slice_base=b.slice_base,
+                codec=codec)
+
+
+def _nreal(b):
+    return torch.tensor([[b.num_slices]], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bucket_scores_plain_matches_pallas(ref, name):
+    """K11 on the widest and on a padded narrow bucket."""
+    r = ref[name]
+    codec = CASES[name][0]
+    for i in r["sel"]:
+        b = r["pm"].buckets[i]
+        ps = pkernel.bucket_scores_plain(_t(b.words), _t(r["table"]),
+                                         codec=codec, **_geometry(b))
+        assert ps.dtype == torch.float32 and ps.shape == r["k11"][i].shape
+        _assert_scores(r["k11"][i], ps.numpy(), _exact(name))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bucket_topk_plain_matches_pallas(ref, name):
+    """K13, tie-safe, on the widest and on a padded narrow bucket."""
+    r = ref[name]
+    codec = CASES[name][0]
+    for i in r["sel"]:
+        b = r["pm"].buckets[i]
+        pv, pt_ = pkernel.bucket_topk_plain(
+            _t(b.words), _t(r["table"]), _nreal(b),
+            **_plain_kw(r["pc"], b, codec))
+        assert pv.shape == (LANE_K, 128) and pt_.dtype == torch.int32
+        _assert_lanes(*r["k13"][i], pv.numpy(), pt_.numpy(), _exact(name))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bucket_topk_batch_plain_matches_pallas(ref, name):
+    """K12, tie-safe, 3 queries in subgroups of 2, on a padded bucket."""
+    r = ref[name]
+    codec = CASES[name][0]
+    i, (jv, jt) = r["k12"]
+    b = r["pm"].buckets[i]
+    pv, pt_ = pkernel.bucket_topk_batch_plain(
+        _t(b.words), _t(r["tables"]), _nreal(b),
+        **_plain_kw(r["pc"], b, codec))
+    assert pv.shape == (3, LANE_K, 128)
+    for q in range(3):
+        _assert_lanes(jv[q], jt[q], pv[q].numpy(), pt_[q].numpy(),
+                      _exact(name))
+
+
+def test_bucket_production_buffers_match_pallas(ref):
+    """K13 and K12 with the production update (not tie-safe: every slot
+    holding the minimum replaced, distinct sentinels) on tie-free f32
+    data: the exact per-lane top of the real slices and the sentinels,
+    whatever the visiting order."""
+    r = ref["production"]
+    for i in r["sel"]:
+        b = r["pm"].buckets[i]
+        pv, pt_ = pkernel.bucket_topk_plain(_t(b.words), _t(r["table"]),
+                                            _nreal(b),
+                                            **_plain_kw(r["pc"], b, "f32"))
+        _assert_lanes(*r["k13"][i], pv.numpy(), pt_.numpy(), False)
+    i, (jv, jt) = r["k12"]
+    b = r["pm"].buckets[i]
+    pv, pt_ = pkernel.bucket_topk_batch_plain(_t(b.words), _t(r["tables"]),
+                                              _nreal(b),
+                                              **_plain_kw(r["pc"], b, "f32"))
+    assert (pv.numpy() <= pkernel.TOPK_FLOOR).any(), "sentinels stay"
+    for q in range(3):
+        _assert_lanes(jv[q], jt[q], pv[q].numpy(), pt_[q].numpy(), False)
+
+
+def test_bucket_dropped_rows_at_quantum_2(ref):
+    """With width_quantum 2 the ops read width // 8 chunks of a slice, as
+    the JAX kernels do: buckets of width 6, 4 and 2 score 0 on every
+    slice, and the width-10 bucket sums only its first 8 rows. The port's
+    plain K11 gives the same (bit for bit where it is 0, to the f32
+    tolerance elsewhere), and so do both packages' sell_scores_np."""
+    r = ref["quantum2"]
+    widths = {r["pm"].buckets[i].width for i in r["k11"]}
+    assert {2, 4, 6, 10} <= widths
+    prod = pkernel.codec_prod("f32")
+    for i, js in r["k11"].items():
+        b = r["pm"].buckets[i]
+        ps = pkernel.bucket_scores_plain(_t(b.words), _t(r["table"]),
+                                         codec="f32", **_geometry(b))
+        _assert_scores(js, ps.numpy(), b.width < 8)
+        words = _t(b.words).reshape(-1, b.width, 128)
+        if b.width < 8:
+            assert not js.any()
+            assert prod(words, _t(r["table"])).abs().sum() > 0
+        else:
+            dropped = prod(words[:, 8:], _t(r["table"]))
+            assert dropped.abs().sum() > 0, "the lost rows hold nnz"
+            kept = prod(words[:, :8], _t(r["table"]))
+            np.testing.assert_allclose(js, kept.sum(dim=1).numpy(),
+                                       rtol=1e-6, atol=1e-6)
+    want = jxla.sell_scores_np(r["jm"], r["q"])
+    got = xla_ref.sell_scores_np(r["pm"], r["q"])
+    np.testing.assert_array_equal(got, want)
+    short = np.concatenate([r["pm"].row_ids[b.slice_base:b.slice_base
+                                            + b.num_slices].ravel()
+                            for b in r["pm"].buckets if b.width < 8])
+    assert (got[short[short >= 0]] == 0).all()
+
+
+def _k11_rows(pm, table, codec):
+    """Plain K11 over every bucket, scattered to rows (NaN where no slice
+    holds the row)."""
+    out = np.full(pm.num_rows, np.nan, np.float32)
+    for b in pm.buckets:
+        s = pkernel.bucket_scores_plain(_t(b.words), _t(table), codec=codec,
+                                        **_geometry(b)).numpy()
+        ids = pm.row_ids[b.slice_base:b.slice_base + b.num_slices]
+        real = ids >= 0
+        out[ids[real]] = s[:b.num_slices][real]
+    return out
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["real", "integer"])
+def test_bucket_scores_match_sell_scores_np(integer):
+    """K11 over every bucket against the NumPy oracle sell_scores_np (the
+    port's, itself bit-equal to the JAX package's): bit-equal on
+    integer-valued data, to rtol 1e-6 on real values (the oracle adds each
+    chunk's 8 rows, then the chunk sums; K11 adds two accumulators, then
+    the rows)."""
+    jc, jm, pc, pm = _packs("f32", integer)
+    q = _queries(1, integer, 6)[0]
+    want = xla_ref.sell_scores_np(pm, q)
+    np.testing.assert_array_equal(want, jxla.sell_scores_np(jm, q))
+    assert not np.isnan(want).any()
+    table, _ = pack_query_table(q, "f32")
+    _assert_scores(want, _k11_rows(pm, table, "f32"), integer)
+
+
+def test_stacked_bucket_candidates_finalize():
+    """K13 over every bucket, the (B, lane_k, 128) buffers stacked and
+    finalized once with the matrix's row_ids (the tags are global slice
+    ids), against merge_candidates_host over each bucket's own top-k and
+    against gold.topk_exact of the bf16-rounded matrix (each lane holds at
+    most lane_k slices of any bucket here, so the pool is exact)."""
+    jc, jm, pc, pm = _packs("f32", False)
+    k = 50
+    q = _queries(1, False, 8)[0]
+    table = _t(pack_query_table(q, "f32")[0])
+    row_ids = _t(pm.row_ids)
+    bufs, lists = [], []
+    for b in pm.buckets:
+        assert b.num_slices <= pc.lane_k
+        v, t = pkernel.bucket_topk_plain(_t(b.words), table, _nreal(b),
+                                         **_plain_kw(pc, b, "f32"))
+        bufs.append((v, t))
+        lists.append(pkernel.finalize_topk(v, t, row_ids, k))
+    idx, vals = pkernel.finalize_topk(torch.stack([v for v, _ in bufs]),
+                                      torch.stack([t for _, t in bufs]),
+                                      row_ids, k)
+    idx, vals = idx.numpy(), vals.numpy()
+    mi, mv = merge_candidates_host([i.numpy() for i, _ in lists],
+                                   [v.numpy() for _, v in lists], k)
+    np.testing.assert_array_equal(mv, vals)
+    assert set(mi.tolist()) == set(idx.tolist())
+    coo = create_sparse_matrix(ROWS, COLS, 20, "gamma", seed=5)
+    bf16 = CooMatrix(coo.rows, coo.cols, quantize_bf16(coo.vals),
+                     coo.num_rows, coo.num_cols)
+    gi, gv = gold.topk_exact(bf16, q, k)
+    np.testing.assert_allclose(vals, gv, rtol=1e-5, atol=1e-5)
+    kth = gv[-1] + 1e-5
+    assert set(idx[vals > kth].tolist()) == set(gi[gv > kth].tolist())
+
+
+def test_bucket_wrappers_on_cpu_run_plain(ref):
+    """On CPU tensors each wrapper runs its plain version (no launch
+    counted); K12's h16 pools equal K13's for each query (int32 sums:
+    every order gives the same values)."""
+    r = ref["h16"]
+    pc, b = r["pc"], r["pm"].buckets[r["sel"][1]]
+    words, nreal = _t(b.words), _nreal(b)
+    geo = _geometry(b)
+    tk = dict(geo, slice_base=b.slice_base, codec="h16")
+    ops = (pkernel.spmv_bucket_scores_device, pkernel.topk_spmv_bucket_device,
+           pkernel.topk_spmv_bucket_batch_device)
+    before = [op.launches for op in ops]
+    s = ops[0](words, _t(r["table"]), cfg=pc, codec="h16", **geo)
+    v, t = ops[1](words, _t(r["table"]), nreal, cfg=pc, num_groups=1, **tk)
+    tables = _t(np.concatenate([r["table"][None], r["tables"]]))
+    bv, bt = ops[2](words, tables, nreal, cfg=pc, **tk)
+    assert [op.launches for op in ops] == before
+    assert torch.equal(s, pkernel.bucket_scores_plain(
+        words, _t(r["table"]), codec="h16", **geo))
+    pkw = _plain_kw(pc, b, "h16")
+    for got, want in zip((v, t), pkernel.bucket_topk_plain(
+            words, _t(r["table"]), nreal, **pkw)):
+        assert torch.equal(got, want)
+    assert bv.shape == (4, LANE_K, 128)
+    np.testing.assert_array_equal(bv[0].numpy(), v.numpy())
+    for q in range(1, 4):
+        sv, st = pkernel.bucket_topk_plain(words, tables[q], nreal, **pkw)
+        _assert_lanes(sv.numpy(), st.numpy(), bv[q].numpy(), bt[q].numpy(),
+                      True)

@@ -10,8 +10,9 @@ Kernels: K1 (single-query octet sweep), K6 (multi-query octet sweep),
 K4 (octet SpMV), K3 (stream probe), on the slice stream K7
 (single-query sweep), K8 (multi-query sweep) and K9 (SpMV), and all six
 on partitioned streams (K10a-d and the partitioned K4/K9), with every
-query codec (the last section: int8x4, i8s, i4s on both streams, f32 on
-the octet stream). Tolerances:
+query codec (int8x4, i8s, i4s on both streams, f32 on the octet stream),
+and the per-bucket ops K11, K13, K12 over pack_sell_buckets' buckets (the
+last section). Tolerances:
 none against the plain versions. h16 scores are int32 sums converted to
 f32 once, so with tie-safe buffers the per-lane sorted values are
 bit-equal, and (value, slice) pairs are equal above each lane's smallest
@@ -1035,3 +1036,198 @@ def test_octet_f32_tables_past_shared_memory_read_global(gpu, P):
     eng = pt.TopKSpMV(coo, cfg, device=gpu)
     qs = create_query_batch(6, 65536, seed=42)
     _codec_agree(eng, cfg, qs[0], qs[1:])
+
+
+# ------------------------------------------------------------ per-bucket ops
+# K11 (spmv_bucket_scores_device), K13 (topk_spmv_bucket_device) and K12
+# (topk_spmv_bucket_batch_device) over every bucket of pack_sell_buckets,
+# against their plain versions: the plain versions add in the kernels'
+# order (ops/kernel.py::_bucket_sums), so scores and tie-safe pools are
+# held bit for bit on real values, for every codec.
+
+from spmv_topk_tpu_torch.formats import CooMatrix  # noqa: E402
+from spmv_topk_tpu_torch.formats.sell_buckets import pack_sell_buckets  # noqa: E402
+from spmv_topk_tpu_torch.ops.quantized_query import pack_query_table  # noqa: E402
+
+# name -> (codec, columns, width_quantum, dense rows): the dense rows
+# (degree 700-1000) give the corpus a bucket of one slice per block, wider
+# than the 512-row block target for the one-nnz codecs
+BUCKET_CASES = {
+    "h16": ("h16", 1024, 8, True),
+    "f32": ("f32", 1024, 8, True),
+    "int8x4": ("int8x4", 1024, 8, True),
+    "i8s": ("i8s", 1024, 8, True),
+    "i4s": ("i4s", 1024, 8, True),
+    "f32_quantum2": ("f32", 1024, 2, False),
+    "int8x4_1536_cols": ("int8x4", 1536, 8, False),
+    "i4s_2048_cols": ("i4s", 2048, 8, False),
+    "f32_65536_cols": ("f32", 65536, 8, False),
+}
+
+
+def _with_dense_rows(coo, degrees, seed):
+    """coo with one row more per degree, each of that many nnz."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [coo.rows], [coo.cols], [coo.vals]
+    for i, d in enumerate(degrees):
+        rows.append(np.full(d, coo.num_rows + i, np.int32))
+        cols.append(np.sort(rng.choice(coo.num_cols, d, replace=False)))
+        vals.append(rng.standard_normal(d).astype(np.float32) * 0.1)
+    return CooMatrix(np.concatenate(rows), np.concatenate(cols),
+                     np.concatenate(vals), coo.num_rows + len(degrees),
+                     coo.num_cols)
+
+
+@pytest.fixture(scope="module")
+def bucket_packs():
+    """name -> (config, BucketedSellMatrix, 6 queries), built on first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            codec, cols, quantum, dense = BUCKET_CASES[name]
+            rows = 3000 if cols > 2048 else 12_000
+            coo = create_sparse_matrix(rows, cols, 20, "gamma", seed=43)
+            if dense:
+                coo = _with_dense_rows(coo, (700, 900, 1000), 44)
+            cfg = pt.TopKSpMVConfig(k=100, max_cols=cols, query_codec=codec,
+                                    width_quantum=quantum, block_sublanes=512,
+                                    tie_safe_topk=True, batch_subgroup=2)
+            cache[name] = (cfg, pack_sell_buckets(coo, cfg),
+                           create_query_batch(6, cols, seed=45))
+        return cache[name]
+
+    return get
+
+
+def _bucket_args(b, dev):
+    spb = b.block_sublanes // b.width
+    kw = dict(width=b.width, slices_per_block=spb, num_blocks=b.num_blocks)
+    return (torch.from_numpy(b.words).to(dev),
+            torch.tensor([[b.num_slices]], dtype=torch.int32, device=dev), kw)
+
+
+@pytest.mark.parametrize("lane_k", [8, 16, 4])
+@pytest.mark.parametrize("name", list(BUCKET_CASES))
+def test_bucket_kernels_match_plain(gpu, bucket_packs, name, lane_k):
+    """K11, K13 and K12 (5 queries in subgroups of 2) over every bucket,
+    tie-safe, against their plain versions: scores bit-equal, pools
+    bit-equal with equal (value, tag) pairs above each lane's floor; one
+    launch each per bucket."""
+    cfg, m, qs = bucket_packs(name)
+    cfg = dataclasses.replace(cfg, lane_k=lane_k)
+    codec = cfg.query_codec
+    table = torch.from_numpy(pack_query_table(qs[0], codec)[0]).to(gpu)
+    tables = _slice_tables(cfg, qs[1:], gpu)
+    ops = (pkernel.spmv_bucket_scores_device, pkernel.topk_spmv_bucket_device,
+           pkernel.topk_spmv_bucket_batch_device)
+    before = [op.launches for op in ops]
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        tk = dict(kw, slice_base=b.slice_base, codec=codec)
+        ks = ops[0](words, table, cfg=cfg, codec=codec, **kw)
+        kv, kt = ops[1](words, table, nreal, cfg=cfg, num_groups=1, **tk)
+        bv, bt = ops[2](words, tables, nreal, cfg=cfg, **tk)
+        pkw = dict(tk, lane_k=lane_k, tie_safe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(ks, pkernel.bucket_scores_plain(
+            words, table, codec=codec, **kw))
+        _lanes_equal(kv, kt, *pkernel.bucket_topk_plain(words, table, nreal,
+                                                        **pkw))
+        _pools_equal(bv, bt, *pkernel.bucket_topk_batch_plain(
+            words, tables, nreal, **pkw))
+    n = len(m.buckets)
+    assert [op.launches - b for op, b in zip(ops, before)] == [n, n, n]
+    if BUCKET_CASES[name][3]:
+        assert any(b.block_sublanes == b.width for b in m.buckets)
+        if codec != "h16":
+            assert max(b.width for b in m.buckets) > 512
+    assert any(b.num_slices < b.num_blocks * (b.block_sublanes // b.width)
+               for b in m.buckets), "a last block holds padding slices"
+    if name == "f32_quantum2":
+        assert any(b.width % 8 for b in m.buckets)
+    if name == "f32_65536_cols":
+        limit = torch.cuda.get_device_properties(
+            gpu).shared_memory_per_block_optin
+        assert pkernel.tables_in_smem(4 * 65536, limit) == 0
+
+
+def _emulate_bucket_production(words, table, nreal, cfg, kw, nblk, pairs):
+    """Merged production (non-tie-safe) buffers of a per-bucket Top-K whose
+    nblk CUDA blocks (slots) take slices in turn, block j slices j, j +
+    nblk, ...: each block folds its real slices in order into fresh
+    buffers (distinct sentinels, every slot holding the minimum replaced),
+    then one per-lane merge."""
+    K, L = cfg.lane_k, 128
+    n = min(int(nreal[0, 0]), kw["num_blocks"] * kw["slices_per_block"])
+    sc = pkernel._bucket_sums(words, table, width=kw["width"], num_slices=n,
+                              codec=kw["codec"], pairs=pairs)
+    tv = torch.from_numpy(pkernel.topk_init(K)).to(words.device).view(
+        1, K, 1).expand(nblk, K, L).clone()
+    tt = torch.zeros((nblk, K, L), dtype=torch.int32, device=words.device)
+    for s0 in range(0, n, nblk):
+        m = min(nblk, n - s0)
+        score = sc[s0:s0 + m].view(m, 1, L)
+        cur = tv[:m].amin(dim=1, keepdim=True)
+        rep = (tv[:m] == cur) & (score >= cur)
+        tags = (kw["slice_base"] + s0 + torch.arange(
+            m, device=words.device, dtype=torch.int32)).view(m, 1, 1)
+        tv[:m] = torch.where(rep, score, tv[:m])
+        tt[:m] = torch.where(rep, tags.expand(m, K, L), tt[:m])
+    return pkernel.merge_lane_topk(tv, tt, K)
+
+
+@pytest.mark.parametrize("name", ["h16", "f32", "i4s"])
+def test_bucket_kernels_non_tie_safe(gpu, bucket_packs, name):
+    """K13's and K12's production buffers (tie_safe_topk=False) over every
+    bucket against the per-CUDA-block emulation (K12: each query on the
+    kernel's slots)."""
+    cfg, m, qs = bucket_packs(name)
+    cfg = dataclasses.replace(cfg, tie_safe_topk=False)
+    codec = cfg.query_codec
+    table = torch.from_numpy(pack_query_table(qs[0], codec)[0]).to(gpu)
+    tables = _slice_tables(cfg, qs[1:], gpu)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    fit = pkernel._kernel_codec(gpu, codec, table.shape[0])[1]
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        tk = dict(kw, slice_base=b.slice_base, codec=codec)
+        n = kw["num_blocks"] * kw["slices_per_block"]
+        kv, kt = pkernel.topk_spmv_bucket_device(words, table, nreal, cfg=cfg,
+                                                 num_groups=1, **tk)
+        ev, et = _emulate_bucket_production(words, table, nreal, cfg, tk,
+                                            pkernel._bucket_blocks(sms, n),
+                                            True)
+        _lanes_equal(kv, kt, ev, et)
+        bv, bt = pkernel.topk_spmv_bucket_batch_device(words, tables, nreal,
+                                                       cfg=cfg, **tk)
+        _, _, slots = pkernel.batch_grid(len(tables), min(
+            cfg.batch_subgroup, fit), sms, n)
+        for q in range(len(tables)):
+            ev, et = _emulate_bucket_production(words, tables[q], nreal, cfg,
+                                                tk, slots, False)
+            _lanes_equal(bv[q], bt[q], ev, et)
+
+
+def test_bucket_wrappers_refuse_bad_inputs(gpu, bucket_packs):
+    """The CUDA wrappers raise on what the kernels do not take: words of
+    another length, an h16 table of two rows, a num_real of another
+    shape, an unbuilt lane_k."""
+    cfg, m, qs = bucket_packs("h16")
+    b = m.buckets[-1]
+    words, nreal, kw = _bucket_args(b, gpu)
+    table = torch.from_numpy(pack_query_table(qs[0], "h16")[0]).to(gpu)
+    tk = dict(kw, slice_base=b.slice_base, codec="h16")
+    with pytest.raises(ValueError, match="words"):
+        pkernel.topk_spmv_bucket_device(words[:-1], table, nreal, cfg=cfg,
+                                        num_groups=1, **tk)
+    with pytest.raises(ValueError, match="h16 table"):
+        pkernel.spmv_bucket_scores_device(words, table.repeat(2, 1), cfg=cfg,
+                                          codec="h16", **kw)
+    with pytest.raises(ValueError, match="num_real"):
+        pkernel.topk_spmv_bucket_device(words, table, nreal.view(1), cfg=cfg,
+                                        num_groups=1, **tk)
+    with pytest.raises(ValueError, match="lane_k"):
+        pkernel.topk_spmv_bucket_device(
+            words, table, nreal, cfg=dataclasses.replace(cfg, lane_k=12),
+            num_groups=1, **tk)
