@@ -81,7 +81,19 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      K12 on a group of 8 against K13; K11 against K9) and h16 at quantum
      8 (K13, the exact rescore of a pool of 400), each op timed summed
      over its buckets, with K13's host enqueue time;
- 13. the launch counts of each path's run (counts set to 0 just before
+ 13. the measurement labs (``spmv_topk_tpu_torch/experiments``: kernel_lab
+     L7, fused_lab L4, h16_lab L5, fold_lab L3): ``labs_small`` holds every
+     variant (and every fold of kernel_lab and fused_lab) against its plain
+     version at 8 lab blocks, on the default CUDA blocks and on 3 (the
+     grid stride folding several lab blocks into one buffer), on the
+     labs' own words and on them with integer, real and tiny
+     (near-denormal) values, fold_lab with a limit that cuts the last
+     block, and fused_lab's v_prod (K7) on finite words; ``labs`` times
+     each lab's variants at 4096 lab blocks (1,073,741,824 bytes of
+     words) beside K3 on the same words, each kernel alone and with its
+     wrapper's merge, and checks each against its plain version at that
+     size (kernel_lab and fused_lab on the words with real values);
+ 14. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
 Then the kernel summary (each kernel's time, its plain version's, the
@@ -180,7 +192,7 @@ def compare_lanes(kv, kt, pv, pt):
     lane's smallest kept value (the tie that decides that last slot may
     keep a different tag)."""
     kv, kt, pv, pt = (x.cpu().numpy() for x in (kv, kt, pv, pt))
-    require(np.array_equal(kv, pv),
+    require(np.array_equal(kv, pv, equal_nan=True),
             "kernel per-lane sorted values equal the plain version's")
     for lane in range(kv.shape[1]):
         floor = pv[:, lane].min()
@@ -1869,6 +1881,327 @@ def phase_library(csr, qs, dev):
     return res
 
 
+# the measurement labs (spmv_topk_tpu_torch/experiments): lab blocks of the
+# labs phase (4096 blocks of 512 rows: 1,073,741,824 bytes of words, 21x the
+# L2, about 3.9 a CUDA block) and of the small phase, and the CUDA blocks of
+# the small phase's strided case
+LAB_NB, LAB_SMALL_NB, LAB_STRIDE_BLOCKS = 4096, 8, 3
+LAB_NO_LIBRARY = ("none: no PyTorch call computes a lab's decode and fold "
+                  "on its synthetic words")
+
+
+def _real_values(words, seed):
+    """``_common.with_values("real", ...)`` made on the card: the words'
+    value bits [0:16) replaced by the bf16 of N(0, 1) draws (torch's
+    generator), their other bits kept. On the labs' own words every lane
+    keeps +inf and h16's products are NaN or flushed, so a fault shows
+    only on values like these."""
+    import torch
+
+    g = torch.Generator(device=words.device).manual_seed(seed)
+    vals = torch.randn(words.shape, generator=g, device=words.device)
+    return (words & ~0xFFFF) | ((vals.view(torch.int32) >> 16) & 0xFFFF)
+
+
+def _ragged_nreal(nb, spb):
+    """fused_lab's three real-slice counts cut short: v_smem masks the
+    last 7 slices, v_branch the last 3 of segment 0 and, past segment 1's
+    own, 1 of segment 2's."""
+    per = nb // 3
+    return np.array([[nb * spb - 7], [per * spb - 3], [per * spb + 1]],
+                    np.int32)
+
+
+def phase_labs_small(dev):
+    """Every lab variant (every fold) against its plain version at
+    LAB_SMALL_NB lab blocks, on the default CUDA blocks (one lab block
+    each) and on LAB_STRIDE_BLOCKS (each folding two or three lab blocks
+    into one buffer, as at full size); kernel_lab and fused_lab on the
+    lab's words and on them with integer, real and tiny values
+    (``with_values``: tiny values make the flush of denormals decide the
+    scores); bit-equal values (NaN where NaN), (value, tag) pairs above
+    each lane's floor; fold_lab's nofold slot for slot."""
+    import torch
+
+    from spmv_topk_tpu_torch.experiments import _common as lc
+    from spmv_topk_tpu_torch.experiments import (fold_lab, fused_lab,
+                                                 h16_lab, kernel_lab)
+
+    t0 = time.perf_counter()
+    nb = LAB_SMALL_NB
+    counts = dict(kernel_lab=0, fused_lab=0, h16_lab=0, fold_lab=0)
+    err = 0.0
+
+    def agree(lab, kern, plain):
+        nonlocal err
+        torch.cuda.synchronize()
+        err = max(err, compare_lanes(*kern, *plain))
+        counts[lab] += 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    strides = (None, LAB_STRIDE_BLOCKS)
+    words, table, table_i = lc.kernel_lab_data(nb, 32 * 16)
+    for kind in ("lab", *lc.CHECK_KINDS):
+        w, ti, ft = ((words, table_i, table) if kind == "lab" else
+                     lc.with_values(kind, words, table_i, table, seed=17))
+        wd, tabs = t(w), kernel_lab.lab_tables(ft, ti, dev)
+        for v in kernel_lab.VARIANTS:
+            for fold in kernel_lab.FOLDS:
+                kw = dict(variant=v, fold=fold, W=32, SPB=16)
+                plain = kernel_lab.kernel_lab_plain(wd, tabs[v], **kw)
+                for blocks in strides:
+                    agree("kernel_lab", kernel_lab.kernel_lab_device(
+                        wd, tabs[v], blocks=blocks, **kw), plain)
+    words, table, _ = lc.fused_lab_data(nb, fused_lab.W * fused_lab.SPB,
+                                        fused_lab.SPB, fused_lab.NSEG)
+    nreal = t(_ragged_nreal(nb, fused_lab.SPB))
+    for kind in ("lab", *lc.CHECK_KINDS):
+        w, ti, _ = ((words, table, None) if kind == "lab" else
+                    lc.with_values(kind, words, table, seed=18))
+        wd, td = t(w), t(ti)
+        # v_prod (K7, as the lab sets it: buffers not tie-safe, so its
+        # slots depend on the order at tied scores) on finite words
+        # without ties; it plans its own CUDA blocks
+        for v in (fused_lab.VARIANTS if kind in ("real", "tiny")
+                  else fused_lab.MODES):
+            for fold in fused_lab.FOLDS:
+                kw = dict(variant=v, fold=fold)
+                plain = fused_lab.fused_lab_plain(wd, td, nreal, **kw)
+                for blocks in (strides if v != "v_prod" else (None,)):
+                    agree("fused_lab", fused_lab.fused_lab_device(
+                        wd, td, nreal, blocks=blocks, **kw), plain)
+    for seed in (0, 1):
+        wd, td = (t(a) for a in lc.h16_lab_data(nb, 16 * 32, seed=seed))
+        for v in h16_lab.VARIANTS:
+            plain = h16_lab.h16_lab_plain(wd, td, variant=v)
+            for blocks in strides:
+                agree("h16_lab", h16_lab.h16_lab_device(
+                    wd, td, variant=v, blocks=blocks), plain)
+        for limit in (nb * 32, nb * 32 - 5):
+            for v in fold_lab.VARIANTS:
+                plain = fold_lab.fold_lab_plain(wd, td, limit, variant=v)
+                for blocks in strides:
+                    kern = fold_lab.fold_lab_device(wd, td, limit, variant=v,
+                                                    blocks=blocks)
+                    if v == "nofold":
+                        torch.cuda.synchronize()
+                        require(all(torch.equal(a, b) for a, b in
+                                    zip(kern, plain)),
+                                "fold_lab nofold equals plain slot for slot")
+                        counts["fold_lab"] += 1
+                    else:
+                        agree("fold_lab", kern, plain)
+    out = dict(phase="labs_small", nb=nb, stride_blocks=LAB_STRIDE_BLOCKS,
+               cases=counts, max_abs_err=err,
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    return out
+
+
+def _lab_counters():
+    """Launch counters of the lab kernels and of K7 (fused_lab's v_prod)."""
+    from spmv_topk_tpu_torch.experiments import (fold_lab, fused_lab,
+                                                 h16_lab, kernel_lab)
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    return dict(lab_kernel=kernel_lab.kernel_lab_device,
+                lab_fused=fused_lab.fused_lab_device,
+                lab_h16=h16_lab.h16_lab_device,
+                lab_fold=fold_lab.fold_lab_device,
+                slice_topk=K.topk_spmv_fused_device)
+
+
+def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants):
+    """One lab at full size. variants: name -> (call, kernel, counter,
+    check): the wrapper on ``words``, its kernel alone (unmerged; None
+    where the wrapper merges inside, K7), the counter of ``_lab_counters``
+    they add to, and the (kernel, plain) calls on the check inputs. Each
+    variant's kernel is held to its plain version on its check inputs (the
+    plain call timed once between CUDA events); then, counters at 0, each
+    is timed by ``_common.measure`` beside K3 on ``words``."""
+    import torch
+
+    from spmv_topk_tpu_torch.experiments import _common as lc
+
+    res = {}
+    for v, (_, _, _, (kcall, pcall)) in variants.items():
+        kern = kcall()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        ref = pcall()
+        end.record()
+        end.synchronize()
+        if v == "nofold":
+            require(all(torch.equal(a, b) for a, b in zip(kern, ref)),
+                    f"{name} {v} equals plain at full size")
+            e = 0.0
+        else:
+            e = compare_lanes(*kern, *ref)
+        res[v] = dict(max_abs_err=e, plain_ms=start.elapsed_time(end))
+    k3 = lc.stream_ms(words)
+    counters = _lab_counters()
+    for c in counters.values():
+        c.launches = 0
+    for v, (call, kernel, counter, _) in variants.items():
+        before = counters[counter].launches
+        rep = lc.measure(lab, v, words, nb, nnz_per_word, call, kernel,
+                         k3_ms=k3)
+        b_ms, b_by = bound(words.numel() * 4 + table_bytes
+                           + lc.LANE_K * 128 * 8,
+                           2 * words.numel() * nnz_per_word)
+        res[v].update(bound_ms=b_ms, bound_by=b_by,
+                      launches=counters[counter].launches - before,
+                      merge_in_ms=kernel is None,
+                      **{k: rep[k] for k in ("ms", "merged_ms",
+                                             "ns_per_chunk", "gnnz_per_s",
+                                             "gb_per_s", "share_of_k3")})
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    require(launches.get(name, 0) > 0, f"the {lab} path launched {name}")
+    return dict(nb=nb, words_bytes=words.numel() * 4, k3_ms=k3,
+                k3_gb_per_s=words.numel() * 4 / k3 / 1e6,
+                launches=launches, variants=res)
+
+
+def phase_labs(dev):
+    """The labs' variants at LAB_NB lab blocks (1 GiB of words), each
+    timed, its kernel alone and its wrapper with the merge, beside K3 on
+    the same words: kernel_lab every body under every fold, fused_lab
+    v_bare, v_smem, v_branch and v_prod (K7), h16_lab every decode,
+    fold_lab every fold at a limit of every slice. The checks against the
+    plain versions run at the same size: kernel_lab and fused_lab on the
+    words with real values (``_real_values``; fused_lab with ragged
+    counts), fold_lab at a limit that cuts the last lab block."""
+    import torch
+
+    from spmv_topk_tpu_torch.experiments import _common as lc
+    from spmv_topk_tpu_torch.experiments import (fold_lab, fused_lab,
+                                                 h16_lab, kernel_lab)
+
+    start = time.perf_counter()
+    out = dict(phase="labs", nb=LAB_NB)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    nb = LAB_NB
+
+    t0 = time.perf_counter()
+    words, table, table_i = lc.kernel_lab_data(nb, 32 * 16)
+    gen = time.perf_counter() - t0
+    wd, tabs = t(words), kernel_lab.lab_tables(table, table_i, dev)
+    del words
+    rd = _real_values(wd, seed=19)
+
+    def kl(w, v, fold, **kw):
+        return kernel_lab.kernel_lab_device(w, tabs[v], variant=v, fold=fold,
+                                            **kw)
+
+    variants = {}
+    for fold in kernel_lab.FOLDS:
+        for v in kernel_lab.VARIANTS:
+            variants[f"{v}/{fold}"] = (
+                lambda v=v, fold=fold: kl(wd, v, fold),
+                lambda v=v, fold=fold: kl(wd, v, fold, unmerged=True),
+                "lab_kernel",
+                (lambda v=v, fold=fold: kl(rd, v, fold),
+                 lambda v=v, fold=fold: kernel_lab.kernel_lab_plain(
+                     rd, tabs[v], variant=v, fold=fold)))
+    out["kernel_lab"] = _lab_time("lab_kernel", "kernel_lab", wd, nb, 1,
+                                  8 * 128 * 4, variants)
+    out["kernel_lab"]["data_seconds"] = gen
+    del wd, rd, tabs
+
+    t0 = time.perf_counter()
+    words, table, nreal = lc.fused_lab_data(
+        nb, fused_lab.W * fused_lab.SPB, fused_lab.SPB, fused_lab.NSEG)
+    gen = time.perf_counter() - t0
+    wd, td, nd = t(words), t(table), t(nreal)
+    del words
+    rd, rn = _real_values(wd, seed=20), t(_ragged_nreal(nb, fused_lab.SPB))
+
+    def fl(w, n, v, **kw):
+        return fused_lab.fused_lab_device(w, td, n, variant=v, **kw)
+
+    variants = {
+        v: (lambda v=v: fl(wd, nd, v),
+            (lambda v=v: fl(wd, nd, v, unmerged=True))
+            if v != "v_prod" else None,
+            "lab_fused" if v != "v_prod" else "slice_topk",
+            (lambda v=v: fl(rd, rn, v),
+             lambda v=v: fused_lab.fused_lab_plain(rd, td, rn, variant=v)))
+        for v in fused_lab.VARIANTS}
+    out["fused_lab"] = _lab_time("lab_fused", "fused_lab", wd, nb, 1,
+                                 2 * 128 * 4, variants)
+    out["fused_lab"]["data_seconds"] = gen
+    del wd, td, nd, rd, rn
+
+    t0 = time.perf_counter()
+    words, table = (t(a) for a in lc.h16_lab_data(nb, 16 * 32))
+    gen = time.perf_counter() - t0
+
+    def hl(v, **kw):
+        return h16_lab.h16_lab_device(words, table, variant=v, **kw)
+
+    variants = {v: (lambda v=v: hl(v), lambda v=v: hl(v, unmerged=True),
+                    "lab_h16",
+                    (lambda v=v: hl(v),
+                     lambda v=v: h16_lab.h16_lab_plain(words, table,
+                                                       variant=v)))
+                for v in h16_lab.VARIANTS}
+    out["h16_lab"] = _lab_time("lab_h16", "h16_lab", words, nb, 2, 128 * 4,
+                               variants)
+    out["h16_lab"]["data_seconds"] = gen
+
+    def fo(v, limit, **kw):
+        return fold_lab.fold_lab_device(words, table, limit, variant=v, **kw)
+
+    limit, cut = nb * 32, nb * 32 - 5
+    variants = {v: (lambda v=v: fo(v, limit),
+                    lambda v=v: fo(v, limit, unmerged=True), "lab_fold",
+                    (lambda v=v: fo(v, cut),
+                     lambda v=v: fold_lab.fold_lab_plain(words, table, cut,
+                                                         variant=v)))
+                for v in fold_lab.VARIANTS}
+    out["fold_lab"] = _lab_time("lab_fold", "fold_lab", words, nb, 2,
+                                128 * 4, variants)
+    del words, table
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - start
+    out["nvidia_smi"] = smi_line()
+    emit(out)
+    return out
+
+
+def lab_entry(name, source, replaces, res, default, variants_of=None):
+    """A lab's entry of the kernels line: its default variant's numbers,
+    every variant's nested under ``variants``. ``ms`` is the kernel alone
+    (but where ``merge_in_ms``), ``merged_ms`` its wrapper with the
+    per-lane merge."""
+    def keys(r, **extra):
+        return dict(launches=r["launches"], max_abs_err=r["max_abs_err"],
+                    ms=r["ms"], merged_ms=r["merged_ms"],
+                    merge_in_ms=r["merge_in_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=None, gb_per_s=r["gb_per_s"],
+                    share_of_k3=r["share_of_k3"], **extra)
+
+    where = dict(route="cuda", source=f"spmv_topk_tpu_torch/csrc/{source}",
+                 replaces=replaces)
+    variants = {v: dict(name=f"{name}/{v}", **where, **keys(r))
+                for v, r in res["variants"].items()}
+    for v, extra in (variants_of or {}).items():
+        variants[v].update(extra)
+    top = keys(res["variants"][default])
+    top["launches"] = res["launches"][name]
+    return dict(name=name, **where, **top, library_calls=LAB_NO_LIBRARY,
+                default_variant=default, nb=res["nb"],
+                words_bytes=res["words_bytes"], k3_ms=res["k3_ms"],
+                variants=variants)
+
+
 def _reset_octet_counts():
     from spmv_topk_tpu_torch.ops import kernel as K
 
@@ -1895,7 +2228,7 @@ def kernel_entry(name, source, replaces, launches, res, key, library_ms,
     whose keys for this kernel start with ``key``."""
     return dict(name=name, route="cuda",
                 source=f"spmv_topk_tpu_torch/csrc/{source}",
-                replaces=f"spmv_topk_tpu/{replaces}", launches=launches,
+                replaces=replaces, launches=launches,
                 max_abs_err=res[f"{key}_max_abs_err"], ms=res[f"{key}_ms"],
                 plain_ms=res[f"{key}_plain_ms"],
                 bound_ms=res[f"{key}_bound_ms"],
@@ -1925,6 +2258,8 @@ def main():
     phase_codecs_small(dev)
     torch.cuda.synchronize()
     phase_bucket_small(dev)
+    torch.cuda.synchronize()
+    phase_labs_small(dev)
     torch.cuda.synchronize()
     coo, eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
@@ -1960,8 +2295,10 @@ def main():
                                     p1_octet_bytes)
           for codec in ("f32", "int8x4", "i8s", "i4s")}
     torch.cuda.synchronize()
+    labs = phase_labs(dev)
+    torch.cuda.synchronize()
     summarize(main_res, full, batch, scores, lib, sl, df, po, pdf,
-              dict(i8s=c3, i4s=c8, int8x4=i8), oc, bk, bkh)
+              dict(i8s=c3, i4s=c8, int8x4=i8), oc, bk, bkh, labs)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1970,11 +2307,12 @@ def main():
 
 
 def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
-              bk, bkh):
+              bk, bkh, labs):
     """Emit each path's launch counts and the kernel summary line; raise
     unless every kernel of every path was launched there. sc: the slice
     codec paths by codec, oc: the octet codec paths by codec, bk and bkh:
-    the per-bucket paths (f32 and h16)."""
+    the per-bucket paths (f32 and h16), labs: the labs phase (each lab's
+    timing its path)."""
     require(pdf["words_bytes"] >= df["words_bytes"],
             "the partition skeleton adds words, never drops them")
     launches = dict(main_res["launches"],
@@ -1986,7 +2324,10 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                    **{r["phase"]: r["launches"] for r in sc.values()},
                    **{f"octet_{c}_path": r["launches"]
                       for c, r in oc.items()},
-                   bucket_path=bk["launches"], bucket_h16_path=bkh["launches"])
+                   bucket_path=bk["launches"], bucket_h16_path=bkh["launches"],
+                   **{f"{lab}_path": labs[lab]["launches"]
+                      for lab in ("kernel_lab", "fused_lab", "h16_lab",
+                                  "fold_lab")})
     emit(dict(phase="launch_counts", main_path=launches, **by_path,
               words_bytes=dict(
                   octet_one_partition=po["words_bytes_one_partition"],
@@ -2002,7 +2343,7 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
     spmv, topk1 = lib["spmv_ms"], lib["spmv_topk_1_ms"]
     two = dict(library_calls="torch.sparse.mm + torch.topk")
     one = dict(library_calls="torch.sparse.mm")
-    ker = "ops/kernel.py"
+    ker = "spmv_topk_tpu/ops/kernel.py"
 
     def octet_codecs(name, source, line, kn, library, **extra):
         """The octet kernel's entry of each codec but h16 (its path's
@@ -2031,7 +2372,8 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                                            "octet_scores.cu", 2039, "k4",
                                            spmv, **one)),
         kernel_entry("stream_words", "stream_probe.cu",
-                     "ops/streamprobe.py:54", launches["stream_words"],
+                     "spmv_topk_tpu/ops/streamprobe.py:54",
+                     launches["stream_words"],
                      full, "k3", None),
         *(kernel_entry(
             name, src, f"{ker}:{line}", sl["launches"][name], sl,
@@ -2093,6 +2435,20 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                      f"{ker}:2225", bk["launches"]["bucket_topk_batch"], bk,
                      "k12", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
                      buckets=bk["buckets"], queries=DEFAULT_GROUP, **two),
+        # the measurement labs: each variant nested, v_prod (K7) under
+        # fused_lab's entry
+        lab_entry("lab_kernel", "lab_kernel.cu", "experiments/kernel_lab.py:282",
+                  labs["kernel_lab"], "int8/exact"),
+        lab_entry("lab_fused", "lab_fused.cu", "experiments/fused_lab.py:108",
+                  labs["fused_lab"], "v_bare",
+                  variants_of=dict(v_prod=dict(
+                      name="slice_topk", source=(
+                          "spmv_topk_tpu_torch/csrc/slice_topk.cu"),
+                      replaces=f"{ker}:864"))),
+        lab_entry("lab_h16", "lab_h16.cu", "experiments/h16_lab.py:189",
+                  labs["h16_lab"], "cur"),
+        lab_entry("lab_fold", "lab_fold.cu", "experiments/fold_lab.py:129",
+                  labs["fold_lab"], "base"),
     ]})
 
 

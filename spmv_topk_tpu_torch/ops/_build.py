@@ -33,6 +33,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# flags of some sources besides NVCC_FLAGS: the measurement labs' kernels
+# flush float denormals to zero, as the TPU does, and round each multiply
+# and add apart, as their plain versions do (csrc/lab_common.cuh)
+SOURCE_FLAGS = {f"lab_{name}.cu": ["-ftz=true", "-fmad=false"]
+                for name in ("kernel", "fused", "h16", "fold")}
 
 _LIB = None
 build_seconds = None   # wall seconds of the nvcc build in this process
@@ -55,6 +60,10 @@ _SIGNATURES = {
     "bucket_scores": [_vp] * 2 + [_i32] * 5 + [_vp] * 2,
     "bucket_topk": [_vp] * 3 + [_i32] * 8 + [_vp] * 3,
     "bucket_topk_batch": [_vp] * 3 + [_i32] * 10 + [_vp] * 3,
+    "lab_kernel": [_vp] * 2 + [_i32] * 7 + [_vp] * 3,
+    "lab_fused": [_vp] * 3 + [_i32] * 6 + [_vp] * 3,
+    "lab_h16": [_vp] * 2 + [_i32] * 5 + [_vp] * 3,
+    "lab_fold": [_vp] * 2 + [_i32] * 6 + [_vp] * 3,
 }
 
 
@@ -71,7 +80,8 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     """Path of the shared library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + fh.read())
@@ -123,7 +133,8 @@ def _build(path: str) -> None:
     # gets its own wall time
     with ThreadPoolExecutor(max_workers=len(srcs)) as ex:
         results = list(ex.map(_compile, [
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(os.path.basename(src), []),
+             "-c", "-o", obj, src]
             for src, obj in zip(srcs, objs)]))
     logs, failed = [], []
     for src, (res, secs) in zip(srcs, results):

@@ -248,8 +248,9 @@ def test_device_is_required():
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port (walked with pkgutil) imports neither jax
-    nor the JAX package."""
+    """Every module of the port (walked with pkgutil), the measurement labs
+    included, imports neither jax nor the JAX package (and a lab parses
+    no arguments and needs no card at import)."""
     code = ("import importlib, pkgutil, sys, spmv_topk_tpu_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "p.__name__ + '.')]; "
@@ -257,7 +258,9 @@ def test_import_leaves_jax_out():
             "want = {p.__name__ + '.' + m for m in ('api', 'ops.kernel', "
             "'ops.gold', 'ops.xla_ref', 'formats.sell', 'formats.bscsr', "
             "'formats.mtx', 'topk.merge', 'eval.metrics', "
-            "'eval.accuracy_model', 'utils.native')}; "
+            "'eval.accuracy_model', 'utils.native', 'experiments._common', "
+            "'experiments.kernel_lab', 'experiments.fused_lab', "
+            "'experiments.h16_lab', 'experiments.fold_lab')}; "
             "assert want <= set(mods), sorted(want - set(mods)); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'spmv_topk_tpu' or "

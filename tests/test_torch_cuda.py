@@ -1231,3 +1231,173 @@ def test_bucket_wrappers_refuse_bad_inputs(gpu, bucket_packs):
         pkernel.topk_spmv_bucket_device(
             words, table, nreal, cfg=dataclasses.replace(cfg, lane_k=12),
             num_groups=1, **tk)
+
+
+# ---------------------------------------------------------------- the labs
+# The measurement labs' kernels (csrc/lab_*.cu) against their plain
+# versions on the labs' own random words (NaN, inf and denormal values,
+# gather fields past 127, shift amounts past 31) and, for the float labs,
+# on them with integer, real and tiny values (experiments/_common.py::
+# with_values; tiny values make the flush of denormals decide the scores):
+# values bit-equal with NaN where NaN, (value, tag) pairs equal above each
+# lane's smallest kept value; fold_lab's nofold bit-equal slot for slot.
+# Three geometries: one of a single chunk a slice, and one on 3 CUDA blocks
+# (``blocks``), each folding 16-17 lab blocks into one buffer, as the
+# kernels do at full size (4096 lab blocks on 1056 CUDA blocks).
+
+from spmv_topk_tpu_torch.experiments import _common as lab_data  # noqa: E402
+from spmv_topk_tpu_torch.experiments import (fold_lab, fused_lab,  # noqa: E402
+                                             h16_lab, kernel_lab)
+
+LAB_GEOMS = {"w32": dict(W=32, SPB=16, NB=40), "w8": dict(W=8, SPB=4, NB=300),
+             "strided": dict(W=24, SPB=4, NB=50, blocks=3)}
+
+
+LAB_DATA = ("lab", *lab_data.CHECK_KINDS)
+
+
+def _lab_kernel_inputs(dev, g, data="lab"):
+    words, table, table_i = lab_data.kernel_lab_data(g["NB"],
+                                                     g["W"] * g["SPB"], seed=5)
+    if data != "lab":
+        words, table_i, table = lab_data.with_values(data, words, table_i,
+                                                     table, seed=6)
+    return (torch.from_numpy(words).to(dev),
+            kernel_lab.lab_tables(table, table_i, dev))
+
+
+@pytest.mark.parametrize("data", LAB_DATA)
+@pytest.mark.parametrize("geom", list(LAB_GEOMS))
+@pytest.mark.parametrize("fold", kernel_lab.FOLDS)
+@pytest.mark.parametrize("variant", list(kernel_lab.VARIANTS))
+def test_kernel_lab_matches_plain(gpu, variant, fold, geom, data):
+    g = LAB_GEOMS[geom]
+    words, tabs = _lab_kernel_inputs(gpu, g, data)
+    kw = dict(variant=variant, fold=fold, W=g["W"], SPB=g["SPB"])
+    before = kernel_lab.kernel_lab_device.launches
+    kv, kt = kernel_lab.kernel_lab_device(words, tabs[variant],
+                                          blocks=g.get("blocks"), **kw)
+    assert kernel_lab.kernel_lab_device.launches == before + 1
+    pv, pt_ = kernel_lab.kernel_lab_plain(words, tabs[variant], **kw)
+    torch.cuda.synchronize()
+    _lanes_equal(kv, kt, pv, pt_)
+
+
+@pytest.mark.parametrize("data", LAB_DATA)
+@pytest.mark.parametrize("geom", list(LAB_GEOMS))
+@pytest.mark.parametrize("fold", fused_lab.FOLDS)
+@pytest.mark.parametrize("variant", fused_lab.MODES)
+def test_fused_lab_matches_plain(gpu, variant, fold, geom, data):
+    """Ragged counts: v_smem and v_branch mask slices."""
+    g = LAB_GEOMS[geom]
+    words, table, _ = lab_data.fused_lab_data(g["NB"], g["W"] * g["SPB"],
+                                              g["SPB"], 3, seed=6)
+    if data != "lab":
+        words, table, _ = lab_data.with_values(data, words, table, seed=7)
+    per = g["NB"] // 3
+    nreal = np.array([[g["NB"] * g["SPB"] - 7], [per * g["SPB"] - 3],
+                      [per * g["SPB"] + 1]], np.int32)
+    args = [torch.from_numpy(a).to(gpu) for a in (words, table, nreal)]
+    kw = dict(variant=variant, fold=fold, W=g["W"], SPB=g["SPB"])
+    before = fused_lab.fused_lab_device.launches
+    kv, kt = fused_lab.fused_lab_device(*args, blocks=g.get("blocks"), **kw)
+    assert fused_lab.fused_lab_device.launches == before + 1
+    pv, pt_ = fused_lab.fused_lab_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _lanes_equal(kv, kt, pv, pt_)
+
+
+def test_fused_lab_v_prod_matches_plain(gpu):
+    """v_prod is K7 (int8x4, not tie-safe) on the lab's three-bucket plan:
+    against K7's plain version on finite values (the plain version ranks
+    a NaN score first, the kernel never admits one)."""
+    g = LAB_GEOMS["w32"]
+    words, table, nreal = lab_data.fused_lab_data(g["NB"], g["W"] * g["SPB"],
+                                                  g["SPB"], 3, seed=7)
+    words = words & np.int32(~0x4000)         # exponents below 128: finite
+    args = [torch.from_numpy(a).to(gpu) for a in (words, table, nreal)]
+    before = pkernel.topk_spmv_fused_device.launches
+    kv, kt = fused_lab.fused_lab_device(*args, variant="v_prod")
+    assert pkernel.topk_spmv_fused_device.launches == before + 1
+    pv, pt_ = fused_lab.fused_lab_plain(*args, variant="v_prod")
+    torch.cuda.synchronize()
+    _lanes_equal(kv, kt, pv, pt_)
+
+
+@pytest.mark.parametrize("geom", list(LAB_GEOMS))
+@pytest.mark.parametrize("variant", list(h16_lab.VARIANTS))
+def test_h16_lab_matches_plain(gpu, variant, geom):
+    g = LAB_GEOMS[geom]
+    words, table = (torch.from_numpy(a).to(gpu) for a in
+                    lab_data.h16_lab_data(g["NB"], g["W"] * g["SPB"], seed=8))
+    kw = dict(variant=variant, W=g["W"], SPB=g["SPB"])
+    before = h16_lab.h16_lab_device.launches
+    kv, kt = h16_lab.h16_lab_device(words, table, blocks=g.get("blocks"),
+                                    **kw)
+    assert h16_lab.h16_lab_device.launches == before + 1
+    pv, pt_ = h16_lab.h16_lab_plain(words, table, **kw)
+    torch.cuda.synchronize()
+    _lanes_equal(kv, kt, pv, pt_)
+
+
+@pytest.mark.parametrize("cut", [0, 5, 10**6], ids=["all", "ragged", "past"])
+@pytest.mark.parametrize("geom", list(LAB_GEOMS))
+@pytest.mark.parametrize("variant", fold_lab.VARIANTS)
+def test_fold_lab_matches_plain(gpu, variant, geom, cut):
+    """limit = every slice, all but 5 (the last lab block cut), or past
+    the end."""
+    g = LAB_GEOMS[geom]
+    words, table = (torch.from_numpy(a).to(gpu) for a in
+                    lab_data.h16_lab_data(g["NB"], g["W"] * g["SPB"], seed=9))
+    limit = g["NB"] * g["SPB"] - cut if cut < 10**6 else cut
+    kw = dict(variant=variant, W=g["W"], SPB=g["SPB"])
+    before = fold_lab.fold_lab_device.launches
+    kv, kt = fold_lab.fold_lab_device(words, table, limit,
+                                      blocks=g.get("blocks"), **kw)
+    assert fold_lab.fold_lab_device.launches == before + 1
+    pv, pt_ = fold_lab.fold_lab_plain(words, table, limit, **kw)
+    torch.cuda.synchronize()
+    if variant == "nofold":
+        assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    else:
+        _lanes_equal(kv, kt, pv, pt_)
+
+
+def test_lab_unmerged_buffers_merge_to_the_wrapper(gpu):
+    """``unmerged`` returns one buffer a CUDA block (what the labs time as
+    the kernel alone); merged per lane they are the wrapper's result."""
+    g = LAB_GEOMS["strided"]
+    words, tabs = _lab_kernel_inputs(gpu, g, "real")
+    kw = dict(variant="int8", fold="exact", W=g["W"], SPB=g["SPB"],
+              blocks=g["blocks"])
+    bv, bt = kernel_lab.kernel_lab_device(words, tabs["int8"], unmerged=True,
+                                          **kw)
+    assert bv.shape == bt.shape == (g["blocks"], 8, 128)
+    kv, kt = kernel_lab.kernel_lab_device(words, tabs["int8"], **kw)
+    mv, mt = lab_data.merge(bv, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(mv, kv) and torch.equal(mt, kt)
+    hw, ht = (torch.from_numpy(a).to(gpu) for a in
+              lab_data.h16_lab_data(g["NB"], g["W"] * g["SPB"], seed=9))
+    limit = g["NB"] * g["SPB"] - 5
+    fv, _ = fold_lab.fold_lab_device(hw, ht, limit, variant="nofold",
+                                     W=g["W"], SPB=g["SPB"], blocks=3,
+                                     unmerged=True)
+    nv, _ = fold_lab.fold_lab_device(hw, ht, limit, variant="nofold",
+                                     W=g["W"], SPB=g["SPB"], blocks=3)
+    torch.cuda.synchronize()
+    assert torch.equal(fv[(limit - 1) // g["SPB"] % 3], nv)
+
+
+def test_lab_wrappers_refuse_bad_inputs(gpu):
+    g = LAB_GEOMS["w8"]
+    words, tabs = _lab_kernel_inputs(gpu, g)
+    kw = dict(W=g["W"], SPB=g["SPB"])
+    with pytest.raises(ValueError, match="chunks of 8"):
+        kernel_lab.kernel_lab_device(words, tabs["int8"], variant="int8",
+                                     S=4, **kw)
+    with pytest.raises(ValueError, match="table"):
+        kernel_lab.kernel_lab_device(words, tabs["int8"].float(),
+                                     variant="int8", **kw)
+    with pytest.raises(ValueError, match="words"):
+        h16_lab.h16_lab_device(words[:-8], tabs["h16"], variant="cur", **kw)
