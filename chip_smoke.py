@@ -82,17 +82,26 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      8 (K13, the exact rescore of a pool of 400), each op timed summed
      over its buckets, with K13's host enqueue time;
  13. the measurement labs (``spmv_topk_tpu_torch/experiments``: kernel_lab
-     L7, fused_lab L4, h16_lab L5, fold_lab L3): ``labs_small`` holds every
+     L7, fused_lab L4, h16_lab L5, fold_lab L3, batch_lab L1, dma_lab L2,
+     i16_probe L6, mxu_gather_lab L8): ``labs_small`` holds every
      variant (and every fold of kernel_lab and fused_lab) against its plain
      version at 8 lab blocks, on the default CUDA blocks and on 3 (the
      grid stride folding several lab blocks into one buffer), on the
      labs' own words and on them with integer, real and tiny
      (near-denormal) values, fold_lab with a limit that cuts the last
-     block, and fused_lab's v_prod (K7) on finite words; ``labs`` times
-     each lab's variants at 4096 lab blocks (1,073,741,824 bytes of
-     words) beside K3 on the same words, each kernel alone and with its
-     wrapper's merge, and checks each against its plain version at that
-     size (kernel_lab and fused_lab on the words with real values);
+     block, and fused_lab's v_prod (K7) on finite words; batch_lab at 16
+     and 4 queries, dma_lab's four (BS, T) cases (its plain version in
+     the kernel's order of CUDA blocks), i16_probe's five variants and
+     mxu_gather_lab's VPU arm at 32 and 64 chunks, bit for bit; ``sass``
+     counts the instructions nvcc made of batch_lab's and i16_probe's
+     variants (does ``cur`` share ``shared``'s decode; is ``g16x``
+     ``g16``); ``labs`` times each lab's variants on 1 GiB of its words
+     (4096 lab blocks for L7, L4, L5, L3; 2048 for L1 and L6; 2**21 rows
+     for L2; L8 at 32 and 512 chunks with its one-hot arm, and at 65536
+     without it) beside K3 on
+     the same words, each kernel alone and with its wrapper's merge, and
+     checks each against its plain version at that size (kernel_lab,
+     fused_lab and dma_lab on the words with real values);
  14. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
@@ -1886,8 +1895,8 @@ def phase_library(csr, qs, dev):
 # L2, about 3.9 a CUDA block) and of the small phase, and the CUDA blocks of
 # the small phase's strided case
 LAB_NB, LAB_SMALL_NB, LAB_STRIDE_BLOCKS = 4096, 8, 3
-LAB_NO_LIBRARY = ("none: no PyTorch call computes a lab's decode and fold "
-                  "on its synthetic words")
+LAB_NO_LIBRARY = ("none: no single PyTorch call computes a lab's decode "
+                  "and fold, or its decode and sum, on its synthetic words")
 
 
 def _real_values(words, seed):
@@ -1993,6 +2002,52 @@ def phase_labs_small(dev):
                         counts["fold_lab"] += 1
                     else:
                         agree("fold_lab", kern, plain)
+    # L1, L2, L6, L8: bit-equal to their plain versions (integer sums;
+    # dma_lab's float sum in the order of the kernel's CUDA blocks)
+    from spmv_topk_tpu_torch.experiments import (batch_lab, dma_lab,
+                                                 i16_probe, mxu_gather_lab)
+
+    def exact(lab, kern, plain):
+        torch.cuda.synchronize()
+        _exact(lab, kern, plain)
+        counts[lab] = counts.get(lab, 0) + 1
+
+    for Q, W, SPB in ((16, 16, 64), (4, 8, 9)):
+        wd, td = (t(a) for a in lc.batch_lab_data(nb, W * SPB, Q, seed=21))
+        for v in batch_lab.VARIANTS:
+            kw = dict(variant=v, W=W, SPB=SPB)
+            plain = batch_lab.batch_lab_plain(wd, td, **kw)
+            for blocks in strides:
+                exact("batch_lab", batch_lab.batch_lab_device(
+                    wd, td, blocks=blocks, **kw), plain)
+    rows = nb * dma_lab.CASES[-1][0]
+    words, table = lc.dma_lab_data(rows, seed=22)
+    for kind in ("lab", *lc.CHECK_KINDS):
+        w, tb = ((words, table) if kind == "lab" else
+                 dma_lab.check_data(kind, words, seed=23))
+        wd, td = t(w), t(tb)
+        for bs, st in dma_lab.CASES:
+            for blocks in strides:
+                n = lc.cuda_blocks(dev, rows // bs, blocks)
+                exact("dma_lab", dma_lab.dma_lab_device(
+                    wd, td, bs=bs, t=st, blocks=blocks),
+                    dma_lab.dma_lab_plain(wd, td, bs=bs, t=st, blocks=n))
+    w32, w16, t32, t16 = (t(a) for a in lc.i16_probe_data(
+        nb, i16_probe.SUB32, seed=24))
+    for v in i16_probe.VARIANTS:
+        wd, td = (w32, t32) if "32" in v else (w16, t16)
+        salt = (torch.arange(128, device=dev) * 37 - 2000).to(
+            wd.dtype).reshape(1, 128)
+        plain = i16_probe.i16_probe_plain(wd, td, salt, variant=v)
+        for blocks in strides:
+            exact("i16_probe", i16_probe.i16_probe_device(
+                wd, td, salt, variant=v, blocks=blocks), plain)
+    for reps, Q in ((mxu_gather_lab.REPS, 16), (64, 4)):
+        wd, td, _ = (t(a) for a in lc.mxu_lab_data(reps, Q, seed=25))
+        plain = mxu_gather_lab.mxu_vpu_plain(wd, td)
+        for blocks in strides:
+            exact("mxu_gather_lab", mxu_gather_lab.mxu_vpu_device(
+                wd, td, blocks=blocks), plain)
     out = dict(phase="labs_small", nb=nb, stride_blocks=LAB_STRIDE_BLOCKS,
                cases=counts, max_abs_err=err,
                seconds=time.perf_counter() - t0)
@@ -2006,25 +2061,63 @@ def _lab_counters():
                                                  h16_lab, kernel_lab)
     from spmv_topk_tpu_torch.ops import kernel as K
 
+    from spmv_topk_tpu_torch.experiments import (batch_lab, dma_lab,
+                                                 i16_probe, mxu_gather_lab)
+
     return dict(lab_kernel=kernel_lab.kernel_lab_device,
                 lab_fused=fused_lab.fused_lab_device,
                 lab_h16=h16_lab.h16_lab_device,
                 lab_fold=fold_lab.fold_lab_device,
-                slice_topk=K.topk_spmv_fused_device)
+                slice_topk=K.topk_spmv_fused_device,
+                lab_batch=batch_lab.batch_lab_device,
+                lab_dma=dma_lab.dma_lab_device,
+                lab_i16=i16_probe.i16_probe_device,
+                lab_mxu=mxu_gather_lab.mxu_vpu_device)
 
 
-def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants):
+def _lab_agree(v, kern, ref):
+    """The default check of a fold lab's variant: ``compare_lanes``, or
+    slot for slot (fold_lab's nofold)."""
+    import torch
+
+    if v == "nofold":
+        require(all(torch.equal(a, b) for a, b in zip(kern, ref)),
+                "nofold equals plain slot for slot at full size")
+        return 0.0
+    return compare_lanes(*kern, *ref)
+
+
+def _exact(v, kern, ref):
+    """Kernel and plain results equal bit for bit (NaN where NaN): a
+    tensor or a tuple of tensors; error 0."""
+    kern, ref = ((x,) if not isinstance(x, tuple) else x
+                 for x in (kern, ref))
+    for a, b in zip(kern, ref, strict=True):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        require(a.shape == b.shape and a.dtype == b.dtype and
+                np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+                f"{v}: kernel equals its plain version bit for bit")
+    return 0.0
+
+
+def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
+              agree=_lab_agree, out_bytes=None, queries=1, ops_per=2):
     """One lab at full size. variants: name -> (call, kernel, counter,
-    check): the wrapper on ``words``, its kernel alone (unmerged; None
-    where the wrapper merges inside, K7), the counter of ``_lab_counters``
-    they add to, and the (kernel, plain) calls on the check inputs. Each
-    variant's kernel is held to its plain version on its check inputs (the
-    plain call timed once between CUDA events); then, counters at 0, each
-    is timed by ``_common.measure`` beside K3 on ``words``."""
+    check): the wrapper on ``words`` (a tensor, or name -> the variant's
+    words), its kernel alone (unmerged; None where the wrapper merges
+    inside, K7), the counter of ``_lab_counters`` they add to, and the
+    (kernel, plain) calls on the check inputs. Each variant's kernel is
+    held to its plain version on its check inputs by ``agree`` (the plain
+    call timed once between CUDA events); then, counters at 0, each is
+    timed by ``_common.measure`` beside K3 on its words. Bound: the words,
+    ``table_bytes`` and ``out_bytes`` (default the merged (value, tag)
+    buffers) moved once, or ``ops_per`` operations per nnz per query."""
     import torch
 
     from spmv_topk_tpu_torch.experiments import _common as lc
 
+    of = words if isinstance(words, dict) else dict.fromkeys(variants, words)
+    out_bytes = lc.LANE_K * 128 * 8 if out_bytes is None else out_bytes
     res = {}
     for v, (_, _, _, (kcall, pcall)) in variants.items():
         kern = kcall()
@@ -2034,34 +2127,35 @@ def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants):
         ref = pcall()
         end.record()
         end.synchronize()
-        if v == "nofold":
-            require(all(torch.equal(a, b) for a, b in zip(kern, ref)),
-                    f"{name} {v} equals plain at full size")
-            e = 0.0
-        else:
-            e = compare_lanes(*kern, *ref)
+        e = agree(v, kern, ref)
         res[v] = dict(max_abs_err=e, plain_ms=start.elapsed_time(end))
-    k3 = lc.stream_ms(words)
+    k3 = {}
+    for w in of.values():
+        if w.data_ptr() not in k3:
+            k3[w.data_ptr()] = lc.stream_ms(lc.as_words32(w))
     counters = _lab_counters()
     for c in counters.values():
         c.launches = 0
     for v, (call, kernel, counter, _) in variants.items():
+        w = of[v]
         before = counters[counter].launches
-        rep = lc.measure(lab, v, words, nb, nnz_per_word, call, kernel,
-                         k3_ms=k3)
-        b_ms, b_by = bound(words.numel() * 4 + table_bytes
-                           + lc.LANE_K * 128 * 8,
-                           2 * words.numel() * nnz_per_word)
+        rep = lc.measure(lab, v, w, nb, nnz_per_word, call, kernel,
+                         k3_ms=k3[w.data_ptr()])
+        nbytes = w.numel() * w.element_size()
+        b_ms, b_by = bound(nbytes + table_bytes + out_bytes,
+                           ops_per * w.numel() * nnz_per_word * queries)
         res[v].update(bound_ms=b_ms, bound_by=b_by,
                       launches=counters[counter].launches - before,
-                      merge_in_ms=kernel is None,
+                      merge_in_ms=kernel is None, k3_ms=rep["k3_ms"],
                       **{k: rep[k] for k in ("ms", "merged_ms",
                                              "ns_per_chunk", "gnnz_per_s",
                                              "gb_per_s", "share_of_k3")})
     launches = {k: c.launches for k, c in counters.items() if c.launches}
     require(launches.get(name, 0) > 0, f"the {lab} path launched {name}")
-    return dict(nb=nb, words_bytes=words.numel() * 4, k3_ms=k3,
-                k3_gb_per_s=words.numel() * 4 / k3 / 1e6,
+    w0 = next(iter(of.values()))
+    nbytes = w0.numel() * w0.element_size()
+    return dict(nb=nb, words_bytes=nbytes, k3_ms=k3[w0.data_ptr()],
+                k3_gb_per_s=nbytes / k3[w0.data_ptr()] / 1e6,
                 launches=launches, variants=res)
 
 
@@ -2169,24 +2263,201 @@ def phase_labs(dev):
                                 128 * 4, variants)
     del words, table
     torch.cuda.empty_cache()
+    out.update(_labs2(dev))
     out["seconds"] = time.perf_counter() - start
     out["nvidia_smi"] = smi_line()
     emit(out)
     return out
 
 
-def lab_entry(name, source, replaces, res, default, variants_of=None):
+# L1 batch_lab at 2048 blocks of 64 slices of 16 rows (1 GiB) and 16
+# queries; L2 dma_lab on 2**21 rows (1 GiB); L6 i16_probe at 2048 blocks
+# (1 GiB of int32, and of int16); L8 mxu_gather_lab, 16 queries, at its
+# 32 chunks and at 512 (its one-hot arm then 2 GiB), and its VPU arm alone
+# at 65536 (256 MiB of words, past the L2; the one-hot would be 256 GiB)
+BATCH_Q, DMA_ROWS, MXU_REPS = 16, 1 << 21, (32, 512, 65536)
+ONEHOT_MAX_BYTES = 4 << 30
+
+
+def _labs2(dev):
+    """The labs L1, L2, L6, L8 at full size (``_lab_time``): each variant
+    held to its plain version bit for bit (batch_lab and i16_probe on
+    their own words, dma_lab on the words with real values, its plain
+    version in the kernel's block order; mxu_gather_lab at each shape),
+    then timed beside K3 on the same words; mxu_gather_lab's one-hot arm
+    (``mxu_onehot``: a one-hot and ``torch.matmul``, TF32 off) timed
+    beside its VPU arm."""
+    import torch
+
+    from spmv_topk_tpu_torch.experiments import _common as lc
+    from spmv_topk_tpu_torch.experiments import (batch_lab, dma_lab,
+                                                 i16_probe, mxu_gather_lab)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    out = {}
+    nb, W, SPB = batch_lab.DEFAULT_NB, 16, 64
+    t0 = time.perf_counter()
+    words, tables = (t(a) for a in lc.batch_lab_data(nb, W * SPB, BATCH_Q))
+    gen = time.perf_counter() - t0
+
+    def bl(v, **kw):
+        return batch_lab.batch_lab_device(words, tables, variant=v, W=W,
+                                          SPB=SPB, **kw)
+
+    variants = {v: (lambda v=v: bl(v), lambda v=v: bl(v, unmerged=True),
+                    "lab_batch",
+                    (lambda v=v: bl(v), lambda v=v: batch_lab.batch_lab_plain(
+                        words, tables, variant=v, W=W, SPB=SPB)))
+                for v in batch_lab.VARIANTS}
+    out["batch_lab"] = _lab_time(
+        "lab_batch", "batch_lab", words, nb, 2, BATCH_Q * 128 * 4, variants,
+        agree=_exact, out_bytes=BATCH_Q * lc.LANE_K * 128 * 8,
+        queries=BATCH_Q)
+    out["batch_lab"].update(data_seconds=gen, queries=BATCH_Q)
+    del words, tables
+
+    t0 = time.perf_counter()
+    words, table = (t(a) for a in lc.dma_lab_data(DMA_ROWS))
+    gen = time.perf_counter() - t0
+    rd = _real_values(words, seed=26)
+    variants = {}
+    for bs, st in dma_lab.CASES:
+        n = lc.cuda_blocks(dev, DMA_ROWS // bs)
+        variants[dma_lab.name(bs, st)] = (
+            lambda bs=bs, st=st: dma_lab.dma_lab_device(words, table, bs=bs,
+                                                        t=st),
+            lambda bs=bs, st=st: dma_lab.dma_lab_device(
+                words, table, bs=bs, t=st, unmerged=True),
+            "lab_dma",
+            (lambda bs=bs, st=st: dma_lab.dma_lab_device(rd, table, bs=bs,
+                                                         t=st),
+             lambda bs=bs, st=st, n=n: dma_lab.dma_lab_plain(
+                 rd, table, bs=bs, t=st, blocks=n)))
+    out["dma_lab"] = _lab_time("lab_dma", "dma_lab", words, DMA_ROWS, 1,
+                               128 * 4, variants, agree=_exact,
+                               out_bytes=8 * 128 * 4, ops_per=2)
+    out["dma_lab"].update(data_seconds=gen, rows=DMA_ROWS,
+                          lab_blocks={dma_lab.name(bs, st): DMA_ROWS // bs
+                                      for bs, st in dma_lab.CASES},
+                          cuda_blocks={dma_lab.name(bs, st): lc.cuda_blocks(
+                              dev, DMA_ROWS // bs)
+                              for bs, st in dma_lab.CASES})
+    del words, table, rd
+
+    nb = i16_probe.DEFAULT_NB
+    t0 = time.perf_counter()
+    w32, w16, t32, t16 = (t(a) for a in lc.i16_probe_data(
+        nb, i16_probe.SUB32))
+    gen = time.perf_counter() - t0
+    salt = {w.dtype: torch.arange(128, device=dev).to(w.dtype).reshape(
+        1, 128) for w in (w32, w16)}
+
+    def il(v, **kw):
+        w, tb = (w32, t32) if "32" in v else (w16, t16)
+        return i16_probe.i16_probe_device(w, tb, salt[w.dtype], variant=v,
+                                          **kw)
+
+    def ip(v):
+        w, tb = (w32, t32) if "32" in v else (w16, t16)
+        return i16_probe.i16_probe_plain(w, tb, salt[w.dtype], variant=v)
+
+    variants = {v: (lambda v=v: il(v), lambda v=v: il(v, unmerged=True),
+                    "lab_i16", (lambda v=v: il(v), lambda v=v: ip(v)))
+                for v in i16_probe.VARIANTS}
+    out["i16_probe"] = _lab_time(
+        "lab_i16", "i16_probe", {v: w32 if "32" in v else w16
+                                 for v in i16_probe.VARIANTS},
+        nb, 1, 16 * 128 * 2, variants, agree=_exact, out_bytes=8 * 128 * 4,
+        ops_per=3)
+    out["i16_probe"]["data_seconds"] = gen
+    del w32, w16, t32, t16
+
+    res = {}
+    for reps in MXU_REPS:
+        words, tables, tabq = (t(a) for a in lc.mxu_lab_data(reps, BATCH_Q))
+        variants = {"vpu": (
+            lambda: mxu_gather_lab.mxu_vpu_device(words, tables),
+            lambda: mxu_gather_lab.mxu_vpu_device(words, tables,
+                                                  unmerged=True),
+            "lab_mxu",
+            (lambda: mxu_gather_lab.mxu_vpu_device(words, tables),
+             lambda: mxu_gather_lab.mxu_vpu_plain(words, tables)))}
+        r = _lab_time("lab_mxu", "mxu_gather_lab", words, reps, 2,
+                      BATCH_Q * 128 * 4, variants, agree=_exact,
+                      out_bytes=BATCH_Q * 128 * 4, queries=BATCH_Q)
+        oh_bytes = words.numel() * 1024 * 4
+        oh_ms = (lc.sweep_ms(lambda: mxu_gather_lab.mxu_onehot(words, tabq))
+                 if oh_bytes <= ONEHOT_MAX_BYTES else None)
+        r["variants"]["vpu"].update(onehot_ms=oh_ms, onehot_bytes=oh_bytes,
+                                    reps=reps, words_bytes=r["words_bytes"])
+        res[reps] = r
+        del words, tables, tabq
+        torch.cuda.empty_cache()
+    launches = {}
+    for r in res.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["mxu_gather_lab"] = dict(
+        res[MXU_REPS[0]], reps=MXU_REPS[0], launches=launches,
+        variants={("vpu" if reps == MXU_REPS[0] else f"vpu_reps{reps}"):
+                  r["variants"]["vpu"] for reps, r in res.items()})
+    return out
+
+
+def phase_sass():
+    """What nvcc made of L1's and L6's variants (``_build.sass_report``):
+    each kernel's instruction count and most frequent opcodes, and whether
+    batch_lab's cur (the decode per query) compiled to shared's code, and
+    i16_probe's g16x to g16's."""
+    from spmv_topk_tpu_torch.ops import _build
+
+    out = dict(phase="sass")
+    for match in ("lab_batch_sweep", "lab_i16_sweep", "lab_mxu_sweep"):
+        rep = _build.sass_report(match.replace("_sweep", ".cu"), match)
+        out[match] = {k: dict(total=c["total"], top=sorted(
+            ((op, n) for op, n in c.items() if op != "total"),
+            key=lambda x: -x[1])[:12]) for k, c in rep.items()}
+        out[match + "_opcodes"] = rep
+    b, i = out["lab_batch_sweep_opcodes"], out["lab_i16_sweep_opcodes"]
+    for q in (4, 16):
+        # lab_batch_sweep<Q, MODE, QG>: cur is mode 0, shared mode 1
+        cur, shr = ([c for k, c in b.items()
+                     if k.startswith(f"lab_batch_sweep<{q},{mode},")]
+                    for mode in (0, 1))
+        out[f"cur_equals_shared_q{q}"] = bool(cur and shr
+                                              and cur[0] == shr[0])
+    # lab_i16_sweep<T, GATHER, WIDEN>: g16 is <short, 1, 0>, g16x <short,
+    # 1, 1> (cu++filt may spell the flags true / false)
+    flags = {k: k.split("<", 1)[1].rstrip(">").split(",") for k in i}
+    g16 = [i[k] for k, a in flags.items()
+           if a[0] == "short" and a[1] in ("1", "true")
+           and a[2] in ("0", "false")]
+    g16x = [i[k] for k, a in flags.items()
+            if a[0] == "short" and a[1] in ("1", "true")
+            and a[2] in ("1", "true")]
+    out["g16x_equals_g16"] = bool(g16 and g16x and g16[0] == g16x[0])
+    for k in ("lab_batch_sweep_opcodes", "lab_i16_sweep_opcodes",
+              "lab_mxu_sweep_opcodes"):
+        out.pop(k)
+    emit(out)
+    return out
+
+
+def lab_entry(name, source, replaces, res, default, variants_of=None,
+              **extra_top):
     """A lab's entry of the kernels line: its default variant's numbers,
     every variant's nested under ``variants``. ``ms`` is the kernel alone
     (but where ``merge_in_ms``), ``merged_ms`` its wrapper with the
-    per-lane merge."""
+    per-lane merge (or the merge of its partial sums)."""
     def keys(r, **extra):
         return dict(launches=r["launches"], max_abs_err=r["max_abs_err"],
                     ms=r["ms"], merged_ms=r["merged_ms"],
                     merge_in_ms=r["merge_in_ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                     library_ms=None, gb_per_s=r["gb_per_s"],
-                    share_of_k3=r["share_of_k3"], **extra)
+                    share_of_k3=r["share_of_k3"], k3_ms=r["k3_ms"], **extra)
 
     where = dict(route="cuda", source=f"spmv_topk_tpu_torch/csrc/{source}",
                  replaces=replaces)
@@ -2195,10 +2466,11 @@ def lab_entry(name, source, replaces, res, default, variants_of=None):
     for v, extra in (variants_of or {}).items():
         variants[v].update(extra)
     top = keys(res["variants"][default])
+    top.update(extra_top)
     top["launches"] = res["launches"][name]
     return dict(name=name, **where, **top, library_calls=LAB_NO_LIBRARY,
                 default_variant=default, nb=res["nb"],
-                words_bytes=res["words_bytes"], k3_ms=res["k3_ms"],
+                words_bytes=res["words_bytes"],
                 variants=variants)
 
 
@@ -2261,6 +2533,7 @@ def main():
     torch.cuda.synchronize()
     phase_labs_small(dev)
     torch.cuda.synchronize()
+    phase_sass()
     coo, eng, qs, main_res, gold, single = phase_main(dev)
     torch.cuda.synchronize()
     full = phase_kernels_full(eng, qs, dev)
@@ -2327,7 +2600,8 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                    bucket_path=bk["launches"], bucket_h16_path=bkh["launches"],
                    **{f"{lab}_path": labs[lab]["launches"]
                       for lab in ("kernel_lab", "fused_lab", "h16_lab",
-                                  "fold_lab")})
+                                  "fold_lab", "batch_lab", "dma_lab",
+                                  "i16_probe", "mxu_gather_lab")})
     emit(dict(phase="launch_counts", main_path=launches, **by_path,
               words_bytes=dict(
                   octet_one_partition=po["words_bytes_one_partition"],
@@ -2449,6 +2723,24 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                   labs["h16_lab"], "cur"),
         lab_entry("lab_fold", "lab_fold.cu", "experiments/fold_lab.py:129",
                   labs["fold_lab"], "base"),
+        lab_entry("lab_batch", "lab_batch.cu",
+                  "experiments/batch_lab.py:213", labs["batch_lab"],
+                  "shared", queries=BATCH_Q),
+        lab_entry("lab_dma", "lab_dma.cu", "experiments/dma_lab.py:71",
+                  labs["dma_lab"], "1024x1"),
+        lab_entry("lab_i16", "lab_i16.cu", "experiments/i16_probe.py:84",
+                  labs["i16_probe"], "s32"),
+        # the one-hot arm (torch, not a kernel of the port) beside the VPU
+        # arm: a different function (one h16 half against an f32 table)
+        lab_entry("lab_mxu", "lab_mxu.cu",
+                  "experiments/mxu_gather_lab.py:108", labs["mxu_gather_lab"],
+                  "vpu", queries=BATCH_Q,
+                  onehot_ms=labs["mxu_gather_lab"]["variants"]["vpu"][
+                      "onehot_ms"],
+                  onehot_calls="torch.where one-hot + torch.matmul (f32)",
+                  variants_of={v: dict(onehot_ms=r["onehot_ms"])
+                               for v, r in labs["mxu_gather_lab"][
+                                   "variants"].items()}),
     ]})
 
 

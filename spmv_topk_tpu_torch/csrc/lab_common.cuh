@@ -1,9 +1,12 @@
 // Pieces shared by the measurement-lab kernels for Hopper (sm_90a):
 // lab_kernel.cu (L7, experiments/kernel_lab.py), lab_fused.cu (L4,
-// fused_lab.py), lab_h16.cu (L5, h16_lab.py) and lab_fold.cu (L3,
-// fold_lab.py).
+// fused_lab.py), lab_h16.cu (L5, h16_lab.py), lab_fold.cu (L3,
+// fold_lab.py), lab_batch.cu (L1, batch_lab.py), lab_dma.cu (L2,
+// dma_lab.py), lab_i16.cu (L6, i16_probe.py) and lab_mxu.cu (L8,
+// mxu_gather_lab.py).
 //
-// The skeleton of the four labs. One bucket of uniform width W in nb lab
+// The skeleton of the first four labs (lab_batch.cu keeps one buffer a
+// query; the other three sum without a fold). One bucket of uniform width W in nb lab
 // blocks of spb slices; slice j of lab block i sits on rows
 // (i * spb + j) * W .. of the (rows, 128) int32 words, its tag
 // t = i * spb + j. One CUDA block of 128 threads, one thread per lane:
@@ -213,6 +216,28 @@ __device__ __forceinline__ int32_t nsh_h16(uint32_t w, const Table& tab) {
   const int32_t v0 = static_cast<int32_t>(w << 16) >> 26;
   const int32_t v1 = static_cast<int32_t>(w) >> 26;
   return v0 * n0 + v1 * n1;
+}
+
+// The nsh h16 decode split as the batch kernels split it
+// (spmv_topk_tpu/ops/kernel.py::_h16_shared / _h16_apply, batch_lab.py::
+// shared_h16 / apply_h16): the query-independent part of a word once,
+// then per query row two gathers, two shifts and the products.
+struct H16Split {
+  uint32_t i0, i1, sh0, sh1;
+  int32_t v0, v1;
+};
+
+__device__ __forceinline__ H16Split h16_shared(uint32_t w) {
+  const uint32_t nw = ~w;
+  return {w & 127u, (w >> 16) & 127u, (nw >> 5) & 28u, (nw >> 21) & 28u,
+          static_cast<int32_t>(w << 16) >> 26, static_cast<int32_t>(w) >> 26};
+}
+
+// row: a query's int4x8 row of 128 entries in shared memory
+__device__ __forceinline__ int32_t h16_apply(const uint32_t* row, const H16Split& s) {
+  const int32_t n0 = static_cast<int32_t>(row[s.i0] << s.sh0) >> 28;
+  const int32_t n1 = static_cast<int32_t>(row[s.i1] << s.sh1) >> 28;
+  return s.v0 * n0 + s.v1 * n1;
 }
 
 }  // namespace lab

@@ -63,7 +63,10 @@ __device__ __forceinline__ void topk_update(float (&tv)[K], int32_t (&tt)[K],
 
 // Harvest one octet's 8 member scores into a lane buffer: each member in
 // turn (EXACT, fold_tile 1) or the top 3 of the 8 in three max /
-// lowest-index passes. sc is consumed.
+// lowest-index passes. sc is consumed. The max propagates NaN as the JAX
+// kernels' jnp.max does: a NaN member makes every pass's maximum NaN,
+// which no member equals and the buffer never admits, so nothing of that
+// octet enters the lane's buffer.
 template <int K, bool TIE_SAFE, bool EXACT>
 __device__ __forceinline__ void harvest(float (&tv)[K], int32_t (&tt)[K],
                                         float (&sc)[kMembers], int32_t tag0,
@@ -77,8 +80,8 @@ __device__ __forceinline__ void harvest(float (&tv)[K], int32_t (&tt)[K],
   for (int r = 0; r < kHarvest; ++r) {
     float m1 = sc[0];
 #pragma unroll
-    for (int m = 1; m < kMembers; ++m) m1 = fmaxf(m1, sc[m]);
-    int sl = 0;
+    for (int m = 1; m < kMembers; ++m) m1 = (sc[m] > m1 || sc[m] != sc[m]) ? sc[m] : m1;
+    int sl = kMembers;                       // none holds a NaN maximum
 #pragma unroll
     for (int m = kMembers - 1; m >= 0; --m)
       if (sc[m] == m1) sl = m;              // lowest member among ties

@@ -15,7 +15,9 @@
 // JAX kernel's rule (ops/kernel.py::slice_work): with fold_tile > 1 and a
 // block whose slice loop the TPU unrolled, each strided sub-tile of up to
 // fold_tile slices gives its top 2 (lowest member among ties, the order
-// of tflush); otherwise, and for every wide slice, each slice is folded.
+// of tflush; a NaN member makes tflush's maximum NaN, so that sub-tile
+// gives nothing); otherwise, and for every wide slice, each slice is
+// folded.
 // Slices past a bucket's real count (the last block's padding) are
 // skipped: they enter the JAX buffers only as -inf.
 //
@@ -70,9 +72,11 @@ slice_topk_kernel(const int32_t* __restrict__ words,
     if (it.top2) {
       float m1 = -INFINITY, m2 = -INFINITY;
       int i1 = -1, i2 = -1;
+      bool nan = false;
       for (int m = 0; m < it.count; ++m) {
         if (!w.real(it, m)) continue;
         const float s = member_score<C>(w, it, m, tab);
+        nan |= s != s;
         if (i1 < 0 || s > m1) {
           m2 = m1;
           i2 = i1;
@@ -83,6 +87,7 @@ slice_topk_kernel(const int32_t* __restrict__ words,
           i2 = m;
         }
       }
+      if (nan) continue;
       if (i1 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m1, part.tag_offset + w.tag(it, i1));
       if (i2 >= 0) octet::topk_update<K, TIE_SAFE>(tv, tt, m2, part.tag_offset + w.tag(it, i2));
     } else {

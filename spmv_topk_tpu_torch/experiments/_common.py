@@ -1,8 +1,9 @@
-"""What the port's four measurement labs share: their data, the skeleton
-of their plain versions, the launch of their kernels, and their timing.
+"""What the port's measurement labs share: their data, the skeleton of
+their plain versions, the launch of their kernels, and their timing.
 
-Each lab (``kernel_lab``, ``fused_lab``, ``h16_lab``, ``fold_lab``) runs
-one bucket of uniform width: NB blocks of SPB slices of W rows x 128
+The four fold labs (``kernel_lab``, ``fused_lab``, ``h16_lab``,
+``fold_lab``; ``batch_lab`` with a buffer per query) run one bucket of
+uniform width: NB blocks of SPB slices of W rows x 128
 lanes of int32 words, slice j of block i on rows (i * SPB + j) * W ..,
 its tag t = i * SPB + j. A lane sums its W words of a slice as W // 8
 chunks of 8 rows into a score and folds the score into a buffer of
@@ -19,6 +20,13 @@ rejects), the top bits of it; the draws are the bit generator's 64-bit
 outputs, low half first. So the words are built from ``random_raw``
 here, which takes a second for the 1 GiB a lab uses on the card where
 ``integers`` takes tens; tests/test_torch_labs.py holds the two equal.
+``batch_lab_data``, ``dma_lab_data``, ``i16_probe_data`` and
+``mxu_lab_data`` do the same for batch_lab.py:241-254 and :298-301,
+dma_lab.py:88-92, i16_probe.py:119-125 and mxu_gather_lab.py:101-106
+(numpy's 16-bit integers take the two halves of one 32-bit draw, low half
+first; dma_lab's range 2**31 - 1 rejects a draw whose Lemire remainder is
+below 2, about one draw in 2**31; tests/test_torch_labs2.py holds them
+equal).
 
 Plain versions. The scores are summed in the kernels' order: each of a
 chunk's 8 rows in two accumulators by chunk parity, the two added, then
@@ -148,6 +156,61 @@ def fused_lab_data(nb: int, block_sub: int, slices_per_block: int,
                          dtype=np.int64).astype(np.int32)
     nreal = np.full((nseg, 1), nb * slices_per_block, np.int32)
     return w.view(np.int32).reshape(-1, LANES), table, nreal
+
+
+def batch_lab_data(nb: int, block_sub: int, queries: int, seed: int = 0):
+    """(words (nb * block_sub, 128) int32, tables (queries, 128) int32) of
+    batch_lab.py:298-301: h16 words (``h16_words``), then ``queries``
+    int4x8 rows (``_mk_tables``, :249-254), from default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    words = h16_words(rng, nb * block_sub)
+    # one (queries, 8, 128) draw is ``queries`` draws of (8, 128)
+    return words, np.concatenate([h16_table(rng)[0]
+                                  for _ in range(queries)])
+
+
+def dma_lab_data(total_sub: int, seed: int = 0):
+    """(words (total_sub, 128) int32, table (1, 128) f32 ones) of
+    dma_lab.py:88-92: integers(0, 2**31 - 1) as int64, cast to int32."""
+    bg = np.random.default_rng(seed).bit_generator
+    n = total_sub * LANES
+    excl = np.uint64(2**31 - 1)
+    out, got = [], 0
+    while got < n:                 # Lemire on 32-bit draws: a draw whose
+        m = _draws(bg, min(n - got + 64, _STEP_WORDS) & ~1).astype(
+            np.uint64) * excl      # remainder is below 2 is drawn again
+        m = m[(m & np.uint64(0xFFFFFFFF)) >= 2] >> np.uint64(32)
+        out.append(m[:n - got].astype(np.int32))
+        got += out[-1].size
+    return (np.concatenate(out).reshape(total_sub, LANES),
+            np.ones((1, LANES), np.float32))
+
+
+def i16_probe_data(nb: int, sub32: int, seed: int = 0):
+    """(w32 (nb * sub32, 128) int32, w16 (2 * nb * sub32, 128) int16,
+    t32 (8, 128) int32, t16 (16, 128) int16) of i16_probe.py:119-125."""
+    rng = np.random.default_rng(seed)
+    bg = rng.bit_generator
+    n = nb * sub32 * LANES
+    w32 = (_draws(bg, n) >> 12).view(np.int32).reshape(-1, LANES)
+    w16 = (_draws(bg, n).view(np.uint16) >> 2).view(np.int16).reshape(
+        -1, LANES)
+    t32 = rng.integers(-8, 8, size=(8, LANES), dtype=np.int32)
+    t16 = rng.integers(-8, 8, size=(16, LANES), dtype=np.int16)
+    return w32, w16, t32, t16
+
+
+def mxu_lab_data(reps: int, queries: int, columns: int = 1024,
+                 seed: int = 0):
+    """(words (reps * 8, 128) int32, tables (queries, 128) int32, tabq
+    (columns, queries) f32) of mxu_gather_lab.py:101-106."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**31 - 1, (reps * CHUNK, LANES),
+                         dtype=np.int64).astype(np.int32)
+    tab = rng.integers(-(2**31), 2**31 - 1, (queries, LANES),
+                       dtype=np.int64).astype(np.int32)
+    tabq = rng.standard_normal((columns, queries)).astype(np.float32)
+    return words, tab, tabq
 
 
 CHECK_KINDS = ("integer", "real", "tiny")
@@ -295,6 +358,43 @@ def fold_plain(scores: torch.Tensor, fold: str, lane_k: int = LANE_K):
     return tv, torch.gather(t, 0, idx)
 
 
+def wrap_int(x: torch.Tensor, dtype) -> torch.Tensor:
+    """int64 ``x`` reduced to the two's complement of int32 or int16
+    ``dtype`` (what sums in that type wrap to)."""
+    bits = torch.iinfo(dtype).bits
+    x = x & ((1 << bits) - 1)
+    return torch.where(x >= 1 << (bits - 1), x - (1 << bits), x).to(dtype)
+
+
+def fast_fold_seq(values: torch.Tensor, tags: torch.Tensor):
+    """The fast fold (every minimum slot replaced when score >= minimum,
+    from LANE_K slots of -inf) of (P, ...) ``values`` with their ``tags``
+    in fold order: its LANE_K slots stay equal, each the maximum, tagged
+    with the last candidate holding it (tag 0 where there is none).
+    Returns (value, tag), each (...); values are not NaN."""
+    top = torch.cat([values, values.new_full((1, *values.shape[1:]),
+                                             NEG_INF)]).amax(0)
+    pos = torch.arange(values.shape[0], device=values.device).view(
+        -1, *([1] * (values.dim() - 1)))
+    last = torch.where(values == top, pos, -1).amax(0)
+    tag = torch.gather(tags, 0, last.clamp(min=0)[None])[0]
+    return top, torch.where(last >= 0, tag, 0).to(torch.int32)
+
+
+def merge_fast(out_v, out_t):
+    """Per-CUDA-block fast-fold buffers (nblk, ..., 128) merged as the
+    sequential fold leaves them: each slot the maximum over the blocks,
+    tagged with the largest tag holding it (a CUDA block folds its lab
+    blocks in order, and a later lab block's tags are larger)."""
+    top = out_v.amax(0)
+    return top, torch.where(out_v == top, out_t, -1).amax(0)
+
+
+def as_words32(words: torch.Tensor) -> torch.Tensor:
+    """The same bytes as (rows, 128) int32 words (K3's input)."""
+    return words.contiguous().view(torch.int32).reshape(-1, LANES)
+
+
 # ---------------------------------------------------------------- kernels
 
 def check_words(words: torch.Tensor, block_rows: int) -> int:
@@ -319,6 +419,27 @@ def check_table(table: torch.Tensor, rows: int, dtype, dev) -> None:
                          f"on {table.device}")
 
 
+def cuda_blocks(dev, nb: int, blocks=None) -> int:
+    """A lab kernel's CUDA block count: ``blocks``, or BLOCKS_PER_SM a
+    multiprocessor, at most ``nb`` (its grid-stride units)."""
+    if blocks is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = min(nb, sms * BLOCKS_PER_SM)
+    return max(1, int(blocks))
+
+
+def check_tables(tables: torch.Tensor, dev) -> int:
+    """Raise unless ``tables`` is a contiguous int32 (Q, 128) tensor on
+    ``dev`` with Q >= 1 (a query's int4x8 row each); returns Q."""
+    if tables.device != dev or tables.dtype != torch.int32 or \
+            tables.ndim != 2 or tables.shape[1] != LANES or \
+            tables.shape[0] < 1 or not tables.is_contiguous():
+        raise ValueError(f"tables: need contiguous int32 (Q, {LANES}) on "
+                         f"{dev}, got {tables.dtype} {tuple(tables.shape)} "
+                         f"on {tables.device}")
+    return tables.shape[0]
+
+
 def run_kernel(entry: str, words: torch.Tensor, nb: int, *args,
                blocks=None):
     """Launch lab kernel ``entry`` of the kernel library: C arguments
@@ -328,10 +449,7 @@ def run_kernel(entry: str, words: torch.Tensor, nb: int, *args,
     multiprocessor, at most NB; fewer make each CUDA block fold more lab
     blocks). Returns the buffers (values, tags)."""
     dev = words.device
-    if blocks is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = min(nb, sms * BLOCKS_PER_SM)
-    nblk = max(1, int(blocks))
+    nblk = cuda_blocks(dev, nb, blocks)
     out_v = torch.empty((nblk, LANE_K, LANES), dtype=torch.float32,
                         device=dev)
     out_t = torch.empty((nblk, LANE_K, LANES), dtype=torch.int32, device=dev)
@@ -398,21 +516,31 @@ def smi_line() -> str:
 
 
 def report(lab: str, variant: str, *, nb: int, words: torch.Tensor,
-           nnz_per_word: int, ms, k3_ms, merged_ms=None, **extra) -> dict:
+           nnz_per_word: int, ms, k3_ms, merged_ms=None, queries=None,
+           **extra) -> dict:
     """One report line: the sweep's ms (CUDA events; None where not
     measured, on the CPU) and its wrapper's with the per-lane merge
-    (``merged_ms``), ns per (8, 128) chunk, Gnnz/s, GB/s of words, K3's
-    ms and GB/s on the same words and the sweep's share of K3's."""
-    nbytes = words.numel() * 4
-    chunks = words.numel() // (CHUNK * LANES)
+    (``merged_ms``), ns per 4 KiB chunk (an (8, 128) int32 chunk),
+    Gnnz/s (nnz: elements times ``nnz_per_word``), GB/s of words, K3's
+    ms and GB/s on the same words and the sweep's share of K3's; with
+    ``queries``, ns per chunk per query and Gnnz/s per query (each
+    query's nnz counted)."""
+    nbytes = words.numel() * words.element_size()
+    chunks = nbytes // (CHUNK * LANES * 4)
     nnz = words.numel() * nnz_per_word
     line = dict(lab=lab, variant=variant, nb=nb, words_bytes=nbytes, ms=ms,
                 merged_ms=merged_ms, ns_per_chunk=None, gnnz_per_s=None,
                 gb_per_s=None, k3_ms=k3_ms, k3_gb_per_s=None,
                 share_of_k3=None)
+    if queries:
+        line.update(queries=queries, ns_per_chunk_per_query=None,
+                    gnnz_per_s_per_query=None)
     if ms:
         line.update(ns_per_chunk=ms * 1e6 / chunks,
                     gnnz_per_s=nnz / ms / 1e6, gb_per_s=nbytes / ms / 1e6)
+        if queries:
+            line.update(ns_per_chunk_per_query=ms * 1e6 / chunks / queries,
+                        gnnz_per_s_per_query=nnz * queries / ms / 1e6)
     if k3_ms:
         line["k3_gb_per_s"] = nbytes / k3_ms / 1e6
     if ms and k3_ms:
@@ -442,7 +570,8 @@ def parse_args(argv, variants, default, doc: str):
 
 
 def measure(lab: str, variant: str, words: torch.Tensor, nb: int,
-            nnz_per_word: int, call, kernel=None, *, k3_ms) -> dict:
+            nnz_per_word: int, call, kernel=None, *, k3_ms,
+            queries=None) -> dict:
     """The report line of one variant timed on the card (``sweep_ms``)
     beside K3's ``k3_ms`` on the same words: ``ms`` the kernel alone
     (``kernel()``, its launch without the merge; where None, ``call()``),
@@ -450,31 +579,37 @@ def measure(lab: str, variant: str, words: torch.Tensor, nb: int,
     merged = sweep_ms(call)
     ms = sweep_ms(kernel) if kernel is not None else merged
     return report(lab, variant, nb=nb, words=words, nnz_per_word=nnz_per_word,
-                  ms=ms, merged_ms=merged, k3_ms=k3_ms,
+                  ms=ms, merged_ms=merged, k3_ms=k3_ms, queries=queries,
                   device=torch.cuda.get_device_name(words.device))
 
 
-def drive(lab: str, names, words: torch.Tensor, nb: int, nnz_per_word: int,
-          call, kernel) -> list:
-    """Run each variant ``call(name)`` on ``words``; on the card time it
-    and its kernel alone, ``kernel(name)`` (``measure``), beside K3 on
-    the same words. Print and return one report line per variant, with
-    its largest kept value (on the CPU: untimed)."""
-    cuda = words.device.type == "cuda"
+def drive(lab: str, names, words, nb: int, nnz_per_word: int,
+          call, kernel, queries=None) -> list:
+    """Run each variant ``call(name)``; on the card time it and its kernel
+    alone, ``kernel(name)`` (``measure``), beside K3 on the same words.
+    ``words``: the words, or name -> the variant's words (K3 on each
+    variant's own bytes). Print and return one report line per variant,
+    with its largest finite result (on the CPU: untimed)."""
+    of = words if isinstance(words, dict) else dict.fromkeys(names, words)
+    cuda = next(iter(of.values())).device.type == "cuda"
     if cuda:
         print(smi_line(), flush=True)
-    k3 = stream_ms(words) if cuda else None
+    k3 = {}
     lines = []
     for name in names:
+        w = of[name]
         if cuda:
-            line = measure(lab, name, words, nb, nnz_per_word,
+            if w.data_ptr() not in k3:
+                k3[w.data_ptr()] = stream_ms(as_words32(w))
+            line = measure(lab, name, w, nb, nnz_per_word,
                            lambda: call(name), lambda: kernel(name),
-                           k3_ms=k3)
+                           k3_ms=k3[w.data_ptr()], queries=queries)
         else:
-            line = report(lab, name, nb=nb, words=words,
+            line = report(lab, name, nb=nb, words=w,
                           nnz_per_word=nnz_per_word, ms=None, k3_ms=None,
-                          device="cpu")
-        tv, _ = call(name)
+                          queries=queries, device="cpu")
+        out = call(name)
+        tv = (out[0] if isinstance(out, tuple) else out).float()
         best = tv[torch.isfinite(tv)]
         line["max_kept"] = float(best.max()) if best.numel() else None
         print(json.dumps(line), flush=True)

@@ -37,7 +37,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # flush float denormals to zero, as the TPU does, and round each multiply
 # and add apart, as their plain versions do (csrc/lab_common.cuh)
 SOURCE_FLAGS = {f"lab_{name}.cu": ["-ftz=true", "-fmad=false"]
-                for name in ("kernel", "fused", "h16", "fold")}
+                for name in ("kernel", "fused", "h16", "fold", "dma")}
+
+# sources whose object the build keeps beside the library, for
+# ``sass_report`` (a dump of one unit takes a second, of the library a
+# minute)
+SASS_SOURCES = ("lab_batch.cu", "lab_i16.cu", "lab_mxu.cu")
 
 _LIB = None
 build_seconds = None   # wall seconds of the nvcc build in this process
@@ -64,6 +69,11 @@ _SIGNATURES = {
     "lab_fused": [_vp] * 3 + [_i32] * 6 + [_vp] * 3,
     "lab_h16": [_vp] * 2 + [_i32] * 5 + [_vp] * 3,
     "lab_fold": [_vp] * 2 + [_i32] * 6 + [_vp] * 3,
+    "lab_batch": [_vp] * 2 + [_i32] * 6 + [_vp] * 3,
+    "lab_dma": [_vp] * 2 + [_i32] * 4 + [_vp] * 2,
+    "lab_dma_reduce": [_vp, _i32, _vp, _vp],
+    "lab_i16": [_vp] * 2 + [_i32] * 4 + [_vp] * 2,
+    "lab_mxu": [_vp] * 2 + [_i32] * 3 + [_vp] * 2,
 }
 
 
@@ -151,6 +161,9 @@ def _build(path: str) -> None:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
+        for src, obj in zip(srcs, objs):
+            if os.path.basename(src) in SASS_SOURCES:
+                os.replace(obj, object_path(path, os.path.basename(src)))
     finally:
         for obj in objs:
             if os.path.exists(obj):
@@ -195,6 +208,47 @@ def ptxas_report() -> dict:
                            timeout=60).stdout.splitlines()
     return {_kernel_name(d): (regs, spill)
             for d, (_, regs, spill) in zip(names, entries, strict=True)}
+
+
+def object_path(library: str, source: str) -> str:
+    """Where a build keeps the object of ``source`` (SASS_SOURCES)."""
+    return f"{library}.{source}.o"
+
+
+def sass_report(source: str, match: str = "") -> dict:
+    """{kernel<template args>: {opcode: count}} of the kernels of
+    ``source`` (one of SASS_SOURCES, whose object the build keeps) whose
+    name contains ``match``, from the toolkit's ``cuobjdump -sass``: an
+    opcode with its modifiers, predicates dropped; the key "total" counts
+    every instruction."""
+    lib()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", object_path(library_path(),
+                                                      source)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    mangled, counts, cur = [], [], None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = None
+            if match in m.group(1):
+                mangled.append(m.group(1))
+                counts.append({"total": 0})
+                cur = counts[-1]
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if m and cur is not None:
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+            cur["total"] += 1
+    if not mangled:
+        return {}
+    cufilt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    names = subprocess.run([cufilt, *mangled], capture_output=True,
+                           text=True, check=True, timeout=60).stdout
+    return {_kernel_name(d): c
+            for d, c in zip(names.splitlines(), counts, strict=True)}
 
 
 def check(err: int, name: str) -> None:

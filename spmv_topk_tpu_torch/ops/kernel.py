@@ -320,7 +320,13 @@ def _octet_topk_one(words, table, nreal, plan_rows, *, lane_k: int,
 def _harvest(sc, dim: int, rounds: int):
     """Yield ``rounds`` times the maximum along ``dim`` and the lowest
     index holding it, masking that entry to -inf each time (the JAX
-    kernels' max / first-argmax fold). Both keep ``dim`` with size 1."""
+    kernels' max / first-argmax fold). Both keep ``dim`` with size 1.
+
+    As in the JAX kernels (``jnp.max``), a NaN score makes the maximum
+    NaN: no index holds it (the index is the size of ``dim``), nothing is
+    masked, and every round of that tile yields NaN, which the buffers
+    never admit (``_merge_with_init``), so a NaN keeps the tile's other
+    scores out of the harvest too."""
     n = sc.shape[dim]
     shape = [1] * sc.dim()
     shape[dim] = n
@@ -334,7 +340,12 @@ def _harvest(sc, dim: int, rounds: int):
 
 def _merge_with_init(cand_v, cand_t, lane_k, tie_safe, dev):
     """Per-lane top-``lane_k`` of the candidates and the buffers' initial
-    entries (-inf when ``tie_safe``, else ``topk_init``'s sentinels)."""
+    entries (-inf when ``tie_safe``, else ``topk_init``'s sentinels). A
+    NaN candidate never enters, as in the kernels' argmin replacement
+    (``score >= minimum`` is false): it counts as -inf, below every
+    sentinel, and where it ties a -inf slot only that slot's tag (loose
+    at -inf anyway) can differ."""
+    cand_v = [torch.where(torch.isnan(v), NEG_INF, v) for v in cand_v]
     if tie_safe:
         init = torch.full((lane_k, LANES), NEG_INF, device=dev)
     else:

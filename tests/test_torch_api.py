@@ -260,7 +260,9 @@ def test_import_leaves_jax_out():
             "'formats.mtx', 'topk.merge', 'eval.metrics', "
             "'eval.accuracy_model', 'utils.native', 'experiments._common', "
             "'experiments.kernel_lab', 'experiments.fused_lab', "
-            "'experiments.h16_lab', 'experiments.fold_lab')}; "
+            "'experiments.h16_lab', 'experiments.fold_lab', "
+            "'experiments.batch_lab', 'experiments.dma_lab', "
+            "'experiments.i16_probe', 'experiments.mxu_gather_lab')}; "
             "assert want <= set(mods), sorted(want - set(mods)); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'spmv_topk_tpu' or "

@@ -1233,6 +1233,88 @@ def test_bucket_wrappers_refuse_bad_inputs(gpu, bucket_packs):
             num_groups=1, **tk)
 
 
+# ------------------------------------------------ a slice that scores NaN
+# The kernels never admit a NaN score, and a NaN member of an octet or a
+# sub-tile keeps that harvest's other members out, as the JAX kernels'
+# jnp.max does; the plain versions follow both (tests/test_torch_kernel.py
+# holds them to the interpret-mode JAX kernels on the same stream). Here
+# the kernels against the plain versions on that stream: integer-valued
+# data with query entries NaN, +inf and -inf read by a few rows only.
+
+NAN_COLS = (1021, 1022, 1023)
+NAN_BASE = dict(k=100, lane_k=8, max_cols=1024, query_codec="f32",
+                width_quantum=2, tie_safe_topk=True, block_sublanes=64,
+                fused_block_sublanes=128, batch_subgroup=2)
+
+
+def _nan_corpus(rows=1200, seed=5):
+    """tests/test_torch_kernel.py::nan_corpus as a CooMatrix."""
+    from spmv_topk_tpu_torch.formats import CooMatrix
+
+    coo = create_sparse_matrix(rows, 1024, 20, "gamma", seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    cols = np.where(coo.cols >= NAN_COLS[0], coo.cols - 3, coo.cols)
+    vals = rng.integers(-8, 9, coo.nnz).astype(np.float32)
+    picked = rng.choice(rows, 40, replace=False)
+    extra = ([(r, NAN_COLS[0]) for r in picked[:12]]
+             + [(r, c) for r in picked[12:24] for c in NAN_COLS[1:]]
+             + [(r, NAN_COLS[1]) for r in picked[24:32]]
+             + [(r, NAN_COLS[2]) for r in picked[32:]])
+    er, ec = (np.array(x, np.int32) for x in zip(*extra))
+    r = np.concatenate([coo.rows, er])
+    c = np.concatenate([cols, ec])
+    v = np.concatenate([vals, np.full(len(er), 2.0, np.float32)])
+    order = np.lexsort((c, r))
+    return CooMatrix(r[order], c[order], v[order], rows, 1024)
+
+
+def _nan_tables(num):
+    q = np.random.default_rng(9).integers(-4, 5, (num, 1024)).astype(
+        np.float32)
+    q[:, NAN_COLS[0]] = np.nan
+    q[:, NAN_COLS[1]] = np.inf
+    q[:, NAN_COLS[2]] = -np.inf
+    return q.reshape(num, 8, 128)
+
+
+@pytest.mark.parametrize("layout,fold", [("octet", 8), ("octet", 1),
+                                         ("slice", 8), ("slice", 1)])
+def test_kernels_rank_nan_as_plain(gpu, layout, fold):
+    from spmv_topk_tpu_torch.formats.sell_buckets import (
+        fuse_buckets, fuse_buckets_octet, pack_sell_buckets)
+
+    cfg = pt.TopKSpMVConfig(**dict(NAN_BASE, fused_layout=layout,
+                                   fold_tile=fold))
+    octet = layout == "octet"
+    f = (fuse_buckets_octet if octet else fuse_buckets)(
+        pack_sell_buckets(_nan_corpus(), cfg), block_sublanes=128)
+    rows = (pkernel.octet_plan_rows(f.plan, f.num_blocks) if octet else
+            pkernel.slice_plan_rows(f.plan, f.num_blocks, f.nreal, 128))
+    words, nreal, rows = (torch.from_numpy(a).to(gpu)
+                          for a in (f.words, f.nreal, rows))
+    tabs = torch.from_numpy(_nan_tables(3)).to(gpu)
+    single = (pkernel.topk_spmv_fused_octet_device if octet
+              else pkernel.topk_spmv_fused_device)
+    batch = (pkernel.topk_spmv_fused_batch_octet_device if octet
+             else pkernel.topk_spmv_fused_batch_device)
+    kw = dict(lane_k=8, tie_safe=True, block_sublanes=128, codec="f32")
+    kv, kt = single(words, tabs[0], nreal, rows, cfg=cfg, block_sublanes=128)
+    pv, pt_ = (pkernel.octet_topk_plain if octet else
+               pkernel.slice_topk_plain)(words, tabs[0], nreal, rows,
+                                         fold_tile=fold, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(kv).any() and (kv == np.inf).any()
+    _lanes_equal(kv, kt, pv, pt_)
+    bv, bt = batch(words, tabs, nreal, rows, cfg=cfg, block_sublanes=128)
+    if octet:
+        kw["fold_tile"] = fold
+    qv, qt = (pkernel.octet_topk_batch_plain if octet else
+              pkernel.slice_topk_batch_plain)(words, tabs, nreal, rows, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(bv).any()
+    _pools_equal(bv, bt, qv, qt)
+
+
 # ---------------------------------------------------------------- the labs
 # The measurement labs' kernels (csrc/lab_*.cu) against their plain
 # versions on the labs' own random words (NaN, inf and denormal values,
@@ -1401,3 +1483,134 @@ def test_lab_wrappers_refuse_bad_inputs(gpu):
                                      variant="int8", **kw)
     with pytest.raises(ValueError, match="words"):
         h16_lab.h16_lab_device(words[:-8], tabs["h16"], variant="cur", **kw)
+
+
+# --------------------------------------------------- the labs L1, L2, L6, L8
+# batch_lab, dma_lab, i16_probe and mxu_gather_lab: each kernel against its
+# plain version, bit for bit (integer sums; dma_lab's float sum in the
+# kernel's order of its CUDA blocks), on the labs' own data and for
+# dma_lab on check values, in two geometries and on 3 CUDA blocks.
+
+from spmv_topk_tpu_torch.experiments import (batch_lab, dma_lab,  # noqa: E402
+                                             i16_probe, mxu_gather_lab)
+
+BATCH_GEOMS = {"w16": dict(W=16, SPB=64, NB=20, Q=16),
+               "w8": dict(W=8, SPB=9, NB=50, Q=4),
+               "strided": dict(W=24, SPB=12, NB=30, Q=16, blocks=3)}
+
+
+@pytest.mark.parametrize("geom", list(BATCH_GEOMS))
+@pytest.mark.parametrize("variant", list(batch_lab.VARIANTS))
+def test_batch_lab_matches_plain(gpu, variant, geom):
+    """Values and tags equal slot for slot: the merge keeps the last slice
+    holding each query's maximum, as the sequential fold does."""
+    g = BATCH_GEOMS[geom]
+    words, tables = (torch.from_numpy(a).to(gpu) for a in
+                     lab_data.batch_lab_data(g["NB"], g["W"] * g["SPB"],
+                                             g["Q"], seed=11))
+    kw = dict(variant=variant, W=g["W"], SPB=g["SPB"])
+    before = batch_lab.batch_lab_device.launches
+    kv, kt = batch_lab.batch_lab_device(words, tables,
+                                        blocks=g.get("blocks"), **kw)
+    assert batch_lab.batch_lab_device.launches == before + 1
+    pv, pt_ = batch_lab.batch_lab_plain(words, tables, **kw)
+    torch.cuda.synchronize()
+    assert kv.shape == (g["Q"], 8, 128)
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    assert torch.isfinite(kv[0]).all()
+
+
+DMA_GEOMS = {"default": dict(total=4 * 8192), "strided": dict(
+    total=2 * 8192, blocks=3)}
+
+
+@pytest.mark.parametrize("data", LAB_DATA)
+@pytest.mark.parametrize("geom", list(DMA_GEOMS))
+@pytest.mark.parametrize("case", dma_lab.CASES,
+                         ids=[dma_lab.name(*c) for c in dma_lab.CASES])
+def test_dma_lab_matches_plain(gpu, case, geom, data):
+    g = DMA_GEOMS[geom]
+    words, table = lab_data.dma_lab_data(g["total"], seed=12)
+    if data != "lab":
+        words, table = dma_lab.check_data(data, words, seed=13)
+    words, table = (torch.from_numpy(a).to(gpu) for a in (words, table))
+    bs, t = case
+    nblk = lab_data.cuda_blocks(gpu, g["total"] // bs, g.get("blocks"))
+    before = dma_lab.dma_lab_device.launches
+    got = dma_lab.dma_lab_device(words, table, bs=bs, t=t,
+                                 blocks=g.get("blocks"))
+    assert dma_lab.dma_lab_device.launches == before + 1
+    part = dma_lab.dma_lab_device(words, table, bs=bs, t=t,
+                                  blocks=g.get("blocks"), unmerged=True)
+    want = dma_lab.dma_lab_plain(words, table, bs=bs, t=t, blocks=nblk)
+    torch.cuda.synchronize()
+    assert part.shape == (nblk, 8, 128)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if data != "lab":
+        assert torch.isfinite(got).all()
+
+
+I16_GEOMS = {"small": dict(NB=8, SUB32=64),
+             "strided": dict(NB=20, SUB32=32, blocks=3)}
+
+
+@pytest.mark.parametrize("geom", list(I16_GEOMS))
+@pytest.mark.parametrize("variant", i16_probe.VARIANTS)
+def test_i16_probe_matches_plain(gpu, variant, geom):
+    g = I16_GEOMS[geom]
+    w32, w16, t32, t16 = (torch.from_numpy(a).to(gpu) for a in
+                          lab_data.i16_probe_data(g["NB"], g["SUB32"],
+                                                  seed=14))
+    words, table = (w32, t32) if "32" in variant else (w16, t16)
+    salt = (torch.arange(128, device=gpu) * 37 - 2000).to(
+        words.dtype).reshape(1, 128)
+    kw = dict(variant=variant, sub32=g["SUB32"])
+    before = i16_probe.i16_probe_device.launches
+    got = i16_probe.i16_probe_device(words, table, salt,
+                                     blocks=g.get("blocks"), **kw)
+    assert i16_probe.i16_probe_device.launches == before + 1
+    want = i16_probe.i16_probe_plain(words, table, salt, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == words.dtype and torch.equal(got, want)
+
+
+MXU_GEOMS = {"lab": dict(REPS=32, Q=16), "strided": dict(REPS=64, Q=4,
+                                                          blocks=3)}
+
+
+@pytest.mark.parametrize("geom", list(MXU_GEOMS))
+def test_mxu_gather_lab_matches_plain(gpu, geom):
+    g = MXU_GEOMS[geom]
+    words, tables, tabq = (torch.from_numpy(a).to(gpu) for a in
+                           lab_data.mxu_lab_data(g["REPS"], g["Q"], seed=15))
+    before = mxu_gather_lab.mxu_vpu_device.launches
+    got = mxu_gather_lab.mxu_vpu_device(words, tables, blocks=g.get("blocks"))
+    assert mxu_gather_lab.mxu_vpu_device.launches == before + 1
+    want = mxu_gather_lab.mxu_vpu_plain(words, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the one-hot arm: plain torch on either device, one nonzero product
+    # an output, so the card's matmul equals the CPU's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    oh = mxu_gather_lab.mxu_onehot(words, tabq)
+    np.testing.assert_array_equal(
+        oh.cpu().numpy(),
+        mxu_gather_lab.mxu_onehot(words.cpu(), tabq.cpu()).numpy())
+
+
+def test_labs2_wrappers_refuse_bad_inputs(gpu):
+    words, tables = (torch.from_numpy(a).to(gpu) for a in
+                     lab_data.batch_lab_data(2, 16 * 8, 3, seed=1))
+    with pytest.raises(ValueError, match="Q=3"):
+        batch_lab.batch_lab_device(words, tables, variant="cur", W=16, SPB=8)
+    with pytest.raises(ValueError, match="tables"):
+        batch_lab.batch_lab_device(words, tables.float(), variant="cur",
+                                   W=16, SPB=8)
+    with pytest.raises(ValueError, match="BS"):
+        dma_lab.dma_lab_device(words, torch.ones((1, 128), device=gpu),
+                               bs=1024, t=3)
+    with pytest.raises(ValueError, match="words"):
+        i16_probe.i16_probe_device(words, words[:8], words[:1],
+                                   variant="s16")
+    with pytest.raises(ValueError, match="Q=3"):
+        mxu_gather_lab.mxu_vpu_device(words, tables)

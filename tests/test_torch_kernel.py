@@ -10,6 +10,11 @@ kernels run in interpret mode on the CPU.
     candidates takes that last slot).
   - K3 (stream probe): exact int32 wraparound sums.
   - finalize_topk and the h16 decode: exact.
+  - the plain single and batch sweeps of both layouts (K1, K6, K7, K8)
+    on a stream where a few slices score NaN (and +inf, -inf), against
+    the interpret-mode kernels: integer-valued f32 data, so values are
+    bit-equal, pairs equal above each lane's floor (the section at the
+    end).
 
 The JAX results are computed once per module (interpret-mode compiles
 dominate the suite's time).
@@ -259,3 +264,126 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
         "octet_scores_kernel": (32, 0),
         "slice_topk_kernel<H16,8,1>": (40, 0),
         "slice_topk_batch_kernel<F32Batch,4,2,0>": (64, 8)}
+
+
+# ------------------------------------------------ a slice that scores NaN
+# The JAX kernels never admit a NaN score (``score >= minimum`` is false),
+# and a NaN member makes a harvest's ``jnp.max`` NaN, which keeps the other
+# members of that octet or sub-tile out of that round. The plain sweeps of
+# both layouts, single and batch, are held to the interpret-mode kernels on
+# a stream where a few rows read a query entry that is NaN, or +inf and
+# -inf (their slice scores NaN in that lane), or only one of the infinities
+# (+inf or -inf scores). Integer-valued data: every finite sum exact, so
+# values are bit-equal; (value, tag) pairs above each lane's floor equal.
+
+NAN_COLS = (1021, 1022, 1023)        # query NaN, +inf, -inf
+NAN_BASE = dict(k=100, lane_k=8, max_cols=1024, query_codec="f32",
+                width_quantum=2, tie_safe_topk=True, block_sublanes=64,
+                fused_block_sublanes=128, batch_subgroup=2)
+NAN_CASES = {"octet_fold8": dict(NAN_BASE, fused_layout="octet", fold_tile=8),
+             "octet_fold1": dict(NAN_BASE, fused_layout="octet", fold_tile=1),
+             "slice_fold8": dict(NAN_BASE, fused_layout="slice", fold_tile=8)}
+
+
+def nan_corpus(rows=1200, seed=5):
+    """(rows, cols, vals, num_rows, num_cols) of an integer-valued gamma
+    corpus whose columns NAN_COLS are read only by chosen rows: rows
+    reading the NaN column, both infinities, +inf only and -inf only."""
+    coo = create_sparse_matrix(rows, 1024, 20, "gamma", seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    cols = np.where(coo.cols >= NAN_COLS[0], coo.cols - 3, coo.cols)
+    vals = rng.integers(-8, 9, coo.nnz).astype(np.float32)
+    picked = rng.choice(rows, 40, replace=False)
+    extra = ([(r, NAN_COLS[0]) for r in picked[:12]]
+             + [(r, c) for r in picked[12:24] for c in NAN_COLS[1:]]
+             + [(r, NAN_COLS[1]) for r in picked[24:32]]
+             + [(r, NAN_COLS[2]) for r in picked[32:]])
+    er, ec = (np.array(x, np.int32) for x in zip(*extra))
+    r = np.concatenate([coo.rows, er])
+    c = np.concatenate([cols, ec])
+    v = np.concatenate([vals, np.full(len(er), 2.0, np.float32)])
+    order = np.lexsort((c, r))
+    return r[order], c[order], v[order], rows, 1024
+
+
+def nan_tables(num):
+    """(num, 8, 128) f32 query tables of small integers with NAN_COLS set
+    to NaN, +inf and -inf."""
+    q = np.random.default_rng(9).integers(-4, 5, (num, 1024)).astype(
+        np.float32)
+    q[:, NAN_COLS[0]] = np.nan
+    q[:, NAN_COLS[1]] = np.inf
+    q[:, NAN_COLS[2]] = -np.inf
+    return q.reshape(num, 8, 128)
+
+
+@pytest.fixture(scope="module")
+def nan_ref():
+    from spmv_topk_tpu.formats import CooMatrix as JCoo
+    from spmv_topk_tpu.formats.sell_buckets import fuse_buckets as jfuse_slice
+
+    coo = JCoo(*nan_corpus())
+    tabs = nan_tables(2)
+    out = {}
+    for name, kw in NAN_CASES.items():
+        cfg = jcfg.TopKSpMVConfig(**kw)
+        octet = kw["fused_layout"] == "octet"
+        f = (jfuse if octet else jfuse_slice)(jpack(coo, cfg),
+                                              block_sublanes=128)
+        args = (jnp.asarray(f.words), jnp.asarray(tabs[0]),
+                jnp.asarray(f.nreal))
+        kw_j = dict(cfg=cfg, plan=f.plan, block_sublanes=128,
+                    num_blocks=f.num_blocks, interpret=True, codec="f32")
+        single = (jkernel.topk_spmv_fused_octet_device if octet
+                  else jkernel.topk_spmv_fused_device)(*args, **kw_j)
+        batch = (jkernel.topk_spmv_fused_batch_octet_device if octet
+                 else jkernel.topk_spmv_fused_batch_device)(
+            args[0], jnp.asarray(tabs), args[2], **kw_j)
+        out[name] = (f, tuple(map(np.asarray, single)),
+                     tuple(map(np.asarray, batch)))
+    return tabs, out
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["single", "batch"])
+@pytest.mark.parametrize("case", list(NAN_CASES))
+def test_plain_sweeps_rank_nan_as_the_kernels(nan_ref, case, batch):
+    tabs, out = nan_ref
+    f, single, multi = out[case]
+    kw = NAN_CASES[case]
+    octet = kw["fused_layout"] == "octet"
+    words, nreal = torch.from_numpy(f.words), torch.from_numpy(f.nreal)
+    if octet:
+        rows = torch.from_numpy(pkernel.octet_plan_rows(f.plan,
+                                                        f.num_blocks))
+        scores = pkernel.octet_scores_plain(
+            words, torch.from_numpy(tabs[0]), nreal, rows,
+            num_slices=int(f.nreal.sum()) + 1, block_sublanes=128,
+            codec="f32")
+    else:
+        rows = torch.from_numpy(pkernel.slice_plan_rows(
+            f.plan, f.num_blocks, f.nreal, 128))
+        scores = pkernel.slice_scores_plain(
+            words, torch.from_numpy(tabs[0]), nreal, rows,
+            num_slices=int(f.nreal.sum()) + 1, block_sublanes=128,
+            codec="f32")
+    # the stream has NaN, +inf and -inf slice scores, each in a few lanes
+    assert 0 < int(torch.isnan(scores).sum()) < 40
+    assert (scores == np.inf).any() and (scores == -np.inf).any()
+    plain_kw = dict(lane_k=8, tie_safe=True, block_sublanes=128, codec="f32")
+    if batch:
+        fn = (pkernel.octet_topk_batch_plain if octet
+              else pkernel.slice_topk_batch_plain)
+        if octet:
+            plain_kw["fold_tile"] = kw["fold_tile"]
+        pv, pt_ = fn(words, torch.from_numpy(tabs), nreal, rows, **plain_kw)
+        jv, jt_ = multi
+    else:
+        fn = pkernel.octet_topk_plain if octet else pkernel.slice_topk_plain
+        pv, pt_ = fn(words, torch.from_numpy(tabs[0]), nreal, rows,
+                     fold_tile=kw["fold_tile"], **plain_kw)
+        pv, pt_, jv, jt_ = pv[None], pt_[None], single[0][None], \
+            single[1][None]
+    assert not torch.isnan(pv).any()
+    assert (pv == np.inf).any()
+    for q in range(pv.shape[0]):
+        _assert_lanes_match(jv[q], jt_[q], pv[q].numpy(), pt_[q].numpy())
