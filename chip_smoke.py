@@ -102,7 +102,24 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      the same words, each kernel alone and with its wrapper's merge, and
      checks each against its plain version at that size (kernel_lab,
      fused_lab and dma_lab on the words with real values);
- 14. the launch counts of each path's run (counts set to 0 just before
+ 14. the dense engine (``DenseTopKSpMV``; ``dense``): at 50k rows each
+     dtype's densify on the card against the NumPy densify and its
+     query_batch against its plain products (int8 bit for bit, bf16 to
+     rtol 1e-5); on the 10M corpus int8 under ``bench.py``'s 12 GiB
+     budget (which refuses bf16) and bf16 under the card's own, raw
+     batches of 64 and 256, ms a query and precision@100;
+ 15. the sharded engines on positions of the one card (``sharded_*``):
+     the octet h16 headline at D = 1 (held to ``TopKSpMV``'s answers) and
+     D = 4 (held to D = 1's; saved, loaded, held to itself), the default
+     slice f32 engine at D = 1 (held to ``TopKSpMV``) and D = 4, c3's
+     i8s and the headline with i4s at num_partitions = 2 (K10a-d held to
+     and timed against their plain versions; c3 over an NCCL group of one
+     process with ``exchange_skeleton=True``); ``sharded_dense``: int8 at
+     D = 1 and 4, held to ``DenseTopKSpMV``;
+ 16. ``pack16_lab``: L9's six cases bit for bit against their plain
+     versions, then the lab's own timing run; ``sass`` holds each case's
+     512 rounds of every chain;
+ 17. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
 Then the kernel summary (each kernel's time, its plain version's, the
@@ -440,6 +457,7 @@ def phase_main(dev):
     topk_spmv_fused_octet_device.launches = 0
     stream_words_device.launches = 0
     prec, prec_raw, e2e_ms, sweep_ms, single = [], [], [], [], []
+    svals = []
     for j in range(NUM_QUERIES):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -448,6 +466,7 @@ def phase_main(dev):
         e2e_ms.append((time.perf_counter() - t0) * 1e3)
         idx = idx.cpu().numpy()
         single.append(idx)
+        svals.append(vals.cpu().numpy())
         require(idx.shape == (cfg.k,) and (idx >= 0).all()
                 and np.isfinite(vals.cpu().numpy()).all(),
                 "query returns k valid rows with finite scores")
@@ -490,6 +509,7 @@ def phase_main(dev):
     emit(res)
     require(res["precision_at_100_mean"] >= MIN_PRECISION,
             f"mean precision@100 >= {MIN_PRECISION}")
+    res["_answers"] = (single, svals)     # the sharded phase's reference
     return coo, eng, qs, res, gold, single
 
 
@@ -1080,6 +1100,7 @@ def phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
         require(res[key] >= floor, f"{name} path {key} >= {floor}")
     for kname, n in launches.items():
         require(n > 0, f"the {name} path launched {kname}")
+    res["_answers"] = (single, svals)     # the sharded phase's reference
     del eng
     torch.cuda.empty_cache()
     return res
@@ -2441,8 +2462,582 @@ def phase_sass():
     for k in ("lab_batch_sweep_opcodes", "lab_i16_sweep_opcodes",
               "lab_mxu_sweep_opcodes"):
         out.pop(k)
+    out["lab_pack16"] = _pack16_sass()
     emit(out)
     return out
+
+
+# ------------------------------------------------------------ L9 pack16_lab
+
+PACK16_DEFAULT = "f32_8"
+PACK16_NO_LIBRARY = ("none: no PyTorch call runs the lab's chain as one "
+                     "operation")
+
+
+def _bits(t):
+    """A tile's bit pattern (NaN-safe equality)."""
+    import torch
+
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32)
+
+
+def phase_pack16(dev):
+    """L9 (pack16_lab): each of the lab's six cases held to its plain
+    version bit for bit, on the lab's tile and on x + 3 (the float chains
+    run to inf and NaN, the integer ones wrap), then the lab's own run
+    (``pack16_lab.main``: the slope of 12 against 2 chained calls on x +
+    i, each case; the path, its launches counted from 0), each case's
+    plain version timed beside it."""
+    import torch
+
+    from spmv_topk_tpu_torch.experiments import pack16_lab as L
+
+    data = L.pack16_data()
+    for name in L.NAMES:
+        x = data[name].to(dev)
+        for xi in (x, x + 3):
+            got, want = L.pack16_device(xi), L.pack16_plain(xi)
+            torch.cuda.synchronize()
+            require(got.dtype == want.dtype and
+                    torch.equal(_bits(got), _bits(want)),
+                    f"L9 {name}: kernel equals its plain version bit for bit")
+    L.pack16_device.launches = 0
+    lines = L.main([])
+    torch.cuda.synchronize()
+    launches = L.pack16_device.launches
+    cases = {}
+    for line in lines:
+        x = data[line["case"]].to(dev)
+        cases[line["case"]] = dict(line, max_abs_err=0.0, plain_ms=cuda_ms(
+            lambda x=x: L.pack16_plain(x), reps=3))
+    res = dict(phase="pack16_lab", cases=cases,
+               launches=dict(lab_pack16=launches), nvidia_smi=smi_line())
+    emit(res)
+    require(launches > 0, "the pack16_lab path launched lab_pack16")
+    return res
+
+
+def pack16_entry(p16):
+    """L9's entry of the kernels line: the f32 (8,128) case's numbers,
+    every case nested under ``variants``."""
+    where = dict(route="cuda",
+                 source="spmv_topk_tpu_torch/csrc/lab_pack16.cu",
+                 replaces="experiments/pack16_lab.py:46")
+
+    def keys(r):
+        return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=None,
+                    telem_op_per_s=r["telem_op_per_s"],
+                    cyc_per_op=r["cyc_per_op"],
+                    sm_clock_hz=r["sm_clock_hz"],
+                    rate_source=r["rate_source"])
+
+    cases = p16["cases"]
+    return dict(name="lab_pack16", **where,
+                launches=p16["launches"]["lab_pack16"],
+                **keys(cases[PACK16_DEFAULT]),
+                library_calls=PACK16_NO_LIBRARY,
+                default_variant=PACK16_DEFAULT,
+                variants={n: dict(name=f"lab_pack16/{n}", **where, **keys(r))
+                          for n, r in cases.items()})
+
+
+def _pack16_sass():
+    """What nvcc made of L9: per kernel the chain's arithmetic
+    instructions, required to hold the lab's 512 rounds of every chain
+    (a float multiply and add each; an integer multiply-add may fuse into
+    one IMAD)."""
+    from spmv_topk_tpu_torch.ops import _build
+
+    rep = _build.sass_report("lab_pack16.cu", "lab_pack16")
+    out = {}
+    for kern, c in rep.items():
+        sub = int(kern.rsplit(",", 1)[-1].split("<")[-1].rstrip(">"))
+        if "bf16" in kern:
+            arith = sum(n for op, n in c.items()
+                        if op.split(".")[0] in ("HMUL2", "HADD2", "HFMA2"))
+            need = 2 * 512 * sub // 2        # bf16x2: two elements a chain
+        elif "f32" in kern:
+            arith = c.get("FMUL", 0) + c.get("FADD", 0)
+            need = 2 * 512 * sub
+        else:
+            arith = sum(n for op, n in c.items()
+                        if op.split(".")[0] in ("IMAD", "IADD3", "IMUL"))
+            need = 512 * sub
+        out[kern] = dict(total=c["total"], chain_ops=arith, need=need,
+                         top=sorted(((op, n) for op, n in c.items()
+                                     if op != "total"),
+                                    key=lambda x: -x[1])[:6])
+        require(arith >= need, f"{kern}: the SASS holds the lab's 512 "
+                f"rounds ({arith} chain instructions, {need} needed)")
+    require(len(out) == 6, f"six L9 kernels in the SASS, got {list(out)}")
+    return out
+
+
+# ------------------------------------------------------------ dense engine
+
+DENSE_BUDGET = 12 << 30         # bench.py:405-409's hbm_budget_bytes
+DENSE_QUERIES = (64, 256)       # bench.py's raw batches
+DENSE_SEED = 9
+DENSE_SMALL_ROWS = 50_000
+# a sanity floor of the raw dense precision@100 against the exact top 100
+# (int8 and bf16 values; the selection is exact)
+MIN_PRECISION_DENSE = 0.8
+
+
+def _dense_rows_agree(bi, bv, pi, pv, rtol, what):
+    """Values equal (bit for bit, or to rtol with atol 1e-6) and the same
+    rows above each query's k-th value (less the margin)."""
+    bi, bv, pi, pv = (x.cpu().numpy() for x in (bi, bv, pi, pv))
+    if rtol:
+        require(np.allclose(bv, pv, rtol=rtol, atol=1e-6),
+                f"{what}: values equal to rtol {rtol}")
+    else:
+        require(np.array_equal(bv, pv), f"{what}: values bit for bit")
+    for j in range(len(bi)):
+        kth = pv[j, -1] + rtol * abs(pv[j, -1]) + (1e-6 if rtol else 0)
+        require(set(bi[j][bv[j] > kth].tolist()) ==
+                set(pi[j][pv[j] > kth].tolist()),
+                f"{what}: query {j}'s rows above the k-th value")
+    return float(np.abs(bv - pv).max())
+
+
+def _dense_small(dev):
+    """The dense engine on a 50k-row corpus, each dtype: the card's
+    densify bit for bit the NumPy densify's, and query_batch of 64 raw
+    queries against its plain products (``dense_topk_batch(plain=True)``:
+    exact float64 integer sums; float32 of the bf16 values, TF32 off):
+    int8 bit for bit, bf16 to rtol 1e-5 (the same exact products, added in
+    another order), rows above the k-th value equal."""
+    import torch
+
+    from spmv_topk_tpu_torch import DenseTopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import dense as D
+
+    coo = create_sparse_matrix(DENSE_SMALL_ROWS, NUM_COLS, AVG_DEG, "gamma",
+                               seed=CORPUS_SEED)
+    qs = create_query_batch(DENSE_QUERIES[0], NUM_COLS, seed=DENSE_SEED)
+    out = {}
+    for dtype in ("int8", "bf16"):
+        eng = DenseTopKSpMV(coo, TopKSpMVConfig(k=100, max_cols=NUM_COLS),
+                            device=dev, dtype=dtype)
+        n = coo.num_rows
+        if dtype == "int8":
+            bits, sc = D.densify_int8(coo)
+            require(np.array_equal(eng._A[:n].cpu().numpy(), bits) and
+                    np.array_equal(eng._scales[:n].cpu().numpy(), sc),
+                    "int8 densify on the card equals the NumPy densify")
+        else:
+            bits = D.densify_bf16(coo)
+            require(np.array_equal(eng._A[:n].to(torch.bfloat16)
+                                   .view(torch.int16).cpu().numpy()
+                                   .view(np.uint16), bits),
+                    "bf16 densify on the card equals the NumPy densify")
+        bi, bv = eng.query_batch(qs)
+        if dtype == "int8":
+            qi, qsc = D.quantize_queries_int8(qs, dev)
+            pi, pv = D.dense_topk_batch(eng._A, qi, n, eng._scales, qsc,
+                                        k=100, block_rows=eng.block_rows,
+                                        plain=True)
+        else:
+            pi, pv = D.dense_topk_batch(eng._A, torch.from_numpy(qs).to(dev),
+                                        n, k=100, block_rows=eng.block_rows,
+                                        plain=True)
+        out[f"{dtype}_max_abs_err"] = _dense_rows_agree(
+            bi, bv, pi, pv, 1e-5 if dtype == "bf16" else 0.0,
+            f"dense {dtype} at {n} rows against its plain products")
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _batch_ms(fn, runs=3):
+    """Best host-clock ms of ``fn()`` over ``runs`` runs, each ending in a
+    synchronize."""
+    import torch
+
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def phase_dense(coo, qs, gold, dev):
+    """The dense engine on the 10M corpus (bench.py:390-415): int8 under
+    bench.py's 12 GiB budget (which refuses the bf16 form), then bf16
+    under the card's own budget; raw batches of 64 and 256 queries (the
+    path's 32 queries first), ms a query (best of 3, host clock, ending in
+    a synchronize) and precision@100 of the 32 against the exact top 100;
+    each dtype held to its plain products at 50k rows (``_dense_small``).
+    Returns the int8 answers of the 64 for the sharded dense engine."""
+    import torch
+
+    from spmv_topk_tpu_torch import DenseTopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import create_query_batch
+
+    res = dict(phase="dense", rows=coo.num_rows, **_dense_small(dev))
+    batches = {n: np.concatenate([qs, create_query_batch(
+        n - len(qs), NUM_COLS, seed=DENSE_SEED)]) for n in DENSE_QUERIES}
+    cfg = TopKSpMVConfig(k=100, max_cols=NUM_COLS)
+    try:
+        DenseTopKSpMV(coo, cfg, device=dev, hbm_budget_bytes=DENSE_BUDGET)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "the bf16 form is refused under a 12 GiB budget")
+    answers = None
+    for dtype, budget in (("int8", DENSE_BUDGET), ("bf16", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = DenseTopKSpMV(coo, cfg, device=dev, hbm_budget_bytes=budget,
+                            dtype=dtype)
+        build_s = time.perf_counter() - t0
+        print(f"dense {dtype}: densify on the card {eng.densify_seconds:.3f}"
+              f" s ({coo.num_rows} x {coo.num_cols}, {eng.hbm_bytes} bytes)",
+              flush=True)
+        r = dict(densify_s=eng.densify_seconds, build_s=build_s,
+                 bytes_on_card=eng.hbm_bytes, block_rows=eng.block_rows,
+                 recall_target=eng.recall_target,
+                 budget=budget if budget is not None else
+                 "card: 0.6 x torch.cuda.mem_get_info total")
+        for n, Q in batches.items():
+            eng.query_batch(Q)                          # warm
+            idx, _ = eng.query_batch(Q)
+            idx = idx.cpu().numpy()
+            if n == DENSE_QUERIES[0] and dtype == "int8":
+                answers = eng.query_batch(Q)
+            prec = _precision(gold, idx[:len(qs)], 100)
+            ms = _batch_ms(lambda Q=Q: eng.query_batch(Q))
+            r[f"q{n}_ms_per_query"] = ms / n
+            r[f"q{n}_batch_ms"] = ms
+            r[f"q{n}_precision_at_100_mean"] = float(np.mean(prec))
+            r[f"q{n}_precision_at_100_min"] = float(np.min(prec))
+            require(np.mean(prec) >= MIN_PRECISION_DENSE,
+                    f"dense {dtype} precision@100 >= {MIN_PRECISION_DENSE}")
+        res[dtype] = r
+        del eng
+        torch.cuda.empty_cache()
+    res["nvidia_smi"] = smi_line()
+    emit(res)
+    return res, answers, batches[DENSE_QUERIES[0]]
+
+
+# --------------------------------------------------------- sharded engines
+
+SHARDS = 4
+SNAPSHOT_DIR = os.path.join("build", "chip_smoke_snapshot")
+
+
+def _sharded_drive(eng, qs, group):
+    """query() of each query (host-clock ms, numpy rows and values), then
+    query_batch of all in groups of ``group`` (host-clock ms)."""
+    import torch
+
+    idx, vals, q_ms = [], [], []
+    for q in qs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i, v = eng.query(q)
+        torch.cuda.synchronize()
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+        idx.append(i.cpu().numpy())
+        vals.append(v.cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bi, bv = eng.query_batch(qs, group_size=group)
+    torch.cuda.synchronize()
+    b_ms = (time.perf_counter() - t0) * 1e3
+    return idx, vals, q_ms, bi.cpu().numpy(), bv.cpu().numpy(), b_ms
+
+
+def _same_answers(a, b, what):
+    """Two runs' (rows, values) lists, query by query: values bit for bit,
+    the same rows above the k-th value."""
+    for j, (ai, av, bi, bv) in enumerate(zip(*a, *b)):
+        _same_top(ai, av, bi, bv, f"{what}, query {j}")
+
+
+def _sweep_counts(octet):
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    if octet:
+        return dict(octet_topk=K.topk_spmv_fused_octet_device.launches,
+                    octet_topk_batch=(
+                        K.topk_spmv_fused_batch_octet_device.launches))
+    return dict(slice_topk=K.topk_spmv_fused_device.launches,
+                slice_topk_batch=K.topk_spmv_fused_batch_device.launches)
+
+
+class _ShardView:
+    """Shard ``pos`` of a sharded engine as the kernel helpers read an
+    engine (words, nreal, plan_rows, row_ids, config, tables)."""
+
+    def __init__(self, eng, pos, num_nnz):
+        import types
+
+        sh = eng._shards[pos]
+        self.config = eng.config
+        self.words, self.nreal = sh["words"], sh["nreal"]
+        self.plan_rows, self.row_ids = sh["plan_rows"], sh["row_ids"]
+        kw = eng._sweep_kw()
+        self.partition_kw = {k: kw[k] for k in ("num_partitions",
+                                                "part_slices") if k in kw}
+        self.fused = types.SimpleNamespace(
+            block_sublanes=eng.fused_block_sublanes)
+        self.hbm_bytes = self.words.numel() * 4
+        self.num_nnz = num_nnz
+        self._eng = eng
+
+    def _table(self, q):
+        tab, scale = self._eng._table(q)
+        return tab.to(self.words.device), scale
+
+
+def _shard_kernel_times(view, qs, dev, group):
+    """The sweeps of one shard of a partitioned sharded engine (K10a and
+    K10c on the slice stream, K10b and K10d on the octet stream: a query,
+    and one group of ``group``) held to their plain versions (tie-safe,
+    bit for bit) and timed against them."""
+    import dataclasses
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    cfg = view.config
+    octet = cfg.fused_layout == "octet"
+    safe = dataclasses.replace(cfg, tie_safe_topk=True)
+    qs = qs[:group]
+    e1, e2, _ = (_octet_agree if octet else _slice_agree)(
+        view, safe, qs[0], qs, dev)
+    bs = cfg.fused_block_sublanes
+    parts = view.partition_kw
+    table, _ = view._table(qs[0])
+    args = (view.words, table, view.nreal, view.plan_rows)
+    bargs = (view.words, _tables(qs, dev, cfg.query_codec), view.nreal,
+             view.plan_rows)
+    if octet:
+        k1, k2 = "k10b", "k10d"
+        one, batch = (K.topk_spmv_fused_octet_device,
+                      K.topk_spmv_fused_batch_octet_device)
+        kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                  tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
+                  codec=cfg.query_codec, **parts)
+        plain1 = lambda: K.octet_topk_plain(*args, **kw)        # noqa: E731
+        plain2 = lambda: K.octet_topk_batch_plain(*bargs, **kw)  # noqa: E731
+    else:
+        k1, k2 = "k10a", "k10c"
+        one, batch = K.topk_spmv_fused_device, K.topk_spmv_fused_batch_device
+        kw = dict(_slice_plain_kw(cfg), **parts)
+        plain1 = lambda: K.slice_topk_plain(                    # noqa: E731
+            *args, fold_tile=cfg.fold_tile, **kw)
+        plain2 = lambda: K.slice_topk_batch_plain(*bargs, **kw)  # noqa: E731
+    b1 = sweep_bound(view, 1, topk_out_bytes(view, 1))
+    b2 = sweep_bound(view, len(qs), topk_out_bytes(view, len(qs)))
+    return {
+        f"{k1}_ms": cuda_ms(lambda: one(*args, cfg=cfg, block_sublanes=bs,
+                                        **parts), reps=20, warmup=2),
+        f"{k1}_plain_ms": cuda_ms(plain1, reps=2),
+        f"{k1}_max_abs_err": e1,
+        f"{k2}_ms": cuda_ms(lambda: batch(*bargs, cfg=cfg, block_sublanes=bs,
+                                          **parts), reps=10, warmup=2),
+        f"{k2}_plain_ms": cuda_ms(plain2, reps=1, warmup=0),
+        f"{k2}_max_abs_err": e2, f"{k2}_queries": len(qs),
+        f"{k1}_bound_ms": b1[0], f"{k1}_bound_by": b1[1],
+        f"{k2}_bound_ms": b2[0], f"{k2}_bound_by": b2[1]}
+
+
+def _sharded_run(coo, qs, dev, name, config, shards, group, gold_sets,
+                 floor, ref=None, ref_name=None, exchange=None):
+    """One sharded engine on ``shards`` positions of the card: build, warm,
+    then the path (counts from 0): 32 query() and query_batch in groups of
+    ``group``; precision@100 of both against ``gold_sets`` (>= ``floor``),
+    and, with ``ref`` ((rows, values) per query), query()'s answers held
+    to ref's. Returns (engine, result line, the query() answers)."""
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMVConfig
+    from spmv_topk_tpu_torch.parallel import ShardedTopKSpMV, make_mesh
+
+    cfg = TopKSpMVConfig(**config)
+    octet = cfg.fused_layout == "octet"
+    t0 = time.perf_counter()
+    eng = ShardedTopKSpMV(coo, cfg, mesh=make_mesh([dev] * shards),
+                          exchange_skeleton=exchange)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng.query(qs[0])
+    eng.query_batch(qs[:2], group_size=2)
+    torch.cuda.synchronize()
+    _reset_octet_counts()
+    _reset_slice_counts()
+    idx, vals, q_ms, bi, bv, b_ms = _sharded_drive(eng, qs, group)
+    launches = _sweep_counts(octet)
+    prec = _precision(gold_sets, idx, cfg.k)
+    bprec = _precision(gold_sets, bi, cfg.k)
+    if ref is not None:
+        _same_answers((idx, vals), ref, f"{name} against {ref_name}")
+    same = [len(set(a.tolist()) & set(b.tolist())) / cfg.k
+            for a, b in zip(idx, bi)]
+    res = dict(phase=f"sharded_{name}", config=config, shards=shards,
+               mesh=[str(dev)] * shards, exchange_skeleton=bool(exchange),
+               pack_and_upload_s=build_s, words_bytes=eng.hbm_bytes,
+               query_e2e_ms_median=statistics.median(q_ms),
+               batch_group_size=group, batch_e2e_ms_per_query=b_ms / len(qs),
+               precision_at_100_mean=float(np.mean(prec)),
+               batch_precision_at_100_mean=float(np.mean(bprec)),
+               agreement_with_query_mean=float(np.mean(same)),
+               same_as=ref_name, launches=launches)
+    require(min(res["precision_at_100_mean"],
+                res["batch_precision_at_100_mean"]) >= floor,
+            f"sharded {name} precision@100 >= {floor}")
+    for kname, n in launches.items():
+        require(n > 0, f"the sharded {name} path launched {kname}")
+    return eng, res, (idx, vals)
+
+
+def phase_sharded(coo, qs, gold, gold_bf16, dev, main_answers,
+                  default_answers):
+    """The sharded bucket engine on the 10M corpus, positions on one card:
+    the octet h16 headline config (rescored) at D = 1 (held to the
+    headline TopKSpMV's answers) and D = 4 (held to D = 1's; saved and
+    loaded back, held to itself); the default slice f32 config at D = 1
+    (held to the default TopKSpMV) and D = 4 (its agreement with D = 1:
+    four pools against one); then num_partitions = 2 at D = 1 with the
+    quantized codecs, c3's i8s on the slice stream under an NCCL group of
+    one process with exchange_skeleton=True, and the headline with i4s: the
+    partitioned kernels K10a-d at full size held to and timed against
+    their plain versions."""
+    import shutil
+
+    import torch
+
+    from spmv_topk_tpu_torch.parallel import (ShardedTopKSpMV, distributed,
+                                              make_mesh)
+
+    out = {}
+    # octet h16 headline, rescored
+    eng, r, a1 = _sharded_run(coo, qs, dev, "octet_h16_d1", HEADLINE, 1,
+                              BATCH_GROUP, gold, MIN_PRECISION,
+                              ref=main_answers, ref_name="TopKSpMV headline")
+    out["octet_h16_d1"] = r
+    del eng
+    eng, r, a4 = _sharded_run(coo, qs, dev, "octet_h16_d4", HEADLINE, SHARDS,
+                              BATCH_GROUP, gold, MIN_PRECISION, ref=a1,
+                              ref_name="octet_h16_d1")
+    os.makedirs(SNAPSHOT_DIR, exist_ok=True)
+    path = os.path.join(SNAPSHOT_DIR, "octet_h16_d4")
+    t0 = time.perf_counter()
+    eng.save(path)
+    r["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ShardedTopKSpMV.load(path, mesh=make_mesh([dev] * SHARDS),
+                                matrix=coo)
+    r["load_s"] = time.perf_counter() - t0
+    shutil.rmtree(SNAPSHOT_DIR)
+    for j, q in enumerate(qs[:8]):
+        for x, y in zip(back.query(q), eng.query(q)):
+            require(torch.equal(x, y), f"the loaded snapshot answers query "
+                    f"{j} as the saved engine")
+    out["octet_h16_d4"] = r
+    del eng, back
+    torch.cuda.empty_cache()
+    # default slice f32, raw
+    eng, r, d1 = _sharded_run(coo, qs, dev, "slice_f32_d1", DEFAULT, 1,
+                              DEFAULT_GROUP, gold_bf16, MIN_PRECISION_BF16,
+                              ref=default_answers,
+                              ref_name="TopKSpMV default")
+    out["slice_f32_d1"] = r
+    del eng
+    eng, r, d4 = _sharded_run(coo, qs, dev, "slice_f32_d4", DEFAULT, SHARDS,
+                              DEFAULT_GROUP, gold_bf16, MIN_PRECISION_BF16)
+    r["agreement_with_d1_mean"] = float(np.mean([
+        len(set(a.tolist()) & set(b.tolist())) / DEFAULT["k"]
+        for a, b in zip(d4[0], d1[0])]))
+    out["slice_f32_d4"] = r
+    del eng
+    torch.cuda.empty_cache()
+    # num_partitions = 2 with the quantized codecs: K10a-d at full size
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize_multihost(f"127.0.0.1:{port}", 1, 0,
+                                     device_type="cuda")
+    try:
+        require(distributed.world_size() == 1, "an NCCL group of one")
+        eng, r, _ = _sharded_run(coo, qs, dev, "slice_i8s_p2",
+                                 dict(C3, num_partitions=PARTITIONS), 1,
+                                 DEFAULT_GROUP, gold_bf16,
+                                 MIN_PRECISION_BF16, exchange=True)
+        r["process_group"] = "nccl, world size 1"
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    r.update(_shard_kernel_times(_ShardView(eng, 0, coo.nnz), qs, dev,
+                                 DEFAULT_GROUP))
+    out["slice_i8s_p2"] = r
+    del eng
+    torch.cuda.empty_cache()
+    eng, r, _ = _sharded_run(coo, qs, dev, "octet_i4s_p2",
+                             dict(HEADLINE, query_codec="i4s",
+                                  num_partitions=PARTITIONS), 1,
+                             BATCH_GROUP, gold, MIN_PRECISION)
+    r.update(_shard_kernel_times(_ShardView(eng, 0, coo.nnz), qs, dev,
+                                 BATCH_GROUP))
+    out["octet_i4s_p2"] = r
+    del eng
+    torch.cuda.empty_cache()
+    for r in out.values():
+        r["nvidia_smi"] = smi_line()
+        emit(r)
+    return out
+
+
+def phase_sharded_dense(coo, batch, gold, dev, dense_answers):
+    """The sharded dense engine, int8, on the 10M corpus at D = 1 and D =
+    4 positions of the card: a raw batch of 64 (the dense phase's), each
+    held to the one-device DenseTopKSpMV's answers (exact integer sums:
+    values bit for bit, rows above the k-th value), ms a query (best of 3)
+    and precision@100 of its first 32."""
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMVConfig
+    from spmv_topk_tpu_torch.parallel import ShardedDenseTopKSpMV, make_mesh
+
+    res = dict(phase="sharded_dense", dtype="int8", queries=len(batch))
+    for shards in (1, SHARDS):
+        t0 = time.perf_counter()
+        eng = ShardedDenseTopKSpMV(coo, TopKSpMVConfig(k=100,
+                                                       max_cols=NUM_COLS),
+                                   mesh=make_mesh([dev] * shards),
+                                   dtype="int8")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        bi, bv = eng.query_batch(batch)
+        err = _dense_rows_agree(bi, bv, *dense_answers, 0.0,
+                                f"sharded dense int8 D={shards} against "
+                                "DenseTopKSpMV int8")
+        prec = _precision(gold, bi.cpu().numpy()[:len(gold)], 100)
+        ms = _batch_ms(lambda: eng.query_batch(batch))
+        res[f"d{shards}"] = dict(build_s=build_s, bytes_on_card=eng.hbm_bytes,
+                                 block_rows=eng.block_rows,
+                                 ms_per_query=ms / len(batch), batch_ms=ms,
+                                 precision_at_100_mean=float(np.mean(prec)),
+                                 max_abs_err_vs_dense=err)
+        del eng
+        torch.cuda.empty_cache()
+    res["nvidia_smi"] = smi_line()
+    emit(res)
+    return res
 
 
 def lab_entry(name, source, replaces, res, default, variants_of=None,
@@ -2568,10 +3163,21 @@ def main():
                                     p1_octet_bytes)
           for codec in ("f32", "int8x4", "i8s", "i4s")}
     torch.cuda.synchronize()
+    dense, dense_answers, dense_batch = phase_dense(coo, qs, gold, dev)
+    torch.cuda.synchronize()
+    sharded = phase_sharded(coo, qs, gold, gold_bf16, dev,
+                            main_res.pop("_answers"), df.pop("_answers"))
+    sharded["dense"] = phase_sharded_dense(coo, dense_batch, gold, dev,
+                                           dense_answers)
+    del dense_answers
+    torch.cuda.empty_cache()
     labs = phase_labs(dev)
     torch.cuda.synchronize()
+    p16 = phase_pack16(dev)
+    torch.cuda.synchronize()
     summarize(main_res, full, batch, scores, lib, sl, df, po, pdf,
-              dict(i8s=c3, i4s=c8, int8x4=i8), oc, bk, bkh, labs)
+              dict(i8s=c3, i4s=c8, int8x4=i8), oc, bk, bkh, labs, p16,
+              sharded)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -2580,12 +3186,14 @@ def main():
 
 
 def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
-              bk, bkh, labs):
+              bk, bkh, labs, p16, sharded):
     """Emit each path's launch counts and the kernel summary line; raise
     unless every kernel of every path was launched there. sc: the slice
     codec paths by codec, oc: the octet codec paths by codec, bk and bkh:
     the per-bucket paths (f32 and h16), labs: the labs phase (each lab's
-    timing its path)."""
+    timing its path), p16: L9's phase, sharded: the sharded engines'
+    paths (K10a-d with the quantized codecs nested under the partitioned
+    kernels' entries)."""
     require(pdf["words_bytes"] >= df["words_bytes"],
             "the partition skeleton adds words, never drops them")
     launches = dict(main_res["launches"],
@@ -2601,7 +3209,10 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                    **{f"{lab}_path": labs[lab]["launches"]
                       for lab in ("kernel_lab", "fused_lab", "h16_lab",
                                   "fold_lab", "batch_lab", "dma_lab",
-                                  "i16_probe", "mxu_gather_lab")})
+                                  "i16_probe", "mxu_gather_lab")},
+                   pack16_lab_path=p16["launches"],
+                   **{f"sharded_{n}_path": r["launches"]
+                      for n, r in sharded.items() if "launches" in r})
     emit(dict(phase="launch_counts", main_path=launches, **by_path,
               words_bytes=dict(
                   octet_one_partition=po["words_bytes_one_partition"],
@@ -2615,6 +3226,7 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
     # library yardsticks: SpMV alone for the SpMV kernels, SpMV and
     # torch.topk (two calls) for the Top-K sweeps, at each sweep's queries
     spmv, topk1 = lib["spmv_ms"], lib["spmv_topk_1_ms"]
+    i8p, i4p = sharded["slice_i8s_p2"], sharded["octet_i4s_p2"]
     two = dict(library_calls="torch.sparse.mm + torch.topk")
     one = dict(library_calls="torch.sparse.mm")
     ker = "spmv_topk_tpu/ops/kernel.py"
@@ -2668,22 +3280,46 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
         # partition axis, on the partitioned paths
         kernel_entry("octet_topk_h16_partitioned", "octet_topk.cuh",
                      f"{ker}:1116", po["launches"]["octet_topk_h16"], po,
-                     "k10b", topk1, partitions=PARTITIONS, **two),
+                     "k10b", topk1, partitions=PARTITIONS, **two,
+                     i4s=kernel_entry(
+                         "octet_topk_i4s_partitioned", "octet_topk.cuh",
+                         f"{ker}:1116", i4p["launches"]["octet_topk"], i4p,
+                         "k10b", topk1, partitions=PARTITIONS,
+                         path="sharded_octet_i4s_p2", **two)),
         kernel_entry("octet_topk_batch_h16_partitioned",
                      "octet_topk_batch.cuh", f"{ker}:1693",
                      po["launches"]["octet_topk_batch_h16"], po, "k10d",
                      lib[f"spmv_topk_{BATCH_GROUP}_ms"],
-                     partitions=PARTITIONS, queries=BATCH_GROUP, **two),
+                     partitions=PARTITIONS, queries=BATCH_GROUP, **two,
+                     i4s=kernel_entry(
+                         "octet_topk_batch_i4s_partitioned",
+                         "octet_topk_batch.cuh", f"{ker}:1693",
+                         i4p["launches"]["octet_topk_batch"], i4p, "k10d",
+                         lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                         partitions=PARTITIONS, queries=BATCH_GROUP,
+                         path="sharded_octet_i4s_p2", **two)),
         kernel_entry("octet_scores_h16_partitioned", "octet_scores.cu",
                      f"{ker}:2039", po["launches"]["octet_scores_h16"], po,
                      "k4", spmv, partitions=PARTITIONS, **one),
         kernel_entry("slice_topk_partitioned", "slice_topk.cu",
                      f"{ker}:927", pdf["launches"]["slice_topk"], pdf, "k7",
-                     topk1, partitions=PARTITIONS, **two),
+                     topk1, partitions=PARTITIONS, **two,
+                     i8s=kernel_entry(
+                         "slice_topk_i8s_partitioned", "slice_topk.cu",
+                         f"{ker}:927", i8p["launches"]["slice_topk"], i8p,
+                         "k10a", topk1, partitions=PARTITIONS,
+                         path="sharded_slice_i8s_p2", **two)),
         kernel_entry("slice_topk_batch_partitioned", "slice_topk_batch.cuh",
                      f"{ker}:1440", pdf["launches"]["slice_topk_batch"], pdf,
                      "k8", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
-                     partitions=PARTITIONS, queries=DEFAULT_GROUP, **two),
+                     partitions=PARTITIONS, queries=DEFAULT_GROUP, **two,
+                     i8s=kernel_entry(
+                         "slice_topk_batch_i8s_partitioned",
+                         "slice_topk_batch.cuh", f"{ker}:1440",
+                         i8p["launches"]["slice_topk_batch"], i8p, "k10c",
+                         lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
+                         partitions=PARTITIONS, queries=DEFAULT_GROUP,
+                         path="sharded_slice_i8s_p2", **two)),
         kernel_entry("slice_scores_partitioned", "slice_scores.cu",
                      f"{ker}:1909", pdf["launches"]["slice_scores"], pdf,
                      "k9", spmv, partitions=PARTITIONS, **one),
@@ -2741,6 +3377,7 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                   variants_of={v: dict(onehot_ms=r["onehot_ms"])
                                for v, r in labs["mxu_gather_lab"][
                                    "variants"].items()}),
+        pack16_entry(p16),
     ]})
 
 

@@ -12,6 +12,11 @@ the oracles (``ops.gold``, ``ops.xla_ref``), the host merge (``topk``)
 and the metrics (``eval``). Imports torch, numpy and scipy only; corpora
 and queries come from numpy generators seeded as in the JAX package, so
 both packages see the same data.
+
+Beside it the dense engine (``DenseTopKSpMV``, ``ops.dense``: bf16 or
+int8 block products and a per-block top-k) and the sharded engines
+(``parallel``: ``ShardedTopKSpMV`` over a list of devices and, across
+processes, ``torch.distributed``; ``ShardedDenseTopKSpMV``).
 """
 
 from .config import (
@@ -19,6 +24,7 @@ from .config import (
     LANES,
 )
 from .api import TopKSpMV
+from .ops.dense import DenseTopKSpMV
 from .formats import (CooMatrix, create_query_batch, create_sample_vector,
                       create_sparse_matrix, from_scipy)
 

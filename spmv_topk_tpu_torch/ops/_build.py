@@ -42,7 +42,7 @@ SOURCE_FLAGS = {f"lab_{name}.cu": ["-ftz=true", "-fmad=false"]
 # sources whose object the build keeps beside the library, for
 # ``sass_report`` (a dump of one unit takes a second, of the library a
 # minute)
-SASS_SOURCES = ("lab_batch.cu", "lab_i16.cu", "lab_mxu.cu")
+SASS_SOURCES = ("lab_batch.cu", "lab_i16.cu", "lab_mxu.cu", "lab_pack16.cu")
 
 _LIB = None
 build_seconds = None   # wall seconds of the nvcc build in this process
@@ -74,6 +74,7 @@ _SIGNATURES = {
     "lab_dma_reduce": [_vp, _i32, _vp, _vp],
     "lab_i16": [_vp] * 2 + [_i32] * 4 + [_vp] * 2,
     "lab_mxu": [_vp] * 2 + [_i32] * 3 + [_vp] * 2,
+    "lab_pack16": [_vp] + [_i32] * 3 + [_vp] * 2,
 }
 
 

@@ -1614,3 +1614,136 @@ def test_labs2_wrappers_refuse_bad_inputs(gpu):
                                    variant="s16")
     with pytest.raises(ValueError, match="Q=3"):
         mxu_gather_lab.mxu_vpu_device(words, tables)
+
+
+# ------------------------------------------ L9, the dense and sharded engines
+
+from spmv_topk_tpu_torch.experiments import pack16_lab  # noqa: E402
+from spmv_topk_tpu_torch.ops import dense as pdense  # noqa: E402
+from spmv_topk_tpu_torch.parallel import (ShardedDenseTopKSpMV,  # noqa: E402
+                                          ShardedTopKSpMV, distributed,
+                                          make_mesh)
+
+
+def _bits(t):
+    """A tile's bit pattern (NaN-safe equality)."""
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.parametrize("grid", [512, 7])
+@pytest.mark.parametrize("name", pack16_lab.NAMES)
+def test_pack16_kernel_matches_plain(gpu, name, grid):
+    """L9 bit for bit: on the lab's tile and on x + 3 (chains that run to
+    inf and NaN for the floats, wrap for the integers)."""
+    x = pack16_lab.pack16_data()[name].to(gpu)
+    for xi in (x, x + 3):
+        before = pack16_lab.pack16_device.launches
+        got = pack16_lab.pack16_device(xi, grid=grid)
+        assert pack16_lab.pack16_device.launches == before + 1
+        want = pack16_lab.pack16_plain(xi)
+        torch.cuda.synchronize()
+        assert got.dtype == xi.dtype and torch.equal(_bits(got), _bits(want))
+
+
+def test_pack16_refuses_other_tiles(gpu):
+    with pytest.raises(RuntimeError, match="lab_pack16"):
+        pack16_lab.pack16_device(torch.ones((24, 128), device=gpu))
+    with pytest.raises(ValueError):
+        pack16_lab.pack16_device(torch.ones((8, 128), dtype=torch.float64,
+                                            device=gpu))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_dense_engine_on_card(gpu, dtype):
+    """The card's densify equals the NumPy densify bit for bit; its block
+    products (cuBLAS bf16 -> f32, int8 -> int32) against the plain
+    products (float32 of the bf16 values with TF32 off; exact float64
+    integer sums): int8 bit for bit, bf16 to rtol 1e-5 (another order of
+    the same exact float32 products)."""
+    coo = create_sparse_matrix(5000, 512, 12, "gamma", seed=95)
+    qs = create_query_batch(5, 512, seed=96)
+    cfg = pt.TopKSpMVConfig(k=40, max_cols=512)
+    eng = pt.DenseTopKSpMV(coo, cfg, device=gpu, block_rows=2048,
+                           dtype=dtype)
+    cpu = pt.DenseTopKSpMV(coo, cfg, device="cpu", block_rows=2048,
+                           dtype=dtype)
+    if dtype == "int8":
+        assert torch.equal(eng._A.cpu(), cpu._A)
+        assert torch.equal(eng._scales.cpu(), cpu._scales)
+    else:
+        assert torch.equal(eng._A.cpu().float(), cpu._A)
+    bi, bv = eng.query_batch(qs)
+    if dtype == "int8":
+        qi, qsc = pdense.quantize_queries_int8(qs, gpu)
+        pi, pv = pdense.dense_topk_batch(eng._A, qi, eng.num_rows,
+                                         eng._scales, qsc, k=40,
+                                         block_rows=2048, plain=True)
+        np.testing.assert_array_equal(bv.cpu().numpy(), pv.cpu().numpy())
+        oi, ov = cpu.query_batch(qs)        # the CPU engine: the same sums
+        np.testing.assert_array_equal(bv.cpu().numpy(), ov.numpy())
+    else:
+        pi, pv = pdense.dense_topk_batch(
+            eng._A, torch.from_numpy(qs).to(gpu), eng.num_rows, k=40,
+            block_rows=2048, plain=True)
+        np.testing.assert_allclose(bv.cpu().numpy(), pv.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    for j in range(len(qs)):
+        kth = float(pv[j, -1]) + 1e-5 * abs(float(pv[j, -1])) + 1e-6
+        a, b = bi[j].cpu().numpy(), pi[j].cpu().numpy()
+        av, bvv = bv[j].cpu().numpy(), pv[j].cpu().numpy()
+        assert set(a[av > kth].tolist()) == set(b[bvv > kth].tolist())
+    # Q = 1 pads to 8 rows for torch._int_mm
+    i1, v1 = eng.query(qs[0])
+    assert i1.shape == (40,) and torch.isfinite(v1).all()
+
+
+def test_sharded_engines_on_card(gpu):
+    """Four shards on one card: the same answers as the CPU mesh (the
+    kernels equal their plain versions bit for bit) and, tie-safe, as the
+    card's TopKSpMV on four partitions."""
+    coo = create_sparse_matrix(8000, 1024, 16, "gamma", seed=97)
+    qs = create_query_batch(5, 1024, seed=98)
+    for cfg in (dict(HEADLINE, fused_block_sublanes=256),
+                dict(k=50, max_cols=1024, fused_block_sublanes=256,
+                     num_partitions=2)):
+        c = pt.TopKSpMVConfig(**cfg)
+        card = ShardedTopKSpMV(coo, c, mesh=make_mesh([gpu] * 4))
+        host = ShardedTopKSpMV(coo, c, mesh=make_mesh(["cpu"] * 4))
+        for a, b in zip(card.query(qs[0]), host.query(qs[0])):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(card.query_batch(qs, group_size=2),
+                        host.query_batch(qs, group_size=2)):
+            assert torch.equal(a.cpu(), b)
+    dense = ShardedDenseTopKSpMV(coo, pt.TopKSpMVConfig(k=30, max_cols=1024),
+                                 mesh=make_mesh([gpu] * 4), dtype="int8")
+    one = pt.DenseTopKSpMV(coo, pt.TopKSpMVConfig(k=30, max_cols=1024),
+                           device=gpu, dtype="int8")
+    np.testing.assert_array_equal(dense.query_batch(qs)[1].cpu().numpy(),
+                                  one.query_batch(qs)[1].cpu().numpy())
+
+
+def test_sharded_nccl_world_of_one(gpu):
+    """exchange_skeleton=True over an NCCL group of one process: the
+    exchange's collectives run on the card, the answers are unchanged."""
+    import socket
+
+    import torch.distributed as dist
+
+    coo = create_sparse_matrix(4000, 1024, 16, "gamma", seed=99)
+    q = create_query_batch(1, 1024, seed=100)[0]
+    cfg = pt.TopKSpMVConfig(**HEADLINE)
+    plain = ShardedTopKSpMV(coo, cfg, mesh=make_mesh([gpu] * 2))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize_multihost(f"127.0.0.1:{port}", 1, 0,
+                                     device_type="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        eng = ShardedTopKSpMV(coo, cfg, mesh=make_mesh([gpu] * 2),
+                              exchange_skeleton=True)
+        for a, b in zip(eng.query(q), plain.query(q)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
