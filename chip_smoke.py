@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (spmv_topk_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # every phase
+    python3 chip_smoke.py bucket_small bucket_path # those and their needs
 
 Builds the CUDA kernels from ``spmv_topk_tpu_torch/csrc`` and the native
-host runtime from ``runtime/``, then prints one JSON object per phase:
+host runtime from ``runtime/``, then prints one JSON object per phase.
+Phase names on the command line (``PHASES``) run those phases and what
+they need (``PHASE_NEEDS``; the 10M corpus, its queries and gold sets
+come with any full-size phase), then the launch counts, the kernels line
+of the kernels those phases measured, and the ``ok`` line; with none,
+every phase runs:
 
   1. environment: card, power limit, torch / CUDA / nvcc versions, whether
      the native runtime loaded, kernel build seconds, each kernel's
@@ -75,12 +81,16 @@ host runtime from ``runtime/``, then prints one JSON object per phase:
      ``pack_sell_buckets``: at 50k rows every codec against their plain
      versions, tie-safe, bit for bit (lane_k 4, 8, 16; a bucket of one
      slice per block; quantum 2, widths below 8 scoring 0; 2-3-row
-     tables; 65,536 columns); on the 10M corpus the default config (32
-     queries through K13, stacked and finalized once, against
-     ``merge_candidates_host``, the bf16 top 100 and the default engine;
-     K12 on a group of 8 against K13; K11 against K9) and h16 at quantum
-     8 (K13, the exact rescore of a pool of 400), each op timed summed
-     over its buckets, with K13's host enqueue time;
+     tables; 65,536 columns), and K13 tie-safe or not against its plain
+     version on the kernel's slots (``bucket_topk_slots_plain``), tags
+     included; on the 10M corpus the default config (32 queries through
+     K13, stacked and finalized once, against ``merge_candidates_host``,
+     the bf16 top 100 and the default engine; K12 on a group of 8 against
+     K13; K11 against K9) and h16 at quantum 8 (K13, the exact rescore of
+     a pool of 400), each op timed summed over its buckets; K13 also
+     alone on the card (whole, per bucket, with num_real 0), beside K3
+     per bucket, with its host enqueue time and its registers and spill
+     bytes;
  13. the measurement labs (``spmv_topk_tpu_torch/experiments``: kernel_lab
      L7, fused_lab L4, h16_lab L5, fold_lab L3, batch_lab L1, dma_lab L2,
      i16_probe L6, mxu_gather_lab L8): ``labs_small`` holds every
@@ -1506,6 +1516,19 @@ def _bucket_topk(bks, table, cfg, codec, plain=False):
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
+def _k13_slots_plain(w, table, nr, geo, cfg, codec):
+    """K13's plain version on the slots its kernel runs on this bucket."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    n = geo["num_blocks"] * geo["slices_per_block"]
+    arg, _ = K._kernel_codec(w.device, codec, table.shape[0])
+    slots = K._bucket_topk_slots(w.device, arg, cfg.lane_k, table.shape[0],
+                                 n)
+    return K.bucket_topk_slots_plain(w, table, nr, lane_k=cfg.lane_k,
+                                     tie_safe=bool(cfg.tie_safe_topk),
+                                     codec=codec, num_slots=slots, **geo)
+
+
 def _bucket_topk_batch(bks, tables, cfg, codec, plain=False):
     """K12 (or its plain version) over every bucket: (Q, B, lane_k, 128)."""
     import torch
@@ -1555,6 +1578,13 @@ def _bucket_agree(bks, table, tables, cfg, codec):
     for k, p in zip(ks, _bucket_scores(bks, table, cfg, codec, plain=True)):
         require(torch.equal(k, p), "K11 scores equal the plain version's "
                 "bit for bit")
+    for c in (safe, dataclasses.replace(cfg, tie_safe_topk=False)):
+        for j, (w, nr, geo) in enumerate(bks):
+            v, t = _bucket_topk(bks[j:j + 1], table, c, codec)
+            sv, st = _k13_slots_plain(w, table, nr, geo, c, codec)
+            require(torch.equal(v[0], sv) and torch.equal(t[0], st),
+                    "K13 equals its plain version on the kernel's slots "
+                    "bit for bit, tags included")
     return (0.0, compare_pools(kv, kt, *_bucket_topk(bks, table, safe, codec,
                                                      plain=True)),
             compare_pools(bv, bt, *_bucket_topk_batch(bks, tables, safe,
@@ -1655,14 +1685,55 @@ def _bucket_counts():
                 bucket_topk_batch=K.topk_spmv_bucket_batch_device.launches)
 
 
-def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
-    """K13 and K11 (and K12 on ``tables``) per query over every bucket,
-    each summed over its bucket launches and merges, between CUDA events,
-    against their plain versions; K13's host clock per query (enqueue
-    alone, and to a synchronize) for the launch overhead; K3 on the same
-    words; the bounds."""
+# cycles of the card's sleep that holds the stream while the host enqueues
+# the launches of a device-timed run (``_device_ms``): about 5 ms, more
+# than enqueueing a query's buckets takes
+HOLD_CYCLES = 10_000_000
+
+
+def _device_ms(fns, reps):
+    """Device milliseconds of ``fns`` run back to back: the stream is held
+    by a sleep on the card while the host enqueues them, so host time adds
+    nothing. Returns (each fn's median over ``reps`` runs with an event
+    between each two, the median over ``reps`` runs of all of them between
+    two events: an event between two launches keeps the second from
+    overlapping the first)."""
     import torch
 
+    per, total = [], []
+    for split in (True, False):
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(fns) + 1 if split else 2)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(HOLD_CYCLES)
+            ev[0].record()
+            for j, fn in enumerate(fns):
+                fn()
+                if split:
+                    ev[j + 1].record()
+            ev[-1].record()
+            ev[-1].synchronize()
+            if split:
+                per.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+            else:
+                total.append(ev[0].elapsed_time(ev[-1]))
+    return ([statistics.median(col) for col in zip(*per)],
+            statistics.median(total))
+
+
+def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
+    """K13 and K11 (and K12 on ``tables``) per query over every bucket,
+    each summed over its bucket launches (K12's merges too), between CUDA
+    events, against their plain versions; K13 alone on the card (no host
+    time: ``_device_ms``), whole and per bucket, and with num_real 0 (its
+    fixed cost), beside K3 on the same words; K13's host clock per query (``_bucket_topk`` enqueued, and to
+    a synchronize; the bare launches enqueued); its kernels' registers
+    and spill bytes; the bounds."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
     from spmv_topk_tpu_torch.ops.streamprobe import stream_words_device
 
     nb = len(bks)
@@ -1690,22 +1761,56 @@ def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
         res[f"{kn}_ms"] = cuda_ms(fn, reps=10, warmup=2)
         res[f"{kn}_plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
         res[f"{kn}_bound_ms"], res[f"{kn}_bound_by"] = b
-    enq, sync = [], []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _bucket_topk(bks, table, cfg, codec)
-        enq.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        sync.append((time.perf_counter() - t0) * 1e3)
+
+    launches = [lambda w=w, nr=nr, geo=geo: K.topk_spmv_bucket_device(
+        w, table, nr, cfg=cfg, num_groups=table.shape[0], codec=codec, **geo)
+        for w, nr, geo in bks]
     salt = torch.arange(128, dtype=torch.int32, device=words.device).reshape(
         1, 128)
+    per_bucket, alone = _device_ms(launches, reps=10)
+    # num_real 0: no slice swept, so a launch's fixed cost (launch, table,
+    # merge levels)
+    zero = torch.zeros((1, 1), dtype=torch.int32, device=words.device)
+    empty, empty_total = _device_ms(
+        [lambda w=w, geo=geo: K.topk_spmv_bucket_device(
+            w, table, zero, cfg=cfg, num_groups=table.shape[0], codec=codec,
+            **geo) for w, _, geo in bks], reps=10)
+    k3_per, k3_sum = _device_ms([lambda w=w: stream_words_device(w, salt)
+                                 for w, _, _ in bks], reps=10)
+    # the host clock of one query: _bucket_topk, its launches and the two
+    # stacks (to enqueue them, and to a synchronize: the card's time shows
+    # when it is the longer); and the bare launches, enqueued
+    def host(fn, out):
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out[0].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            out[1].append((time.perf_counter() - t0) * 1e3)
+
+    enq, sync, bare = [], [], []
+    host(lambda: _bucket_topk(bks, table, cfg, codec), (enq, sync))
+    host(lambda: [fn() for fn in launches], (bare, []))
     k3 = cuda_ms(lambda: stream_words_device(words, salt), reps=20, warmup=2)
-    res.update(k13_host_enqueue_ms_median=statistics.median(enq),
-               k13_host_ms_median=statistics.median(sync),
-               launches_per_query=nb, k3_ms=k3,
-               k3_gb_per_s=wbytes / (k3 * 1e-3) / 1e9,
-               k13_words_gb_per_s=wbytes / (res["k13_ms"] * 1e-3) / 1e9)
+    bucket_bytes = [w.numel() * 4 for w, _, _ in bks]
+    res.update(
+        k13_alone_ms=alone, k13_alone_ms_by_bucket=per_bucket,
+        k13_num_real_0_ms=empty_total, k13_num_real_0_ms_by_bucket=empty,
+        k3_ms_by_bucket=k3_per, k3_ms_summed_over_buckets=k3_sum,
+        bucket_words_bytes=bucket_bytes,
+        k13_host_enqueue_ms_median=statistics.median(enq),
+        k13_host_ms_median=statistics.median(sync),
+        k13_host_launches_ms_median=statistics.median(bare),
+        k13_host_launch_ms_per_bucket=statistics.median(bare) / nb,
+        launches_per_query=nb, k3_ms=k3,
+        k3_gb_per_s=wbytes / (k3 * 1e-3) / 1e9,
+        k13_words_gb_per_s=wbytes / (res["k13_ms"] * 1e-3) / 1e9,
+        k13_alone_words_gb_per_s=wbytes / (alone * 1e-3) / 1e9,
+        k13_alone_share_of_k3=k3_sum / alone,
+        k13_registers_and_spill_bytes={
+            name: regs for name, regs in _build.ptxas_report().items()
+            if name.startswith("bucket_topk_kernel")})
     return res
 
 
@@ -3103,81 +3208,147 @@ def kernel_entry(name, source, replaces, launches, res, key, library_ms,
                 **extra)
 
 
-def main():
+# The phases a run can name on the command line, in the order they run,
+# and what each needs run before it (the 10M corpus, its queries and gold
+# sets come with any of the full-size phases).
+PHASES = ("small", "slice_small", "partition_small", "codecs_small",
+          "bucket_small", "labs_small", "sass", "main", "library",
+          "slice_engines", "default_config", "bucket_path", "octet_engines",
+          "dense", "sharded", "labs", "pack16")
+PHASE_NEEDS = {
+    "slice_engines": ("default_config",),
+    "bucket_path": ("default_config", "library"),
+    "octet_engines": ("main", "library"),
+    "sharded": ("main", "default_config", "dense"),
+    "main": ("library",),
+    "default_config": ("library",),
+}
+FULL_SIZE = set(PHASES[PHASES.index("main"):PHASES.index("labs")])
+
+
+def selected_phases(names):
+    """The phases to run for the command line's phase names, their needs
+    added; every phase when none is named."""
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {unknown}; the "
+                         f"phases are {list(PHASES)}")
+    if not names:
+        return set(PHASES)
+    want, todo = set(), list(names)
+    while todo:
+        name = todo.pop()
+        if name not in want:
+            want.add(name)
+            todo.extend(PHASE_NEEDS.get(name, ()))
+    return want
+
+
+def phase_corpus(dev):
+    """The 10M x 1024 corpus, its CSR, the 32 queries and their exact
+    top-100 sets, for a run whose main path does not build them."""
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+
+    t0 = time.perf_counter()
+    coo = create_sparse_matrix(FULL_ROWS, NUM_COLS, AVG_DEG, "gamma",
+                               seed=CORPUS_SEED)
+    csr = coo.to_scipy_csr()
+    qs = create_query_batch(NUM_QUERIES, NUM_COLS, seed=QUERY_SEED)
+    gold = _gold_sets(csr, qs, 100)
+    emit(dict(phase="corpus", rows=coo.num_rows, nnz=coo.nnz,
+              seconds=time.perf_counter() - t0))
+    return coo, csr, qs, gold
+
+
+def main(argv=()):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    want = selected_phases(list(argv))
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
 
     phase_environment()
     torch.cuda.synchronize()
-    phase_small(dev)
-    torch.cuda.synchronize()
-    phase_slice_small(dev)
-    torch.cuda.synchronize()
-    phase_partition_small(dev)
-    torch.cuda.synchronize()
-    phase_codecs_small(dev)
-    torch.cuda.synchronize()
-    phase_bucket_small(dev)
-    torch.cuda.synchronize()
-    phase_labs_small(dev)
-    torch.cuda.synchronize()
-    phase_sass()
-    coo, eng, qs, main_res, gold, single = phase_main(dev)
-    torch.cuda.synchronize()
-    full = phase_kernels_full(eng, qs, dev)
-    torch.cuda.synchronize()
-    batch = phase_batch(eng, qs, gold, single, full["k1_ms"], dev)
-    torch.cuda.synchronize()
-    scores = phase_scores(eng, qs, dev)
-    torch.cuda.synchronize()
-    csr = eng._scipy_csr
-    p1_octet_bytes = eng.hbm_bytes
-    del eng                         # the octet engine's words leave the card
-    torch.cuda.empty_cache()
-    lib = phase_library(csr, qs, dev)
-    gold_bf16 = _bf16_gold_sets(csr, qs, 100)
-    sl, df, pdf, c3, c8, i8 = (
-        phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
-                           group)
-        for name, config, group in (
-            ("slice", SLICE_BATCH, BATCH_GROUP),
-            ("default_config", DEFAULT, DEFAULT_GROUP),
-            ("partitioned_default", dict(DEFAULT, num_partitions=PARTITIONS),
-             DEFAULT_GROUP),
-            ("c3", C3, DEFAULT_GROUP), ("c8", C8, BATCH_GROUP),
-            ("int8x4", INT8X4, DEFAULT_GROUP)))
-    bk, bkh = phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev)
-    po = phase_octet_engine(coo, csr, qs, gold, dev, "partitioned_octet",
-                            dict(HEADLINE, num_partitions=PARTITIONS),
-                            p1_octet_bytes)
-    oc = {codec: phase_octet_engine(coo, csr, qs, gold, dev,
-                                    f"octet_{codec}",
-                                    dict(HEADLINE, query_codec=codec),
-                                    p1_octet_bytes)
-          for codec in ("f32", "int8x4", "i8s", "i4s")}
-    torch.cuda.synchronize()
-    dense, dense_answers, dense_batch = phase_dense(coo, qs, gold, dev)
-    torch.cuda.synchronize()
-    sharded = phase_sharded(coo, qs, gold, gold_bf16, dev,
-                            main_res.pop("_answers"), df.pop("_answers"))
-    sharded["dense"] = phase_sharded_dense(coo, dense_batch, gold, dev,
-                                           dense_answers)
-    del dense_answers
-    torch.cuda.empty_cache()
-    labs = phase_labs(dev)
-    torch.cuda.synchronize()
-    p16 = phase_pack16(dev)
-    torch.cuda.synchronize()
-    summarize(main_res, full, batch, scores, lib, sl, df, po, pdf,
-              dict(i8s=c3, i4s=c8, int8x4=i8), oc, bk, bkh, labs, p16,
-              sharded)
+    for name, fn in (("small", phase_small), ("slice_small", phase_slice_small),
+                     ("partition_small", phase_partition_small),
+                     ("codecs_small", phase_codecs_small),
+                     ("bucket_small", phase_bucket_small),
+                     ("labs_small", phase_labs_small)):
+        if name in want:
+            fn(dev)
+            torch.cuda.synchronize()
+    if "sass" in want:
+        phase_sass()
+    R = {}
+    if want & FULL_SIZE:
+        if "main" in want:
+            coo, eng, qs, R["main_res"], gold, single = phase_main(dev)
+            torch.cuda.synchronize()
+            R["full"] = phase_kernels_full(eng, qs, dev)
+            torch.cuda.synchronize()
+            R["batch"] = phase_batch(eng, qs, gold, single,
+                                     R["full"]["k1_ms"], dev)
+            torch.cuda.synchronize()
+            R["scores"] = phase_scores(eng, qs, dev)
+            torch.cuda.synchronize()
+            csr = eng._scipy_csr
+            p1_octet_bytes = eng.hbm_bytes
+            del eng                 # the octet engine's words leave the card
+            torch.cuda.empty_cache()
+        else:
+            coo, csr, qs, gold = phase_corpus(dev)
+        R["lib"] = phase_library(csr, qs, dev)
+        gold_bf16 = _bf16_gold_sets(csr, qs, 100)
+        engines = (("slice", SLICE_BATCH, BATCH_GROUP, "sl"),
+                   ("default_config", DEFAULT, DEFAULT_GROUP, "df"),
+                   ("partitioned_default",
+                    dict(DEFAULT, num_partitions=PARTITIONS), DEFAULT_GROUP,
+                    "pdf"),
+                   ("c3", C3, DEFAULT_GROUP, "c3"),
+                   ("c8", C8, BATCH_GROUP, "c8"),
+                   ("int8x4", INT8X4, DEFAULT_GROUP, "i8"))
+        for name, config, group, key in engines:
+            if "slice_engines" in want or name in want:
+                R[key] = phase_slice_engine(coo, csr, qs, gold, gold_bf16,
+                                            dev, name, config, group)
+        if "bucket_path" in want:
+            R["bk"], R["bkh"] = phase_bucket_path(coo, csr, qs, gold,
+                                                  gold_bf16, R["df"], dev)
+        if "octet_engines" in want:
+            R["po"] = phase_octet_engine(
+                coo, csr, qs, gold, dev, "partitioned_octet",
+                dict(HEADLINE, num_partitions=PARTITIONS), p1_octet_bytes)
+            R["oc"] = {codec: phase_octet_engine(
+                coo, csr, qs, gold, dev, f"octet_{codec}",
+                dict(HEADLINE, query_codec=codec), p1_octet_bytes)
+                for codec in ("f32", "int8x4", "i8s", "i4s")}
+            torch.cuda.synchronize()
+        if "dense" in want:
+            dense, dense_answers, dense_batch = phase_dense(coo, qs, gold,
+                                                            dev)
+            torch.cuda.synchronize()
+        if "sharded" in want:
+            R["sharded"] = phase_sharded(coo, qs, gold, gold_bf16, dev,
+                                         R["main_res"].pop("_answers"),
+                                         R["df"].pop("_answers"))
+            R["sharded"]["dense"] = phase_sharded_dense(
+                coo, dense_batch, gold, dev, dense_answers)
+        if "dense" in want:
+            del dense_answers
+        torch.cuda.empty_cache()
+    if "labs" in want:
+        R["labs"] = phase_labs(dev)
+        torch.cuda.synchronize()
+    if "pack16" in want:
+        R["p16"] = phase_pack16(dev)
+        torch.cuda.synchronize()
+    summarize(R, complete=want == set(PHASES))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -3185,51 +3356,66 @@ def main():
     return 0
 
 
-def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
-              bk, bkh, labs, p16, sharded):
+def summarize(R, complete):
     """Emit each path's launch counts and the kernel summary line; raise
-    unless every kernel of every path was launched there. sc: the slice
-    codec paths by codec, oc: the octet codec paths by codec, bk and bkh:
-    the per-bucket paths (f32 and h16), labs: the labs phase (each lab's
-    timing its path), p16: L9's phase, sharded: the sharded engines'
-    paths (K10a-d with the quantized codecs nested under the partitioned
-    kernels' entries)."""
-    require(pdf["words_bytes"] >= df["words_bytes"],
-            "the partition skeleton adds words, never drops them")
-    launches = dict(main_res["launches"],
-                    octet_topk_batch_h16=batch["launches"],
-                    octet_scores_h16=scores["launches"])
-    by_path = dict(slice_path=sl["launches"], default_path=df["launches"],
-                   partitioned_octet_path=po["launches"],
-                   partitioned_default_path=pdf["launches"],
-                   **{r["phase"]: r["launches"] for r in sc.values()},
-                   **{f"octet_{c}_path": r["launches"]
-                      for c, r in oc.items()},
-                   bucket_path=bk["launches"], bucket_h16_path=bkh["launches"],
-                   **{f"{lab}_path": labs[lab]["launches"]
-                      for lab in ("kernel_lab", "fused_lab", "h16_lab",
-                                  "fold_lab", "batch_lab", "dma_lab",
-                                  "i16_probe", "mxu_gather_lab")},
-                   pack16_lab_path=p16["launches"],
-                   **{f"sharded_{n}_path": r["launches"]
-                      for n, r in sharded.items() if "launches" in r})
-    emit(dict(phase="launch_counts", main_path=launches, **by_path,
-              words_bytes=dict(
-                  octet_one_partition=po["words_bytes_one_partition"],
-                  octet_partitioned=po["words_bytes"],
-                  default_one_partition=df["words_bytes"],
-                  default_partitioned=pdf["words_bytes"])))
-    for path in (launches, *by_path.values()):
+    unless every kernel of every path was launched there. R: the results
+    of the phases that ran (main_res, full, batch, scores: the main path;
+    lib: the library yardsticks; sl, df, pdf, c3, c8, i8: the slice
+    engines; po, oc: the octet engines, oc by codec; bk and bkh: the
+    per-bucket paths (f32 and h16); labs: each lab's timing its path; p16:
+    L9's phase; sharded: the sharded engines' paths, K10a-d with the
+    quantized codecs nested under the partitioned kernels' entries). A
+    kernel's entry stands in the line when the phases it reads ran, which
+    ``complete`` (a run of every phase) requires of every entry."""
+    def have(*keys):
+        return all(R.get(key) is not None for key in keys)
+
+    if have("pdf", "df"):
+        require(R["pdf"]["words_bytes"] >= R["df"]["words_bytes"],
+                "the partition skeleton adds words, never drops them")
+    by_path = {}
+    if have("main_res", "batch", "scores"):
+        by_path["main_path"] = dict(
+            R["main_res"]["launches"],
+            octet_topk_batch_h16=R["batch"]["launches"],
+            octet_scores_h16=R["scores"]["launches"])
+    for key, path in (("sl", "slice_path"), ("df", "default_path"),
+                      ("po", "partitioned_octet_path"),
+                      ("pdf", "partitioned_default_path"),
+                      ("c3", None), ("c8", None), ("i8", None),
+                      ("bk", "bucket_path"), ("bkh", "bucket_h16_path"),
+                      ("p16", "pack16_lab_path")):
+        if have(key):
+            by_path[path or R[key]["phase"]] = R[key]["launches"]
+    for codec, r in (R.get("oc") or {}).items():
+        by_path[f"octet_{codec}_path"] = r["launches"]
+    for lab in ("kernel_lab", "fused_lab", "h16_lab", "fold_lab", "batch_lab",
+                "dma_lab", "i16_probe", "mxu_gather_lab"):
+        if have("labs"):
+            by_path[f"{lab}_path"] = R["labs"][lab]["launches"]
+    for n, r in (R.get("sharded") or {}).items():
+        if "launches" in r:
+            by_path[f"sharded_{n}_path"] = r["launches"]
+    words = {}
+    if have("po", "pdf", "df"):
+        words = dict(words_bytes=dict(
+            octet_one_partition=R["po"]["words_bytes_one_partition"],
+            octet_partitioned=R["po"]["words_bytes"],
+            default_one_partition=R["df"]["words_bytes"],
+            default_partitioned=R["pdf"]["words_bytes"]))
+    emit(dict(phase="launch_counts", **by_path, **words))
+    for path in by_path.values():
         for name, n in path.items():
             require(n > 0, f"its path launched {name}")
 
     # library yardsticks: SpMV alone for the SpMV kernels, SpMV and
     # torch.topk (two calls) for the Top-K sweeps, at each sweep's queries
-    spmv, topk1 = lib["spmv_ms"], lib["spmv_topk_1_ms"]
-    i8p, i4p = sharded["slice_i8s_p2"], sharded["octet_i4s_p2"]
+    lib = R.get("lib") or {}
+    spmv, topk1 = lib.get("spmv_ms"), lib.get("spmv_topk_1_ms")
     two = dict(library_calls="torch.sparse.mm + torch.topk")
     one = dict(library_calls="torch.sparse.mm")
     ker = "spmv_topk_tpu/ops/kernel.py"
+    launches = by_path.get("main_path", {})
 
     def octet_codecs(name, source, line, kn, library, **extra):
         """The octet kernel's entry of each codec but h16 (its path's
@@ -3237,31 +3423,13 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
         return {c: kernel_entry(name.replace("h16", c), source,
                                 f"{ker}:{line}",
                                 r["launches"][name.replace("h16", c)], r, kn,
-                                library, **extra) for c, r in oc.items()}
+                                library, **extra)
+                for c, r in R["oc"].items()}
 
-    emit({"kernels": [
-        kernel_entry("octet_topk_h16", "octet_topk.cuh", f"{ker}:1057",
-                     launches["octet_topk_h16"], full, "k1", topk1, **two,
-                     **octet_codecs("octet_topk_h16", "octet_topk.cuh", 1057,
-                                    "k1", topk1, **two)),
-        kernel_entry("octet_topk_batch_h16", "octet_topk_batch.cuh",
-                     f"{ker}:1641", launches["octet_topk_batch_h16"], batch,
-                     "k6", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
-                     queries=BATCH_GROUP, **two,
-                     **octet_codecs("octet_topk_batch_h16",
-                                    "octet_topk_batch.cuh", 1641, "k6",
-                                    lib[f"spmv_topk_{BATCH_GROUP}_ms"],
-                                    queries=BATCH_GROUP, **two)),
-        kernel_entry("octet_scores_h16", "octet_scores.cu", f"{ker}:2039",
-                     launches["octet_scores_h16"], scores, "k4", spmv,
-                     **one, **octet_codecs("octet_scores_h16",
-                                           "octet_scores.cu", 2039, "k4",
-                                           spmv, **one)),
-        kernel_entry("stream_words", "stream_probe.cu",
-                     "spmv_topk_tpu/ops/streamprobe.py:54",
-                     launches["stream_words"],
-                     full, "k3", None),
-        *(kernel_entry(
+    def slice_entry(name, src, kn, line, q, fq):
+        sl, df, sc = R["sl"], R["df"], dict(i8s=R["c3"], i4s=R["c8"],
+                                            int8x4=R["i8"])
+        return kernel_entry(
             name, src, f"{ker}:{line}", sl["launches"][name], sl,
             kn, lib[f"spmv_topk_{q}_ms"] if kn != "k9" else spmv,
             **{codec: kernel_entry(name, src, f"{ker}:{line}",
@@ -3271,115 +3439,169 @@ def summarize(main_res, full, batch, scores, lib, sl, df, po, pdf, sc, oc,
                for codec, r, cq in (
                    ("f32", df, fq), ("i8s", sc["i8s"], fq),
                    ("i4s", sc["i4s"], q), ("int8x4", sc["int8x4"], fq))})
-          for name, src, kn, line, q, fq in (
-              ("slice_topk", "slice_topk.cu", "k7", 864, 1, 1),
-              ("slice_topk_batch", "slice_topk_batch.cuh", "k8", 1381,
-               BATCH_GROUP, DEFAULT_GROUP),
-              ("slice_scores", "slice_scores.cu", "k9", 1909, 1, 1))),
+
+    def sharded(key):
+        return R["sharded"][key]
+
+    def k13_extra(r):
+        return dict(alone_ms=r["k13_alone_ms"],
+                    host_enqueue_ms=r["k13_host_enqueue_ms_median"],
+                    host_launches_ms=r["k13_host_launches_ms_median"])
+
+    slices = ("sl", "df", "c3", "c8", "i8", "lib")
+    # (the results an entry reads, the entry)
+    specs = [
+        (("main_res", "full", "oc", "lib"), lambda: kernel_entry(
+            "octet_topk_h16", "octet_topk.cuh", f"{ker}:1057",
+            launches["octet_topk_h16"], R["full"], "k1", topk1, **two,
+            **octet_codecs("octet_topk_h16", "octet_topk.cuh", 1057, "k1",
+                           topk1, **two))),
+        (("main_res", "batch", "oc", "lib"), lambda: kernel_entry(
+            "octet_topk_batch_h16", "octet_topk_batch.cuh", f"{ker}:1641",
+            launches["octet_topk_batch_h16"], R["batch"], "k6",
+            lib[f"spmv_topk_{BATCH_GROUP}_ms"], queries=BATCH_GROUP, **two,
+            **octet_codecs("octet_topk_batch_h16", "octet_topk_batch.cuh",
+                           1641, "k6", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                           queries=BATCH_GROUP, **two))),
+        (("main_res", "scores", "oc", "lib"), lambda: kernel_entry(
+            "octet_scores_h16", "octet_scores.cu", f"{ker}:2039",
+            launches["octet_scores_h16"], R["scores"], "k4", spmv, **one,
+            **octet_codecs("octet_scores_h16", "octet_scores.cu", 2039,
+                           "k4", spmv, **one))),
+        (("main_res", "full"), lambda: kernel_entry(
+            "stream_words", "stream_probe.cu",
+            "spmv_topk_tpu/ops/streamprobe.py:54", launches["stream_words"],
+            R["full"], "k3", None)),
+        *((slices, lambda a=a: slice_entry(*a)) for a in (
+            ("slice_topk", "slice_topk.cu", "k7", 864, 1, 1),
+            ("slice_topk_batch", "slice_topk_batch.cuh", "k8", 1381,
+             BATCH_GROUP, DEFAULT_GROUP),
+            ("slice_scores", "slice_scores.cu", "k9", 1909, 1, 1))),
         # K10a-d and the partitioned K4/K9: the same kernels with a
         # partition axis, on the partitioned paths
-        kernel_entry("octet_topk_h16_partitioned", "octet_topk.cuh",
-                     f"{ker}:1116", po["launches"]["octet_topk_h16"], po,
-                     "k10b", topk1, partitions=PARTITIONS, **two,
-                     i4s=kernel_entry(
-                         "octet_topk_i4s_partitioned", "octet_topk.cuh",
-                         f"{ker}:1116", i4p["launches"]["octet_topk"], i4p,
-                         "k10b", topk1, partitions=PARTITIONS,
-                         path="sharded_octet_i4s_p2", **two)),
-        kernel_entry("octet_topk_batch_h16_partitioned",
-                     "octet_topk_batch.cuh", f"{ker}:1693",
-                     po["launches"]["octet_topk_batch_h16"], po, "k10d",
-                     lib[f"spmv_topk_{BATCH_GROUP}_ms"],
-                     partitions=PARTITIONS, queries=BATCH_GROUP, **two,
-                     i4s=kernel_entry(
-                         "octet_topk_batch_i4s_partitioned",
-                         "octet_topk_batch.cuh", f"{ker}:1693",
-                         i4p["launches"]["octet_topk_batch"], i4p, "k10d",
-                         lib[f"spmv_topk_{BATCH_GROUP}_ms"],
-                         partitions=PARTITIONS, queries=BATCH_GROUP,
-                         path="sharded_octet_i4s_p2", **two)),
-        kernel_entry("octet_scores_h16_partitioned", "octet_scores.cu",
-                     f"{ker}:2039", po["launches"]["octet_scores_h16"], po,
-                     "k4", spmv, partitions=PARTITIONS, **one),
-        kernel_entry("slice_topk_partitioned", "slice_topk.cu",
-                     f"{ker}:927", pdf["launches"]["slice_topk"], pdf, "k7",
-                     topk1, partitions=PARTITIONS, **two,
-                     i8s=kernel_entry(
-                         "slice_topk_i8s_partitioned", "slice_topk.cu",
-                         f"{ker}:927", i8p["launches"]["slice_topk"], i8p,
-                         "k10a", topk1, partitions=PARTITIONS,
-                         path="sharded_slice_i8s_p2", **two)),
-        kernel_entry("slice_topk_batch_partitioned", "slice_topk_batch.cuh",
-                     f"{ker}:1440", pdf["launches"]["slice_topk_batch"], pdf,
-                     "k8", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
-                     partitions=PARTITIONS, queries=DEFAULT_GROUP, **two,
-                     i8s=kernel_entry(
-                         "slice_topk_batch_i8s_partitioned",
-                         "slice_topk_batch.cuh", f"{ker}:1440",
-                         i8p["launches"]["slice_topk_batch"], i8p, "k10c",
-                         lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
-                         partitions=PARTITIONS, queries=DEFAULT_GROUP,
-                         path="sharded_slice_i8s_p2", **two)),
-        kernel_entry("slice_scores_partitioned", "slice_scores.cu",
-                     f"{ker}:1909", pdf["launches"]["slice_scores"], pdf,
-                     "k9", spmv, partitions=PARTITIONS, **one),
+        (("po", "sharded", "lib"), lambda: kernel_entry(
+            "octet_topk_h16_partitioned", "octet_topk.cuh", f"{ker}:1116",
+            R["po"]["launches"]["octet_topk_h16"], R["po"], "k10b", topk1,
+            partitions=PARTITIONS, **two,
+            i4s=kernel_entry(
+                "octet_topk_i4s_partitioned", "octet_topk.cuh",
+                f"{ker}:1116", sharded("octet_i4s_p2")["launches"][
+                    "octet_topk"], sharded("octet_i4s_p2"), "k10b", topk1,
+                partitions=PARTITIONS, path="sharded_octet_i4s_p2",
+                **two))),
+        (("po", "sharded", "lib"), lambda: kernel_entry(
+            "octet_topk_batch_h16_partitioned", "octet_topk_batch.cuh",
+            f"{ker}:1693", R["po"]["launches"]["octet_topk_batch_h16"],
+            R["po"], "k10d", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+            partitions=PARTITIONS, queries=BATCH_GROUP, **two,
+            i4s=kernel_entry(
+                "octet_topk_batch_i4s_partitioned", "octet_topk_batch.cuh",
+                f"{ker}:1693", sharded("octet_i4s_p2")["launches"][
+                    "octet_topk_batch"], sharded("octet_i4s_p2"), "k10d",
+                lib[f"spmv_topk_{BATCH_GROUP}_ms"], partitions=PARTITIONS,
+                queries=BATCH_GROUP, path="sharded_octet_i4s_p2", **two))),
+        (("po", "lib"), lambda: kernel_entry(
+            "octet_scores_h16_partitioned", "octet_scores.cu",
+            f"{ker}:2039", R["po"]["launches"]["octet_scores_h16"], R["po"],
+            "k4", spmv, partitions=PARTITIONS, **one)),
+        (("pdf", "sharded", "lib"), lambda: kernel_entry(
+            "slice_topk_partitioned", "slice_topk.cu", f"{ker}:927",
+            R["pdf"]["launches"]["slice_topk"], R["pdf"], "k7", topk1,
+            partitions=PARTITIONS, **two,
+            i8s=kernel_entry(
+                "slice_topk_i8s_partitioned", "slice_topk.cu", f"{ker}:927",
+                sharded("slice_i8s_p2")["launches"]["slice_topk"],
+                sharded("slice_i8s_p2"), "k10a", topk1,
+                partitions=PARTITIONS, path="sharded_slice_i8s_p2",
+                **two))),
+        (("pdf", "sharded", "lib"), lambda: kernel_entry(
+            "slice_topk_batch_partitioned", "slice_topk_batch.cuh",
+            f"{ker}:1440", R["pdf"]["launches"]["slice_topk_batch"],
+            R["pdf"], "k8", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
+            partitions=PARTITIONS, queries=DEFAULT_GROUP, **two,
+            i8s=kernel_entry(
+                "slice_topk_batch_i8s_partitioned", "slice_topk_batch.cuh",
+                f"{ker}:1440", sharded("slice_i8s_p2")["launches"][
+                    "slice_topk_batch"], sharded("slice_i8s_p2"), "k10c",
+                lib[f"spmv_topk_{DEFAULT_GROUP}_ms"], partitions=PARTITIONS,
+                queries=DEFAULT_GROUP, path="sharded_slice_i8s_p2",
+                **two))),
+        (("pdf", "lib"), lambda: kernel_entry(
+            "slice_scores_partitioned", "slice_scores.cu", f"{ker}:1909",
+            R["pdf"]["launches"]["slice_scores"], R["pdf"], "k9", spmv,
+            partitions=PARTITIONS, **one)),
         # the per-bucket ops over every bucket of pack_sell_buckets: f32
         # (the default config), h16 nested; times summed over the buckets
-        kernel_entry("bucket_scores", "bucket_scores.cu", f"{ker}:2107",
-                     bk["launches"]["bucket_scores"], bk, "k11", spmv,
-                     buckets=bk["buckets"], **one,
-                     h16=kernel_entry("bucket_scores", "bucket_scores.cu",
-                                      f"{ker}:2107",
-                                      bkh["launches"]["bucket_scores"], bkh,
-                                      "k11", spmv, buckets=bkh["buckets"],
-                                      **one)),
-        kernel_entry("bucket_topk", "bucket_topk.cu", f"{ker}:2276",
-                     bk["launches"]["bucket_topk"], bk, "k13", topk1,
-                     buckets=bk["buckets"], **two,
-                     h16=kernel_entry("bucket_topk", "bucket_topk.cu",
-                                      f"{ker}:2276",
-                                      bkh["launches"]["bucket_topk"], bkh,
-                                      "k13", topk1, buckets=bkh["buckets"],
-                                      **two)),
-        kernel_entry("bucket_topk_batch", "bucket_topk_batch.cuh",
-                     f"{ker}:2225", bk["launches"]["bucket_topk_batch"], bk,
-                     "k12", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
-                     buckets=bk["buckets"], queries=DEFAULT_GROUP, **two),
+        (("bk", "bkh", "lib"), lambda: kernel_entry(
+            "bucket_scores", "bucket_scores.cu", f"{ker}:2107",
+            R["bk"]["launches"]["bucket_scores"], R["bk"], "k11", spmv,
+            buckets=R["bk"]["buckets"], **one,
+            h16=kernel_entry("bucket_scores", "bucket_scores.cu",
+                             f"{ker}:2107",
+                             R["bkh"]["launches"]["bucket_scores"], R["bkh"],
+                             "k11", spmv, buckets=R["bkh"]["buckets"],
+                             **one))),
+        # K13: ms back to back through its wrapper, alone_ms the kernel
+        # on the card with no host time (_bucket_times)
+        (("bk", "bkh", "lib"), lambda: kernel_entry(
+            "bucket_topk", "bucket_topk.cu", f"{ker}:2276",
+            R["bk"]["launches"]["bucket_topk"], R["bk"], "k13", topk1,
+            buckets=R["bk"]["buckets"], **two, **k13_extra(R["bk"]),
+            h16=kernel_entry("bucket_topk", "bucket_topk.cu", f"{ker}:2276",
+                             R["bkh"]["launches"]["bucket_topk"], R["bkh"],
+                             "k13", topk1, buckets=R["bkh"]["buckets"],
+                             **two, **k13_extra(R["bkh"])))),
+        (("bk", "lib"), lambda: kernel_entry(
+            "bucket_topk_batch", "bucket_topk_batch.cuh", f"{ker}:2225",
+            R["bk"]["launches"]["bucket_topk_batch"], R["bk"], "k12",
+            lib[f"spmv_topk_{DEFAULT_GROUP}_ms"], buckets=R["bk"]["buckets"],
+            queries=DEFAULT_GROUP, **two)),
         # the measurement labs: each variant nested, v_prod (K7) under
         # fused_lab's entry
-        lab_entry("lab_kernel", "lab_kernel.cu", "experiments/kernel_lab.py:282",
-                  labs["kernel_lab"], "int8/exact"),
-        lab_entry("lab_fused", "lab_fused.cu", "experiments/fused_lab.py:108",
-                  labs["fused_lab"], "v_bare",
-                  variants_of=dict(v_prod=dict(
-                      name="slice_topk", source=(
-                          "spmv_topk_tpu_torch/csrc/slice_topk.cu"),
-                      replaces=f"{ker}:864"))),
-        lab_entry("lab_h16", "lab_h16.cu", "experiments/h16_lab.py:189",
-                  labs["h16_lab"], "cur"),
-        lab_entry("lab_fold", "lab_fold.cu", "experiments/fold_lab.py:129",
-                  labs["fold_lab"], "base"),
-        lab_entry("lab_batch", "lab_batch.cu",
-                  "experiments/batch_lab.py:213", labs["batch_lab"],
-                  "shared", queries=BATCH_Q),
-        lab_entry("lab_dma", "lab_dma.cu", "experiments/dma_lab.py:71",
-                  labs["dma_lab"], "1024x1"),
-        lab_entry("lab_i16", "lab_i16.cu", "experiments/i16_probe.py:84",
-                  labs["i16_probe"], "s32"),
+        (("labs",), lambda: lab_entry(
+            "lab_kernel", "lab_kernel.cu", "experiments/kernel_lab.py:282",
+            R["labs"]["kernel_lab"], "int8/exact")),
+        (("labs",), lambda: lab_entry(
+            "lab_fused", "lab_fused.cu", "experiments/fused_lab.py:108",
+            R["labs"]["fused_lab"], "v_bare",
+            variants_of=dict(v_prod=dict(
+                name="slice_topk", source=(
+                    "spmv_topk_tpu_torch/csrc/slice_topk.cu"),
+                replaces=f"{ker}:864")))),
+        (("labs",), lambda: lab_entry(
+            "lab_h16", "lab_h16.cu", "experiments/h16_lab.py:189",
+            R["labs"]["h16_lab"], "cur")),
+        (("labs",), lambda: lab_entry(
+            "lab_fold", "lab_fold.cu", "experiments/fold_lab.py:129",
+            R["labs"]["fold_lab"], "base")),
+        (("labs",), lambda: lab_entry(
+            "lab_batch", "lab_batch.cu", "experiments/batch_lab.py:213",
+            R["labs"]["batch_lab"], "shared", queries=BATCH_Q)),
+        (("labs",), lambda: lab_entry(
+            "lab_dma", "lab_dma.cu", "experiments/dma_lab.py:71",
+            R["labs"]["dma_lab"], "1024x1")),
+        (("labs",), lambda: lab_entry(
+            "lab_i16", "lab_i16.cu", "experiments/i16_probe.py:84",
+            R["labs"]["i16_probe"], "s32")),
         # the one-hot arm (torch, not a kernel of the port) beside the VPU
         # arm: a different function (one h16 half against an f32 table)
-        lab_entry("lab_mxu", "lab_mxu.cu",
-                  "experiments/mxu_gather_lab.py:108", labs["mxu_gather_lab"],
-                  "vpu", queries=BATCH_Q,
-                  onehot_ms=labs["mxu_gather_lab"]["variants"]["vpu"][
-                      "onehot_ms"],
-                  onehot_calls="torch.where one-hot + torch.matmul (f32)",
-                  variants_of={v: dict(onehot_ms=r["onehot_ms"])
-                               for v, r in labs["mxu_gather_lab"][
-                                   "variants"].items()}),
-        pack16_entry(p16),
-    ]})
+        (("labs",), lambda: lab_entry(
+            "lab_mxu", "lab_mxu.cu", "experiments/mxu_gather_lab.py:108",
+            R["labs"]["mxu_gather_lab"], "vpu", queries=BATCH_Q,
+            onehot_ms=R["labs"]["mxu_gather_lab"]["variants"]["vpu"][
+                "onehot_ms"],
+            onehot_calls="torch.where one-hot + torch.matmul (f32)",
+            variants_of={v: dict(onehot_ms=r["onehot_ms"])
+                         for v, r in R["labs"]["mxu_gather_lab"][
+                             "variants"].items()})),
+        (("p16",), lambda: pack16_entry(R["p16"])),
+    ]
+    ready = [build for needs, build in specs if have(*needs)]
+    if complete:
+        require(len(ready) == len(specs),
+                "a run of every phase has every kernel's entry")
+    emit({"kernels": [build() for build in ready]})
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -18,6 +18,7 @@ from typing import Optional
 
 # a slice is 128 rows, one per lane of the packed stream
 LANES = 128
+SUBLANES = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +28,18 @@ class ValueFormat:
     kind: str = "bf16"          # "f32" | "bf16" | "fixed"
     fixed_width: int = 32       # total bits of the emulated ap_ufixed
     fixed_integer_part: int = 1  # integer bits
+
+    @property
+    def scale(self) -> int:
+        return self.fixed_width - self.fixed_integer_part
+
+    @property
+    def bytes_per_value(self) -> int:
+        if self.kind == "f32":
+            return 4
+        if self.kind == "bf16":
+            return 2
+        return (self.fixed_width + 7) // 8
 
 
 F32 = ValueFormat("f32")
@@ -108,6 +121,11 @@ class TopKSpMVConfig:
                 "expressible in the transposed stream")
         if self.batch_subgroup < 0:
             raise ValueError("batch_subgroup must be >= 0")
+
+    @property
+    def col_groups(self) -> int:
+        """Number of 128-wide column groups the query table is split into."""
+        return self.max_cols // LANES
 
 
 DEFAULT_CONFIG = TopKSpMVConfig()

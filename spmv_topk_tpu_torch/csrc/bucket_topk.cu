@@ -1,29 +1,78 @@
 // Per-bucket Top-K of one query (kernel K13) for Hopper (sm_90a), every
-// query codec (codecs.cuh).
+// query codec (codecs.cuh), the lane merge included.
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_bucket_kernel (the pallas_call of
 // topk_spmv_bucket_device).
 //
 // What it computes. Every real slice s (s < num_real) of one bucket:
-// its 128 row scores as K11 computes them (bucket_common.cuh::
+// its 128 row scores as K11 computes them (the order of bucket_common.cuh::
 // slice_score), folded into per-lane (value, tag) buffers of lane_k
 // entries by argmin replacement (_topk_update: the first minimum when
 // tie-safe, else every slot holding it, when score >= minimum), the tag
-// the global slice id slice_base + s. The JAX kernel folds the padding
-// slices too, at -inf (a penalty added to their score): that moves no
-// value, so they are skipped here.
+// the global slice id slice_base + s; then the buffers merged per lane
+// into the final (lane_k, 128) pair, values descending. The JAX kernel
+// folds the padding slices too, at -inf (a penalty added to their score):
+// that moves no value, so they are skipped here.
 //
-// Design. K11's sweep (one CUDA block = 128 lanes, the table in shared
-// memory or F32Global, blocks taking slices in turn) with the lane buffers
-// in registers (lane_k a template parameter; tie-safe or not a run-time
-// branch). The TPU kernel carried one buffer over its sequential grid;
-// here each block writes its buffers to out[blockIdx], and one per-lane
-// torch.topk (ops/kernel.py::merge_lane_topk) merges them, so the
-// candidates equal the JAX kernel's on tie-free data.
+// Slots. num_slots buffers (slots) take the slices in turn, slot j slices
+// j, j + num_slots, ..., each starting from topk_init's entries; the merge
+// takes each lane's top lane_k over every slot's entries, the initial
+// ones included. The wrapper sets num_slots to one resident wave of
+// groups, no more than the bucket's slices (ops/kernel.py::
+// _bucket_topk_slots): the SM count x the occupancy API's resident blocks
+// an SM (1: the launch bounds give a thread up to 128 registers) x 4
+// slots. The non-tie-safe buffers depend on it at ties (a tied minimum is
+// replaced in every slot that holds it).
 //
-// Bound. As K11: the bucket's words read once, bound by device memory
-// bytes; the buffers' writes (nblk x lane_k x 1 KiB) are small. One launch
-// and one merge per bucket.
+// Merge order. Every merge keeps the first lane_k entries in the order
+// value descending, then tag ascending (`before`); no NaN reaches a merge
+// (the argmin replacement never admits one). Top-k under one total order
+// does not depend on how the entries are grouped, so the merge's tree
+// below gives what one merge of all slots gives (ops/kernel.py::
+// lane_merge_plain, bucket_topk_slots_plain). A slot sorts its buffer
+// (a bitonic network), and two sorted lists merge in log2(lane_k) + 1
+// rounds of independent compare-exchanges (`merge`): short dependency
+// chains (an insertion into a sorted list is lane_k dependent steps an
+// entry).
+//
+// Design. A CUDA block is kGroups groups of 128 threads, one group per
+// slot and one thread per lane; the query table is staged in shared memory
+// once for the block (an f32 table past shared memory is read from global
+// memory, F32Global). A thread sums its lane of a slice with the chunks in
+// the outer loop: the 8 rows' accumulators stay in registers (for the
+// float codecs an even and an odd one per row, as slice_score adds), and
+// each step issues the loads of kStep chunks (8 x kStep words, W x 512
+// contiguous bytes a slice) before any of their adds, so a thread keeps
+// 16 loads in flight (a step of 4 measured no faster: PERF.md). Up to 128
+// registers a thread (one block of 512 threads an SM) hold those loads,
+// the 16 accumulators and the lane buffer without a spill. The merge runs in the same launch,
+// in three levels:
+//   1. each block merges its groups' buffers in shared memory and writes
+//      one sorted buffer to the workspace;
+//   2. a ticket (__threadfence, then atomicAdd) elects the last block to
+//      finish in each set of set_size consecutive blocks (set_size about
+//      the square root of the grid); it merges the set's buffers, its
+//      threads sharing the lanes (kGroups threads a lane, each keeping a
+//      sorted register top-k of its buffers, then merged in shared
+//      memory), and writes one buffer for the set;
+//   3. a second ticket elects the last set, which merges the set buffers
+//      the same way and writes the sorted outputs.
+// Each elected block resets its ticket, so the next launch on the stream
+// starts from 0. A launch with one set skips level 3. Levels 2 and 3 each
+// run on one SM and read ~12 buffers there; with nothing to sweep a
+// launch takes ~15 µs. So each bucket is launched as a programmatic
+// dependent launch: its sweep runs while the previous launch merges, and
+// it waits for that launch to complete (griddepcontrol.wait) before it
+// touches the workspace, the tickets or its outputs.
+//
+// Bound. The bucket's words read once, bound by device memory bytes; the
+// merge moves (blocks + sets) x lane_k x 1 KiB through L2 and writes
+// lane_k x 1 KiB. One launch per bucket, nothing between it and the
+// wrapper's return. On one H100 80GB HBM3 at 700 W the 9 f32 buckets of
+// the 10M x 1024 corpus take 0.393 ms a query against a 0.277 ms bound
+// (chip_smoke.py, bucket_path).
+
+#include <climits>
 
 #include "bucket_common.cuh"
 
@@ -31,41 +80,322 @@ namespace {
 
 using namespace bucket;
 
-template <class C, int K>
-__global__ void __launch_bounds__(kLanes)
-bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __restrict__ table,
-                   const int32_t* __restrict__ num_real, int num_slices, int width,
-                   int table_rows, int shift, bool tie_safe, int slice_base,
-                   float* __restrict__ out_v, int32_t* __restrict__ out_t) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x;
-  const auto tab = codec::stage_table<C, false>(smem, table, table_rows, shift, lane);
+constexpr int kGroups = 4;                  // slots (128-thread groups) a block
+constexpr int kThreads = kGroups * kLanes;  // 512
+constexpr int kMinBlocks = 1;               // resident blocks an SM the launch bounds ask
+constexpr int kStep = 2;                    // chunks a load step of a slice issues
 
-  float tv[K];
-  int32_t tt[K];
-  topk_init<K>(tv, tt, tie_safe);
+// The merges' order: value descending, then tag ascending. A NaN value
+// comes before nothing (every comparison with it is false).
+__device__ __forceinline__ bool before(float av, int32_t at, float bv, int32_t bt) {
+  return av > bv || (av == bv && at < bt);
+}
 
-  const int chunks = width / kChunk;
-  const int n = real_slices(num_real, num_slices);
-  for (int s = blockIdx.x; s < n; s += gridDim.x)
-    topk_update<K>(tv, tt,
-                   slice_score<C>(words + (int64_t)s * width * kLanes + lane, chunks, tab),
-                   slice_base + s, tie_safe);
-
-  const int64_t out0 = (int64_t)blockIdx.x * K * kLanes + lane;
+// An empty sorted list: entries that every entry but a NaN comes before.
+template <int K>
+__device__ __forceinline__ void clear(float (&v)[K], int32_t (&t)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    out_v[out0 + k * kLanes] = tv[k];
-    out_t[out0 + k * kLanes] = tt[k];
+    v[k] = -INFINITY;
+    t[k] = INT_MAX;
   }
+}
+
+// Entries i < j of a list in `before` order: swapped if j comes first.
+template <int K>
+__device__ __forceinline__ void order(float (&v)[K], int32_t (&t)[K], int i, int j) {
+  if (before(v[j], t[j], v[i], t[i])) {
+    const float fv = v[i];
+    v[i] = v[j];
+    v[j] = fv;
+    const int32_t ft = t[i];
+    t[i] = t[j];
+    t[j] = ft;
+  }
+}
+
+// Sort a list in `before` order (a bitonic network: log2(K) (log2(K) + 1)
+// / 2 rounds of K / 2 independent compare-exchanges; K a power of two).
+template <int K>
+__device__ __forceinline__ void sort(float (&v)[K], int32_t (&t)[K]) {
+#pragma unroll
+  for (int size = 2; size <= K; size *= 2)
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride /= 2)
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          if ((i & size) == 0)
+            order<K>(v, t, i, j);
+          else
+            order<K>(v, t, j, i);
+        }
+      }
+}
+
+// The first K of two sorted lists, sorted, into (v, t): the larger of
+// v[i] and (cv, ct)[K - 1 - i] holds the first K of both (a bitonic
+// sequence), which log2(K) rounds of compare-exchanges sort.
+template <int K>
+__device__ __forceinline__ void merge(float (&v)[K], int32_t (&t)[K], const float (&cv)[K],
+                                      const int32_t (&ct)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (before(cv[K - 1 - i], ct[K - 1 - i], v[i], t[i])) {
+      v[i] = cv[K - 1 - i];
+      t[i] = ct[K - 1 - i];
+    }
+  }
+#pragma unroll
+  for (int stride = K / 2; stride > 0; stride /= 2)
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      if ((i ^ stride) > i) order<K>(v, t, i, i ^ stride);
+}
+
+// One slice's score in slice_score's order, the chunks in the outer loop:
+// each step loads kStep chunks (an even and an odd one), then adds them,
+// chunk c of a float codec to the even or the odd accumulators of its 8
+// rows by its parity; an odd last chunk goes alone. h16's int32 sum is
+// exact in any order (one accumulator). src: the lane's word of row 0.
+template <class C>
+__device__ __forceinline__ float score(const int32_t* src, int chunks,
+                                       const Table<typename C::Tab>& tab) {
+  static_assert(kStep == 2, "a step holds one (even, odd) chunk pair");
+  constexpr int N = kStep * kChunk;
+  if constexpr (C::kExact) {
+    typename C::Acc acc = 0;
+    int u = 0;
+    for (; u + kStep <= chunks; u += kStep) {
+      uint32_t w[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) w[i] = word(src, u * kChunk + i);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc = C::add(acc, w[i], tab);
+    }
+    if (u < chunks) {
+      uint32_t w[kChunk];
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) w[r] = word(src, u * kChunk + r);
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) acc = C::add(acc, w[r], tab);
+    }
+    return C::finish(acc);
+  } else {
+    float even[kChunk], odd[kChunk];
+#pragma unroll
+    for (int r = 0; r < kChunk; ++r) even[r] = odd[r] = 0.0f;
+    int u = 0;
+    for (; u + kStep <= chunks; u += kStep) {
+      uint32_t w[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) w[i] = word(src, u * kChunk + i);
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) {
+        even[r] = C::add(even[r], w[r], tab);
+        odd[r] = C::add(odd[r], w[kChunk + r], tab);
+      }
+    }
+    if (u < chunks) {
+      uint32_t w[kChunk];
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) w[r] = word(src, u * kChunk + r);
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) even[r] = C::add(even[r], w[r], tab);
+    }
+    return halving_sum([&](int r) { return __fadd_rn(even[r], odd[r]); });
+  }
+}
+
+// The query table, copied into shared memory by all the block's threads
+// (C::kShared), else the global table.
+template <class C>
+__device__ __forceinline__ Table<typename C::Tab> stage(unsigned char* smem,
+                                                       const typename C::Tab* table, int rows,
+                                                       int shift) {
+  if constexpr (!C::kShared) {
+    return {table, rows, shift};
+  } else {
+    typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
+    for (int i = threadIdx.x; i < rows * kLanes; i += kThreads) tab[i] = table[i];
+    __syncthreads();
+    return {tab, rows, shift};
+  }
+}
+
+// The first `count` groups' sorted lists, through shared memory (sv, st:
+// kGroups x K x 128 entries): group 0's threads end with the first K of
+// them for their lane, sorted. The caller makes sure no thread still reads
+// sv / st.
+template <int K>
+__device__ __forceinline__ void combine(float (&v)[K], int32_t (&t)[K], float* sv, int32_t* st,
+                                        int group, int lane, int count) {
+  if (group > 0 && group < count) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      sv[(group * K + k) * kLanes + lane] = v[k];
+      st[(group * K + k) * kLanes + lane] = t[k];
+    }
+  }
+  __syncthreads();
+  if (group == 0) {
+    for (int g = 1; g < count; ++g) {
+      float cv[K];
+      int32_t ct[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        cv[k] = sv[(g * K + k) * kLanes + lane];
+        ct[k] = st[(g * K + k) * kLanes + lane];
+      }
+      merge<K>(v, t, cv, ct);
+    }
+  }
+}
+
+// Buffer `b` of (K, 128) entries at (bv, bt): a sorted list's lane.
+template <int K>
+__device__ __forceinline__ void store(const float (&v)[K], const int32_t (&t)[K], float* bv,
+                                      int32_t* bt, int b, int lane) {
+  const int64_t o = (int64_t)b * K * kLanes + lane;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    bv[o + k * kLanes] = v[k];
+    bt[o + k * kLanes] = t[k];
+  }
+}
+
+// The first K, sorted, of the sorted buffers first + group, first + group
+// + kGroups, ... below first + count, for the thread's lane (an empty list
+// when there is none); read through L2 (__ldcg: other blocks wrote them),
+// the loads of R buffers (64 registers) issued before their merges.
+template <int K>
+__device__ __forceinline__ void gather(float (&v)[K], int32_t (&t)[K], const float* bv,
+                                       const int32_t* bt, int first, int count, int group,
+                                       int lane) {
+  constexpr int R = 32 / K;
+  clear<K>(v, t);
+  for (int b0 = group; b0 < count; b0 += R * kGroups) {
+    float cv[R][K];
+    int32_t ct[R][K];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = b0 + r * kGroups;
+      if (b < count) {
+        const int64_t o = (int64_t)(first + b) * K * kLanes + lane;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          cv[r][k] = __ldcg(bv + o + k * kLanes);
+          ct[r][k] = __ldcg(bt + o + k * kLanes);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (b0 + r * kGroups < count) merge<K>(v, t, cv[r], ct[r]);
+  }
+}
+
+// Whether this block is the last of `count` to reach *ticket: every
+// thread's writes are fenced first; the last block resets the ticket (no
+// other block of the launch touches it again).
+__device__ __forceinline__ bool arrive(unsigned* ticket, int count, bool* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1u) == static_cast<unsigned>(count - 1);
+    if (*flag) *ticket = 0u;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+template <class C, int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __restrict__ table,
+                   const int32_t* __restrict__ num_real, int num_slices, int width,
+                   int table_rows, int shift, bool tie_safe, int slice_base, int num_slots,
+                   int set_size, float* ws_v, int32_t* ws_t, unsigned* tickets,
+                   float* __restrict__ out_v, int32_t* __restrict__ out_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+  const int lane = threadIdx.x % kLanes;
+  const int group = threadIdx.x / kLanes;
+  const int block = blockIdx.x;
+  const int slot = block * kGroups + group;
+  const auto tab = stage<C>(smem, table, table_rows, shift);
+
+  float v[K];
+  int32_t t[K];
+  topk_init<K>(v, t, tie_safe);
+  const int chunks = width / kChunk;
+  const int n = real_slices(num_real, num_slices);
+  if (slot < num_slots)
+    for (int s = slot; s < n; s += num_slots)
+      topk_update<K>(v, t, score<C>(words + (int64_t)s * width * kLanes + lane, chunks, tab),
+                     slice_base + s, tie_safe);
+  // The next launch on the stream (launched to overlap this one's tail)
+  // may start its sweep now; this one touches the workspace, the tickets
+  // and its outputs only once the launch before it has completed.
+  asm volatile("griddepcontrol.launch_dependents;");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  // 1. the block's slots -> its buffer in the workspace
+  float* sv = reinterpret_cast<float*>(smem);
+  int32_t* st = reinterpret_cast<int32_t*>(sv + kGroups * K * kLanes);
+  sort<K>(v, t);
+  __syncthreads();  // no thread reads the table any more
+  combine<K>(v, t, sv, st, group, lane, min(kGroups, num_slots - block * kGroups));
+  if (group == 0) store<K>(v, t, ws_v, ws_t, block, lane);
+
+  // 2. the last block of each set -> the set's buffer (the outputs when
+  // there is one set)
+  const int blocks = gridDim.x;
+  const int sets = (blocks + set_size - 1) / set_size;
+  const int set = block / set_size;
+  const int first = set * set_size;
+  const int in_set = min(set_size, blocks - first);
+  if (!arrive(tickets + 1 + set, in_set, &last)) return;
+  gather<K>(v, t, ws_v, ws_t, first, in_set, group, lane);
+  combine<K>(v, t, sv, st, group, lane, min(kGroups, in_set));
+  if (sets == 1) {
+    if (group == 0) store<K>(v, t, out_v, out_t, 0, lane);
+    return;
+  }
+  if (group == 0) store<K>(v, t, ws_v, ws_t, blocks + set, lane);
+
+  // 3. the last set -> the outputs
+  if (!arrive(tickets, sets, &last)) return;
+  gather<K>(v, t, ws_v, ws_t, blocks, sets, group, lane);
+  combine<K>(v, t, sv, st, group, lane, min(kGroups, sets));
+  if (group == 0) store<K>(v, t, out_v, out_t, 0, lane);
+}
+
+// Dynamic shared memory: the table (C::kShared), then the merge's lists in
+// the same bytes.
+template <class C, int K>
+size_t smem_bytes(int table_rows) {
+  const size_t tab = codec::table_smem_bytes<C, false>(table_rows);
+  const size_t merge = (size_t)kGroups * K * kLanes * (sizeof(float) + sizeof(int32_t));
+  return tab > merge ? tab : merge;
+}
+
+// Integer ceil(sqrt(n)): the set size of a grid of n blocks.
+int set_size_of(int n) {
+  int s = 1;
+  while (s * s < n) ++s;
+  return s;
 }
 
 struct Args {
   const int32_t* words;
   const void* table;
   const int32_t* num_real;
-  int num_slices, width, table_rows, shift, slice_base, num_cuda_blocks;
+  int num_slices, width, table_rows, shift, slice_base, num_slots;
   bool tie_safe;
+  float* ws_v;
+  int32_t* ws_t;
+  unsigned* tickets;
   float* out_v;
   int32_t* out_t;
   cudaStream_t stream;
@@ -74,40 +404,105 @@ struct Args {
 template <class C, int K>
 cudaError_t launch(const Args& a) {
   auto kernel = bucket_topk_kernel<C, K>;
-  const size_t smem = codec::table_smem_bytes<C, false>(a.table_rows);
+  const size_t smem = smem_bytes<C, K>(a.table_rows);
   const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<a.num_cuda_blocks, kLanes, smem, a.stream>>>(
-      a.words, static_cast<const typename C::Tab*>(a.table), a.num_real, a.num_slices, a.width,
-      a.table_rows, a.shift, a.tie_safe, a.slice_base, a.out_v, a.out_t);
-  return cudaSuccess;
+  const int blocks = (a.num_slots + kGroups - 1) / kGroups;
+  // a programmatic dependent launch, which may start once every block of
+  // the stream's previous kernel has passed its sweep (a kernel that does
+  // not say so counts as passing it when it completes)
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a.words, static_cast<const typename C::Tab*>(a.table),
+                            a.num_real, a.num_slices, a.width, a.table_rows, a.shift, a.tie_safe,
+                            a.slice_base, a.num_slots, set_size_of(blocks), a.ws_v, a.ws_t,
+                            a.tickets, a.out_v, a.out_t);
+}
+
+template <class C, int K>
+cudaError_t occupancy(int table_rows, int* blocks) {
+  auto kernel = bucket_topk_kernel<C, K>;
+  const size_t smem = smem_bytes<C, K>(table_rows);
+  const cudaError_t err = codec::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+}
+
+// f(Tag<C>, integral_constant K) for a lane_k of 4, 8 or 16.
+template <class F>
+cudaError_t dispatch(int codec_arg, int lane_k, F&& f) {
+  return codec::dispatch(codec_arg, [&](auto tag) {
+    switch (lane_k) {
+      case 4: return f(tag, std::integral_constant<int, 4>{});
+      case 8: return f(tag, std::integral_constant<int, 8>{});
+      case 16: return f(tag, std::integral_constant<int, 16>{});
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// words: (num_slices * width, 128) int32; table: (table_rows, 128), int32
-// (f32 for the f32 codecs), codec one of codecs.cuh::Codec; num_real: one
-// int32 on the device; out_v/out_t: (num_cuda_blocks, lane_k, 128).
-// Returns cudaGetLastError() (or the error of a refused launch).
-int bucket_topk(const int32_t* words, const void* table, const int32_t* num_real, int num_slices,
-                int width, int table_rows, int codec, int lane_k, int tie_safe, int slice_base,
-                int num_cuda_blocks, float* out_v, int32_t* out_t, void* stream) {
-  if (num_slices < 1 || width < 1 || num_cuda_blocks < 1 ||
-      !codec::table_rows_ok(codec, table_rows))
-    return cudaErrorInvalidValue;
-  const Args a{words, table, num_real, num_slices, width, table_rows, codec::sign_shift(codec),
-               slice_base, num_cuda_blocks, tie_safe != 0, out_v, out_t,
-               static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = codec::dispatch(codec, [&](auto tag) {
+// Resident blocks an SM of the K13 kernel of (codec, lane_k) with a table
+// of table_rows rows (on the current device), or a negative cudaError_t.
+int bucket_topk_occupancy(int codec, int lane_k, int table_rows) {
+  if (!codec::table_rows_ok(codec, table_rows)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = dispatch(codec, lane_k, [&](auto tag, auto k) {
     using C = typename decltype(tag)::type;
-    switch (lane_k) {
-      case 4: return launch<C, 4>(a);
-      case 8: return launch<C, 8>(a);
-      case 16: return launch<C, 16>(a);
-      default: return cudaErrorInvalidValue;
-    }
+    return occupancy<C, decltype(k)::value>(table_rows, &blocks);
+  });
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// One launch of K13 from its arguments packed as int64 values (one
+// argument crosses from Python, not 18: ops/kernel.py::
+// topk_spmv_bucket_device), in this order:
+//   0 words: (num_slices * width, 128) int32;
+//   1 table: (table_rows, 128), int32 (f32 for the f32 codecs);
+//   2 num_real: one int32 on the device;
+//   3 num_slices, 4 width, 5 table_rows, 6 codec (codecs.cuh::Codec),
+//   7 lane_k, 8 tie_safe, 9 slice_base;
+//   10 num_slots: the slots (ceil(num_slots / 4) CUDA blocks of 512
+//      threads);
+//   11 workspace: int32 storage of 12 workspace_buffers x 2 x lane_k x
+//      128 entries, at least twice the blocks' count;
+//   13 tickets: 14 num_tickets unsigned zeros, more than the blocks' count
+//      (the kernel leaves them 0);
+//   15 out_v, 16 out_t: (lane_k, 128); 17 stream.
+// The launch is a programmatic dependent one: its sweep may overlap the
+// tail of the stream's previous kernel (see launch).
+// Returns cudaGetLastError() (or the error of a refused launch).
+int bucket_topk(const int64_t* p) {
+  auto ptr = [&](int i) { return reinterpret_cast<void*>(static_cast<intptr_t>(p[i])); };
+  const int num_slices = static_cast<int>(p[3]), width = static_cast<int>(p[4]);
+  const int table_rows = static_cast<int>(p[5]), codec = static_cast<int>(p[6]);
+  const int lane_k = static_cast<int>(p[7]), num_slots = static_cast<int>(p[10]);
+  const int workspace_buffers = static_cast<int>(p[12]), num_tickets = static_cast<int>(p[14]);
+  const int blocks = (num_slots + kGroups - 1) / kGroups;
+  if (num_slices < 1 || width < 1 || num_slots < 1 || workspace_buffers < 2 * blocks ||
+      num_tickets <= blocks || !codec::table_rows_ok(codec, table_rows))
+    return cudaErrorInvalidValue;
+  float* ws_v = static_cast<float*>(ptr(11));
+  int32_t* ws_t = reinterpret_cast<int32_t*>(ws_v + (int64_t)workspace_buffers * lane_k * kLanes);
+  const Args a{static_cast<const int32_t*>(ptr(0)), ptr(1), static_cast<const int32_t*>(ptr(2)),
+               num_slices, width, table_rows, codec::sign_shift(codec),
+               static_cast<int>(p[9]), num_slots, p[8] != 0, ws_v, ws_t,
+               static_cast<unsigned*>(ptr(13)), static_cast<float*>(ptr(15)),
+               static_cast<int32_t*>(ptr(16)), static_cast<cudaStream_t>(ptr(17))};
+  const cudaError_t err = dispatch(codec, lane_k, [&](auto tag, auto k) {
+    using C = typename decltype(tag)::type;
+    return launch<C, decltype(k)::value>(a);
   });
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

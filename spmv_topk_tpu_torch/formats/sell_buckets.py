@@ -70,6 +70,10 @@ class SellBucket:
     slice_base: int          # global index of the bucket's first slice
     num_slices: int          # real slices (before block padding)
 
+    @property
+    def slices_per_block(self) -> int:
+        return self.block_sublanes // self.width
+
 
 @dataclasses.dataclass
 class BucketedSellMatrix:
@@ -82,6 +86,22 @@ class BucketedSellMatrix:
     value_scale: float = 1.0  # h16: global 6-bit value quantization scale
     #   (kernel scores are integer sums; multiply by value_scale *
     #   query_scale to recover dot-product units)
+
+    @property
+    def num_slices(self) -> int:
+        return self.row_ids.shape[0] - 1
+
+    @property
+    def hbm_bytes(self) -> int:
+        return sum(int(b.words.nbytes) for b in self.buckets)
+
+    @property
+    def padded_nnz(self) -> int:
+        return sum(b.words.shape[0] * LANES for b in self.buckets)
+
+    @property
+    def padding_ratio(self) -> float:
+        return self.padded_nnz / max(self.num_nnz, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +193,10 @@ class FusedSellMatrix:
     @property
     def hbm_bytes(self) -> int:
         return int(self.words.nbytes)
+
+    @property
+    def num_slices(self) -> int:
+        return self.row_ids.shape[0] - 1
 
     @property
     def padding_ratio(self) -> float:
@@ -480,13 +504,15 @@ def pack_fused_partitions(
 
 def pack_sell_buckets(
     coo: CooMatrix, config: TopKSpMVConfig = DEFAULT_CONFIG,
+    target_block_sublanes: int | None = None,
     value_scale: float | None = None,
 ) -> BucketedSellMatrix:
     """Pack a COO matrix into uniform-width SELL-128 buckets.
 
-    value_scale: h16 only, the global 6-bit value quantization scale;
-    None computes it from this matrix (partitions pass the whole
-    matrix's, ``pack_fused_partitions``)."""
+    target_block_sublanes: rows per block of every bucket (None:
+    ``config.block_sublanes``). value_scale: h16 only, the global 6-bit
+    value quantization scale; None computes it from this matrix
+    (partitions pass the whole matrix's, ``pack_fused_partitions``)."""
     if coo.num_cols > config.max_cols:
         raise ValueError(
             f"matrix has {coo.num_cols} cols > config.max_cols={config.max_cols}"
@@ -496,7 +522,7 @@ def pack_sell_buckets(
     from ..utils import native
 
     S = config.chunk_sublanes
-    tgt = config.block_sublanes
+    tgt = target_block_sublanes or config.block_sublanes
     h16 = config.query_codec == "h16"
 
     degrees = coo.row_degrees()

@@ -48,8 +48,8 @@ pallas_calls of
 ``spmv_topk_tpu/ops/kernel.py``) and the Top-K sweeps then merge their
 per-CUDA-block buffers with one per-lane ``torch.topk``, the same
 algebra as the JAX package's per-lane ``lax.top_k`` over its per-bucket
-buffers. On a CPU tensor each runs its plain PyTorch version
-(``octet_topk_plain``, ``octet_topk_batch_plain``, ``octet_scores_plain``,
+buffers (K13 merges its buffers on the card, in the same launch). On a
+CPU tensor each runs its plain PyTorch version (``octet_topk_plain``, ``octet_topk_batch_plain``, ``octet_scores_plain``,
 ``slice_topk_plain``, ``slice_topk_batch_plain``, ``slice_scores_plain``),
 which the tests hold against the JAX package and the card holds the
 kernel against.
@@ -65,7 +65,9 @@ Per-bucket ops (the JAX package's ``_bucket_scores_kernel``,
 ``topk_spmv_bucket_device`` (K13, ``csrc/bucket_topk.cu``) and
 ``topk_spmv_bucket_batch_device`` (K12, ``csrc/bucket_topk_batch.cuh``)
 harvest them into per-lane buffers with global slice tags; plain versions
-``bucket_scores_plain``, ``bucket_topk_plain``, ``bucket_topk_batch_plain``.
+``bucket_scores_plain``, ``bucket_topk_plain``, ``bucket_topk_batch_plain``
+(and ``bucket_topk_slots_plain``, K13 on its kernel's slots, with
+``lane_merge_plain``, its merge on the card).
 Their codec is a keyword of its own, and they sum in the JAX kernels'
 order (``_bucket_sums``).
 
@@ -83,6 +85,8 @@ merged across partitions, and the SpMV sweeps write ``(P * part_slices,
 
 from __future__ import annotations
 
+import array
+import contextlib
 import functools
 import math
 
@@ -93,6 +97,7 @@ from ..config import LANES, TopKSpMVConfig
 from . import _build
 
 NEG_INF = float("-inf")
+_INT32_MAX = 2**31 - 1
 
 # Sentinel floor of the Top-K buffers: real scores of L2-normalized
 # embeddings are O(1), so anything at or below this is an unfilled slot
@@ -104,6 +109,12 @@ PLAN_COLUMNS = ("width", "octets_per_block", "blocks_per_octet", "stride",
 
 # Top-K buffer depths the CUDA kernels are instantiated for
 KERNEL_LANE_K = (4, 8, 16)
+# K13 (csrc/bucket_topk.cu): 128-thread groups (slots) a CUDA block
+BUCKET_GROUPS = 4
+# (device index, codec argument, lane_k, table rows) -> K13's resident
+# blocks an SM; (device index, stream) -> its merge workspace and tickets
+_K13_OCCUPANCY = {}
+_K13_WORKSPACE = {}
 # CUDA blocks per SM of the sweeps: each block of a Top-K sweep owns one
 # set of lane buffers, so this also sets the merge width (blocks * lane_k
 # per lane)
@@ -429,20 +440,43 @@ def tables_in_smem(table_bytes: int, smem_limit: int) -> int:
     return fit
 
 
+# per CUDA device index: (SM count, shared memory a block may opt in to)
+_DEVICE_INFO = {}
+# (device index, codec, table rows) -> _kernel_codec's answer
+_KERNEL_CODEC = {}
+
+
+def _device_info(dev):
+    """(SM count, opt-in shared memory bytes a block) of CUDA ``dev``,
+    read once per device."""
+    info = _DEVICE_INFO.get(dev.index)
+    if info is None:
+        props = torch.cuda.get_device_properties(dev)
+        info = _DEVICE_INFO[dev.index] = (
+            props.multi_processor_count, props.shared_memory_per_block_optin)
+    return info
+
+
 def _kernel_codec(dev, codec: str, rows: int):
     """(codec argument of the kernels, tables per CUDA block) on ``dev``
     for a table of ``rows`` rows: the codec's index in KERNEL_CODECS and
     ``tables_in_smem`` of its table (h16's batch sweeps repack a
     subgroup's 512-byte tables into one of 4 KB: always 8); with none, f32
     read from global memory and a subgroup of any size."""
-    props = torch.cuda.get_device_properties(dev)
-    fit = tables_in_smem(rows * LANES * 4, props.shared_memory_per_block_optin)
+    key = (dev.index, codec, rows)
+    got = _KERNEL_CODEC.get(key)
+    if got is not None:
+        return got
+    fit = tables_in_smem(rows * LANES * 4, _device_info(dev)[1])
     if fit:
-        return KERNEL_CODECS.index(codec), fit
-    if codec != "f32":
+        got = KERNEL_CODECS.index(codec), fit
+    elif codec != "f32":
         raise ValueError(f"a {codec} table of {rows} rows does not fit "
                          "shared memory")
-    return KERNEL_CODECS.index("f32_global"), MAX_BATCH_SUBGROUP
+    else:
+        got = KERNEL_CODECS.index("f32_global"), MAX_BATCH_SUBGROUP
+    _KERNEL_CODEC[key] = got
+    return got
 
 
 def _check_inputs(words, nreal, plan_rows, block_sublanes, num_partitions,
@@ -1230,6 +1264,76 @@ def bucket_topk_plain(words, table, num_real, *, lane_k: int, tie_safe: bool,
                             codec=codec, pairs=True)
 
 
+def lane_merge_plain(vals, tags, lane_k: int):
+    """Plain version of K13's lane merge on the card (csrc/bucket_topk.cu,
+    ``merge``): each lane's first ``lane_k`` of the stacked (..., 128)
+    entries in the order value descending, then tag ascending -> (topv,
+    topt), each (lane_k, 128). That order is total on (value, tag)
+    pairs, so the result does not depend on how the entries are grouped or
+    ordered (the kernel merges its slots in a tree), and at a tie the
+    smaller tag stays. A NaN is never kept: it ranks after every entry, as
+    an empty place does (-inf, int32 max), which a lane of fewer than
+    ``lane_k`` entries keeps."""
+    v = vals.reshape(-1, LANES)
+    t = tags.reshape(-1, LANES).to(torch.int32)
+    short = lane_k - v.shape[0]
+    if short > 0:
+        v = torch.cat([v, v.new_full((short, LANES), NEG_INF)])
+        t = torch.cat([t, t.new_full((short, LANES), _INT32_MAX)])
+    nan = torch.isnan(v)
+    v = torch.where(nan, NEG_INF, v)
+    t = torch.where(nan, _INT32_MAX, t)
+    # tag ascending, then a stable sort by value descending
+    o = torch.argsort(t, dim=0, stable=True)
+    v, t = v.gather(0, o), t.gather(0, o)
+    o = torch.argsort(v, dim=0, descending=True, stable=True)[:lane_k]
+    return v.gather(0, o), t.gather(0, o)
+
+
+def bucket_topk_slots_plain(words, table, num_real, *, lane_k: int,
+                            tie_safe: bool, width: int,
+                            slices_per_block: int, slice_base: int,
+                            num_blocks: int, num_slots: int,
+                            codec: str = "f32"):
+    """Plain version of K13 as the kernel computes it, on ``num_slots``
+    slots (``_bucket_topk_slots``): slot j folds the real slices j, j +
+    num_slots, ... in order into lane buffers from ``topk_init``'s entries
+    (-inf when ``tie_safe``) by argmin replacement (when score >= the
+    minimum: the first slot holding it when tie-safe, else every one);
+    then ``lane_merge_plain`` over every slot's entries, the initial ones
+    included -> (topv, topt), each (lane_k, 128). The kernel gives these
+    pairs bit for bit on any data, tags and ties included. Against
+    ``bucket_topk_plain``: equal values wherever the tie-safe buffers keep
+    no duplicate, which holds always when tie-safe; without tie-safety
+    ties can fill a slot's buffer with copies of one candidate, and a lane
+    of fewer than lane_k real candidates keeps the initial entries of
+    every slot."""
+    K = lane_k
+    dev = words.device
+    n = min(max(int(num_real.reshape(-1)[0]), 0),
+            num_blocks * slices_per_block)
+    sc = _bucket_sums(words, table, width=width, num_slices=n, codec=codec,
+                      pairs=True)
+    init = (torch.full((K,), NEG_INF, device=dev) if tie_safe else
+            torch.from_numpy(topk_init(K)).to(dev))
+    tv = init.view(1, K, 1).expand(num_slots, K, LANES).clone()
+    tt = torch.zeros((num_slots, K, LANES), dtype=torch.int32, device=dev)
+    kslot = torch.arange(K, device=dev).view(1, K, 1)
+    for s0 in range(0, n, num_slots):
+        m = min(num_slots, n - s0)
+        score = sc[s0:s0 + m].view(m, 1, LANES)
+        cur = tv[:m].amin(dim=1, keepdim=True)
+        hit = tv[:m] == cur
+        if tie_safe:
+            hit = kslot == hit.int().argmax(dim=1, keepdim=True)
+        rep = hit & (score >= cur)
+        tags = (slice_base + s0 + torch.arange(
+            m, device=dev, dtype=torch.int32)).view(m, 1, 1)
+        tv[:m] = torch.where(rep, score, tv[:m])
+        tt[:m] = torch.where(rep, tags, tt[:m])
+    return lane_merge_plain(tv, tt, K)
+
+
 def bucket_topk_batch_plain(words, tables, num_real, **kw):
     """Plain PyTorch version of the multi-query per-bucket Top-K (K12):
     ``bucket_topk_plain`` for each query of the (Q, rows, 128) tables, its
@@ -1265,11 +1369,11 @@ def _check_bucket(words, num_slices: int, width: int, codec: str, name,
             (name, tables, (*lead, rows, LANES), dtype),
             *(e + (torch.int32,) for e in extra)):
         if t.device != dev or t.dtype != want or \
-                tuple(t.shape) != shape or not t.is_contiguous():
+                t.shape != shape or not t.is_contiguous():
             raise ValueError(f"{what}: need contiguous {want} {shape} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    return rows, torch.cuda.get_device_properties(dev).multi_processor_count
+    return rows, _device_info(dev)[0]
 
 
 def spmv_bucket_scores_device(words, table, *, cfg: TopKSpMVConfig,
@@ -1299,7 +1403,8 @@ def spmv_bucket_scores_device(words, table, *, cfg: TopKSpMVConfig,
     arg, _ = _kernel_codec(dev, codec, rows)
     out = torch.empty((n, LANES), dtype=torch.float32, device=dev)
     _launch(dev, "bucket_scores", words.data_ptr(), table.data_ptr(), n,
-            width, rows, arg, _bucket_blocks(sms, n), out.data_ptr())
+            width, rows, arg, max(1, min(sms * _BLOCKS_PER_SM, n)),
+            out.data_ptr())
     spmv_bucket_scores_device.launches += 1
     return out
 
@@ -1307,16 +1412,19 @@ def spmv_bucket_scores_device(words, table, *, cfg: TopKSpMVConfig,
 spmv_bucket_scores_device.launches = 0
 
 
-def _bucket_blocks(sms: int, num_slices: int) -> int:
-    """CUDA blocks of a single-query per-bucket op: the card's sms *
-    _BLOCKS_PER_SM, no more than the bucket has slices."""
-    return max(1, min(sms * _BLOCKS_PER_SM, num_slices))
+def _bucket_blocks(sms: int, num_slices: int, per_sm: int = 1) -> int:
+    """K13's slots on a card of ``sms`` SMs: one resident wave of
+    ``per_sm`` blocks an SM (the occupancy API's answer: 1 for every build,
+    whose launch bounds give a thread up to 128 registers) of BUCKET_GROUPS
+    slots, no more than the bucket has slices."""
+    return max(1, min(sms * BUCKET_GROUPS * per_sm, num_slices))
 
 
 def topk_spmv_bucket_device(words, table, num_real, *, cfg: TopKSpMVConfig,
                             num_groups: int, width: int,
                             slices_per_block: int, slice_base: int,
-                            num_blocks: int, codec: str = "f32"):
+                            num_blocks: int, codec: str = "f32",
+                            cuda_blocks: int | None = None):
     """Per-bucket Top-K of one query (K13): (topv f32, topt i32), each
     (lane_k, 128), sorted descending per lane; tags are global slice ids
     slice_base + s, so the buffers of every bucket stack and finalize
@@ -1327,34 +1435,93 @@ def topk_spmv_bucket_device(words, table, num_real, *, cfg: TopKSpMVConfig,
     num_groups is accepted and unused: as in the JAX kernel, the table's
     rows decide. cfg gives lane_k and tie_safe_topk.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel:
-    CUDA blocks take slices in turn into lane buffers of their own, merged
-    by one per-lane ``torch.topk`` (``merge_lane_topk``).
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch that returns the final pair (the lane merge runs on the card,
+    ``bucket_topk_slots_plain`` computes what it gives) and reads
+    num_real on the card. The launch is a programmatic dependent launch:
+    when the stream's previous kernel is K13 too, this one's sweep starts
+    during that one's merge (it reads nothing that launch writes); after
+    any other kernel it starts when that completes. ``cuda_blocks`` forces
+    the grid (by default one resident wave), for tests.
     """
     del num_groups
     _check_slice(cfg)
-    kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
-              width=width, slices_per_block=slices_per_block,
-              slice_base=slice_base, num_blocks=num_blocks, codec=codec)
+    K = cfg.lane_k
+    tie_safe = bool(cfg.tie_safe_topk)
     if words.device.type == "cpu":
-        return bucket_topk_plain(words, table, num_real, **kw)
+        return bucket_topk_plain(words, table, num_real, lane_k=K,
+                                 tie_safe=tie_safe, width=width,
+                                 slices_per_block=slices_per_block,
+                                 slice_base=slice_base, num_blocks=num_blocks,
+                                 codec=codec)
     n = num_blocks * slices_per_block
-    rows, sms = _check_bucket(words, n, width, codec, "table", table, (),
-                              ("num_real", num_real, (1, 1)))
-    _check_lane_k(cfg.lane_k)
+    rows, _ = _check_bucket(words, n, width, codec, "table", table, (),
+                            ("num_real", num_real, (1, 1)))
+    _check_lane_k(K)
     dev = words.device
     arg, _ = _kernel_codec(dev, codec, rows)
-    nblk = _bucket_blocks(sms, n)
-    out_v = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.float32,
-                        device=dev)
-    out_t = torch.empty((nblk, cfg.lane_k, LANES), dtype=torch.int32,
-                        device=dev)
-    _launch(dev, "bucket_topk", words.data_ptr(), table.data_ptr(),
-            num_real.data_ptr(), n, width, rows, arg, cfg.lane_k,
-            int(kw["tie_safe"]), slice_base, nblk, out_v.data_ptr(),
-            out_t.data_ptr())
+    slots = _bucket_topk_slots(dev, arg, K, rows, n, cuda_blocks)
+    blocks = -(-slots // BUCKET_GROUPS)
+    lib = _build.lib()
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        ws, tickets = _bucket_workspace(dev, stream, 4 * blocks * K * LANES,
+                                        blocks + 1)
+        out_v = torch.empty((K, LANES), dtype=torch.float32, device=dev)
+        out_t = torch.empty((K, LANES), dtype=torch.int32, device=dev)
+        # the arguments as int64 values, in csrc/bucket_topk.cu's order:
+        # one ctypes argument costs a few microseconds less than 20
+        args = array.array("q", (
+            words.data_ptr(), table.data_ptr(), num_real.data_ptr(), n,
+            width, rows, arg, K, int(tie_safe), slice_base, slots,
+            ws.data_ptr(),
+            ws.numel() // (2 * K * LANES), tickets.data_ptr(),
+            tickets.numel(), out_v.data_ptr(), out_t.data_ptr(), stream))
+        err = lib.bucket_topk(args.buffer_info()[0])
+    _build.check(err, "bucket_topk")
     topk_spmv_bucket_device.launches += 1
-    return merge_lane_topk(out_v, out_t, cfg.lane_k)
+    return out_v, out_t
+
+
+def _bucket_topk_slots(dev, arg: int, lane_k: int, rows: int,
+                       num_slices: int, cuda_blocks=None):
+    """K13's slots (csrc/bucket_topk.cu): ``_bucket_blocks`` of the
+    kernel's resident blocks an SM from the occupancy API (the non-tie-
+    safe buffers depend on the slots at ties), or ``cuda_blocks`` x
+    BUCKET_GROUPS; no more than the bucket's slices."""
+    if cuda_blocks is not None:
+        if cuda_blocks < 1:
+            raise ValueError(f"cuda_blocks={cuda_blocks}: need >= 1")
+        return max(1, min(cuda_blocks * BUCKET_GROUPS, num_slices))
+    key = (dev.index, arg, lane_k, rows)
+    per_sm = _K13_OCCUPANCY.get(key)
+    if per_sm is None:
+        with torch.cuda.device(dev):
+            per_sm = _build.lib().bucket_topk_occupancy(arg, lane_k, rows)
+        if per_sm < 1:
+            raise RuntimeError(f"bucket_topk: occupancy {per_sm} for codec "
+                               f"{KERNEL_CODECS[arg]}, lane_k {lane_k}, "
+                               f"{rows} table rows")
+        _K13_OCCUPANCY[key] = per_sm
+    return _bucket_blocks(_device_info(dev)[0], num_slices, per_sm)
+
+
+def _bucket_workspace(dev, stream: int, words: int, tickets: int):
+    """K13's merge workspace (int32, at least ``words`` entries) and
+    tickets (at least ``tickets`` zeros, which each launch leaves 0) on
+    ``dev`` for launches on ``stream``: allocated once per (device,
+    stream) and grown when a launch needs more."""
+    key = (dev.index, stream)
+    have = _K13_WORKSPACE.get(key)
+    if have is None or have[0].numel() < words or have[1].numel() < tickets:
+        if have is not None:
+            words = max(words, have[0].numel())
+            tickets = max(tickets, have[1].numel())
+        have = _K13_WORKSPACE[key] = (
+            torch.empty(words, dtype=torch.int32, device=dev),
+            torch.zeros(tickets, dtype=torch.int32, device=dev))
+    return have
 
 
 topk_spmv_bucket_device.launches = 0

@@ -34,6 +34,14 @@ def pack_query_int8(vec_padded: np.ndarray):
     return table, scale
 
 
+def dequantize_query_int8(table: np.ndarray, scale: float, num_cols: int):
+    """Inverse of pack_query_int8 (tests)."""
+    t = table.view(np.uint32)
+    parts = [(t >> (8 * b)) & 0xFF for b in range(4)]
+    q = np.stack(parts, axis=1).reshape(-1)[:num_cols]
+    return (q.astype(np.int64) - 128) * scale
+
+
 def pack_query_i8s(vec_padded: np.ndarray):
     """Signed int8x4 table for the 'i8s' codec (sign-layout words).
 
@@ -56,6 +64,14 @@ def pack_query_i8s(vec_padded: np.ndarray):
     return table, scale
 
 
+def dequantize_query_i8s(table: np.ndarray, scale: float, num_cols: int):
+    t = table.view(np.uint32)
+    parts = [((t >> (8 * b)) & 0xFF).astype(np.uint8).view(np.int8)
+             for b in range(4)]
+    q = np.stack(parts, axis=1).reshape(-1)[:num_cols]
+    return q.astype(np.int64) * scale
+
+
 def pack_query_i4s(vec_padded: np.ndarray):
     """Signed int4x8 table for the 'i4s' codec: one 128-lane row covers
     1024 columns, so any matrix up to max_cols=1024 gathers in a SINGLE
@@ -71,6 +87,16 @@ def pack_query_i4s(vec_padded: np.ndarray):
         (q[:, n].astype(np.uint32) << (4 * n)) for n in range(8)
     ).view(np.int32)
     return table, scale
+
+
+def dequantize_query_i4s(table: np.ndarray, scale: float, num_cols: int):
+    t = table.view(np.uint32)
+    parts = []
+    for n in range(8):
+        nib = ((t >> (4 * n)) & 0xF).astype(np.int64)
+        parts.append(np.where(nib >= 8, nib - 16, nib))
+    q = np.stack(parts, axis=1).reshape(-1)[:num_cols]
+    return q * scale
 
 
 def pack_query_table(vec_padded: np.ndarray, codec: str):
@@ -135,6 +161,18 @@ def pack_query_tables(qs_padded: np.ndarray, codec: str):
                  | (q[:, :, 3] << 24)).view(np.int32)
         return table, scale
     raise ValueError(f"unknown query codec {codec!r}")
+
+
+def validate_codec(codec: str, max_cols: int) -> None:
+    if codec == "i8s" and max_cols > 1024:
+        raise ValueError("i8s codec supports max_cols <= 1024 "
+                         "(table-row select is a single sign bit)")
+    if codec == "i4s" and max_cols > 2048:
+        raise ValueError("i4s codec supports max_cols <= 2048")
+    if codec == "h16" and max_cols > 1024:
+        raise ValueError("h16 codec supports max_cols <= 1024")
+    if codec not in ("f32", "int8x4", "i8s", "i4s", "h16"):
+        raise ValueError(f"unknown query codec {codec!r}")
 
 
 def encode_words_sign_layout(words: np.ndarray, codec: str) -> np.ndarray:

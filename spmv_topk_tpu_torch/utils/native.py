@@ -62,6 +62,9 @@ def _load():
     lib.mtx_parse.argtypes = [
         ctypes.c_char_p, i64p, i64p, i64p, i32p, i32p, f32p]
     lib.mtx_parse.restype = ctypes.c_int
+    lib.coo_sort_perm.argtypes = [
+        i32p, i32p, ctypes.c_int64, ctypes.c_int64, i64p]
+    lib.coo_sort_perm.restype = None
     lib.sell_plan.argtypes = [
         i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
         i64p, i64p, i64p]
@@ -79,6 +82,10 @@ def _load():
     lib.csr_rescore.argtypes = [
         i64p, i32p, f32p, f32p, i64p, ctypes.c_int64, f32p]
     lib.csr_rescore.restype = None
+    lib.cpu_topk_spmv.argtypes = [
+        i64p, i32p, f32p, f32p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, i32p, f32p]
+    lib.cpu_topk_spmv.restype = None
     _LIB = lib
     return lib
 
@@ -114,6 +121,18 @@ def mtx_parse(path: str):
     if rc != 0:
         return None
     return rows, cols, vals, int(nr.value), int(nc.value)
+
+
+def coo_sort_perm(rows: np.ndarray, cols: np.ndarray, num_cols: int):
+    """int64 permutation sorting the entries by (row, col), or None if
+    the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    perm = np.empty(len(rows), np.int64)
+    lib.coo_sort_perm(_ptr(rows, ctypes.c_int32), _ptr(cols, ctypes.c_int32),
+                      len(rows), num_cols, _ptr(perm, ctypes.c_int64))
+    return perm
 
 
 def sell_plan(degrees: np.ndarray, chunk_sublanes: int, sigma_sort: bool):
@@ -176,6 +195,27 @@ def h16_scatter(rows, cols, vals, row_start, rank, slice_off, total_sub,
         _ptr(slice_off, ctypes.c_int64), ctypes.c_float(1.0 / value_scale),
         _ptr(words, ctypes.c_int32), n_threads)
     return words
+
+
+def cpu_topk_spmv(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+                  vec: np.ndarray, k: int, n_threads: int = 0):
+    """Threaded fused CPU Top-K SpMV over a CSR (SpMV and a running top-k,
+    no score vector). Returns (idx, val) sorted by value desc (ties:
+    index asc), or None if the native library is unavailable. indptr
+    must be int64, indices int32, data/vec f32."""
+    lib = _load()
+    if lib is None:
+        return None
+    num_rows = len(indptr) - 1
+    out_idx = np.empty(k, np.int32)
+    out_val = np.empty(k, np.float32)
+    lib.cpu_topk_spmv(_ptr(indptr, ctypes.c_int64),
+                      _ptr(indices, ctypes.c_int32),
+                      _ptr(data, ctypes.c_float), _ptr(vec, ctypes.c_float),
+                      num_rows, k, n_threads,
+                      _ptr(out_idx, ctypes.c_int32),
+                      _ptr(out_val, ctypes.c_float))
+    return out_idx, out_val
 
 
 def csr_rescore(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,

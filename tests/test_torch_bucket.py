@@ -410,3 +410,154 @@ def test_bucket_wrappers_on_cpu_run_plain(ref):
         sv, st = pkernel.bucket_topk_plain(words, tables[q], nreal, **pkw)
         _assert_lanes(sv.numpy(), st.numpy(), bv[q].numpy(), bt[q].numpy(),
                       True)
+
+
+# ------------------------------------------------- K13's lane merge on the card
+# csrc/bucket_topk.cu merges its slots' buffers on the card, in a tree, by
+# one total order (value descending, then tag ascending);
+# ops/kernel.py::lane_merge_plain is that merge, bucket_topk_slots_plain
+# the whole kernel (its slots' argmin buffers, then the merge). Both are
+# held here to merge_lane_topk (torch.topk), to bucket_topk_plain and to
+# the interpret-mode JAX kernel.
+
+def _stack(kind, rows, seed):
+    """(rows, 128) entries: tie-free (distinct values and tags), tied
+    (values from 5 integers) or sentinel-laden (topk_init's values, -inf
+    and NaN beside a few real values, tags repeating)."""
+    rng = np.random.default_rng(seed)
+    tags = np.stack([rng.permutation(1000)[:rows] for _ in range(128)], 1)
+    if kind == "tie_free":
+        vals = rng.standard_normal((rows, 128)).astype(np.float32)
+    elif kind == "ties":
+        vals = rng.integers(0, 5, (rows, 128)).astype(np.float32)
+    else:
+        init = pkernel.topk_init(16)
+        vals = init[rng.integers(0, 16, (rows, 128))]
+        pick = rng.random((rows, 128))
+        vals = np.where(pick < 0.2, -np.inf, vals)
+        vals = np.where((pick >= 0.2) & (pick < 0.25), np.nan, vals)
+        vals = np.where(pick >= 0.9, rng.standard_normal((rows, 128)),
+                        vals).astype(np.float32)
+        tags = np.where(pick < 0.5, 0, tags)
+    return _t(vals), _t(tags.astype(np.int32))
+
+
+def _lanes_above_floor(v, t, rv, rt):
+    """Values equal, (value, tag) pairs above each lane's smallest kept
+    value equal (``rv``, ``rt``: the reference)."""
+    np.testing.assert_array_equal(v.numpy(), rv.numpy())
+    v, t, rv, rt = (x.numpy() for x in (v, t, rv, rt))
+    for lane in range(128):
+        floor = rv[:, lane].min()
+        a = sorted(zip(v[v[:, lane] > floor, lane], t[v[:, lane] > floor,
+                                                       lane]))
+        b = sorted(zip(rv[rv[:, lane] > floor, lane],
+                       rt[rv[:, lane] > floor, lane]))
+        assert a == b, f"lane {lane}"
+
+
+@pytest.mark.parametrize("lane_k", [4, 8, 16])
+@pytest.mark.parametrize("kind", ["tie_free", "ties", "sentinels"])
+def test_lane_merge_plain_matches_merge_lane_topk(kind, lane_k):
+    """The card's merge (plain) against merge_lane_topk over 60 stacked
+    entries a lane: the same values; on tie-free data the same tags; at
+    a tie the smaller tag stays, so above each lane's floor the pairs
+    agree and at the floor the kept tags are the smallest of the tied
+    ones; a NaN is never kept (merge_lane_topk sees it as -inf here). The
+    result is the same in any order of the entries and merged in a tree
+    (groups of 7, then their merges), as the kernel merges."""
+    vals, tags = _stack(kind, 60, seed=lane_k)
+    v, t = pkernel.lane_merge_plain(vals, tags, lane_k)
+    assert v.shape == t.shape == (lane_k, 128) and t.dtype == torch.int32
+    assert not torch.isnan(v).any()
+    clean = torch.where(torch.isnan(vals), float("-inf"), vals)
+    rv, rt = pkernel.merge_lane_topk(clean, tags, lane_k)
+    if kind == "tie_free":
+        assert torch.equal(v, rv) and torch.equal(t, rt)
+    _lanes_above_floor(v, t, rv, rt)
+    vn, tn, cn, gn = v.numpy(), t.numpy(), clean.numpy(), tags.numpy()
+    for lane in range(128):
+        floor = vn[-1, lane]
+        kept = np.sort(tn[vn[:, lane] == floor, lane])
+        tied = np.sort(gn[cn[:, lane] == floor, lane])
+        np.testing.assert_array_equal(kept, tied[:len(kept)])
+    perm = torch.from_numpy(np.random.default_rng(9).permutation(60))
+    pv, pt_ = pkernel.lane_merge_plain(vals[perm], tags[perm], lane_k)
+    assert torch.equal(pv, v) and torch.equal(pt_, t)
+    parts = [pkernel.lane_merge_plain(vals[i:i + 7], tags[i:i + 7], lane_k)
+             for i in range(0, 60, 7)]
+    tv, tt = pkernel.lane_merge_plain(torch.cat([p[0] for p in parts]),
+                                      torch.cat([p[1] for p in parts]),
+                                      lane_k)
+    assert torch.equal(tv, v) and torch.equal(tt, t)
+
+
+def test_lane_merge_plain_keeps_empty_places():
+    """Fewer entries than lane_k (or only NaN): the rest of the lane is
+    empty places, -inf with the int32 maximum as tag, as on the card."""
+    vals = torch.tensor([[1.0] * 128, [float("nan")] * 128])
+    tags = torch.tensor([[3] * 128, [4] * 128], dtype=torch.int32)
+    v, t = pkernel.lane_merge_plain(vals, tags, 4)
+    assert (v[0] == 1.0).all() and (t[0] == 3).all()
+    assert (v[1:] == float("-inf")).all() and (t[1:] == 2**31 - 1).all()
+
+
+@pytest.mark.parametrize("slots", [1, 3, 64, 4096])
+@pytest.mark.parametrize("name", ["h16", "f32", "i8s_integer"])
+def test_bucket_topk_slots_plain_matches_plain(ref, name, slots):
+    """The kernel's plain version on 1, 3, 64 and more slots than slices,
+    tie-safe: bucket_topk_plain's values, and its pairs above each lane's
+    floor, on the widest and on a padded narrow bucket."""
+    r = ref[name]
+    codec = CASES[name][0]
+    for i in r["sel"]:
+        b = r["pm"].buckets[i]
+        args = (_t(b.words), _t(r["table"]), _nreal(b))
+        kw = _plain_kw(r["pc"], b, codec)
+        v, t = pkernel.bucket_topk_slots_plain(*args, num_slots=slots, **kw)
+        _lanes_above_floor(v, t, *pkernel.bucket_topk_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("name", ["h16", "f32_integer", "int8x4_integer"])
+def test_bucket_topk_one_slot_is_the_jax_kernel(ref, name):
+    """On one slot the kernel's plain version folds every slice in order
+    into one buffer, as the JAX kernel's sequential grid does: the same
+    (value, tag) pairs, tags of tied entries included, but for the -inf
+    slots (the JAX kernel folds its padding slices there at -inf)."""
+    r = ref[name]
+    codec = CASES[name][0]
+    for i in r["sel"]:
+        b = r["pm"].buckets[i]
+        v, t = pkernel.bucket_topk_slots_plain(
+            _t(b.words), _t(r["table"]), _nreal(b), num_slots=1,
+            **_plain_kw(r["pc"], b, codec))
+        jv, jt = r["k13"][i]
+        v, t = v.numpy(), t.numpy()
+        np.testing.assert_array_equal(-np.sort(-jv, axis=0), v)
+        for lane in range(128):
+            a = sorted((x, y) for x, y in zip(jv[:, lane], jt[:, lane])
+                       if x > -np.inf)
+            b_ = sorted((x, y) for x, y in zip(v[:, lane], t[:, lane])
+                        if x > -np.inf)
+            assert a == b_, f"lane {lane}"
+
+
+@pytest.mark.parametrize("slots", [1, 3, 4096])
+def test_bucket_topk_slots_plain_production(ref, slots):
+    """Not tie-safe, on tie-free f32 data: the real candidates kept (above
+    TOPK_FLOOR) are bucket_topk_plain's, pair for pair; below them each
+    slot's initial entries take part, so with several slots a lane of
+    fewer than lane_k real candidates keeps copies of the sentinels."""
+    r = ref["production"]
+    for i in r["sel"]:
+        b = r["pm"].buckets[i]
+        args = (_t(b.words), _t(r["table"]), _nreal(b))
+        kw = _plain_kw(r["pc"], b, "f32")
+        v, t = pkernel.bucket_topk_slots_plain(*args, num_slots=slots, **kw)
+        pv, pt_ = pkernel.bucket_topk_plain(*args, **kw)
+        real, preal = v > pkernel.TOPK_FLOOR, pv > pkernel.TOPK_FLOOR
+        assert torch.equal(real, preal)
+        assert torch.equal(v[real], pv[preal])
+        assert torch.equal(t[real], pt_[preal])
+        if slots == 1:
+            assert torch.equal(v, pv)

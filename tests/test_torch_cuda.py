@@ -1233,6 +1233,123 @@ def test_bucket_wrappers_refuse_bad_inputs(gpu, bucket_packs):
             num_groups=1, **tk)
 
 
+# ------------------------------------------- K13's grid and its card merge
+# K13 returns its final pair from one launch: its slots' buffers merge on
+# the card (csrc/bucket_topk.cu). bucket_topk_slots_plain computes what it
+# gives on the kernel's slots, tags and ties included, so the kernel is
+# held to it bit for bit, tie-safe or not, on grids forced to 1 and 3
+# blocks and on the default wave; tie-safe, to bucket_topk_plain too.
+
+def _k13(words, table, nreal, cfg, tk, **kw):
+    return pkernel.topk_spmv_bucket_device(words, table, nreal, cfg=cfg,
+                                           num_groups=1, **tk, **kw)
+
+
+def _k13_slots(words, table, cfg, tk, cuda_blocks=None):
+    """The slots K13 runs on for this bucket and grid."""
+    arg, _ = pkernel._kernel_codec(words.device, tk["codec"],
+                                   table.shape[0])
+    n = tk["num_blocks"] * tk["slices_per_block"]
+    return pkernel._bucket_topk_slots(words.device, arg, cfg.lane_k,
+                                      table.shape[0], n, cuda_blocks)
+
+
+def _k13_agree(words, table, nreal, cfg, tk, cuda_blocks=None):
+    kv, kt = _k13(words, table, nreal, cfg, tk, cuda_blocks=cuda_blocks)
+    pkw = dict(tk, lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk))
+    sv, st = pkernel.bucket_topk_slots_plain(
+        words, table, nreal, num_slots=_k13_slots(
+            words, table, cfg, tk, cuda_blocks), **pkw)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, sv) and torch.equal(kt, st)
+    if cfg.tie_safe_topk:
+        _lanes_equal(kv, kt, *pkernel.bucket_topk_plain(words, table, nreal,
+                                                        **pkw))
+    return kv, kt
+
+
+@pytest.mark.parametrize("tie_safe", [True, False], ids=["tie_safe",
+                                                         "production"])
+@pytest.mark.parametrize("grid", [1, 3, None], ids=["1", "3", "wave"])
+@pytest.mark.parametrize("name", list(BUCKET_CASES))
+def test_bucket_topk_merge_on_the_card(gpu, bucket_packs, name, grid,
+                                       tie_safe):
+    """K13 over every bucket, on 1, 3 and a wave of CUDA blocks, equal to
+    its plain version on the kernel's slots, bit for bit; the h16 buckets
+    are full of ties."""
+    cfg, m, qs = bucket_packs(name)
+    cfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe)
+    codec = cfg.query_codec
+    table = torch.from_numpy(pack_query_table(qs[0], codec)[0]).to(gpu)
+    before = pkernel.topk_spmv_bucket_device.launches
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        _k13_agree(words, table, nreal, cfg,
+                   dict(kw, slice_base=b.slice_base, codec=codec), grid)
+    assert pkernel.topk_spmv_bucket_device.launches - before == len(
+        m.buckets)
+
+
+def test_bucket_topk_back_to_back(gpu, bucket_packs):
+    """50 launches in a row on one workspace and its tickets give the same
+    pair each time (each launch's last blocks reset the tickets), on the
+    largest bucket and on a wave forced to 3 blocks; then every bucket's
+    launch in turn, 10 rounds with nothing between the launches (each
+    overlapping the one before), give each bucket's pair of a launch
+    alone (a synchronize after each: nothing to overlap)."""
+    cfg, m, qs = bucket_packs("f32")
+    table = torch.from_numpy(pack_query_table(qs[0], "f32")[0]).to(gpu)
+    b = max(m.buckets, key=lambda b: b.num_blocks * b.block_sublanes)
+    words, nreal, kw = _bucket_args(b, gpu)
+    tk = dict(kw, slice_base=b.slice_base, codec="f32")
+    for grid in (None, 3):
+        first = _k13_agree(words, table, nreal, cfg, tk, grid)
+        runs = [_k13(words, table, nreal, cfg, tk, cuda_blocks=grid)
+                for _ in range(50)]
+        torch.cuda.synchronize()
+        for v, t in runs:
+            assert torch.equal(v, first[0]) and torch.equal(t, first[1])
+    args = []
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        args.append((words, nreal, dict(kw, slice_base=b.slice_base,
+                                        codec="f32")))
+    alone = []
+    for words, nreal, tk in args:
+        alone.append(_k13(words, table, nreal, cfg, tk))
+        torch.cuda.synchronize()
+    runs = [[_k13(words, table, nreal, cfg, tk) for words, nreal, tk in args]
+            for _ in range(10)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for (v, t), (av, at) in zip(run, alone):
+            assert torch.equal(v, av) and torch.equal(t, at)
+
+
+@pytest.mark.parametrize("tie_safe", [True, False], ids=["tie_safe",
+                                                         "production"])
+@pytest.mark.parametrize("name", ["h16", "f32", "f32_65536_cols"])
+def test_bucket_topk_num_real(gpu, bucket_packs, name, tie_safe):
+    """num_real of 0 (every lane keeps its initial entries), 1 and all of
+    the bucket's slices, read on the card; the padding slices past the
+    real count stay out."""
+    cfg, m, qs = bucket_packs(name)
+    cfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe)
+    codec = cfg.query_codec
+    table = torch.from_numpy(pack_query_table(qs[0], codec)[0]).to(gpu)
+    b = max(m.buckets, key=lambda b: b.num_blocks * b.block_sublanes)
+    words, _, kw = _bucket_args(b, gpu)
+    tk = dict(kw, slice_base=b.slice_base, codec=codec)
+    n = kw["num_blocks"] * kw["slices_per_block"]
+    for real in (0, 1, b.num_slices, n):
+        nreal = torch.tensor([[real]], dtype=torch.int32, device=gpu)
+        kv, kt = _k13_agree(words, table, nreal, cfg, tk)
+        if real == 0:
+            assert (kv == float("-inf")).all() if tie_safe else \
+                (kv <= pkernel.TOPK_FLOOR).all()
+            assert not kt.any()
+
+
 # ------------------------------------------------ a slice that scores NaN
 # The kernels never admit a NaN score, and a NaN member of an octet or a
 # sub-tile keeps that harvest's other members out, as the JAX kernels'
