@@ -18,7 +18,9 @@ every phase runs:
   2. kernels vs their plain PyTorch versions on a 50k-row h16 octet
      corpus (tie-safe buffers, so per-lane values must agree bit for bit;
      K4's slice scores bit for bit), once more with blocks small enough
-     to force wide octets; K6 on 5 queries in uneven subgroups;
+     to force wide octets; K6 on 5 queries in uneven subgroups (h16
+     ignores them), and K6 h16 with production buffers against its slot
+     plain on the kernel's grid, tags included;
      then the slice-layout kernels K7, K8 (5 queries in uneven subgroups)
      and K9 the same way: h16 at quantum 2 with fold 8 and fold 1, f32 at
      quantum 8 on integer-valued data (exact in any summation order)
@@ -34,7 +36,10 @@ every phase runs:
      in one group against the same gold sets and against ``query()``,
      K6 against its plain version, and the ``batch32_*`` numbers of
      ``bench.py`` (256 queries in groups of 32, with and without the
-     rescore);
+     rescore); K6 h16 alone on the card with and without its lane merge
+     (and the ``torch.topk`` merge of its slots), at 32 and 64 queries,
+     the registers and spills of its instantiations (none may spill),
+     its stream reads per group and slots;
   6. the scores path: ``scores()`` of one query, K4 against its plain
      version and against the exact f32 product;
   7. partitioned engines (``num_partitions`` > 1) at 50k rows, P = 3 and
@@ -105,7 +110,8 @@ every phase runs:
      mxu_gather_lab's VPU arm at 32 and 64 chunks, bit for bit; ``sass``
      counts the instructions nvcc made of batch_lab's and i16_probe's
      variants (does ``cur`` share ``shared``'s decode; is ``g16x``
-     ``g16``); ``labs`` times each lab's variants on 1 GiB of its words
+     ``g16``) and of K6 h16's decode of one word for 32 queries;
+     ``labs`` times each lab's variants on 1 GiB of its words
      (4096 lab blocks for L7, L4, L5, L3; 2048 for L1 and L6; 2**21 rows
      for L2; L8 at 32 and 512 chunks with its one-hot arm, and at 65536
      without it) beside K3 on
@@ -352,6 +358,30 @@ def _batch_plain_and_kernel(eng, tables, cfg):
     return kern, plain
 
 
+def _k6_slots_equal(eng, tables, cfg):
+    """Whether K6 h16 (merged on the card) gives ``octet_topk_batch_slots_
+    plain``'s pairs on the kernel's grid bit for bit, tags included."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    bs = eng.fused.block_sublanes
+    kv, kt = K.topk_spmv_fused_batch_octet_device(*args, cfg=cfg,
+                                                  block_sublanes=bs,
+                                                  **eng.partition_kw)
+    sms = torch.cuda.get_device_properties(eng.words.device) \
+        .multi_processor_count
+    _, slots = K.octet_h16_grid(tables.shape[0], sms, cfg.num_partitions,
+                                cfg.lane_k)
+    pv, pt = K.octet_topk_batch_slots_plain(
+        *args, num_slots=slots, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
+        **eng.partition_kw)
+    torch.cuda.synchronize()
+    return bool(torch.equal(kv, pv) and torch.equal(kt, pt))
+
+
 def _scores_plain_and_kernel(eng, table):
     """Requires K4's slice scores (every partition's) bit-equal to the
     plain version's; returns the max abs difference (0)."""
@@ -407,11 +437,16 @@ def phase_small(dev):
         torch.cuda.synchronize()
         k6_err = max(compare_lanes(bv[j], bt[j], bpv[j], bpt[j])
                      for j in range(len(qs5)))
+        # K6 h16's production buffers merged on the card: its slot plain
+        # on the kernel's grid, values and tags bit for bit
+        require(_k6_slots_equal(eng, tables,
+                                dataclasses.replace(cfg, tie_safe_topk=False)),
+                "K6 h16 (production buffers) equals its slot plain")
         k4_err = _scores_plain_and_kernel(eng, table)
         cases.append(dict(fused_block_sublanes=fbs, fold_tile=fold,
                           buckets=len(eng.fused.plan), wide_buckets=wide,
                           k1_max_abs_err=err, k6_max_abs_err=k6_err,
-                          k4_max_abs_err=k4_err))
+                          k6_slots_plain_equal=True, k4_max_abs_err=k4_err))
     salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128) * 7919
     ks = stream_words_device(eng.words, salt)
     ps = stream_words_plain(eng.words, salt)
@@ -574,6 +609,27 @@ def phase_kernels_full(eng, qs, dev):
     return res
 
 
+def _k6_alone_ms(eng, tables, cfg, reps=10):
+    """K6 alone on the card, device time (``_device_ms``) on the engine's
+    stream: (the launch, its lane merge included for h16; the launch with
+    the merge left out, ``unmerged``; one per-lane ``torch.topk`` over
+    those unmerged slots, the merge the route before h16's card merge
+    ran)."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = eng.config.num_partitions
+    kw = K._sweep_kw(cfg, eng.fused.block_sublanes)
+    ps = eng.partition_kw.get("part_slices", 0)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows, P, ps, cfg)
+    slots = K.octet_topk_batch_cuda(*args, **kw, unmerged=True)
+    fns = [lambda: K.octet_topk_batch_cuda(*args, **kw),
+           lambda: K.octet_topk_batch_cuda(*args, **kw, unmerged=True),
+           lambda: K.merge_lane_topk(*slots, cfg.lane_k, lead=1 + int(P > 1))]
+    for fn in fns:
+        fn()
+    return tuple(_device_ms([fn], reps)[0][0] for fn in fns)
+
+
 def phase_batch(eng, qs, gold, single, k1_ms, dev):
     """The batch path on the main-path engine: query_batch through K6."""
     import dataclasses
@@ -581,8 +637,10 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
     import torch
 
     from spmv_topk_tpu_torch.formats import create_query_batch
+    from spmv_topk_tpu_torch.ops import _build
     from spmv_topk_tpu_torch.ops.kernel import (
-        batch_grid, octet_topk_batch_plain, topk_spmv_fused_batch_octet_device)
+        octet_h16_grid, octet_topk_batch_plain,
+        topk_spmv_fused_batch_octet_device)
 
     cfg = eng.config
     k = cfg.k
@@ -627,14 +685,19 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
         *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
         tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs), reps=1,
         warmup=0)
-    by_subgroup = {}
-    for sub in (1, 2, 4, 8):
-        scfg = dataclasses.replace(cfg, batch_subgroup=sub)
-        by_subgroup[sub] = cuda_ms(lambda: topk_spmv_fused_batch_octet_device(
-            *args, cfg=scfg, block_sublanes=bs), reps=5, warmup=1)
+    # the kernel alone on the card, with and without its lane merge, and
+    # the torch.topk merge of its slots, for the 32 and for 64 queries
+    # (two passes over the stream)
+    k6_alone_ms, k6_sweep_ms, k6_topk_merge_ms = _k6_alone_ms(eng, tables,
+                                                             cfg)
+    k6_alone_ms_64q = _k6_alone_ms(eng, _tables(many[:64], dev), cfg)[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    sub, n_sub, slots = batch_grid(NUM_QUERIES, cfg.batch_subgroup, sms,
-                                   eng.words.shape[0] // 8)
+    passes, slots = octet_h16_grid(NUM_QUERIES, sms, lane_k=cfg.lane_k)
+    regs = {k: dict(registers=r, spill_bytes=sp)
+            for k, (r, sp) in _build.ptxas_report().items()
+            if k.startswith("octet_topk_batch_h16_kernel<")}
+    require(regs and all(v["spill_bytes"] == 0 for v in regs.values()),
+            "no K6 h16 instantiation spills")
     per_query = k6_ms / NUM_QUERIES
     k6_bound = sweep_bound(eng, NUM_QUERIES, topk_out_bytes(eng, NUM_QUERIES))
     res = dict(
@@ -646,8 +709,10 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
         agreement_with_query_min=float(np.min(same)),
         group_of_32_e2e_ms=group_ms,
         k6_ms=k6_ms, k6_plain_ms=k6_plain_ms, k6_max_abs_err=k6_err,
-        k6_ms_by_subgroup=by_subgroup,
-        subgroup=sub, stream_reads_per_group=n_sub, octet_slots=slots,
+        k6_alone_ms=k6_alone_ms, k6_alone_ms_64_queries=k6_alone_ms_64q,
+        k6_sweep_alone_ms=k6_sweep_ms,
+        k6_merge_share=1 - k6_sweep_ms / k6_alone_ms,
+        stream_reads_per_group=passes, octet_slots=slots,
         block_buffer_bytes_per_group=NUM_QUERIES * slots * cfg.lane_k * 128 * 8,
         words_bytes=eng.hbm_bytes,
         batch32_ms_per_query=per_query,
@@ -658,6 +723,18 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
         single_query_k1_ms=k1_ms, launches=launches,
         nvidia_smi=smi_line())
     emit(res)
+    emit(dict(phase="batch_k6_h16_registers", instantiations=regs))
+    emit(dict(phase="batch_k6_h16_split", queries=NUM_QUERIES,
+              k6_ms=k6_ms, k6_alone_ms=k6_alone_ms,
+              k6_sweep_alone_ms=k6_sweep_ms,
+              card_merge_ms=k6_alone_ms - k6_sweep_ms,
+              merge_share=res["k6_merge_share"],
+              torch_topk_merge_of_the_slots_ms=k6_topk_merge_ms,
+              host_ms=k6_ms - k6_alone_ms,
+              stream_reads_per_group=passes, octet_slots=slots,
+              # the subgroup kernel this one replaced, on the same corpus
+              # and card (PERF.md section 6)
+              k6_ms_subgroup_kernel=2.431))
     require(res["precision_at_100_mean"] >= MIN_PRECISION,
             f"batch mean precision@100 >= {MIN_PRECISION}")
     require(launches > 0, "query_batch launched K6")
@@ -1392,6 +1469,7 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
             *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
         f"{k6}_plain_ms": cuda_ms(lambda: K.octet_topk_batch_plain(
             *bargs, **plain_kw), reps=1, warmup=0),
+        f"{k6}_alone_ms": _k6_alone_ms(eng, bargs[1], cfg)[0],
         f"{k4}_ms": cuda_ms(lambda: K.spmv_fused_scores_octet_device(
             *args, cfg=cfg, **skw), reps=20, warmup=2),
         f"{k4}_plain_ms": cuda_ms(lambda: K.octet_scores_plain(
@@ -2536,7 +2614,7 @@ def phase_sass():
     """What nvcc made of L1's and L6's variants (``_build.sass_report``):
     each kernel's instruction count and most frequent opcodes, and whether
     batch_lab's cur (the decode per query) compiled to shared's code, and
-    i16_probe's g16x to g16's."""
+    i16_probe's g16x to g16's; L9's chains and K6 h16's decode a word."""
     from spmv_topk_tpu_torch.ops import _build
 
     out = dict(phase="sass")
@@ -2568,8 +2646,35 @@ def phase_sass():
               "lab_mxu_sweep_opcodes"):
         out.pop(k)
     out["lab_pack16"] = _pack16_sass()
+    out["k6_h16"] = _k6_h16_sass()
     emit(out)
     return out
+
+
+def _k6_h16_sass():
+    """K6 h16's decode of one word for 32 queries (``codecs.cuh::H16x32``):
+    the opcode counts of the straight-line probe of 2 words less those of
+    the probe of 1; and the headline instantiation's (lane_k 8, fold 8,
+    production buffers) instruction and IDP counts."""
+    from spmv_topk_tpu_torch.ops import _build
+
+    rep = _build.sass_report("octet_topk_batch_h16.cu")
+    one, two = (next(c for k, c in rep.items()
+                     if k.startswith(f"h16x32_words_probe<{n}>"))
+                for n in (1, 2))
+    per_word = {op: n - one.get(op, 0) for op, n in two.items()
+                if n != one.get(op, 0)}
+    main = next(c for k, c in rep.items()
+                if k.split("<", 1)[0] == "octet_topk_batch_h16_kernel"
+                and k.split("<", 1)[1].rstrip(">").split(",") in (
+                    ["4", "8", "0", "0"], ["4", "8", "false", "false"]))
+    return dict(per_word_instructions=per_word["total"],
+                per_word_opcodes=per_word,
+                idp_per_word=sum(n for op, n in per_word.items()
+                                 if op.startswith("IDP")),
+                headline_kernel_instructions=main["total"],
+                headline_kernel_idp=sum(n for op, n in main.items()
+                                        if op.startswith("IDP")))
 
 
 # ------------------------------------------------------------ L9 pack16_lab
@@ -3457,9 +3562,10 @@ def summarize(R, complete):
             **octet_codecs("octet_topk_h16", "octet_topk.cuh", 1057, "k1",
                            topk1, **two))),
         (("main_res", "batch", "oc", "lib"), lambda: kernel_entry(
-            "octet_topk_batch_h16", "octet_topk_batch.cuh", f"{ker}:1641",
+            "octet_topk_batch_h16", "octet_topk_batch_h16.cu", f"{ker}:1641",
             launches["octet_topk_batch_h16"], R["batch"], "k6",
             lib[f"spmv_topk_{BATCH_GROUP}_ms"], queries=BATCH_GROUP, **two,
+            alone_ms=R["batch"]["k6_alone_ms"],
             **octet_codecs("octet_topk_batch_h16", "octet_topk_batch.cuh",
                            1641, "k6", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
                            queries=BATCH_GROUP, **two))),
@@ -3490,10 +3596,11 @@ def summarize(R, complete):
                 partitions=PARTITIONS, path="sharded_octet_i4s_p2",
                 **two))),
         (("po", "sharded", "lib"), lambda: kernel_entry(
-            "octet_topk_batch_h16_partitioned", "octet_topk_batch.cuh",
+            "octet_topk_batch_h16_partitioned", "octet_topk_batch_h16.cu",
             f"{ker}:1693", R["po"]["launches"]["octet_topk_batch_h16"],
             R["po"], "k10d", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
             partitions=PARTITIONS, queries=BATCH_GROUP, **two,
+            alone_ms=R["po"]["k10d_alone_ms"],
             i4s=kernel_entry(
                 "octet_topk_batch_i4s_partitioned", "octet_topk_batch.cuh",
                 f"{ker}:1693", sharded("octet_i4s_p2")["launches"][

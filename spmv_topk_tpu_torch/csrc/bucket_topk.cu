@@ -25,15 +25,10 @@
 // replaced in every slot that holds it).
 //
 // Merge order. Every merge keeps the first lane_k entries in the order
-// value descending, then tag ascending (`before`); no NaN reaches a merge
-// (the argmin replacement never admits one). Top-k under one total order
-// does not depend on how the entries are grouped, so the merge's tree
-// below gives what one merge of all slots gives (ops/kernel.py::
-// lane_merge_plain, bucket_topk_slots_plain). A slot sorts its buffer
-// (a bitonic network), and two sorted lists merge in log2(lane_k) + 1
-// rounds of independent compare-exchanges (`merge`): short dependency
-// chains (an insertion into a sorted list is lane_k dependent steps an
-// entry).
+// value descending, then tag ascending (lane_merge.cuh, shared with K6
+// h16); no NaN reaches a merge (the argmin replacement never admits one),
+// and the merge's tree below gives what one merge of all slots gives
+// (ops/kernel.py::lane_merge_plain, bucket_topk_slots_plain).
 //
 // Design. A CUDA block is kGroups groups of 128 threads, one group per
 // slot and one thread per lane; the query table is staged in shared memory
@@ -72,87 +67,18 @@
 // the 10M x 1024 corpus take 0.393 ms a query against a 0.277 ms bound
 // (chip_smoke.py, bucket_path).
 
-#include <climits>
-
 #include "bucket_common.cuh"
+#include "lane_merge.cuh"
 
 namespace {
 
 using namespace bucket;
+using namespace lane_merge;
 
 constexpr int kGroups = 4;                  // slots (128-thread groups) a block
 constexpr int kThreads = kGroups * kLanes;  // 512
 constexpr int kMinBlocks = 1;               // resident blocks an SM the launch bounds ask
 constexpr int kStep = 2;                    // chunks a load step of a slice issues
-
-// The merges' order: value descending, then tag ascending. A NaN value
-// comes before nothing (every comparison with it is false).
-__device__ __forceinline__ bool before(float av, int32_t at, float bv, int32_t bt) {
-  return av > bv || (av == bv && at < bt);
-}
-
-// An empty sorted list: entries that every entry but a NaN comes before.
-template <int K>
-__device__ __forceinline__ void clear(float (&v)[K], int32_t (&t)[K]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    v[k] = -INFINITY;
-    t[k] = INT_MAX;
-  }
-}
-
-// Entries i < j of a list in `before` order: swapped if j comes first.
-template <int K>
-__device__ __forceinline__ void order(float (&v)[K], int32_t (&t)[K], int i, int j) {
-  if (before(v[j], t[j], v[i], t[i])) {
-    const float fv = v[i];
-    v[i] = v[j];
-    v[j] = fv;
-    const int32_t ft = t[i];
-    t[i] = t[j];
-    t[j] = ft;
-  }
-}
-
-// Sort a list in `before` order (a bitonic network: log2(K) (log2(K) + 1)
-// / 2 rounds of K / 2 independent compare-exchanges; K a power of two).
-template <int K>
-__device__ __forceinline__ void sort(float (&v)[K], int32_t (&t)[K]) {
-#pragma unroll
-  for (int size = 2; size <= K; size *= 2)
-#pragma unroll
-    for (int stride = size / 2; stride > 0; stride /= 2)
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const int j = i ^ stride;
-        if (j > i) {
-          if ((i & size) == 0)
-            order<K>(v, t, i, j);
-          else
-            order<K>(v, t, j, i);
-        }
-      }
-}
-
-// The first K of two sorted lists, sorted, into (v, t): the larger of
-// v[i] and (cv, ct)[K - 1 - i] holds the first K of both (a bitonic
-// sequence), which log2(K) rounds of compare-exchanges sort.
-template <int K>
-__device__ __forceinline__ void merge(float (&v)[K], int32_t (&t)[K], const float (&cv)[K],
-                                      const int32_t (&ct)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    if (before(cv[K - 1 - i], ct[K - 1 - i], v[i], t[i])) {
-      v[i] = cv[K - 1 - i];
-      t[i] = ct[K - 1 - i];
-    }
-  }
-#pragma unroll
-  for (int stride = K / 2; stride > 0; stride /= 2)
-#pragma unroll
-    for (int i = 0; i < K; ++i)
-      if ((i ^ stride) > i) order<K>(v, t, i, i ^ stride);
-}
 
 // One slice's score in slice_score's order, the chunks in the outer loop:
 // each step loads kStep chunks (an even and an odd one), then adds them,
@@ -253,63 +179,6 @@ __device__ __forceinline__ void combine(float (&v)[K], int32_t (&t)[K], float* s
   }
 }
 
-// Buffer `b` of (K, 128) entries at (bv, bt): a sorted list's lane.
-template <int K>
-__device__ __forceinline__ void store(const float (&v)[K], const int32_t (&t)[K], float* bv,
-                                      int32_t* bt, int b, int lane) {
-  const int64_t o = (int64_t)b * K * kLanes + lane;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    bv[o + k * kLanes] = v[k];
-    bt[o + k * kLanes] = t[k];
-  }
-}
-
-// The first K, sorted, of the sorted buffers first + group, first + group
-// + kGroups, ... below first + count, for the thread's lane (an empty list
-// when there is none); read through L2 (__ldcg: other blocks wrote them),
-// the loads of R buffers (64 registers) issued before their merges.
-template <int K>
-__device__ __forceinline__ void gather(float (&v)[K], int32_t (&t)[K], const float* bv,
-                                       const int32_t* bt, int first, int count, int group,
-                                       int lane) {
-  constexpr int R = 32 / K;
-  clear<K>(v, t);
-  for (int b0 = group; b0 < count; b0 += R * kGroups) {
-    float cv[R][K];
-    int32_t ct[R][K];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int b = b0 + r * kGroups;
-      if (b < count) {
-        const int64_t o = (int64_t)(first + b) * K * kLanes + lane;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          cv[r][k] = __ldcg(bv + o + k * kLanes);
-          ct[r][k] = __ldcg(bt + o + k * kLanes);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (b0 + r * kGroups < count) merge<K>(v, t, cv[r], ct[r]);
-  }
-}
-
-// Whether this block is the last of `count` to reach *ticket: every
-// thread's writes are fenced first; the last block resets the ticket (no
-// other block of the launch touches it again).
-__device__ __forceinline__ bool arrive(unsigned* ticket, int count, bool* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *flag = atomicAdd(ticket, 1u) == static_cast<unsigned>(count - 1);
-    if (*flag) *ticket = 0u;
-  }
-  __syncthreads();
-  return *flag;
-}
-
 template <class C, int K>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __restrict__ table,
@@ -356,7 +225,7 @@ bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __r
   const int first = set * set_size;
   const int in_set = min(set_size, blocks - first);
   if (!arrive(tickets + 1 + set, in_set, &last)) return;
-  gather<K>(v, t, ws_v, ws_t, first, in_set, group, lane);
+  gather<K, kGroups>(v, t, ws_v, ws_t, first, in_set, group, lane);
   combine<K>(v, t, sv, st, group, lane, min(kGroups, in_set));
   if (sets == 1) {
     if (group == 0) store<K>(v, t, out_v, out_t, 0, lane);
@@ -366,7 +235,7 @@ bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __r
 
   // 3. the last set -> the outputs
   if (!arrive(tickets, sets, &last)) return;
-  gather<K>(v, t, ws_v, ws_t, blocks, sets, group, lane);
+  gather<K, kGroups>(v, t, ws_v, ws_t, blocks, sets, group, lane);
   combine<K>(v, t, sv, st, group, lane, min(kGroups, sets));
   if (group == 0) store<K>(v, t, out_v, out_t, 0, lane);
 }

@@ -104,7 +104,7 @@ bucket_topk_batch_kernel(const int32_t* __restrict__ words, const void* __restri
   const int num_slots = gridDim.x / num_subgroups;
   const int q0 = sg * subgroup;
   const int nq = min(subgroup, num_queries - q0);   // <= QG
-  const auto tab = B::template load<QG, false>(smem, tables, q0, nq, table_rows, shift, lane);
+  const auto tab = B::template load<QG>(smem, tables, q0, nq, table_rows, shift, lane);
   __syncthreads();
 
   float tv[QG][K];
@@ -151,7 +151,7 @@ struct Args {
 template <class B, int K, int QG>
 cudaError_t launch(const Args& a) {
   auto kernel = bucket_topk_batch_kernel<B, K, QG>;
-  const size_t smem = B::template smem_bytes<false>(QG, a.table_rows);
+  const size_t smem = B::smem_bytes(QG, a.table_rows);
   const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<a.num_cuda_blocks, kLanes, smem, a.stream>>>(

@@ -207,16 +207,13 @@ inline size_t table_smem_bytes(int rows) {
 }
 
 // ------------------------------------------------------------- multi-query
-// The batch sweeps (K6, K8) hold a subgroup of at most 8 queries (QG, the
-// subgroup rounded up to a power of two) in one CUDA block. load() fills
-// shared memory with the subgroup's tables and returns what add() gathers
-// from; add() adds word u's product for every query to acc[QG].
-// smem_bytes() is the dynamic shared memory load() takes. STATIC_H16 as
-// for stage_table: K6 keeps h16's repacked table in a static shared array,
-// K8 in dynamic shared memory, as each kernel had it before the codecs
-// shared this code (K6 lost 0.3-1.4% in dynamic memory).
+// The batch sweeps (K6 but for h16, K8, K12) hold a subgroup of at most 8
+// queries (QG, the subgroup rounded up to a power of two) in one CUDA
+// block. load() fills shared memory with the subgroup's tables and returns
+// what add() gathers from; add() adds word u's product for every query to
+// acc[QG]. smem_bytes() is the dynamic shared memory load() takes.
 
-// h16: the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
+// h16 (K8, K12): the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
 // repacked into tab[1024]: entry c (a 10-bit column) holds that column's
 // signed nibble for every query, query dq at bits [4dq, 4dq+4), so one
 // shared-memory gather per nnz serves the whole subgroup (_h16_shared,
@@ -228,12 +225,9 @@ struct H16Batch {
   using Acc = int32_t;
   static constexpr bool kExact = true;
 
-  template <bool STATIC_H16>
-  static size_t smem_bytes(int, int) {
-    return STATIC_H16 ? 0 : kH16Cols * sizeof(uint32_t);
-  }
+  static size_t smem_bytes(int, int) { return kH16Cols * sizeof(uint32_t); }
 
-  template <int QG, bool STATIC_H16>
+  template <int QG>
   __device__ static __forceinline__ Table<unsigned char> load(unsigned char* smem,
                                                               const void* tables, int q0, int nq,
                                                               int rows, int shift, int lane) {
@@ -242,13 +236,7 @@ struct H16Batch {
 #pragma unroll
     for (int dq = 0; dq < QG; ++dq)
       qt[dq] = dq < nq ? static_cast<uint32_t>(__ldg(t + (q0 + dq) * kLanes + lane)) : 0u;
-    uint32_t* tab;
-    if constexpr (STATIC_H16) {
-      __shared__ uint32_t repacked[kH16Cols];
-      tab = repacked;
-    } else {
-      tab = reinterpret_cast<uint32_t*>(smem);
-    }
+    uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
 #pragma unroll
     for (int n = 0; n < kH16Cols / kLanes; ++n) {
       uint32_t e = 0;
@@ -280,6 +268,111 @@ struct H16Batch {
   __device__ static __forceinline__ float finish(Acc a) { return static_cast<float>(a); }
 };
 
+// h16 for K6's 32-query sweep (octet_topk_batch_h16.cu): one pass of up
+// to 32 queries reads each word once. The pass's int4x8 tables (int32
+// (Q, 128), queries q0 .. q0 + nq - 1) are repacked into 16 bytes per
+// column, so that one 16-byte shared-memory gather serves every query of
+// the pass: word r (of 4) of column c holds queries 8r .. 8r + 7, query
+// 8r + j at bits [4j, 4j+4), each nibble biased by 8 (an unsigned 0..15:
+// the two's complement nibble with its top bit flipped); queries past nq
+// hold 0. The products are integer dot products (dp2a): the word's two
+// 6-bit values, times 4, as a signed 16-bit pair (one PRMT that
+// sign-extends the bytes holding them, one AND that clears the column
+// bits), against a byte pair of one query at the word's two columns (one
+// PRMT puts two queries' pairs side by side, an AND keeps the low or the
+// high nibbles: the high ones come times 16). Per 8 queries and word: 2
+// PRMT, 4 AND and 8 dp2a; per word besides: the load, the two gathers,
+// the value pair and its sum vs (4 (v0 + v1)), which takes the bias back
+// out at the end. Sums wrap modulo 2^32, so a sum is exact whenever the
+// true one, times 64, fits int32: a row of fewer than 2^17 nnz
+// (kH16x32MaxWidth words a member).
+constexpr int kH16x32Queries = 32;
+constexpr int kH16x32MaxWidth = 65535;
+
+struct H16x32 {
+  static constexpr size_t kTableBytes = kH16Cols * 16;
+
+  __device__ static __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+    uint32_t d;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+    return d;
+  }
+  // c + a.lo16 * b.byte0 + a.hi16 * b.byte1 (LO) or with b's bytes 2, 3
+  // (HI): a signed 16-bit pair against unsigned bytes
+  template <bool HI>
+  __device__ static __forceinline__ int32_t dp2a(uint32_t a, uint32_t b, int32_t c) {
+    int32_t d;
+    if constexpr (HI)
+      asm("dp2a.hi.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    else
+      asm("dp2a.lo.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+  }
+
+  // Fill tab (kTableBytes of shared memory) with the first 8 * NR queries
+  // of the pass: thread t of `threads` (a multiple of 128) repacks words
+  // r = t / 128, r + threads / 128, ... of lane t % 128's 8 columns.
+  template <int NR>
+  __device__ static __forceinline__ void load(uint32_t* tab, const int32_t* tables, int q0,
+                                              int nq, int t, int threads) {
+    const int lane = t % kLanes;
+    for (int r = t / kLanes; r < NR; r += threads / kLanes) {
+      uint32_t qt[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        qt[j] = 8 * r + j < nq
+                    ? static_cast<uint32_t>(__ldg(tables + (int64_t)(q0 + 8 * r + j) * kLanes + lane))
+                    : 0u;
+#pragma unroll
+      for (int n = 0; n < kH16Cols / kLanes; ++n) {
+        uint32_t e = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e |= (((qt[j] >> (4 * n)) & 0xFu) ^ 0x8u) << (4 * j);
+        tab[(n * kLanes + lane) * 4 + r] = e;
+      }
+    }
+  }
+
+  // Add word u's products for queries 0 .. 8 * NR - 1 of the pass to acc
+  // (query 8r + j at acc[8r + j]) and 4 (v0 + v1) to vs.
+  template <int NR>
+  __device__ static __forceinline__ void add(int32_t (&acc)[8 * NR], int32_t& vs, uint32_t u,
+                                             const uint4* tab) {
+    const uint32_t a = prmt(u, 0u, 0xB391u) & 0xFFFCFFFCu;   // (4 v0, 4 v1)
+    vs = dp2a<false>(a, 0x0101u, vs);
+    const uint4 g0 = tab[u & 0x3FFu];
+    const uint4 g1 = tab[(u >> 16) & 0x3FFu];
+    const uint32_t w0[4] = {g0.x, g0.y, g0.z, g0.w};
+    const uint32_t w1[4] = {g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // bytes (w0.b, w1.b, w0.b', w1.b') of bytes b = 2h, b' = 2h + 1:
+        // queries 8r + 4h + {0, 1} (low, high nibble of b) and + {2, 3} (b')
+        const uint32_t p = prmt(w0[r], w1[r], h ? 0x7362u : 0x5140u);
+        const uint32_t lo = p & 0x0F0F0F0Fu;
+        const uint32_t hi = p & 0xF0F0F0F0u;
+        int32_t* q = acc + 8 * r + 4 * h;
+        q[0] = dp2a<false>(a, lo, q[0]);
+        q[1] = dp2a<false>(a, hi, q[1]);
+        q[2] = dp2a<true>(a, lo, q[2]);
+        q[3] = dp2a<true>(a, hi, q[3]);
+      }
+    }
+  }
+
+  // The integer sum of query j of the 8 in a table word (acc of query
+  // 8r + j): the bias out (8 (v0 + v1) per word, times 16 for the high
+  // nibbles), modulo 2^32, then the factor 4 (times 16) of the packed
+  // values.
+  __device__ static __forceinline__ int32_t finish(int32_t acc, int32_t vs, int j) {
+    const uint32_t a = static_cast<uint32_t>(acc), v = static_cast<uint32_t>(vs);
+    return (j & 1) ? static_cast<int32_t>(a - 128u * v) >> 6
+                   : static_cast<int32_t>(a - 8u * v) >> 2;
+  }
+};
+
 // The float codecs: the subgroup's tables side by side in shared memory,
 // QG x rows x 128 entries (the wrapper cuts the subgroup to the tables that
 // fit, ops/kernel.py::tables_in_smem), or, for a codec that reads global
@@ -291,12 +384,11 @@ struct Batch {
   using Acc = float;
   static constexpr bool kExact = false;
 
-  template <bool>
   static size_t smem_bytes(int qg, int rows) {
     return C::kShared ? sizeof(Tab) * qg * rows * kLanes : 0;
   }
 
-  template <int QG, bool>
+  template <int QG>
   __device__ static __forceinline__ Table<unsigned char> load(unsigned char* smem,
                                                               const void* tables, int q0, int nq,
                                                               int rows, int shift, int lane) {

@@ -1,0 +1,148 @@
+// The lane merge on the card, shared by K13 (bucket_topk.cu) and K6 h16
+// (octet_topk_batch_h16.cu): sorted per-lane lists of K (value, tag)
+// entries, merged in the order value descending, then tag ascending, and
+// the tickets that elect the last block of a set of blocks to merge the
+// set's lists (ops/kernel.py::lane_merge_plain is its plain version).
+//
+// Top-k under one total order does not depend on how the entries are
+// grouped, so any tree of these merges gives what one merge of every list
+// gives. A list sorts in a bitonic network (log2(K) (log2(K) + 1) / 2
+// rounds of K / 2 independent compare-exchanges), and two sorted lists
+// merge in log2(K) + 1 rounds (`merge`): short dependency chains (an
+// insertion into a sorted list is K dependent steps an entry).
+
+#pragma once
+
+#include <climits>
+
+#include "octet_common.cuh"
+
+namespace lane_merge {
+
+// The merges' order: value descending, then tag ascending. A NaN value
+// comes before nothing (every comparison with it is false).
+__device__ __forceinline__ bool before(float av, int32_t at, float bv, int32_t bt) {
+  return av > bv || (av == bv && at < bt);
+}
+
+// An empty sorted list: entries that every entry but a NaN comes before.
+template <int K>
+__device__ __forceinline__ void clear(float (&v)[K], int32_t (&t)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = -INFINITY;
+    t[k] = INT_MAX;
+  }
+}
+
+// Entries i < j of a list in `before` order: swapped if j comes first.
+template <int K>
+__device__ __forceinline__ void order(float (&v)[K], int32_t (&t)[K], int i, int j) {
+  if (before(v[j], t[j], v[i], t[i])) {
+    const float fv = v[i];
+    v[i] = v[j];
+    v[j] = fv;
+    const int32_t ft = t[i];
+    t[i] = t[j];
+    t[j] = ft;
+  }
+}
+
+// Sort a list in `before` order (a bitonic network: log2(K) (log2(K) + 1)
+// / 2 rounds of K / 2 independent compare-exchanges; K a power of two).
+template <int K>
+__device__ __forceinline__ void sort(float (&v)[K], int32_t (&t)[K]) {
+#pragma unroll
+  for (int size = 2; size <= K; size *= 2)
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride /= 2)
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int j = i ^ stride;
+        if (j > i) {
+          if ((i & size) == 0)
+            order<K>(v, t, i, j);
+          else
+            order<K>(v, t, j, i);
+        }
+      }
+}
+
+// The first K of two sorted lists, sorted, into (v, t): the larger of
+// v[i] and (cv, ct)[K - 1 - i] holds the first K of both (a bitonic
+// sequence), which log2(K) rounds of compare-exchanges sort.
+template <int K>
+__device__ __forceinline__ void merge(float (&v)[K], int32_t (&t)[K], const float (&cv)[K],
+                                      const int32_t (&ct)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (before(cv[K - 1 - i], ct[K - 1 - i], v[i], t[i])) {
+      v[i] = cv[K - 1 - i];
+      t[i] = ct[K - 1 - i];
+    }
+  }
+#pragma unroll
+  for (int stride = K / 2; stride > 0; stride /= 2)
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      if ((i ^ stride) > i) order<K>(v, t, i, i ^ stride);
+}
+
+// Buffer `b` of (K, 128) entries at (bv, bt): a sorted list's lane.
+template <int K>
+__device__ __forceinline__ void store(const float (&v)[K], const int32_t (&t)[K], float* bv,
+                                      int32_t* bt, int b, int lane) {
+  const int64_t o = (int64_t)b * K * octet::kLanes + lane;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    bv[o + k * octet::kLanes] = v[k];
+    bt[o + k * octet::kLanes] = t[k];
+  }
+}
+
+// The first K, sorted, of the sorted buffers first + start, first + start
+// + STRIDE, ... below first + count, for the thread's lane (an empty list
+// when there is none); read through L2 (__ldcg: other blocks wrote them),
+// the loads of R buffers (64 registers) issued before their merges.
+template <int K, int STRIDE>
+__device__ __forceinline__ void gather(float (&v)[K], int32_t (&t)[K], const float* bv,
+                                       const int32_t* bt, int first, int count, int start,
+                                       int lane) {
+  constexpr int R = 32 / K;
+  clear<K>(v, t);
+  for (int b0 = start; b0 < count; b0 += R * STRIDE) {
+    float cv[R][K];
+    int32_t ct[R][K];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int b = b0 + r * STRIDE;
+      if (b < count) {
+        const int64_t o = (int64_t)(first + b) * K * octet::kLanes + lane;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          cv[r][k] = __ldcg(bv + o + k * octet::kLanes);
+          ct[r][k] = __ldcg(bt + o + k * octet::kLanes);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (b0 + r * STRIDE < count) merge<K>(v, t, cv[r], ct[r]);
+  }
+}
+
+// Whether this block is the last of `count` to reach *ticket: every
+// thread's writes are fenced first; the last block resets the ticket (no
+// other block of the launch touches it again).
+__device__ __forceinline__ bool arrive(unsigned* ticket, int count, bool* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1u) == static_cast<unsigned>(count - 1);
+    if (*flag) *ticket = 0u;
+  }
+  __syncthreads();
+  return *flag;
+}
+
+}  // namespace lane_merge

@@ -1,5 +1,6 @@
-// Kernel K6 (octet_topk_batch.cuh): the h16 instantiations and the C entry
-// point, which hands each other codec to its octet_topk_batch_<codec>.cu.
+// Kernel K6 (octet_topk_batch.cuh) for every codec but h16: the C entry
+// point, which hands each codec to its octet_topk_batch_<codec>.cu (h16
+// has a kernel and an entry point of its own, octet_topk_batch_h16.cu).
 
 #include "octet_topk_batch.cuh"
 
@@ -7,7 +8,7 @@ extern "C" {
 
 // words: (num_partitions * part_rows, 128) int32, part_rows a whole
 // number of blocks; tables: (Q, table_rows, 128), int32 (f32 for the f32
-// codecs), codec one of codecs.cuh::Codec; nreal: (num_partitions,
+// codecs), codec one of codecs.cuh::Codec but kH16; nreal: (num_partitions,
 // num_buckets) int32; plan: (num_buckets, 8) int32; subgroup: live
 // queries per CUDA block, 1..8; num_cuda_blocks (per partition): a
 // multiple of num_subgroups = ceil(Q / subgroup); part_slices: slice tags
@@ -32,7 +33,7 @@ int octet_topk_batch(const int32_t* words, const void* tables, const int32_t* nr
   using namespace codec;
   cudaError_t err;
   switch (codec) {
-    case kH16: err = k6::launch_codecs<codec_set<kH16>()>(a); break;
+    case kH16: return cudaErrorInvalidValue;   // octet_topk_batch_h16
     case kF32: err = k6::launch_f32(a); break;
     case kF32Global: err = k6::launch_f32g(a); break;
     case kInt8x4: err = k6::launch_int8x4(a); break;

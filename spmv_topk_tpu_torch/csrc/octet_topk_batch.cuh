@@ -1,6 +1,7 @@
 // Multi-query octet Top-K sweep (kernel K6; K10d with partitions) for
-// Hopper (sm_90a), every query codec (codecs.cuh). octet_topk_batch.cu
-// holds the h16 instantiations and the C entry point; each other codec's
+// Hopper (sm_90a), every query codec of codecs.cuh but h16, whose sweep
+// reads the stream once for 32 queries (octet_topk_batch_h16.cu).
+// octet_topk_batch.cu holds the C entry point; each codec's instantiations
 // are a translation unit of their own (octet_topk_batch_<codec>.cu),
 // built in parallel.
 //
@@ -28,11 +29,8 @@
 // fastest, so the blocks that read the same octets for the
 // different subgroups are neighbours in launch order: the stream is read
 // once per subgroup, and the neighbours' reads meet in L2 where they run
-// together. h16: the QG query tables are repacked in shared memory so that
-// entry c (a 10-bit column) holds that column's signed nibble for every
-// query of the subgroup: one gather per nnz serves the whole subgroup
-// (codecs.cuh::H16Batch, shared with K8). The other codecs keep the
-// subgroup's tables side by side (codecs.cuh::Batch; the wrapper cuts the
+// together. The subgroup's tables sit side by side in shared memory
+// (codecs.cuh::Batch; the wrapper cuts the
 // subgroup to the tables that fit shared memory, and f32 tables past one
 // are read from global memory), one gather per query per nnz. Blocks
 // grid-stride over all octets as in K1 (no carry between blocks, no
@@ -40,10 +38,9 @@
 // per-lane torch.topk per query merges the slots.
 //
 // Bound. Per word: one coalesced load, the shared decode, and per live
-// query one or two shared-memory gathers and ~6 operations. At the
-// headline corpus and 32 queries the per-query work (~2e10 operations a
-// group) outweighs the bytes, so the sweep should be bound by the SMs'
-// instruction throughput, not by device memory.
+// query one gather and a rounded multiply and add: at 8 queries a
+// subgroup and the headline corpus, about the bytes of the 4-byte words
+// read once per subgroup.
 
 #pragma once
 
@@ -61,7 +58,7 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words, const void* __restric
                         int block_sublanes, int table_rows, int shift, int num_queries,
                         int subgroup, int num_subgroups, int part_rows, int part_slices,
                         float* __restrict__ out_v, int32_t* __restrict__ out_t) {
-  static_assert(QG >= 1 && QG <= 8, "an h16 table entry holds 8 nibbles");
+  static_assert(QG >= 1 && QG <= 8, "at most 8 live queries");
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int sg = blockIdx.x % num_subgroups;
@@ -69,7 +66,7 @@ octet_topk_batch_kernel(const int32_t* __restrict__ words, const void* __restric
   const int num_slots = gridDim.x / num_subgroups;
   const int q0 = sg * subgroup;
   const int nq = min(subgroup, num_queries - q0);   // <= QG
-  const auto tab = B::template load<QG, true>(smem, tables, q0, nq, table_rows, shift, lane);
+  const auto tab = B::template load<QG>(smem, tables, q0, nq, table_rows, shift, lane);
   __syncthreads();
 
   float tv[QG][K];
@@ -125,7 +122,7 @@ struct Args {
 template <class B, int K, int QG, bool TIE_SAFE, bool EXACT>
 cudaError_t launch(const Args& a) {
   auto kernel = octet_topk_batch_kernel<B, K, QG, TIE_SAFE, EXACT>;
-  const size_t smem = B::template smem_bytes<true>(QG, a.table_rows);
+  const size_t smem = B::smem_bytes(QG, a.table_rows);
   const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.num_cuda_blocks, a.num_partitions);

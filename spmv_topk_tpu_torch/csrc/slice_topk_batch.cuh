@@ -103,7 +103,7 @@ slice_topk_batch_kernel(const int32_t* __restrict__ words, const void* __restric
   const int num_slots = gridDim.x / num_subgroups;
   const int q0 = sg * subgroup;
   const int nq = min(subgroup, num_queries - q0);   // <= QG
-  const auto tab = C::template load<QG, false>(smem, tables, q0, nq, table_rows, shift, lane);
+  const auto tab = C::template load<QG>(smem, tables, q0, nq, table_rows, shift, lane);
   __syncthreads();
 
   float tv[QG][K];
@@ -158,7 +158,7 @@ struct Args {
 template <class C, int K, int QG, bool TIE_SAFE>
 cudaError_t launch(const Args& a) {
   auto kernel = slice_topk_batch_kernel<C, K, QG, TIE_SAFE>;
-  const size_t smem = C::template smem_bytes<false>(QG, a.table_rows);
+  const size_t smem = C::smem_bytes(QG, a.table_rows);
   const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.num_cuda_blocks, a.num_partitions);

@@ -43,7 +43,8 @@ SOURCE_FLAGS = {f"lab_{name}.cu": ["-ftz=true", "-fmad=false"]
 # sources whose object the build keeps beside the library, for
 # ``sass_report`` (a dump of one unit takes a second, of the library a
 # minute)
-SASS_SOURCES = ("lab_batch.cu", "lab_i16.cu", "lab_mxu.cu", "lab_pack16.cu")
+SASS_SOURCES = ("lab_batch.cu", "lab_i16.cu", "lab_mxu.cu", "lab_pack16.cu",
+                "octet_topk_batch_h16.cu")
 
 _LIB = None
 build_seconds = None   # wall seconds of the nvcc build in this process
@@ -58,6 +59,8 @@ _i64 = ctypes.c_int64
 _SIGNATURES = {
     "octet_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
     "octet_topk_batch": [_vp] * 4 + [_i32] * 13 + [_vp] * 3,
+    "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp, _i64] * 2
+    + [_vp] * 3,
     "octet_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
     "slice_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
     "slice_topk_batch": [_vp] * 4 + [_i32] * 12 + [_vp] * 3,

@@ -24,7 +24,9 @@ chunks into 8 member scores per lane:
     buffers of ``lane_k`` entries, which merge into one ``(lane_k, 128)``
     pair;
   - ``topk_spmv_fused_batch_octet_device`` (K6) does the same for Q
-    queries at once: ``(Q, lane_k, 128)`` pairs;
+    queries at once: ``(Q, lane_k, 128)`` pairs (h16: every word read
+    once for up to 32 queries, the merge on the card;
+    ``octet_topk_batch_slots_plain`` is that kernel on its slots);
   - ``spmv_fused_scores_octet_device`` (K4) writes the 8 member scores
     themselves, in slice order: plain SpMV.
 
@@ -41,14 +43,15 @@ lane per row):
   - ``spmv_fused_scores_device`` (K9) writes the slice scores: plain SpMV.
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
-``octet_topk.cuh``, K6 ``octet_topk_batch.cuh``, K4 ``octet_scores.cu``,
-K7 ``slice_topk.cu``, K8 ``slice_topk_batch.cuh``, K9
-``slice_scores.cu``, the codecs in ``codecs.cuh``; they replace the
-pallas_calls of
+``octet_topk.cuh``, K6 ``octet_topk_batch.cuh`` and, for h16,
+``octet_topk_batch_h16.cu``, K4 ``octet_scores.cu``, K7
+``slice_topk.cu``, K8 ``slice_topk_batch.cuh``, K9 ``slice_scores.cu``,
+the codecs in ``codecs.cuh``; they replace the pallas_calls of
 ``spmv_topk_tpu/ops/kernel.py``) and the Top-K sweeps then merge their
 per-CUDA-block buffers with one per-lane ``torch.topk``, the same
 algebra as the JAX package's per-lane ``lax.top_k`` over its per-bucket
-buffers (K13 merges its buffers on the card, in the same launch). On a
+buffers (K13 and K6 h16 merge their buffers on the card, in the same
+launch: ``csrc/lane_merge.cuh``). On a
 CPU tensor each runs its plain PyTorch version (``octet_topk_plain``, ``octet_topk_batch_plain``, ``octet_scores_plain``,
 ``slice_topk_plain``, ``slice_topk_batch_plain``, ``slice_scores_plain``),
 which the tests hold against the JAX package and the card holds the
@@ -112,18 +115,25 @@ KERNEL_LANE_K = (4, 8, 16)
 # K13 (csrc/bucket_topk.cu): 128-thread groups (slots) a CUDA block
 BUCKET_GROUPS = 4
 # (device index, codec argument, lane_k, table rows) -> K13's resident
-# blocks an SM; (device index, stream) -> its merge workspace and tickets
+# blocks an SM; (kernel, device index, stream) -> the merge workspace and
+# tickets of K13 and of K6 h16 (_merge_workspace)
 _K13_OCCUPANCY = {}
-_K13_WORKSPACE = {}
+_MERGE_WORKSPACE = {}
 # CUDA blocks per SM of the sweeps: each block of a Top-K sweep owns one
 # set of lane buffers, so this also sets the merge width (blocks * lane_k
 # per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
-# K6: queries live in one CUDA block when cfg.batch_subgroup is 0, and at
-# most (a table entry packs 8 queries' nibbles; registers run out first)
+# K6 (but h16) and K8: queries live in one CUDA block when
+# cfg.batch_subgroup is 0, and at most (K8's h16 table entry packs 8
+# queries' nibbles; registers run out first)
 BATCH_SUBGROUP = 4
 MAX_BATCH_SUBGROUP = 8
+# K6 h16 (csrc/octet_topk_batch_h16.cu): queries a pass reads the stream
+# once for, and the stream lanes of a CUDA block by lane_k (kBlockLanes:
+# 128 / that many blocks share a slot's octets)
+H16_PASS_QUERIES = 32
+H16_BLOCK_LANES = {4: 64, 8: 64, 16: 32}
 # plain versions decode at most ~16M words at once (bounds the int64
 # gather indices)
 _STEP_WORDS = 1 << 24
@@ -378,6 +388,102 @@ def octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
+def octet_topk_batch_slots_plain(words, tables, nreal, plan_rows, *,
+                                 num_slots: int, lane_k: int, fold_tile: int,
+                                 tie_safe: bool, block_sublanes: int,
+                                 num_partitions: int = 1,
+                                 part_slices: int = 0,
+                                 chunk_sublanes: int = 8,
+                                 merged: bool = True):
+    """Plain version of K6 h16 as the kernel computes it, on ``num_slots``
+    slots a partition (``octet_h16_grid``): for each query of the (Q, 1,
+    128) h16 tables and each partition, slot j harvests the plan's octets
+    j, j + num_slots, ... that hold a real member, in order, into lane
+    buffers from ``topk_init``'s entries (-inf when ``tie_safe``): the top
+    3 of the 8 members (each member with ``fold_tile`` 1) by argmin
+    replacement (when score >= the minimum: the first slot holding it when
+    tie-safe, else every one); then ``lane_merge_plain`` over every slot's
+    entries, the initial ones included -> (topv, topt), each (Q, lane_k,
+    128) ((Q, P, lane_k, 128) for P > 1 partitions). The kernel gives
+    these pairs bit for bit on any data, tags and ties included; with
+    ``merged`` False, each slot's buffer in the merge's order, (Q, P,
+    slots, lane_k, 128), as the kernel's unmerged launch leaves them.
+    Against ``octet_topk_batch_plain``: the same values whenever the
+    buffers are tie-safe."""
+    outs = []
+    for table in tables:
+        parts = [_octet_slots_one(
+            w, table, n, plan_rows, num_slots=num_slots, lane_k=lane_k,
+            fold_tile=fold_tile, tie_safe=tie_safe,
+            block_sublanes=block_sublanes, S=chunk_sublanes,
+            tag_offset=p * part_slices)
+            for p, (w, n) in enumerate(_partitions(words, nreal,
+                                                   num_partitions))]
+        if merged:
+            parts = [lane_merge_plain(v, t, lane_k) for v, t in parts]
+        else:
+            parts = [tuple(torch.stack(x) for x in zip(*(
+                lane_merge_plain(v[j], t[j], lane_k)
+                for j in range(num_slots)))) for v, t in parts]
+        if merged and num_partitions == 1:
+            outs.append(parts[0])
+        else:
+            outs.append((torch.stack([v for v, _ in parts]),
+                         torch.stack([t for _, t in parts])))
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def _octet_slots_one(words, table, nreal, plan_rows, *, num_slots, lane_k,
+                     fold_tile, tie_safe, block_sublanes, S, tag_offset):
+    """``octet_topk_batch_slots_plain``'s slots of one query and one
+    partition, before the merge: (values, tags), each (num_slots, lane_k,
+    128)."""
+    dev = words.device
+    K = lane_k
+    miota = torch.arange(S, device=dev, dtype=torch.int32).view(1, S, 1)
+    # each octet's harvest steps in plan order: (octets, steps, 1, 128)
+    scores, tags, real = [], [], []
+    for b, row in enumerate(plan_rows.tolist()):
+        G, base = row[3], row[4] + tag_offset
+        n_real = int(nreal.reshape(-1)[b])
+        sc = torch.cat([x for _, x in _octet_sums(words, table, row,
+                                                   block_sublanes, S)]).float()
+        oidx = torch.arange(G, device=dev, dtype=torch.int32).view(-1, 1, 1)
+        member = oidx + miota * G
+        sc = torch.where(member < n_real, sc, torch.full_like(sc, NEG_INF))
+        if fold_tile == 1:
+            steps = [(sc[:, m:m + 1], base + member[:, m:m + 1])
+                     for m in range(S)]
+        else:
+            steps = [(m1, base + oidx + sl * G)
+                     for m1, sl in _harvest(sc, 1, _HARVEST)]
+        scores.append(torch.stack([v for v, _ in steps], dim=1))
+        tags.append(torch.stack([t.int().expand_as(v) for v, t in steps],
+                                dim=1))
+        real.append(oidx.view(-1) < n_real)
+    scores, tags, real = torch.cat(scores), torch.cat(tags), torch.cat(real)
+    init = (torch.full((K,), NEG_INF, device=dev) if tie_safe else
+            torch.from_numpy(topk_init(K)).to(dev))
+    tv = init.view(1, K, 1).expand(num_slots, K, LANES).clone()
+    tt = torch.zeros((num_slots, K, LANES), dtype=torch.int32, device=dev)
+    kslot = torch.arange(K, device=dev).view(1, K, 1)
+    for g0 in range(0, scores.shape[0], num_slots):
+        n = min(num_slots, scores.shape[0] - g0)
+        v, t = tv[:n], tt[:n]
+        ok = real[g0:g0 + n].view(n, 1, 1)
+        for step in range(scores.shape[1]):
+            score = scores[g0:g0 + n, step]
+            cur = v.amin(dim=1, keepdim=True)
+            hit = v == cur
+            if tie_safe:
+                hit = kslot == hit.int().argmax(dim=1, keepdim=True)
+            rep = hit & (score >= cur) & ok
+            v = torch.where(rep, score, v)
+            t = torch.where(rep, tags[g0:g0 + n, step], t)
+        tv[:n], tt[:n] = v, t
+    return tv, tt
+
+
 def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
                        block_sublanes: int, chunk_sublanes: int = 8,
                        num_partitions: int = 1, codec: str = "h16"):
@@ -630,6 +736,21 @@ def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int,
     return sub, n_sub, max(1, min(slots, chunks))
 
 
+def octet_h16_grid(num_queries: int, sms: int, partitions: int = 1,
+                   lane_k: int = 8):
+    """K6 h16's grid (``csrc/octet_topk_batch_h16.cu``): (passes, slots).
+
+    A pass sweeps the stream once for up to H16_PASS_QUERIES queries; the
+    passes, partitions and the 128 / H16_BLOCK_LANES[lane_k] lane groups
+    of a slot are CUDA blocks of their own, one an SM: slots per partition
+    and pass are the SMs over those (rounded down, so that no block waits
+    for a second wave), at least one. Each slot writes lane_k * 128
+    (value, tag) pairs per query."""
+    passes = -(-num_queries // H16_PASS_QUERIES)
+    groups = LANES // H16_BLOCK_LANES[lane_k]
+    return passes, max(1, sms // (groups * partitions * passes))
+
+
 def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
                                        cfg: TopKSpMVConfig,
                                        block_sublanes: int,
@@ -643,9 +764,11 @@ def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
     (Q, lane_k, 128) ((Q, P, lane_k, 128) for P > 1), sorted descending
     per lane: each query's candidates are those of the single-query sweep
     (for the float codecs, summed in K6's order, CHAIN), whatever
-    ``cfg.batch_subgroup`` is (it only sets how many queries share a CUDA
-    block; see ``batch_grid``; subgroups are cut to the tables that fit
-    shared memory, ``tables_in_smem``).
+    ``cfg.batch_subgroup`` is. h16 reads the stream once per pass of up to
+    32 queries and ignores it (``octet_h16_grid``); for the other codecs
+    it sets how many queries share a CUDA block (``batch_grid``;
+    subgroups are cut to the tables that fit shared memory,
+    ``tables_in_smem``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -655,13 +778,23 @@ def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
         return octet_topk_batch_plain(words, tables, nreal, plan_rows,
                                       num_partitions=num_partitions,
                                       part_slices=ps, **kw)
-    return _octet_topk_batch_cuda(words, tables, nreal, plan_rows,
-                                  num_partitions, ps, cfg, **kw)
+    return octet_topk_batch_cuda(words, tables, nreal, plan_rows,
+                                 num_partitions, ps, cfg, **kw)
 
 
-def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
-                           cfg, *, lane_k, fold_tile, tie_safe,
-                           block_sublanes, chunk_sublanes, codec):
+def octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
+                          cfg, *, lane_k, fold_tile, tie_safe,
+                          block_sublanes, chunk_sublanes, codec,
+                          unmerged=False):
+    """K6's launch on CUDA tensors, for ``topk_spmv_fused_batch_octet_device``
+    (which passes P, the tag offset and the config's sweep keywords): the
+    merged pair, or with ``unmerged`` each slot's buffers, (Q, P, slots,
+    lane_k, 128) values and tags (h16: each sorted, value descending then
+    tag ascending; the merge is not run), for timing the sweep alone.
+
+    h16 (``csrc/octet_topk_batch_h16.cu``) merges the slots on the card in
+    the same launch (``octet_topk_batch_slots_plain`` computes what it
+    gives); the other codecs' slots merge in one per-lane ``torch.topk``."""
     B = plan_rows.shape[0]
     Q = tables.shape[0]
     if Q < 1:
@@ -671,8 +804,44 @@ def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
                         ("tables", tables, (Q, rows, LANES), dtype))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
-    arg, fit = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
+    lead = 1 + int(P > 1)
+    common = (words.data_ptr(), tables.data_ptr(), nreal.data_ptr(),
+              plan_rows.data_ptr(), B, block_sublanes)
+    if codec == "h16":
+        passes, slots = octet_h16_grid(Q, sms, P, lane_k)
+        lists = Q * P * (slots + _merge_sets(slots))
+        # a ticket per set and a last one, for every block of a slot (at
+        # most 4), partition and pass
+        tickets = passes * P * 4 * (1 + _merge_sets(slots))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if unmerged:
+            ws = torch.empty(lists * 2 * lane_k * LANES, dtype=torch.int32,
+                             device=dev)
+            ticket = torch.zeros(tickets, dtype=torch.int32, device=dev)
+        else:
+            ws, ticket = _merge_workspace("k6_h16", dev, stream,
+                                          lists * 2 * lane_k * LANES, tickets)
+        lists = ws.numel() // (2 * lane_k * LANES)
+        out_v = torch.empty((Q, P, lane_k, LANES), dtype=torch.float32,
+                            device=dev)
+        out_t = torch.empty((Q, P, lane_k, LANES), dtype=torch.int32,
+                            device=dev)
+        _launch(dev, "octet_topk_batch_h16", *common, lane_k,
+                int(fold_tile == 1), int(tie_safe), Q, slots, P, part_rows,
+                part_slices, int(not unmerged), ws.data_ptr(), lists,
+                ticket.data_ptr(), ticket.numel(), out_v.data_ptr(),
+                out_t.data_ptr())
+        topk_spmv_fused_batch_octet_device.launches += 1
+        if unmerged:
+            n = Q * P * slots * lane_k * LANES
+            return (ws[:n].view(torch.float32).view(Q, P, slots, lane_k, LANES),
+                    ws[lists * lane_k * LANES:][:n].view(Q, P, slots, lane_k,
+                                                         LANES))
+        if P == 1:
+            return out_v.view(Q, lane_k, LANES), out_t.view(Q, lane_k, LANES)
+        return out_v, out_t
+    arg, fit = _kernel_codec(dev, cfg.query_codec, rows)
     sub, n_sub, slots = batch_grid(
         Q, min(cfg.batch_subgroup or BATCH_SUBGROUP, fit), sms,
         part_rows // chunk_sublanes, P)
@@ -680,13 +849,20 @@ def _octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
                         device=dev)
     out_t = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.int32,
                         device=dev)
-    _launch(dev, "octet_topk_batch", words.data_ptr(), tables.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            arg, lane_k, int(fold_tile == 1), int(tie_safe), Q, sub,
-            slots * n_sub, P, part_rows, part_slices, out_v.data_ptr(),
-            out_t.data_ptr())
+    _launch(dev, "octet_topk_batch", *common, rows, arg, lane_k,
+            int(fold_tile == 1), int(tie_safe), Q, sub, slots * n_sub, P,
+            part_rows, part_slices, out_v.data_ptr(), out_t.data_ptr())
     topk_spmv_fused_batch_octet_device.launches += 1
-    return merge_lane_topk(out_v, out_t, lane_k, lead=1 + int(P > 1))
+    if unmerged:
+        return out_v, out_t
+    return merge_lane_topk(out_v, out_t, lane_k, lead=lead)
+
+
+def _merge_sets(slots: int) -> int:
+    """The sets of K6 h16's lane merge over ``slots`` slots: ceil(slots /
+    ceil(sqrt(slots))) (csrc/octet_topk_batch_h16.cu::set_size_of)."""
+    size = math.isqrt(slots - 1) + 1 if slots > 1 else 1
+    return -(-slots // size)
 
 
 topk_spmv_fused_batch_octet_device.launches = 0
@@ -1466,8 +1642,8 @@ def topk_spmv_bucket_device(words, table, num_real, *, cfg: TopKSpMVConfig,
     with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
           else torch.cuda.device(dev)):
         stream = torch._C._cuda_getCurrentRawStream(dev.index)
-        ws, tickets = _bucket_workspace(dev, stream, 4 * blocks * K * LANES,
-                                        blocks + 1)
+        ws, tickets = _merge_workspace("k13", dev, stream,
+                                       4 * blocks * K * LANES, blocks + 1)
         out_v = torch.empty((K, LANES), dtype=torch.float32, device=dev)
         out_t = torch.empty((K, LANES), dtype=torch.int32, device=dev)
         # the arguments as int64 values, in csrc/bucket_topk.cu's order:
@@ -1507,18 +1683,19 @@ def _bucket_topk_slots(dev, arg: int, lane_k: int, rows: int,
     return _bucket_blocks(_device_info(dev)[0], num_slices, per_sm)
 
 
-def _bucket_workspace(dev, stream: int, words: int, tickets: int):
-    """K13's merge workspace (int32, at least ``words`` entries) and
-    tickets (at least ``tickets`` zeros, which each launch leaves 0) on
-    ``dev`` for launches on ``stream``: allocated once per (device,
+def _merge_workspace(kind: str, dev, stream: int, words: int, tickets: int):
+    """The merge workspace (int32, at least ``words`` entries) and tickets
+    (at least ``tickets`` zeros, which each launch leaves 0) of the lane
+    merges on the card, K13's (``kind`` "k13") or K6 h16's ("k6_h16"), on
+    ``dev`` for launches on ``stream``: allocated once per (kind, device,
     stream) and grown when a launch needs more."""
-    key = (dev.index, stream)
-    have = _K13_WORKSPACE.get(key)
+    key = (kind, dev.index, stream)
+    have = _MERGE_WORKSPACE.get(key)
     if have is None or have[0].numel() < words or have[1].numel() < tickets:
         if have is not None:
             words = max(words, have[0].numel())
             tickets = max(tickets, have[1].numel())
-        have = _K13_WORKSPACE[key] = (
+        have = _MERGE_WORKSPACE[key] = (
             torch.empty(words, dtype=torch.int32, device=dev),
             torch.zeros(tickets, dtype=torch.int32, device=dev))
     return have

@@ -138,6 +138,72 @@ def test_batch_plain_matches_pallas(ref, case):
         _assert_lanes_match(jv[q], jt_[q], pv[q].numpy(), pt_[q].numpy())
 
 
+def _stream(ref, case):
+    f = ref["cand"][case][0]
+    return (torch.from_numpy(f.words), torch.from_numpy(ref["tabs"]),
+            torch.from_numpy(f.nreal),
+            torch.from_numpy(pkernel.octet_plan_rows(f.plan, f.num_blocks))), f
+
+
+@pytest.mark.parametrize("slots", [1, 4, 33])
+@pytest.mark.parametrize("case", ["raw", "wide"])
+def test_slots_plain_matches_pallas(ref, case, slots):
+    """K6 h16's slot plain (each slot harvesting its octets in turn, then
+    the lane merge) with tie-safe buffers against the JAX batch sweep."""
+    _, jv, jt_ = ref["cand"][case]
+    cfg = pt.TopKSpMVConfig(**(RAW if case == "raw" else WIDE))
+    args, f = _stream(ref, case)
+    sv, st = pkernel.octet_topk_batch_slots_plain(
+        *args, num_slots=slots, lane_k=8, fold_tile=cfg.fold_tile,
+        tie_safe=True, block_sublanes=f.block_sublanes)
+    assert sv.shape == (3, 8, 128) and st.dtype == torch.int32
+    for q in range(3):
+        _assert_lanes_match(jv[q], jt_[q], sv[q].numpy(), st[q].numpy())
+
+
+@pytest.mark.parametrize("tie_safe", [True, False])
+@pytest.mark.parametrize("case", ["raw", "wide"])
+def test_slots_plain_merges_its_unmerged_slots(ref, case, tie_safe):
+    """The merged pairs are the lane merge of the unmerged slots' (each
+    already in the merge's order); with tie-safe buffers their values are
+    octet_topk_batch_plain's."""
+    cfg = pt.TopKSpMVConfig(**(RAW if case == "raw" else WIDE))
+    args, f = _stream(ref, case)
+    kw = dict(num_slots=5, lane_k=8, fold_tile=cfg.fold_tile,
+              tie_safe=tie_safe, block_sublanes=f.block_sublanes)
+    sv, st = pkernel.octet_topk_batch_slots_plain(*args, **kw)
+    uv, ut = pkernel.octet_topk_batch_slots_plain(*args, merged=False, **kw)
+    assert uv.shape == (3, 1, 5, 8, 128)
+    for q in range(3):
+        for j in range(5):
+            mv, mt = pkernel.lane_merge_plain(uv[q, 0, j], ut[q, 0, j], 8)
+            assert torch.equal(mv, uv[q, 0, j]) and torch.equal(mt, ut[q, 0, j])
+        mv, mt = pkernel.lane_merge_plain(uv[q, 0], ut[q, 0], 8)
+        assert torch.equal(mv, sv[q]) and torch.equal(mt, st[q])
+    if tie_safe:
+        pv, _ = pkernel.octet_topk_batch_plain(
+            *args, lane_k=8, fold_tile=cfg.fold_tile, tie_safe=True,
+            block_sublanes=f.block_sublanes)
+        assert torch.equal(pv, sv)
+
+
+def test_octet_h16_grid():
+    """K6 h16: a pass per 32 queries; the SMs over the lane groups (2
+    blocks of 64 lanes a slot at lane_k 4 and 8, 4 of 32 at 16),
+    partitions and passes, rounded down, at least one slot."""
+    assert pkernel.octet_h16_grid(32, 132) == (1, 66)
+    assert pkernel.octet_h16_grid(32, 132, lane_k=16) == (1, 33)
+    assert pkernel.octet_h16_grid(1, 132, lane_k=4) == (1, 66)
+    assert pkernel.octet_h16_grid(33, 132) == (2, 33)
+    assert pkernel.octet_h16_grid(64, 132, lane_k=16) == (2, 16)
+    assert pkernel.octet_h16_grid(7, 132, 2) == (1, 33)
+    assert pkernel.octet_h16_grid(7, 132, 3, 16) == (1, 11)
+    assert pkernel.octet_h16_grid(32, 3) == (1, 1)
+    # the merge's sets: ceil(slots / ceil(sqrt(slots)))
+    assert [pkernel._merge_sets(n) for n in (1, 2, 4, 5, 16, 33)] == \
+        [1, 1, 2, 2, 4, 6]
+
+
 def test_batch_wrapper_on_cpu_runs_plain_without_launch(ref):
     f, jv, jt_ = ref["cand"]["raw"]
     cfg = pt.TopKSpMVConfig(**RAW)

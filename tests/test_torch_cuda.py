@@ -105,28 +105,22 @@ def test_octet_kernel_matches_plain(gpu, corpus, fbs, fold, lane_k):
 
 
 def _emulate_production(eng, table, cfg, nblk):
-    """Merged production (non-tie-safe) buffers of a sweep whose nblk
-    CUDA blocks each harvest at most one octet into fresh buffers: every
-    slot holding the minimum is replaced, from distinct sentinels."""
+    """Merged production (non-tie-safe) buffers of a sweep of nblk CUDA
+    blocks (slots) that grid-stride over the octets: block b harvests
+    octets b, b + nblk, ... in turn into its buffers, where every slot
+    holding the minimum is replaced, from distinct sentinels."""
     gpu = eng.words.device
-    rows = eng.plan_rows.tolist()
-    n_oct = rows[-1][7] + rows[-1][3]
-    assert n_oct <= nblk
     K, L, S = cfg.lane_k, 128, 8
     init = torch.from_numpy(pkernel.topk_init(K)).to(gpu).view(1, K, 1)
-    # blocks left without an octet hand in their initial buffers
-    bufs_v = [init.expand(nblk - n_oct, K, L)]
-    bufs_t = [torch.zeros((nblk - n_oct, K, L), dtype=torch.int32,
-                          device=gpu)]
     miota = torch.arange(S, device=gpu).view(1, S, 1)
-    for b, row in enumerate(rows):
+    # each octet's harvest steps in global octet order: (n_oct, steps, 1, L)
+    scores, tags = [], []
+    for b, row in enumerate(eng.plan_rows.tolist()):
         G, base = row[3], row[4]
         t = pkernel._octet_tiles(eng.words, row, cfg.fused_block_sublanes, S)
         sc = pkernel.prod_h16(t, table.reshape(-1)).sum(dim=1).float()
         member = torch.arange(G, device=gpu).view(-1, 1, 1) + miota * G
         sc = torch.where(member < int(eng.nreal[b, 0]), sc, float("-inf"))
-        tv = init.expand(G, K, L).clone()
-        tt = torch.zeros((G, K, L), dtype=torch.int32, device=gpu)
         steps = []
         if cfg.fold_tile == 1:
             steps = [(sc[:, m:m + 1], member[:, m:m + 1] + base)
@@ -137,14 +131,24 @@ def _emulate_production(eng, table, cfg, nblk):
                 sl = torch.where(sc == m1, miota, S).amin(dim=1, keepdim=True)
                 steps.append((m1, base + member[:, :1] + sl * G))
                 sc = torch.where(miota == sl, float("-inf"), sc)
-        for score, tag in steps:
-            cur = tv.amin(dim=1, keepdim=True)
-            rep = (tv == cur) & (score >= cur)
-            tv = torch.where(rep, score, tv)
-            tt = torch.where(rep, tag.int().expand_as(tt), tt)
-        bufs_v.append(tv)
-        bufs_t.append(tt)
-    return pkernel.merge_lane_topk(torch.cat(bufs_v), torch.cat(bufs_t), K)
+        scores.append(torch.stack([v for v, _ in steps], dim=1))
+        tags.append(torch.stack([g.int().expand_as(v) for v, g in steps],
+                                dim=1))
+    scores, tags = torch.cat(scores), torch.cat(tags)
+    # blocks left without an octet hand in their initial buffers
+    tv = init.expand(nblk, K, L).clone()
+    tt = torch.zeros((nblk, K, L), dtype=torch.int32, device=gpu)
+    for g0 in range(0, scores.shape[0], nblk):
+        n = min(nblk, scores.shape[0] - g0)
+        v, t = tv[:n], tt[:n]
+        for step in range(scores.shape[1]):
+            score, tag = scores[g0:g0 + n, step], tags[g0:g0 + n, step]
+            cur = v.amin(dim=1, keepdim=True)
+            rep = (v == cur) & (score >= cur)
+            v = torch.where(rep, score, v)
+            t = torch.where(rep, tag.expand_as(t), t)
+        tv[:n], tt[:n] = v, t
+    return pkernel.merge_lane_topk(tv, tt, K)
 
 
 @pytest.mark.parametrize("fold", [8, 1])
@@ -214,8 +218,8 @@ def test_batch_kernel_ignores_subgroup(gpu, corpus, subgroup):
 
 @pytest.mark.parametrize("fold", [8, 1])
 def test_batch_kernel_non_tie_safe(gpu, corpus, fold):
-    """K6's production buffers against the per-octet emulation: the
-    corpus has fewer octets than each subgroup has slots of CUDA blocks."""
+    """K6's production buffers against the emulation of its grid (h16:
+    ``octet_h16_grid``'s slots, each harvesting its octets in turn)."""
     coo, _ = corpus
     cfg = pt.TopKSpMVConfig(**dict(HEADLINE, fold_tile=fold))
     assert not cfg.tie_safe_topk
@@ -223,12 +227,162 @@ def test_batch_kernel_non_tie_safe(gpu, corpus, fold):
     qs = create_query_batch(6, 1024, seed=25)
     tables = _tables(qs, gpu)
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    _, _, slots = pkernel.batch_grid(6, cfg.batch_subgroup, sms,
-                                     eng.words.shape[0] // 8)
+    _, slots = pkernel.octet_h16_grid(6, sms, lane_k=cfg.lane_k)
     kv, kt = eng.batch_candidates(tables)
     for q in range(6):
         ev, et = _emulate_production(eng, tables[q], cfg, slots)
         _lanes_equal(kv[q], kt[q], ev, et)
+
+
+# K6 h16 (csrc/octet_topk_batch_h16.cu): (lane_k, fold_tile, fused block
+# sublanes); 64 makes wide octets
+H16_GEOMS = [(8, 8, 1024), (4, 1, 1024), (16, 8, 64)]
+
+
+def _h16_batch_check(gpu, coo, Q, seed, **kw):
+    """K6 h16 with tie-safe buffers against octet_topk_batch_plain on Q
+    queries: one launch, every pool's sorted values bit-equal and its
+    (value, tag) pairs equal above each lane's floor."""
+    cfg = pt.TopKSpMVConfig(**dict(HEADLINE, tie_safe_topk=True, **kw))
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    tables = _tables(create_query_batch(Q, 1024, seed=seed), gpu)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    bs = cfg.fused_block_sublanes
+    before = pkernel.topk_spmv_fused_batch_octet_device.launches
+    kv, kt = pkernel.topk_spmv_fused_batch_octet_device(
+        *args, cfg=cfg, block_sublanes=bs, **eng.partition_kw)
+    assert pkernel.topk_spmv_fused_batch_octet_device.launches == before + 1
+    pv, pt_ = pkernel.octet_topk_batch_plain(
+        *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile, tie_safe=True,
+        block_sublanes=bs, **eng.partition_kw)
+    torch.cuda.synchronize()
+    P = cfg.num_partitions
+    assert kv.shape == (Q, *((P,) if P > 1 else ()), cfg.lane_k, 128)
+    _pools_equal(kv, kt, pv, pt_)
+
+
+@pytest.mark.parametrize("lane_k,fold,fbs", H16_GEOMS,
+                         ids=[f"k{k}_fold{f}_fbs{b}" for k, f, b in H16_GEOMS])
+@pytest.mark.parametrize("Q", [1, 7, 32, 33, 64])
+def test_h16_batch_passes_match_plain(gpu, corpus, lane_k, fold, fbs, Q):
+    """K6 h16 reads the stream once per pass of up to 32 queries: 1 and 7
+    queries in a pass of 8, 32 in one of 32, 33 and 64 in two passes."""
+    _h16_batch_check(gpu, corpus[0], Q, 26, lane_k=lane_k, fold_tile=fold,
+                     fused_block_sublanes=fbs)
+
+
+@pytest.mark.parametrize("P", [2, 3])
+@pytest.mark.parametrize("Q,lane_k,fold", [(7, 8, 8), (33, 16, 1),
+                                           (64, 4, 8)])
+def test_h16_batch_partitions_match_plain(gpu, corpus, P, Q, lane_k, fold):
+    """K10d h16: a pool per partition, the partition the grid's y index."""
+    _h16_batch_check(gpu, corpus[0], Q, 27, lane_k=lane_k, fold_tile=fold,
+                     num_partitions=P)
+
+
+def _h16_engine(gpu, coo, **kw):
+    cfg = pt.TopKSpMVConfig(**dict(HEADLINE, **kw))
+    return pt.TopKSpMV(coo, cfg, device=gpu), cfg
+
+
+def _h16_slots_plain(eng, cfg, tables, merged=True):
+    sms = torch.cuda.get_device_properties(eng.words.device) \
+        .multi_processor_count
+    _, slots = pkernel.octet_h16_grid(tables.shape[0], sms,
+                                      cfg.num_partitions, cfg.lane_k)
+    return pkernel.octet_topk_batch_slots_plain(
+        eng.words, tables, eng.nreal, eng.plan_rows, num_slots=slots,
+        lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=cfg.fused_block_sublanes, merged=merged,
+        **eng.partition_kw)
+
+
+H16_SLOT_CASES = [(7, dict()), (33, dict(fold_tile=1)),
+                  (32, dict(fused_block_sublanes=64, lane_k=16)),
+                  (7, dict(num_partitions=2)),
+                  (33, dict(num_partitions=3, lane_k=4))]
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("Q,kw", H16_SLOT_CASES,
+                         ids=[f"q{q}_" + "_".join(f"{k}{v}" for k, v in
+                                                  kw.items())
+                              for q, kw in H16_SLOT_CASES])
+def test_h16_batch_matches_slots_plain(gpu, corpus, Q, kw, tie_safe):
+    """K6 h16 merged on the card against its slot plain
+    (``octet_topk_batch_slots_plain`` on the kernel's grid): values and
+    tags bit for bit, ties included, the production buffers too; and the
+    unmerged launch's sorted slot buffers the same."""
+    eng, cfg = _h16_engine(gpu, corpus[0], tie_safe_topk=tie_safe, **kw)
+    tables = _tables(create_query_batch(Q, 1024, seed=28), gpu)
+    kv, kt = eng.batch_candidates(tables)
+    pv, pt_ = _h16_slots_plain(eng, cfg, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    uv, ut = pkernel.octet_topk_batch_cuda(
+        eng.words, tables, eng.nreal, eng.plan_rows, cfg.num_partitions,
+        eng.partition_kw.get("part_slices", 0), cfg,
+        **pkernel._sweep_kw(cfg, cfg.fused_block_sublanes), unmerged=True)
+    sv, st = _h16_slots_plain(eng, cfg, tables, merged=False)
+    torch.cuda.synchronize()
+    assert torch.equal(uv, sv) and torch.equal(ut, st)
+
+
+def test_h16_batch_back_to_back_launches(gpu, corpus):
+    """20 launches back to back on one stream (each merge's tickets left
+    0 for the next) equal the launches run alone."""
+    eng, cfg = _h16_engine(gpu, corpus[0])
+    groups = [_tables(create_query_batch(32, 1024, seed=100 + i), gpu)
+              for i in range(20)]
+    alone = []
+    for tables in groups:
+        alone.append(eng.batch_candidates(tables))
+        torch.cuda.synchronize()
+    chained = [eng.batch_candidates(tables) for tables in groups]
+    torch.cuda.synchronize()
+    for (av, at), (cv, ct) in zip(alone, chained):
+        assert torch.equal(av, cv) and torch.equal(at, ct)
+
+
+@pytest.mark.parametrize("nibble", [-8, 7])
+def test_h16_batch_extreme_values(gpu, corpus, nibble):
+    """The packed sums at their extremes: every value of the stream -32
+    and every query nibble -8 (the largest product, 256) or 7 (the
+    largest biased operands of the packed dp2a), on the corpus with one
+    row of all 1024 columns added (its octet the widest the packer makes
+    here), wide octets too: K6 h16 bit-equal to the plain int32 sums."""
+    from spmv_topk_tpu_torch.formats import CooMatrix
+
+    coo = corpus[0]
+    n = coo.num_rows
+    rows = np.concatenate([coo.rows, np.full(1024, n, coo.rows.dtype)])
+    cols = np.concatenate([coo.cols, np.arange(1024, dtype=coo.cols.dtype)])
+    vals = np.concatenate([coo.vals, np.ones(1024, coo.vals.dtype)])
+    wide = CooMatrix(rows, cols, vals, n + 1, coo.num_cols)
+    word = np.array([(nibble & 0xF) * 0x11111111], np.uint32).view(np.int32)
+    table = torch.full((33, 1, 128), int(word[0]), dtype=torch.int32,
+                       device=gpu)
+    for fbs in (1024, 64):
+        cfg = pt.TopKSpMVConfig(**dict(HEADLINE, tie_safe_topk=True,
+                                       fused_block_sublanes=fbs))
+        eng = pt.TopKSpMV(wide, cfg, device=gpu)
+        w = eng.words
+        # each half col[0:10) | val6[10:16): a nonzero half gets value -32
+        lo, hi = w & 0xFFFF, (w >> 16) & 0xFFFF
+        lo = torch.where(lo != 0, (lo & 0x3FF) | 0x8000, 0)
+        hi = torch.where(hi != 0, (hi & 0x3FF) | 0x8000, 0)
+        words = (lo | (hi << 16)).contiguous()
+        args = (words, table, eng.nreal, eng.plan_rows)
+        kv, kt = pkernel.topk_spmv_fused_batch_octet_device(
+            *args, cfg=cfg, block_sublanes=fbs)
+        pv, pt_ = pkernel.octet_topk_batch_plain(
+            *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+            tie_safe=True, block_sublanes=fbs)
+        torch.cuda.synchronize()
+        if nibble == -8:   # the added row: 1024 products of -32 * -8
+            assert float(pv.max()) == 1024 * 256
+        _pools_equal(kv, kt, pv, pt_)
 
 
 @pytest.mark.parametrize("fbs,wq", [(1024, 2), (64, 2), (64, 1)])
@@ -822,7 +976,8 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
     """K10a-d's production buffers (tie_safe_topk=False) against the
     per-octet and per-work-item emulations, partition by partition: each
     partition has fewer octets or work items than it has CUDA blocks
-    (single query) and slots (batch)."""
+    (single query) and slots (the slice batch; K10d h16's slots harvest
+    their octets in turn, as ``_emulate_production`` does)."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              tie_safe_topk=False)
     P = cfg.num_partitions
@@ -831,12 +986,15 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
     nblk = pkernel._sweep_blocks(sms, part_rows, P)
     qs = _slice_queries(int_corpus, integer, 3, 30)
     tables = _slice_tables(cfg, qs, gpu)
-    _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
-                                     part_rows // 8, P)
+    octet = cfg.fused_layout == "octet"
+    if octet:
+        _, slots = pkernel.octet_h16_grid(3, sms, P, cfg.lane_k)
+    else:
+        _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
+                                         part_rows // 8, P)
     table, _ = eng._table(qs[0])
     kv, kt = eng.candidates(qs[0])
     bv, bt = eng.batch_candidates(tables)
-    octet = cfg.fused_layout == "octet"
     for p in range(P):
         view = _part_view(eng, p)
         off = p * eng.partition_kw["part_slices"]

@@ -30,8 +30,18 @@ from spmv_topk_tpu_torch.formats import (CooMatrix, create_query_batch,
                                          create_sparse_matrix)
 from spmv_topk_tpu_torch.ops import dense as pdense
 
+from rescore_paths import load_both_natives
+
 CPU = torch.device("cpu")
 COLS = 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_rescore():
+    """Both packages rescore through their native runtimes, before any
+    engine is built (rescore_paths.py: the JAX package's build races
+    between test workers, and its NumPy path differs by an ulp)."""
+    load_both_natives()
 
 
 def _jcoo(coo):

@@ -45,6 +45,8 @@ from spmv_topk_tpu_torch.parallel import (ShardedBucketedTopKSpMV,
                                           ShardedDenseTopKSpMV,
                                           ShardedTopKSpMV, distributed)
 
+from rescore_paths import load_both_natives
+
 ROWS, COLS = 2400, 256
 GEOM = dict(max_cols=COLS, block_sublanes=64, fused_block_sublanes=64)
 # name -> (config, D, rtol of the values against JAX)
@@ -63,6 +65,14 @@ CASES = {
 DENSE = {"bf16": 1e-6, "int8": 0.0}
 NQ, GROUP = 3, 2          # a batch of 3 in groups of 2: a padded tail
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native_rescore():
+    """Both packages rescore through their native runtimes, before any
+    engine is built (rescore_paths.py: the JAX package's build races
+    between test workers, and its NumPy path differs by an ulp)."""
+    load_both_natives()
 
 
 def _corpus():
