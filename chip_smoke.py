@@ -26,12 +26,22 @@ every phase runs:
      quantum 8 on integer-valued data (exact in any summation order)
      and on real values (the plain version sums in the kernels' order),
      wide slices, and blocks past the unroll threshold;
+  2b. ``k1_small``: K1 and K10b (P = 3) with their lane merge on the
+     card against their slot plain (``octet_topk_slots_plain`` on the
+     kernel's grid) at 50k rows, tie-safe and production buffers, tags
+     included, every codec (f32 at 65,536 columns too), fold 1 and 8,
+     lane_k 4, 8 and 16, wide octets, the unmerged launch's slots too;
+     every K1 instantiation's registers (none may spill);
   3. the main path at full size: the 10M x 1024 gamma corpus (seed 1) in
      the headline config, 32 queries through ``TopKSpMV.query()`` held
      against the exact scipy top-100, sweep and end-to-end times, and the
      stream floor of the same words;
   4. K1 and K3 timed against their plain versions at the main-path
-     shapes, and checked against them there;
+     shapes, and checked against them there; K1 alone on the card with
+     and without its lane merge, the ``torch.topk`` merge of its slots
+     (the route before the merge moved onto the card), its production
+     buffers against its slot plain; K3's library yardstick (one
+     ``torch`` int32 sum of the words' chunks, equal to K3's checksum);
   5. the batch path on the same engine: ``query_batch`` of the 32 queries
      in one group against the same gold sets and against ``query()``,
      K6 against its plain version, and the ``batch32_*`` numbers of
@@ -81,7 +91,9 @@ every phase runs:
      against the exact top-100, ``query_batch`` of the 32 in one group
      and the ``batch32_*`` numbers, one ``scores()``, the three kernels
      held to and timed against their plain versions on the path's
-     shapes (K6 on its group of 32), K3 on the words;
+     shapes (K6 on its group of 32), K1 (K10b) alone on the card with
+     and without its merge and against its slot plain, K3 and its
+     library yardstick on the words;
  12. the per-bucket ops K11, K13, K12 over every bucket of
      ``pack_sell_buckets``: at 50k rows every codec against their plain
      versions, tie-safe, bit for bit (lane_k 4, 8, 16; a bucket of one
@@ -458,6 +470,102 @@ def phase_small(dev):
     return out
 
 
+# K1's translation unit of each codec (csrc/octet_topk.cuh's instantiations)
+K1_UNITS = dict(h16="octet_topk.cu", f32="octet_topk_f32.cu",
+                int8x4="octet_topk_q.cu", i8s="octet_topk_q.cu",
+                i4s="octet_topk_q.cu")
+# K1's small cases: (lane_k, fold_tile, fused block sublanes); 64 makes
+# wide octets
+K1_GEOMS = ((8, 8, 1024), (4, 1, 1024), (16, 8, 64))
+K1_CODECS = ("h16", "f32", "int8x4", "i8s", "i4s")
+
+
+def phase_k1_small(dev):
+    """K1 and K10b (P = 3) against their slot plain
+    (``octet_topk_slots_plain`` on the kernel's grid) at 50k rows, bit for
+    bit, tags included: tie-safe and production buffers, every codec, fold
+    1 and 8, lane_k 4, 8 and 16, wide octets, and f32 at 65,536 columns
+    (tables in global memory); the unmerged launch's slots against the
+    plain's; then the registers and spills of every K1 instantiation, of
+    which none may spill."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    q = create_query_batch(1, NUM_COLS, seed=8)[0]
+    wcoo = create_sparse_matrix(20_000, F32_MAX_COLS, AVG_DEG, "gamma",
+                                seed=19)
+    wq = create_query_batch(1, F32_MAX_COLS, seed=20)[0]
+    base = dict(HEADLINE, rescore_pool=None)
+    cases = [(coo, q, dict(base, query_codec=c, lane_k=k, fold_tile=f,
+                           fused_block_sublanes=b, num_partitions=P))
+             for c in K1_CODECS for k, f, b in K1_GEOMS for P in (1, 3)]
+    cases += [(wcoo, wq, dict(base, query_codec="f32", max_cols=F32_MAX_COLS,
+                              num_partitions=P)) for P in (1, 2)]
+    out = []
+    for corpus, query, kw in cases:
+        cfg = TopKSpMVConfig(**kw)
+        eng = TopKSpMV(corpus, cfg, device=dev)
+        table, _ = eng._table(query)
+        P = cfg.num_partitions
+        arg, _ = K._kernel_codec(dev, cfg.query_codec, table.shape[0])
+        for tie_safe in (False, True):
+            tcfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe)
+            require(_k1_slots_equal(eng, table, tcfg),
+                    f"K1 {kw} tie_safe={tie_safe} equals its slot plain")
+            uv, ut = K._octet_topk_cuda(
+                eng.words, table, eng.nreal, eng.plan_rows, P,
+                eng.partition_kw.get("part_slices", 0), tcfg,
+                cfg.fused_block_sublanes, unmerged=True)
+            blocks, slots = K.octet_topk_grid(dev, tcfg,
+                                              eng.words.shape[0] // P, P)
+            sv, st = K.octet_topk_slots_plain(
+                eng.words, table, eng.nreal, eng.plan_rows, num_slots=slots,
+                lane_k=cfg.lane_k, fold_tile=cfg.fold_tile, tie_safe=tie_safe,
+                block_sublanes=cfg.fused_block_sublanes,
+                codec=cfg.query_codec, merged=False, **eng.partition_kw)
+            torch.cuda.synchronize()
+            require(torch.equal(uv, sv) and torch.equal(ut, st),
+                    f"K1 {kw} tie_safe={tie_safe}: unmerged slots equal "
+                    "the plain's")
+            if tie_safe:
+                (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, tcfg)
+                torch.cuda.synchronize()
+                compare_pools(kv, kt, pv, pt)
+        out.append(dict(codec=K.KERNEL_CODECS[arg], lane_k=cfg.lane_k,
+                        fold_tile=cfg.fold_tile,
+                        fused_block_sublanes=cfg.fused_block_sublanes,
+                        partitions=P, blocks=blocks, slots=slots,
+                        wide_buckets=sum(p.blocks_per_octet > 1
+                                         for p in eng.fused.plan),
+                        zero_real_buckets=int((eng.nreal == 0).sum()),
+                        slots_plain_equal=True, unmerged_equal=True))
+        del eng
+    require(any(c["wide_buckets"] for c in out), "wide octets ran")
+    require(any(c["zero_real_buckets"] for c in out if c["partitions"] > 1),
+            "a partition holds a bucket with no real slice")
+    require({c["codec"] for c in out} == set(K.KERNEL_CODECS),
+            "every codec ran, f32 in shared and in global memory")
+    regs = {k: dict(registers=r, spill_bytes=sp)
+            for k, (r, sp) in _build.ptxas_report().items()
+            if k.startswith("octet_topk_kernel<")}
+    require(len(regs) == 5 * 3 * 4,
+            f"every K1 instantiation reported ({len(regs)} of 60)")
+    require(all(v["spill_bytes"] == 0 for v in regs.values()),
+            "no K1 instantiation spills")
+    res = dict(phase="k1_vs_slots_plain_small", rows=coo.num_rows,
+               cases=out, registers=regs, nvidia_smi=smi_line())
+    emit(res)
+    return res
+
+
 def phase_main(dev):
     """The main path at full size; returns (engine, queries, results,
     gold top-100 sets, query() indices)."""
@@ -559,13 +667,17 @@ def phase_main(dev):
 
 
 def phase_kernels_full(eng, qs, dev):
-    """Kernel vs plain at the main-path shapes: times and agreement."""
+    """Kernel vs plain at the main-path shapes: times and agreement. K1
+    through its wrapper, alone on the card (``_k1_alone_ms``: with its
+    lane merge, without it, and the ``torch.topk`` merge of its slots that
+    the route ran before the merge moved onto the card), its production
+    buffers against its slot plain bit for bit, tags included; K3 and its
+    library yardstick (``_k3_library_ms``)."""
     import dataclasses
 
     import torch
 
-    from spmv_topk_tpu_torch.ops.kernel import (octet_topk_plain,
-                                                topk_spmv_fused_octet_device)
+    from spmv_topk_tpu_torch.ops import kernel as K
     from spmv_topk_tpu_torch.ops.streamprobe import (stream_words_device,
                                                      stream_words_plain)
 
@@ -578,13 +690,21 @@ def phase_kernels_full(eng, qs, dev):
     (kv, kt), (pv, pt) = _plain_and_kernel(eng, table, safe)
     torch.cuda.synchronize()
     k1_err = compare_lanes(kv, kt, pv, pt)
+    # the production buffers, ties and tags included, on the kernel's slots
+    blocks, slots = K.octet_topk_grid(dev, cfg, eng.words.shape[0])
+    require(_k1_slots_equal(eng, table, cfg),
+            "K1 (production buffers) equals its slot plain at full size")
 
     plain_kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
                     tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs)
-    k1_ms = cuda_ms(lambda: topk_spmv_fused_octet_device(
+    k1_ms = cuda_ms(lambda: K.topk_spmv_fused_octet_device(
         *args, cfg=cfg, block_sublanes=bs), reps=20, warmup=2)
-    k1_plain_ms = cuda_ms(lambda: octet_topk_plain(*args, **plain_kw),
+    k1_alone_ms, k1_unmerged_ms, k1_topk_merge_ms = _k1_alone_ms(
+        eng, table, cfg)
+    k1_plain_ms = cuda_ms(lambda: K.octet_topk_plain(*args, **plain_kw),
                           reps=3)
+    k1_slots_plain_ms = cuda_ms(lambda: K.octet_topk_slots_plain(
+        *args, num_slots=slots, codec=cfg.query_codec, **plain_kw), reps=1)
     salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
     ks = stream_words_device(eng.words, salt)
     ps = stream_words_plain(eng.words, salt)
@@ -594,19 +714,115 @@ def phase_kernels_full(eng, qs, dev):
                     warmup=2)
     k3_plain_ms = cuda_ms(lambda: stream_words_plain(eng.words, salt),
                           reps=3)
+    k3_library_ms = _k3_library_ms(eng.words, salt, ks)
     k1_bound = sweep_bound(eng, 1, topk_out_bytes(eng, 1))
     # K3: the words read once, an add per word
     k3_bound = bound(eng.hbm_bytes + 2 * 8 * 128 * 4, eng.words.numel())
     res = dict(phase="kernels_vs_plain_full", words_bytes=eng.hbm_bytes,
-               k1_ms=k1_ms, k1_plain_ms=k1_plain_ms, k1_max_abs_err=k1_err,
+               k1_ms=k1_ms, k1_alone_ms=k1_alone_ms,
+               k1_unmerged_ms=k1_unmerged_ms,
+               k1_card_merge_ms=k1_alone_ms - k1_unmerged_ms,
+               k1_topk_merge_of_the_slots_ms=k1_topk_merge_ms,
+               k1_blocks=blocks, k1_slots=slots,
+               **{f"k1_{k}": v for k, v in _k1_deal_balance(eng,
+                                                            slots).items()},
+               k1_plain_ms=k1_plain_ms, k1_slots_plain_ms=k1_slots_plain_ms,
+               k1_max_abs_err=k1_err, k1_slots_plain_equal=True,
                k1_words_gb_per_s=eng.hbm_bytes / (k1_ms * 1e-3) / 1e9,
+               k1_alone_words_gb_per_s=(eng.hbm_bytes / (k1_alone_ms * 1e-3)
+                                        / 1e9),
                k1_bound_ms=k1_bound[0], k1_bound_by=k1_bound[1],
                k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_max_abs_err=0,
+               k3_library_ms=k3_library_ms,
                k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
+               k3_library_gb_per_s=eng.hbm_bytes / (k3_library_ms * 1e-3)
+               / 1e9,
                k3_bound_ms=k3_bound[0], k3_bound_by=k3_bound[1],
                nvidia_smi=smi_line())
     emit(res)
     return res
+
+
+def _k1_deal_balance(eng, slots):
+    """What each of K1's ``slots`` slots sweeps under its deal
+    (``ops/kernel.py::k1_deal``) and, for comparison, under dealing the
+    octets one a slot in turn, from the engine's plan (first partition):
+    the largest slot's chunks and work over the mean, and its octets (a
+    count, no device time)."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    nreal = eng.nreal.reshape(eng.config.num_partitions, -1)[0]
+    chunks = K.octet_real_chunks(eng.plan_rows, nreal).numpy()
+    real = chunks > 0
+    work = (chunks + K.K1_OCTET_COST) * real
+    deals = dict(runs=K.k1_deal(eng.plan_rows, nreal, slots).numpy(),
+                 one_a_slot_in_turn=np.arange(len(work)) % slots)
+    out = {}
+    for name, slot in deals.items():
+        for what, x in (("chunks", chunks), ("work", work)):
+            per_slot = np.bincount(slot, weights=x, minlength=slots)
+            out[f"slot_{what}_max_over_mean_{name}"] = float(
+                per_slot.max() / per_slot.mean())
+        out[f"slot_octets_max_{name}"] = int(np.bincount(
+            slot, weights=real, minlength=slots).max())
+    return out
+
+
+def _k1_slots_equal(eng, table, cfg):
+    """Whether K1 (merged on the card) gives ``octet_topk_slots_plain``'s
+    pairs on the kernel's grid bit for bit, tags included, under cfg (its
+    buffers tie-safe or not), on the engine's partitions."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = eng.config.num_partitions
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bs = eng.fused.block_sublanes
+    kv, kt = K.topk_spmv_fused_octet_device(*args, cfg=cfg, block_sublanes=bs,
+                                            **eng.partition_kw)
+    _, slots = K.octet_topk_grid(eng.words.device, cfg,
+                                 eng.words.shape[0] // P, P)
+    pv, pt = K.octet_topk_slots_plain(
+        *args, num_slots=slots, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
+        codec=cfg.query_codec, **eng.partition_kw)
+    torch.cuda.synchronize()
+    return bool(torch.equal(kv, pv) and torch.equal(kt, pt))
+
+
+def _k1_alone_ms(eng, table, cfg, reps=10):
+    """K1 alone on the card, device time (``_device_ms``) on the engine's
+    stream: (the launch, its lane merge included; the launch with the
+    merge left out, ``unmerged``; one per-lane ``torch.topk`` over those
+    unmerged slots, the merge of the route before K1's card merge)."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = eng.config.num_partitions
+    ps = eng.partition_kw.get("part_slices", 0)
+    args = (eng.words, table, eng.nreal, eng.plan_rows, P, ps, cfg,
+            eng.fused.block_sublanes)
+    slots = K._octet_topk_cuda(*args, unmerged=True)
+    fns = [lambda: K._octet_topk_cuda(*args),
+           lambda: K._octet_topk_cuda(*args, unmerged=True),
+           lambda: K.merge_lane_topk(*slots, cfg.lane_k, lead=1)]
+    for fn in fns:
+        fn()
+    return tuple(_device_ms([fn], reps)[0][0] for fn in fns)
+
+
+def _k3_library_ms(words, salt, k3_sum):
+    """K3's library yardstick: one PyTorch reduction of the words' (8,
+    128) chunks in int32 plus the salt (int32 wraparound), required equal
+    to K3's checksum ``k3_sum``, then timed (CUDA events)."""
+    import torch
+
+    def lib():
+        return words.view(-1, 8, 128).sum(0, dtype=torch.int32) + salt
+
+    require(torch.equal(lib(), k3_sum),
+            "torch's int32 chunk sum plus the salt equals K3's checksum")
+    return cuda_ms(lib, reps=20, warmup=2)
 
 
 def _k6_alone_ms(eng, tables, cfg, reps=10):
@@ -730,7 +946,6 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
               card_merge_ms=k6_alone_ms - k6_sweep_ms,
               merge_share=res["k6_merge_share"],
               torch_topk_merge_of_the_slots_ms=k6_topk_merge_ms,
-              host_ms=k6_ms - k6_alone_ms,
               stream_reads_per_group=passes, octet_slots=slots,
               # the subgroup kernel this one replaced, on the same corpus
               # and card (PERF.md section 6)
@@ -1174,6 +1389,8 @@ def phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
         max_abs_exact=float(np.abs(exact).max()), **times,
         k7_words_gb_per_s=eng.hbm_bytes / (times["k7_ms"] * 1e-3) / 1e9,
         k3_ms=k3_ms, k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
+        k3_library_ms=_k3_library_ms(eng.words, salt,
+                                     stream_words_device(eng.words, salt)),
         launches=launches, nvidia_smi=smi_line())
     emit(res)
     if cfg.rescore_pool:
@@ -1475,7 +1692,15 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
         f"{k4}_plain_ms": cuda_ms(lambda: K.octet_scores_plain(
             *args, codec=codec, **skw), reps=2),
         "k3_ms": cuda_ms(lambda: stream_words_device(eng.words, salt),
-                         reps=20, warmup=2)}
+                         reps=20, warmup=2),
+        "k3_library_ms": _k3_library_ms(
+            eng.words, salt, stream_words_device(eng.words, salt))}
+    # K1 (K10b) alone on the card, with and without its lane merge, and
+    # its production buffers against its slot plain, tags included
+    times[f"{k1}_alone_ms"], times[f"{k1}_unmerged_ms"], _ = _k1_alone_ms(
+        eng, table, cfg)
+    require(_k1_slots_equal(eng, table, cfg),
+            f"{name}: {k1} (production buffers) equals its slot plain")
     bounds = {k1: sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
               k6: sweep_bound(eng, len(group),
                               topk_out_bytes(eng, len(group))),
@@ -3015,7 +3240,7 @@ def _shard_kernel_times(view, qs, dev, group):
     """The sweeps of one shard of a partitioned sharded engine (K10a and
     K10c on the slice stream, K10b and K10d on the octet stream: a query,
     and one group of ``group``) held to their plain versions (tie-safe,
-    bit for bit) and timed against them."""
+    bit for bit) and timed against them; K10b alone on the card too."""
     import dataclasses
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -3050,7 +3275,11 @@ def _shard_kernel_times(view, qs, dev, group):
         plain2 = lambda: K.slice_topk_batch_plain(*bargs, **kw)  # noqa: E731
     b1 = sweep_bound(view, 1, topk_out_bytes(view, 1))
     b2 = sweep_bound(view, len(qs), topk_out_bytes(view, len(qs)))
-    return {
+    alone = {}
+    if octet:   # K10b alone on the card, with and without its lane merge
+        alone[f"{k1}_alone_ms"], alone[f"{k1}_unmerged_ms"], _ = \
+            _k1_alone_ms(view, table, cfg)
+    return {**alone,
         f"{k1}_ms": cuda_ms(lambda: one(*args, cfg=cfg, block_sublanes=bs,
                                         **parts), reps=20, warmup=2),
         f"{k1}_plain_ms": cuda_ms(plain1, reps=2),
@@ -3316,8 +3545,9 @@ def kernel_entry(name, source, replaces, launches, res, key, library_ms,
 # The phases a run can name on the command line, in the order they run,
 # and what each needs run before it (the 10M corpus, its queries and gold
 # sets come with any of the full-size phases).
-PHASES = ("small", "slice_small", "partition_small", "codecs_small",
-          "bucket_small", "labs_small", "sass", "main", "library",
+PHASES = ("small", "k1_small", "slice_small", "partition_small",
+          "codecs_small", "bucket_small", "labs_small", "sass", "main",
+          "library",
           "slice_engines", "default_config", "bucket_path", "octet_engines",
           "dense", "sharded", "labs", "pack16")
 PHASE_NEEDS = {
@@ -3380,7 +3610,8 @@ def main(argv=()):
 
     phase_environment()
     torch.cuda.synchronize()
-    for name, fn in (("small", phase_small), ("slice_small", phase_slice_small),
+    for name, fn in (("small", phase_small), ("k1_small", phase_k1_small),
+                     ("slice_small", phase_slice_small),
                      ("partition_small", phase_partition_small),
                      ("codecs_small", phase_codecs_small),
                      ("bucket_small", phase_bucket_small),
@@ -3522,14 +3753,24 @@ def summarize(R, complete):
     ker = "spmv_topk_tpu/ops/kernel.py"
     launches = by_path.get("main_path", {})
 
-    def octet_codecs(name, source, line, kn, library, **extra):
+    def octet_codecs(name, source, line, kn, library, extra_of=None,
+                     **extra):
         """The octet kernel's entry of each codec but h16 (its path's
-        launches and times)."""
-        return {c: kernel_entry(name.replace("h16", c), source,
-                                f"{ker}:{line}",
-                                r["launches"][name.replace("h16", c)], r, kn,
-                                library, **extra)
-                for c, r in R["oc"].items()}
+        launches and times; ``source`` a file, or one a codec;
+        ``extra_of(results)`` the keys of a codec's own)."""
+        return {c: kernel_entry(
+            name.replace("h16", c),
+            source[c] if isinstance(source, dict) else source,
+            f"{ker}:{line}", r["launches"][name.replace("h16", c)], r, kn,
+            library, **extra, **(extra_of(r) if extra_of else {}))
+            for c, r in R["oc"].items()}
+
+    def k1_extra(r, kn):
+        """K1's keys beside kernel_entry's: alone on the card with its
+        merge and without it (``_k1_alone_ms``), its template."""
+        return dict(alone_ms=r[f"{kn}_alone_ms"],
+                    unmerged_ms=r[f"{kn}_unmerged_ms"],
+                    template="spmv_topk_tpu_torch/csrc/octet_topk.cuh")
 
     def slice_entry(name, src, kn, line, q, fq):
         sl, df, sc = R["sl"], R["df"], dict(i8s=R["c3"], i4s=R["c8"],
@@ -3556,11 +3797,17 @@ def summarize(R, complete):
     slices = ("sl", "df", "c3", "c8", "i8", "lib")
     # (the results an entry reads, the entry)
     specs = [
+        # K1: ms through its wrapper, alone_ms the launch on the card,
+        # unmerged_ms the sweep without its lane merge; each codec's own
+        # translation unit
         (("main_res", "full", "oc", "lib"), lambda: kernel_entry(
-            "octet_topk_h16", "octet_topk.cuh", f"{ker}:1057",
+            "octet_topk_h16", K1_UNITS["h16"], f"{ker}:1057",
             launches["octet_topk_h16"], R["full"], "k1", topk1, **two,
-            **octet_codecs("octet_topk_h16", "octet_topk.cuh", 1057, "k1",
-                           topk1, **two))),
+            **k1_extra(R["full"], "k1"),
+            topk_merge_of_the_slots_ms=R["full"][
+                "k1_topk_merge_of_the_slots_ms"],
+            **octet_codecs("octet_topk_h16", K1_UNITS, 1057, "k1", topk1,
+                           extra_of=lambda r: k1_extra(r, "k1"), **two))),
         (("main_res", "batch", "oc", "lib"), lambda: kernel_entry(
             "octet_topk_batch_h16", "octet_topk_batch_h16.cu", f"{ker}:1641",
             launches["octet_topk_batch_h16"], R["batch"], "k6",
@@ -3577,7 +3824,9 @@ def summarize(R, complete):
         (("main_res", "full"), lambda: kernel_entry(
             "stream_words", "stream_probe.cu",
             "spmv_topk_tpu/ops/streamprobe.py:54", launches["stream_words"],
-            R["full"], "k3", None)),
+            R["full"], "k3", R["full"]["k3_library_ms"],
+            library_calls="words.view(-1, 8, 128).sum(0, dtype=torch.int32)"
+            " + salt")),
         *((slices, lambda a=a: slice_entry(*a)) for a in (
             ("slice_topk", "slice_topk.cu", "k7", 864, 1, 1),
             ("slice_topk_batch", "slice_topk_batch.cuh", "k8", 1381,
@@ -3586,15 +3835,15 @@ def summarize(R, complete):
         # K10a-d and the partitioned K4/K9: the same kernels with a
         # partition axis, on the partitioned paths
         (("po", "sharded", "lib"), lambda: kernel_entry(
-            "octet_topk_h16_partitioned", "octet_topk.cuh", f"{ker}:1116",
+            "octet_topk_h16_partitioned", K1_UNITS["h16"], f"{ker}:1116",
             R["po"]["launches"]["octet_topk_h16"], R["po"], "k10b", topk1,
-            partitions=PARTITIONS, **two,
+            partitions=PARTITIONS, **two, **k1_extra(R["po"], "k10b"),
             i4s=kernel_entry(
-                "octet_topk_i4s_partitioned", "octet_topk.cuh",
+                "octet_topk_i4s_partitioned", K1_UNITS["i4s"],
                 f"{ker}:1116", sharded("octet_i4s_p2")["launches"][
                     "octet_topk"], sharded("octet_i4s_p2"), "k10b", topk1,
                 partitions=PARTITIONS, path="sharded_octet_i4s_p2",
-                **two))),
+                **two, **k1_extra(sharded("octet_i4s_p2"), "k10b")))),
         (("po", "sharded", "lib"), lambda: kernel_entry(
             "octet_topk_batch_h16_partitioned", "octet_topk_batch_h16.cu",
             f"{ker}:1693", R["po"]["launches"]["octet_topk_batch_h16"],

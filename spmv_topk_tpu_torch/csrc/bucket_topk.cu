@@ -150,35 +150,6 @@ __device__ __forceinline__ Table<typename C::Tab> stage(unsigned char* smem,
   }
 }
 
-// The first `count` groups' sorted lists, through shared memory (sv, st:
-// kGroups x K x 128 entries): group 0's threads end with the first K of
-// them for their lane, sorted. The caller makes sure no thread still reads
-// sv / st.
-template <int K>
-__device__ __forceinline__ void combine(float (&v)[K], int32_t (&t)[K], float* sv, int32_t* st,
-                                        int group, int lane, int count) {
-  if (group > 0 && group < count) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      sv[(group * K + k) * kLanes + lane] = v[k];
-      st[(group * K + k) * kLanes + lane] = t[k];
-    }
-  }
-  __syncthreads();
-  if (group == 0) {
-    for (int g = 1; g < count; ++g) {
-      float cv[K];
-      int32_t ct[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        cv[k] = sv[(g * K + k) * kLanes + lane];
-        ct[k] = st[(g * K + k) * kLanes + lane];
-      }
-      merge<K>(v, t, cv, ct);
-    }
-  }
-}
-
 template <class C, int K>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __restrict__ table,
@@ -187,7 +158,6 @@ bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __r
                    int set_size, float* ws_v, int32_t* ws_t, unsigned* tickets,
                    float* __restrict__ out_v, int32_t* __restrict__ out_t) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ bool last;
   const int lane = threadIdx.x % kLanes;
   const int group = threadIdx.x / kLanes;
   const int block = blockIdx.x;
@@ -224,7 +194,7 @@ bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __r
   const int set = block / set_size;
   const int first = set * set_size;
   const int in_set = min(set_size, blocks - first);
-  if (!arrive(tickets + 1 + set, in_set, &last)) return;
+  if (!arrive(tickets + 1 + set, in_set)) return;
   gather<K, kGroups>(v, t, ws_v, ws_t, first, in_set, group, lane);
   combine<K>(v, t, sv, st, group, lane, min(kGroups, in_set));
   if (sets == 1) {
@@ -234,7 +204,7 @@ bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __r
   if (group == 0) store<K>(v, t, ws_v, ws_t, blocks + set, lane);
 
   // 3. the last set -> the outputs
-  if (!arrive(tickets, sets, &last)) return;
+  if (!arrive(tickets, sets)) return;
   gather<K, kGroups>(v, t, ws_v, ws_t, blocks, sets, group, lane);
   combine<K>(v, t, sv, st, group, lane, min(kGroups, sets));
   if (group == 0) store<K>(v, t, out_v, out_t, 0, lane);
@@ -247,13 +217,6 @@ size_t smem_bytes(int table_rows) {
   const size_t tab = codec::table_smem_bytes<C, false>(table_rows);
   const size_t merge = (size_t)kGroups * K * kLanes * (sizeof(float) + sizeof(int32_t));
   return tab > merge ? tab : merge;
-}
-
-// Integer ceil(sqrt(n)): the set size of a grid of n blocks.
-int set_size_of(int n) {
-  int s = 1;
-  while (s * s < n) ++s;
-  return s;
 }
 
 struct Args {

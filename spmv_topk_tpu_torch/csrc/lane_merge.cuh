@@ -1,8 +1,9 @@
-// The lane merge on the card, shared by K13 (bucket_topk.cu) and K6 h16
-// (octet_topk_batch_h16.cu): sorted per-lane lists of K (value, tag)
-// entries, merged in the order value descending, then tag ascending, and
-// the tickets that elect the last block of a set of blocks to merge the
-// set's lists (ops/kernel.py::lane_merge_plain is its plain version).
+// The lane merge on the card, shared by K13 (bucket_topk.cu), K6 h16
+// (octet_topk_batch_h16.cu) and K1 (octet_topk.cuh): sorted per-lane lists
+// of K (value, tag) entries, merged in the order value descending, then
+// tag ascending, and the tickets that elect the last block of a set of
+// blocks to merge the set's lists (ops/kernel.py::lane_merge_plain is its
+// plain version).
 //
 // Top-k under one total order does not depend on how the entries are
 // grouped, so any tree of these merges gives what one merge of every list
@@ -131,18 +132,56 @@ __device__ __forceinline__ void gather(float (&v)[K], int32_t (&t)[K], const flo
   }
 }
 
-// Whether this block is the last of `count` to reach *ticket: every
-// thread's writes are fenced first; the last block resets the ticket (no
-// other block of the launch touches it again).
-__device__ __forceinline__ bool arrive(unsigned* ticket, int count, bool* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *flag = atomicAdd(ticket, 1u) == static_cast<unsigned>(count - 1);
-    if (*flag) *ticket = 0u;
+// The first `count` groups' sorted lists of a block of 128-thread groups,
+// through shared memory (sv, st: a list of K x 128 entries a group):
+// group 0's threads end with the first K of them for their lane, sorted.
+// The caller makes sure no thread still reads sv / st.
+template <int K>
+__device__ __forceinline__ void combine(float (&v)[K], int32_t (&t)[K], float* sv, int32_t* st,
+                                        int group, int lane, int count) {
+  if (group > 0 && group < count) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      sv[(group * K + k) * octet::kLanes + lane] = v[k];
+      st[(group * K + k) * octet::kLanes + lane] = t[k];
+    }
   }
   __syncthreads();
-  return *flag;
+  if (group == 0) {
+    for (int g = 1; g < count; ++g) {
+      float cv[K];
+      int32_t ct[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        cv[k] = sv[(g * K + k) * octet::kLanes + lane];
+        ct[k] = st[(g * K + k) * octet::kLanes + lane];
+      }
+      merge<K>(v, t, cv, ct);
+    }
+  }
+}
+
+// Whether this block is the last of `count` to reach *ticket: every
+// thread's writes are fenced first; the last block resets the ticket (no
+// other block of the launch touches it again). Every thread of the block
+// gets the answer (__syncthreads_or: no shared memory).
+__device__ __forceinline__ bool arrive(unsigned* ticket, int count) {
+  __threadfence();
+  __syncthreads();
+  bool last = false;
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned>(count - 1);
+    if (last) *ticket = 0u;
+  }
+  return __syncthreads_or(last) != 0;
+}
+
+// Integer ceil(sqrt(n)): the set size of a merge over n lists, so that
+// about sqrt(n) sets of about sqrt(n) lists each merge in turn.
+inline int set_size_of(int n) {
+  int s = 1;
+  while (s * s < n) ++s;
+  return s;
 }
 
 }  // namespace lane_merge

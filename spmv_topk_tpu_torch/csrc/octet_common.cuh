@@ -92,6 +92,55 @@ __device__ __forceinline__ void harvest(float (&tv)[K], int32_t (&tt)[K],
   }
 }
 
+// The smallest value of a lane buffer.
+template <int K>
+__device__ __forceinline__ float buffer_min(const float (&tv)[K]) {
+  float m = tv[0];
+#pragma unroll
+  for (int s = 1; s < K; ++s) m = fminf(m, tv[s]);
+  return m;
+}
+
+// harvest of the octet's member scores sc (consumed) into a lane buffer
+// whose minimum tmin is kept beside it (K6 h16, K1): the same
+// replacements, but a round of the top-3 fold whose candidate is below
+// the minimum ends the harvest (the later rounds' candidates are no
+// larger, and the minimum only rises), and the minimum is found once per
+// replacement, not per round.
+template <int K, bool TIE_SAFE, bool EXACT>
+__device__ __forceinline__ void harvest_above(float (&tv)[K], int32_t (&tt)[K], float& tmin,
+                                              float (&sc)[kMembers], int32_t tag0, int G) {
+  if (EXACT) {
+    harvest<K, TIE_SAFE, true>(tv, tt, sc, tag0, G);
+    tmin = buffer_min(tv);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kHarvest; ++r) {
+    float m1 = sc[0];
+#pragma unroll
+    for (int m = 1; m < kMembers; ++m) m1 = (sc[m] > m1 || sc[m] != sc[m]) ? sc[m] : m1;
+    if (!(m1 >= tmin)) return;   // a NaN maximum too: harvest's NaN rule
+    int sl = kMembers;
+#pragma unroll
+    for (int m = kMembers - 1; m >= 0; --m)
+      if (sc[m] == m1) sl = m;   // lowest member among ties
+    bool done = false;
+#pragma unroll
+    for (int s = 0; s < K; ++s) {   // topk_update's replacement
+      if (tv[s] == tmin && !done) {
+        tv[s] = m1;
+        tt[s] = tag0 + sl * G;
+        if (TIE_SAFE) done = true;
+      }
+    }
+    tmin = buffer_min(tv);
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m)
+      if (m == sl) sc[m] = -INFINITY;
+  }
+}
+
 // Partition blockIdx.y of a partition-major stream (formats/
 // sell_buckets.py::PartitionedFusedMatrix; an unpartitioned stream is
 // partition 0 of 1): its blocks start part_rows rows into the words, its

@@ -86,54 +86,6 @@ struct Smem {
   static constexpr size_t kBytes = kQueue + sizeof(uint16_t) * kQ * kL;
 };
 
-template <int K>
-__device__ __forceinline__ float buffer_min(const float (&tv)[K]) {
-  float m = tv[0];
-#pragma unroll
-  for (int s = 1; s < K; ++s) m = fminf(m, tv[s]);
-  return m;
-}
-
-// octet_common.cuh::harvest of the octet's member scores sc (consumed)
-// into a lane buffer whose minimum tmin is kept beside it: the same
-// replacements, but a round of the top-3 fold whose candidate is below
-// the minimum ends the harvest (the later rounds' candidates are no
-// larger, and the minimum only rises), and the minimum is found once per
-// replacement, not per round.
-template <int K, bool TIE_SAFE, bool EXACT>
-__device__ __forceinline__ void harvest_above(float (&tv)[K], int32_t (&tt)[K], float& tmin,
-                                              float (&sc)[kMembers], int32_t tag0, int G) {
-  if (EXACT) {
-    harvest<K, TIE_SAFE, true>(tv, tt, sc, tag0, G);
-    tmin = buffer_min(tv);
-    return;
-  }
-#pragma unroll
-  for (int r = 0; r < kHarvest; ++r) {
-    float m1 = sc[0];
-#pragma unroll
-    for (int m = 1; m < kMembers; ++m) m1 = (sc[m] > m1 || sc[m] != sc[m]) ? sc[m] : m1;
-    if (!(m1 >= tmin)) return;   // a NaN maximum too: harvest's NaN rule
-    int sl = kMembers;
-#pragma unroll
-    for (int m = kMembers - 1; m >= 0; --m)
-      if (sc[m] == m1) sl = m;   // lowest member among ties
-    bool done = false;
-#pragma unroll
-    for (int s = 0; s < K; ++s) {   // topk_update's replacement
-      if (tv[s] == tmin && !done) {
-        tv[s] = m1;
-        tt[s] = tag0 + sl * G;
-        if (TIE_SAFE) done = true;
-      }
-    }
-    tmin = buffer_min(tv);
-#pragma unroll
-    for (int m = 0; m < kMembers; ++m)
-      if (m == sl) sc[m] = -INFINITY;
-  }
-}
-
 template <int NR, int K, bool TIE_SAFE, bool EXACT>
 __global__ void __launch_bounds__(kMembers * kBlockLanes<K>, 1)
 octet_topk_batch_h16_kernel(const int32_t* __restrict__ words, const int32_t* __restrict__ tables,
@@ -325,14 +277,13 @@ octet_topk_batch_h16_kernel(const int32_t* __restrict__ words, const int32_t* __
   // each lane group, partition and pass) merges the set's lists into the
   // set's list, after the slots' lists, or into the outputs when there is
   // one set; 3. the last set's merges the set lists into the outputs.
-  __shared__ bool last;
   const int sets = (num_slots + set_size - 1) / set_size;
   const int set = slot / set_size, first = set * set_size;
   const int in_set = min(set_size, num_slots - first);
   unsigned* ticket =
       tickets + (((int64_t)blockIdx.z * P + p) * kGroups + blockIdx.x % kGroups) * (1 + sets);
   const int64_t set_lists = (int64_t)num_queries * P * num_slots;
-  if (!arrive(ticket + 1 + set, in_set, &last)) return;
+  if (!arrive(ticket + 1 + set, in_set)) return;
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int q = member + 8 * i;
@@ -347,7 +298,7 @@ octet_topk_batch_h16_kernel(const int32_t* __restrict__ words, const int32_t* __
     else
       store<K>(tv, tt, ws_v, ws_t, set_lists + qp * sets + set, stream_lane);
   }
-  if (sets == 1 || !arrive(ticket, sets, &last)) return;
+  if (sets == 1 || !arrive(ticket, sets)) return;
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int q = member + 8 * i;
@@ -376,13 +327,6 @@ struct Args {
   int32_t* out_t;
   cudaStream_t stream;
 };
-
-// Integer ceil(sqrt(n)): the set size of n slots.
-inline int set_size_of(int n) {
-  int s = 1;
-  while (s * s < n) ++s;
-  return s;
-}
 
 template <int NR, int K, bool TIE_SAFE, bool EXACT>
 cudaError_t launch(const Args& a) {
@@ -463,7 +407,7 @@ int octet_topk_batch_h16(const int32_t* words, const int32_t* tables, const int3
   if (num_buckets < 1 || num_queries < 1 || slots < 1 || passes > 65535 ||
       num_partitions < 1 || num_partitions > 65535 || slots > (1 << 29))
     return cudaErrorInvalidValue;
-  const int sets = (slots + k6h16::set_size_of(slots) - 1) / k6h16::set_size_of(slots);
+  const int sets = (slots + lane_merge::set_size_of(slots) - 1) / lane_merge::set_size_of(slots);
   const int64_t lists = (int64_t)num_queries * num_partitions * (slots + sets);
   if (workspace_lists < lists ||
       num_tickets < (int64_t)passes * num_partitions * (octet::kLanes / 32) * (1 + sets))

@@ -1,13 +1,12 @@
-// Kernel K1 (octet_topk.cuh) for every codec but h16: f32 (its table in
-// shared or global memory), int8x4, and i8s / i4s.
+// Kernel K1 (octet_topk.cuh) for int8x4, i8s and i4s.
 
 #include "octet_topk.cuh"
 
 namespace k1 {
 
-cudaError_t launch_quantized(const Args& a) {
+cudaError_t run_quantized(const Call& c) {
   using namespace codec;
-  return launch_codecs<codec_set<kF32, kF32Global, kInt8x4, kI8s, kI4s>()>(a);
+  return run_codecs<codec_set<kInt8x4, kI8s, kI4s>()>(c);
 }
 
 }  // namespace k1

@@ -10,5 +10,9 @@ beside the stream probe K3 on the same words:
     python -m spmv_topk_tpu_torch.experiments.kernel_lab f32 h16
     python -m spmv_topk_tpu_torch.experiments.kernel_lab --device cpu
 
+``k6_h16_ablation`` and ``k1_octet_cost`` time a production kernel (K6
+h16, K1) against copies of its source with a part taken out or a
+constant changed, built beside the package's library; they need a card.
+
 Importing a lab parses no arguments and needs no card.
 """

@@ -10,8 +10,8 @@ of the package, and only a launch on a CUDA tensor needs the library.
 ``ptxas_report`` reads each kernel's registers and spills from the build.
 
 Every C entry point takes its pointers and the CUDA stream as
-``c_void_p`` (``bucket_topk``: one pointer to its arguments packed as
-int64) and returns ``cudaGetLastError()``; ``check`` raises when that is
+``c_void_p`` (``bucket_topk``, ``octet_topk``: one pointer to its
+arguments packed as int64) and returns ``cudaGetLastError()``; ``check`` raises when that is
 not 0.
 """
 
@@ -57,7 +57,8 @@ _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
 # name -> argtypes of each C entry point (all return int: cudaError_t)
 _SIGNATURES = {
-    "octet_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
+    "octet_topk": [_vp],    # int64 arguments packed (csrc/octet_topk.cu)
+    "octet_topk_occupancy": [_i32] * 5,
     "octet_topk_batch": [_vp] * 4 + [_i32] * 13 + [_vp] * 3,
     "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp, _i64] * 2
     + [_vp] * 3,

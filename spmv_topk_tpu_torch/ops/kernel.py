@@ -22,7 +22,8 @@ chunks into 8 member scores per lane:
   - ``topk_spmv_fused_octet_device`` (K1, one query) harvests the top 3
     of the 8 (or all 8 with ``fold_tile=1``) into per-lane (value, slice)
     buffers of ``lane_k`` entries, which merge into one ``(lane_k, 128)``
-    pair;
+    pair (on the card in the same launch; ``octet_topk_slots_plain`` is
+    that kernel on its slots);
   - ``topk_spmv_fused_batch_octet_device`` (K6) does the same for Q
     queries at once: ``(Q, lane_k, 128)`` pairs (h16: every word read
     once for up to 32 queries, the merge on the card;
@@ -47,11 +48,11 @@ On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
 ``octet_topk_batch_h16.cu``, K4 ``octet_scores.cu``, K7
 ``slice_topk.cu``, K8 ``slice_topk_batch.cuh``, K9 ``slice_scores.cu``,
 the codecs in ``codecs.cuh``; they replace the pallas_calls of
-``spmv_topk_tpu/ops/kernel.py``) and the Top-K sweeps then merge their
-per-CUDA-block buffers with one per-lane ``torch.topk``, the same
-algebra as the JAX package's per-lane ``lax.top_k`` over its per-bucket
-buffers (K13 and K6 h16 merge their buffers on the card, in the same
-launch: ``csrc/lane_merge.cuh``). On a
+``spmv_topk_tpu/ops/kernel.py``). K1, K13 and K6 h16 merge their slots'
+buffers on the card, in the same launch (``csrc/lane_merge.cuh``); the
+other Top-K sweeps merge their per-CUDA-block buffers with one per-lane
+``torch.topk``, the same algebra as the JAX package's per-lane
+``lax.top_k`` over its per-bucket buffers. On a
 CPU tensor each runs its plain PyTorch version (``octet_topk_plain``, ``octet_topk_batch_plain``, ``octet_scores_plain``,
 ``slice_topk_plain``, ``slice_topk_batch_plain``, ``slice_scores_plain``),
 which the tests hold against the JAX package and the card holds the
@@ -112,16 +113,22 @@ PLAN_COLUMNS = ("width", "octets_per_block", "blocks_per_octet", "stride",
 
 # Top-K buffer depths the CUDA kernels are instantiated for
 KERNEL_LANE_K = (4, 8, 16)
-# K13 (csrc/bucket_topk.cu): 128-thread groups (slots) a CUDA block
+# K13 (csrc/bucket_topk.cu) and K1 (csrc/octet_topk.cuh): 128-thread
+# groups (slots) a CUDA block
 BUCKET_GROUPS = 4
-# (device index, codec argument, lane_k, table rows) -> K13's resident
-# blocks an SM; (kernel, device index, stream) -> the merge workspace and
-# tickets of K13 and of K6 h16 (_merge_workspace)
-_K13_OCCUPANCY = {}
+K1_GROUPS = 4
+# K1's deal of octets to slots (k1_deal): an octet's work beside its
+# chunks, in chunks (locating, masking and harvesting it); the kernel's
+# compile-time kOctetCost (csrc/octet_topk.cuh) is the same number
+K1_OCTET_COST = 1
+# (C entry point, device index, its arguments) -> a kernel's resident
+# blocks an SM (_resident_blocks); (kernel, device index, stream) -> the
+# merge workspace and tickets of K13, K6 h16 and K1 (_merge_workspace)
+_OCCUPANCY = {}
 _MERGE_WORKSPACE = {}
-# CUDA blocks per SM of the sweeps: each block of a Top-K sweep owns one
-# set of lane buffers, so this also sets the merge width (blocks * lane_k
-# per lane)
+# CUDA blocks per SM of the sweeps that merge with torch.topk: each block
+# of a Top-K sweep owns one set of lane buffers, so this also sets the
+# merge width (blocks * lane_k per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
 # K6 (but h16) and K8: queries live in one CUDA block when
@@ -410,34 +417,110 @@ def octet_topk_batch_slots_plain(words, tables, nreal, plan_rows, *,
     slots, lane_k, 128), as the kernel's unmerged launch leaves them.
     Against ``octet_topk_batch_plain``: the same values whenever the
     buffers are tie-safe."""
-    outs = []
-    for table in tables:
-        parts = [_octet_slots_one(
-            w, table, n, plan_rows, num_slots=num_slots, lane_k=lane_k,
-            fold_tile=fold_tile, tie_safe=tie_safe,
-            block_sublanes=block_sublanes, S=chunk_sublanes,
-            tag_offset=p * part_slices)
-            for p, (w, n) in enumerate(_partitions(words, nreal,
-                                                   num_partitions))]
-        if merged:
-            parts = [lane_merge_plain(v, t, lane_k) for v, t in parts]
-        else:
-            parts = [tuple(torch.stack(x) for x in zip(*(
-                lane_merge_plain(v[j], t[j], lane_k)
-                for j in range(num_slots)))) for v, t in parts]
-        if merged and num_partitions == 1:
-            outs.append(parts[0])
-        else:
-            outs.append((torch.stack([v for v, _ in parts]),
-                         torch.stack([t for _, t in parts])))
+    outs = [_slot_pools(words, table, nreal, plan_rows, num_slots=num_slots,
+                        lane_k=lane_k, fold_tile=fold_tile, tie_safe=tie_safe,
+                        block_sublanes=block_sublanes, S=chunk_sublanes,
+                        codec="h16", sum_order=CHAIN, runs=False,
+                        num_partitions=num_partitions,
+                        part_slices=part_slices, merged=merged)
+            for table in tables]
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
+def octet_topk_slots_plain(words, table, nreal, plan_rows, *, num_slots: int,
+                           lane_k: int, fold_tile: int, tie_safe: bool,
+                           block_sublanes: int, codec: str = "h16",
+                           num_partitions: int = 1, part_slices: int = 0,
+                           chunk_sublanes: int = 8, merged: bool = True):
+    """Plain version of K1 (K10b with P > 1 partitions) as the kernel
+    computes it, on ``num_slots`` slots a partition (``octet_topk_grid``):
+    each slot takes a contiguous run of the partition's octets
+    (``k1_deal``) and harvests those that hold a real member, in order,
+    into lane buffers
+    from ``topk_init``'s entries (-inf when ``tie_safe``): the top 3 of the
+    8 member scores (each member with ``fold_tile`` 1), summed in K1's
+    order (PAIRS, ``_octet_sums``), by argmin replacement (when score >=
+    the minimum: the first slot holding it when tie-safe, else every one);
+    then ``lane_merge_plain`` over every slot's entries, the initial ones
+    included -> (topv, topt), each (lane_k, 128) ((P, lane_k, 128) for P >
+    1), tags offset by p * part_slices in partition p. The kernel gives
+    these pairs bit for bit on any data, tags and ties included; with
+    ``merged`` False, each slot's buffer in the merge's order, (P, slots,
+    lane_k, 128), as the kernel's unmerged launch leaves them. Against
+    ``octet_topk_plain``: the same values whenever the buffers are
+    tie-safe, and the same (value, tag) pairs above each lane's smallest
+    kept value."""
+    return _slot_pools(words, table, nreal, plan_rows, num_slots=num_slots,
+                       lane_k=lane_k, fold_tile=fold_tile, tie_safe=tie_safe,
+                       block_sublanes=block_sublanes, S=chunk_sublanes,
+                       codec=codec, sum_order=PAIRS, runs=True,
+                       num_partitions=num_partitions, part_slices=part_slices,
+                       merged=merged)
+
+
+def _slot_pools(words, table, nreal, plan_rows, *, num_partitions,
+                part_slices, merged, lane_k, **kw):
+    """The slot plain of one query table (``_octet_slots_one`` of each
+    partition): merged, (lane_k, 128) ((P, lane_k, 128) for P > 1); else
+    each slot's sorted buffer, (P, slots, lane_k, 128)."""
+    parts = [_octet_slots_one(w, table, n, plan_rows, lane_k=lane_k,
+                              tag_offset=p * part_slices, **kw)
+             for p, (w, n) in enumerate(_partitions(words, nreal,
+                                                    num_partitions))]
+    if merged:
+        parts = [lane_merge_plain(v, t, lane_k) for v, t in parts]
+        if num_partitions == 1:
+            return parts[0]
+    else:
+        parts = [_sorted_lists(v, t) for v, t in parts]
+    return torch.stack([v for v, _ in parts]), torch.stack([t for _, t in parts])
+
+
+def _sorted_lists(v, t):
+    """Each (K, 128) buffer of (..., K, 128) values and tags in the
+    merge's order (value descending, then tag ascending; no NaN), as
+    ``lane_merge_plain`` sorts one."""
+    o = torch.argsort(t, dim=-2, stable=True)
+    v, t = v.gather(-2, o), t.gather(-2, o)
+    o = torch.argsort(v, dim=-2, descending=True, stable=True)
+    return v.gather(-2, o), t.gather(-2, o)
+
+
+def octet_real_chunks(plan_rows, nreal) -> torch.Tensor:
+    """Each octet's chunks (its bucket's width) in plan order, 0 for an
+    octet with no real member, which the sweeps skip: (octets,) int64 on
+    the CPU, for one partition's ``nreal`` (B, 1)."""
+    n_real = nreal.reshape(-1).tolist()
+    return torch.cat([
+        torch.full((row[3],), row[0], dtype=torch.long)
+        * (torch.arange(row[3]) < n_real[b])
+        for b, row in enumerate(plan_rows.tolist())])
+
+
+def k1_deal(plan_rows, nreal, num_slots: int,
+            octet_cost: int = K1_OCTET_COST) -> torch.Tensor:
+    """K1's static deal (``csrc/octet_topk.cuh::slot_walk``): the slot of
+    each of one partition's octets, in plan order, (octets,) int64 on the
+    CPU. Each of the ``num_slots`` slots takes a contiguous run of about
+    equal work, an octet's work w(o) its chunks plus ``octet_cost`` (0
+    when it holds no real member); octet o goes to the slot holding its
+    work's midpoint, floor((2 c(o) + w(o)) * num_slots / (2 C)), c(o) the
+    work before it and C the partition's. The kernel deals with
+    K1_OCTET_COST; other costs are for measuring the deal."""
+    chunks = octet_real_chunks(plan_rows, nreal)
+    work = (chunks + octet_cost) * (chunks > 0)
+    mid2 = 2 * torch.cumsum(work, 0) - work   # twice each midpoint
+    return (mid2 * num_slots // max(2 * int(work.sum()), 1)).clamp(
+        max=num_slots - 1)
+
+
 def _octet_slots_one(words, table, nreal, plan_rows, *, num_slots, lane_k,
-                     fold_tile, tie_safe, block_sublanes, S, tag_offset):
-    """``octet_topk_batch_slots_plain``'s slots of one query and one
-    partition, before the merge: (values, tags), each (num_slots, lane_k,
-    128)."""
+                     fold_tile, tie_safe, block_sublanes, S, tag_offset,
+                     codec, sum_order, runs):
+    """The slot plains' slots of one query and one partition, before the
+    merge: (values, tags), each (num_slots, lane_k, 128). The plan's
+    octets go to the slots one a slot in turn (octets j, j + num_slots,
+    ... to slot j: K6 h16), or (``runs``: K1) by ``k1_deal``."""
     dev = words.device
     K = lane_k
     miota = torch.arange(S, device=dev, dtype=torch.int32).view(1, S, 1)
@@ -446,8 +529,8 @@ def _octet_slots_one(words, table, nreal, plan_rows, *, num_slots, lane_k,
     for b, row in enumerate(plan_rows.tolist()):
         G, base = row[3], row[4] + tag_offset
         n_real = int(nreal.reshape(-1)[b])
-        sc = torch.cat([x for _, x in _octet_sums(words, table, row,
-                                                   block_sublanes, S)]).float()
+        sc = torch.cat([x for _, x in _octet_sums(
+            words, table, row, block_sublanes, S, codec, sum_order)]).float()
         oidx = torch.arange(G, device=dev, dtype=torch.int32).view(-1, 1, 1)
         member = oidx + miota * G
         sc = torch.where(member < n_real, sc, torch.full_like(sc, NEG_INF))
@@ -462,26 +545,38 @@ def _octet_slots_one(words, table, nreal, plan_rows, *, num_slots, lane_k,
                                 dim=1))
         real.append(oidx.view(-1) < n_real)
     scores, tags, real = torch.cat(scores), torch.cat(tags), torch.cat(real)
+    n = scores.shape[0]
+    # slot of each octet and its turn within the slot: (turns, slots) of
+    # octet indices, n (an octet that is not real) where a slot has none
+    if runs:
+        slot = k1_deal(plan_rows, nreal, num_slots).to(dev)
+        turn = torch.arange(n, device=dev) - torch.searchsorted(
+            slot, slot, right=False)
+    else:
+        slot = torch.arange(n, device=dev) % num_slots
+        turn = torch.arange(n, device=dev) // num_slots
+    turns = int(turn.max()) + 1 if n else 0
+    order = torch.full((turns, num_slots), n, dtype=torch.long, device=dev)
+    order[turn, slot] = torch.arange(n, device=dev)
+    pad = lambda x: torch.cat([x, x.new_zeros((1, *x.shape[1:]))])  # noqa: E731
+    scores, tags, real = pad(scores)[order], pad(tags)[order], pad(real)[order]
     init = (torch.full((K,), NEG_INF, device=dev) if tie_safe else
             torch.from_numpy(topk_init(K)).to(dev))
-    tv = init.view(1, K, 1).expand(num_slots, K, LANES).clone()
-    tt = torch.zeros((num_slots, K, LANES), dtype=torch.int32, device=dev)
+    v = init.view(1, K, 1).expand(num_slots, K, LANES).clone()
+    t = torch.zeros((num_slots, K, LANES), dtype=torch.int32, device=dev)
     kslot = torch.arange(K, device=dev).view(1, K, 1)
-    for g0 in range(0, scores.shape[0], num_slots):
-        n = min(num_slots, scores.shape[0] - g0)
-        v, t = tv[:n], tt[:n]
-        ok = real[g0:g0 + n].view(n, 1, 1)
-        for step in range(scores.shape[1]):
-            score = scores[g0:g0 + n, step]
+    for i in range(turns):
+        ok = real[i].view(num_slots, 1, 1)
+        for step in range(scores.shape[2]):
+            score = scores[i, :, step]
             cur = v.amin(dim=1, keepdim=True)
             hit = v == cur
             if tie_safe:
                 hit = kslot == hit.int().argmax(dim=1, keepdim=True)
             rep = hit & (score >= cur) & ok
             v = torch.where(rep, score, v)
-            t = torch.where(rep, tags[g0:g0 + n, step], t)
-        tv[:n], tt[:n] = v, t
-    return tv, tt
+            t = torch.where(rep, tags[i, :, step], t)
+    return v, t
 
 
 def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
@@ -615,9 +710,10 @@ def _check_inputs(words, nreal, plan_rows, block_sublanes, num_partitions,
 
 
 def _sweep_blocks(sms: int, part_rows: int, num_partitions: int) -> int:
-    """CUDA blocks per partition of a single-query sweep: the card's
-    sms * _BLOCKS_PER_SM shared among the partitions, and no more than a
-    partition has chunks (every octet, or slice, holds at least one)."""
+    """CUDA blocks per partition of the sweeps K4, K7 and K9 (K1 has its
+    own grid, ``octet_grid``): the card's sms * _BLOCKS_PER_SM shared
+    among the partitions, and no more than a partition has chunks (every
+    octet, or slice, holds at least one)."""
     return max(1, min(-(-sms * _BLOCKS_PER_SM // num_partitions),
                       part_rows // _S))
 
@@ -678,7 +774,8 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
     Returns (topv f32, topt i32), each (lane_k, 128) ((P, lane_k, 128)
     for P > 1), sorted descending.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch that returns the merged pair (``_octet_topk_cuda``).
     """
     kw = _sweep_kw(cfg, block_sublanes)
     ps = _part_slices(num_partitions, part_slices)
@@ -687,31 +784,111 @@ def topk_spmv_fused_octet_device(words, table, nreal, plan_rows, *,
                                 num_partitions=num_partitions,
                                 part_slices=ps, **kw)
     return _octet_topk_cuda(words, table, nreal, plan_rows, num_partitions,
-                            ps, cfg, **kw)
+                            ps, cfg, block_sublanes)
 
 
-def _octet_topk_cuda(words, table, nreal, plan_rows, P, part_slices, cfg, *,
-                     lane_k, fold_tile, tie_safe, block_sublanes,
-                     chunk_sublanes, codec):
+def _octet_topk_cuda(words, table, nreal, plan_rows, P, part_slices, cfg,
+                     block_sublanes, *, unmerged=False):
+    """K1's launch on CUDA tensors, for ``topk_spmv_fused_octet_device``
+    (which passes P and the tag offset; the sweep's codec, lane_k, fold and
+    buffers are cfg's, as ``octet_topk_grid`` reads them): one
+    launch that returns the merged pair, its lane merge on the card
+    (``octet_topk_slots_plain`` on ``octet_topk_grid``'s slots computes
+    what it gives), and no torch op after it; with ``unmerged`` each slot's
+    buffer, sorted (value descending, then tag ascending), (P, slots,
+    lane_k, 128) values and tags, the merge not run, for timing the sweep
+    alone. The merge's lists reuse the table's shared memory once the
+    sweep is done, so a table keeps the block's whole opt-in budget
+    (``_kernel_codec``)."""
     B = plan_rows.shape[0]
+    K = cfg.lane_k
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("table", table, (rows, LANES), dtype))
-    _check_sweep(lane_k, fold_tile, chunk_sublanes)
+    _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                  ("table", table, (rows, LANES), dtype))
+    _check_sweep(K, cfg.fold_tile, cfg.chunk_sublanes)
     dev = words.device
     arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
-    nblk = _sweep_blocks(sms, part_rows, P)
-    out_v = torch.empty((P, nblk, lane_k, LANES), dtype=torch.float32,
-                        device=dev)
-    out_t = torch.empty((P, nblk, lane_k, LANES), dtype=torch.int32,
-                        device=dev)
-    _launch(dev, "octet_topk", words.data_ptr(), table.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            arg, lane_k, int(fold_tile == 1), int(tie_safe), nblk, P,
-            part_rows, part_slices, out_v.data_ptr(), out_t.data_ptr())
+    blocks, slots = octet_topk_grid(dev, cfg, part_rows, P)
+    sets = _merge_sets(blocks)
+    lib = _build.lib()
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if unmerged:
+            ws = torch.empty(P * slots * 2 * K * LANES, dtype=torch.int32,
+                             device=dev)
+            tickets = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            ws, tickets = _merge_workspace("k1", dev, stream,
+                                           P * (blocks + sets) * 2 * K * LANES,
+                                           P * (1 + sets))
+        lists = ws.numel() // (2 * K * LANES)
+        out_v = torch.empty((P, K, LANES), dtype=torch.float32, device=dev)
+        out_t = torch.empty((P, K, LANES), dtype=torch.int32, device=dev)
+        # the arguments as int64 values, in csrc/octet_topk.cu's order
+        args = array.array("q", (
+            words.data_ptr(), table.data_ptr(), nreal.data_ptr(),
+            plan_rows.data_ptr(), B, block_sublanes, rows, arg, K,
+            int(cfg.fold_tile == 1), int(bool(cfg.tie_safe_topk)), blocks, P,
+            part_rows, part_slices, int(not unmerged), ws.data_ptr(), lists,
+            tickets.data_ptr(), tickets.numel(), out_v.data_ptr(),
+            out_t.data_ptr(), stream))
+        err = lib.octet_topk(args.buffer_info()[0])
+    _build.check(err, "octet_topk")
     topk_spmv_fused_octet_device.launches += 1
-    return merge_lane_topk(out_v, out_t, lane_k, lead=int(P > 1))
+    if unmerged:
+        n = P * slots * K * LANES
+        return (ws[:n].view(torch.float32).view(P, slots, K, LANES),
+                ws[lists * K * LANES:][:n].view(P, slots, K, LANES))
+    if P == 1:
+        return out_v[0], out_t[0]
+    return out_v, out_t
+
+
+def octet_grid(sms: int, partitions: int = 1, per_sm: int = 1,
+               chunks: int | None = None):
+    """K1's grid (``csrc/octet_topk.cuh``): (CUDA blocks, slots) a
+    partition. One resident wave: the card's ``sms`` x ``per_sm`` blocks
+    (the occupancy API's resident blocks an SM) shared among the
+    partitions, rounded down, at least one; no more blocks than give each
+    of a partition's ``chunks`` chunks a slot (an octet holds at least
+    one). A block is K1_GROUPS slots of 128 lanes, each a lane buffer of
+    lane_k entries, so a lane's merge takes slots * lane_k entries."""
+    blocks = max(1, sms * per_sm // partitions)
+    if chunks is not None:
+        blocks = max(1, min(blocks, -(-chunks // K1_GROUPS)))
+    return blocks, blocks * K1_GROUPS
+
+
+def octet_topk_grid(dev, cfg: TopKSpMVConfig, part_rows: int,
+                    num_partitions: int = 1):
+    """K1's (CUDA blocks, slots) a partition on CUDA ``dev`` for cfg's
+    codec, lane_k, fold and buffers, on partitions of ``part_rows`` rows
+    of words: ``octet_grid`` of the kernel's resident blocks an SM."""
+    rows, _ = _table_spec(cfg)
+    arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
+    per_sm = _resident_blocks(dev, "octet_topk_occupancy", arg, cfg.lane_k,
+                              int(cfg.fold_tile == 1),
+                              int(bool(cfg.tie_safe_topk)), rows)
+    return octet_grid(_device_info(dev)[0], num_partitions, per_sm,
+                      part_rows // cfg.chunk_sublanes)
+
+
+def _resident_blocks(dev, entry: str, *args) -> int:
+    """Resident CUDA blocks an SM of a kernel on ``dev``, from the
+    occupancy API through the C entry point ``entry(*args)`` (K13's
+    ``bucket_topk_occupancy``, K1's ``octet_topk_occupancy``), read once
+    per (entry, device, arguments)."""
+    key = (entry, dev.index, *args)
+    n = _OCCUPANCY.get(key)
+    if n is None:
+        with torch.cuda.device(dev):
+            n = getattr(_build.lib(), entry)(*args)
+        if n < 1:
+            raise RuntimeError(f"{entry}{args}: occupancy {n}")
+        _OCCUPANCY[key] = n
+    return n
 
 
 topk_spmv_fused_octet_device.launches = 0
@@ -858,11 +1035,12 @@ def octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
     return merge_lane_topk(out_v, out_t, lane_k, lead=lead)
 
 
-def _merge_sets(slots: int) -> int:
-    """The sets of K6 h16's lane merge over ``slots`` slots: ceil(slots /
-    ceil(sqrt(slots))) (csrc/octet_topk_batch_h16.cu::set_size_of)."""
-    size = math.isqrt(slots - 1) + 1 if slots > 1 else 1
-    return -(-slots // size)
+def _merge_sets(lists: int) -> int:
+    """The sets of a lane merge on the card over ``lists`` lists (K6 h16's
+    slots, K1's blocks): ceil(lists / ceil(sqrt(lists)))
+    (csrc/lane_merge.cuh::set_size_of)."""
+    size = math.isqrt(lists - 1) + 1 if lists > 1 else 1
+    return -(-lists // size)
 
 
 topk_spmv_fused_batch_octet_device.launches = 0
@@ -1670,23 +1848,16 @@ def _bucket_topk_slots(dev, arg: int, lane_k: int, rows: int,
         if cuda_blocks < 1:
             raise ValueError(f"cuda_blocks={cuda_blocks}: need >= 1")
         return max(1, min(cuda_blocks * BUCKET_GROUPS, num_slices))
-    key = (dev.index, arg, lane_k, rows)
-    per_sm = _K13_OCCUPANCY.get(key)
-    if per_sm is None:
-        with torch.cuda.device(dev):
-            per_sm = _build.lib().bucket_topk_occupancy(arg, lane_k, rows)
-        if per_sm < 1:
-            raise RuntimeError(f"bucket_topk: occupancy {per_sm} for codec "
-                               f"{KERNEL_CODECS[arg]}, lane_k {lane_k}, "
-                               f"{rows} table rows")
-        _K13_OCCUPANCY[key] = per_sm
+    per_sm = _resident_blocks(dev, "bucket_topk_occupancy", arg, lane_k,
+                              rows)
     return _bucket_blocks(_device_info(dev)[0], num_slices, per_sm)
 
 
 def _merge_workspace(kind: str, dev, stream: int, words: int, tickets: int):
     """The merge workspace (int32, at least ``words`` entries) and tickets
     (at least ``tickets`` zeros, which each launch leaves 0) of the lane
-    merges on the card, K13's (``kind`` "k13") or K6 h16's ("k6_h16"), on
+    merges on the card, K13's (``kind`` "k13"), K6 h16's ("k6_h16") or
+    K1's ("k1"), on
     ``dev`` for launches on ``stream``: allocated once per (kind, device,
     stream) and grown when a launch needs more."""
     key = (kind, dev.index, stream)

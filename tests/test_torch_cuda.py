@@ -6,7 +6,9 @@ file imports no jax, so it runs on a GPU host without the JAX package
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Kernels: K1 (single-query octet sweep), K6 (multi-query octet sweep),
+Kernels: K1 (single-query octet sweep; with its lane merge on the card,
+held bit for bit to ``octet_topk_slots_plain``, tags included), K6
+(multi-query octet sweep),
 K4 (octet SpMV), K3 (stream probe), on the slice stream K7
 (single-query sweep), K8 (multi-query sweep) and K9 (SpMV), and all six
 on partitioned streams (K10a-d and the partitioned K4/K9), with every
@@ -155,14 +157,14 @@ def _emulate_production(eng, table, cfg, nblk):
 def test_octet_kernel_non_tie_safe(gpu, corpus, fold):
     """The production buffers (tie_safe_topk=False: every slot holding the
     minimum is replaced, from distinct sentinels). This corpus has fewer
-    octets than the kernel has CUDA blocks, so each block harvests at most
-    one octet into fresh buffers: emulate that per octet, then merge."""
+    octets than the kernel has slots (``octet_topk_grid``), so each slot
+    harvests at most one octet into fresh buffers: emulate that per octet,
+    then merge."""
     coo, qs = corpus
     cfg = pt.TopKSpMVConfig(**dict(HEADLINE, fold_tile=fold))
     assert not cfg.tie_safe_topk
     eng = pt.TopKSpMV(coo, cfg, device=gpu)
-    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    nblk = min(sms * pkernel._BLOCKS_PER_SM, eng.words.shape[0] // 8)
+    _, nblk = pkernel.octet_topk_grid(gpu, cfg, eng.words.shape[0])
     table, _ = eng._table(qs[1])
     kv, kt = pkernel.topk_spmv_fused_octet_device(
         eng.words, table, eng.nreal, eng.plan_rows, cfg=cfg,
@@ -170,6 +172,109 @@ def test_octet_kernel_non_tie_safe(gpu, corpus, fold):
     ev, et = _emulate_production(eng, table, cfg, nblk)
     torch.cuda.synchronize()
     _lanes_equal(kv, kt, ev, et)
+
+
+# K1 (csrc/octet_topk.cuh): one launch, its lane merge on the card;
+# octet_topk_slots_plain on octet_topk_grid's slots computes what it gives.
+# (lane_k, fold_tile, fused block sublanes); 64 makes wide octets
+K1_GEOMS = [(8, 8, 1024), (4, 1, 1024), (16, 8, 64)]
+
+
+def _k1_slots_plain(eng, cfg, table, merged=True):
+    P = cfg.num_partitions
+    _, slots = pkernel.octet_topk_grid(eng.words.device, cfg,
+                                       eng.words.shape[0] // P, P)
+    return pkernel.octet_topk_slots_plain(
+        eng.words, table, eng.nreal, eng.plan_rows, num_slots=slots,
+        lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=cfg.fused_block_sublanes, codec=cfg.query_codec,
+        merged=merged, **eng.partition_kw)
+
+
+def _k1_check(eng, cfg, table):
+    """K1 against its slot plain, merged (one launch) and unmerged, bit
+    for bit, tags included; tie-safe, its values those of
+    ``octet_topk_plain`` too."""
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bs = cfg.fused_block_sublanes
+    before = pkernel.topk_spmv_fused_octet_device.launches
+    kv, kt = pkernel.topk_spmv_fused_octet_device(
+        *args, cfg=cfg, block_sublanes=bs, **eng.partition_kw)
+    assert pkernel.topk_spmv_fused_octet_device.launches == before + 1
+    pv, pt_ = _k1_slots_plain(eng, cfg, table)
+    torch.cuda.synchronize()
+    P = cfg.num_partitions
+    assert kv.shape == (*((P,) if P > 1 else ()), cfg.lane_k, 128)
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    uv, ut = pkernel._octet_topk_cuda(
+        *args, P, eng.partition_kw.get("part_slices", 0), cfg, bs,
+        unmerged=True)
+    sv, st = _k1_slots_plain(eng, cfg, table, merged=False)
+    torch.cuda.synchronize()
+    assert torch.equal(uv, sv) and torch.equal(ut, st)
+    if cfg.tie_safe_topk:
+        _pools_equal(kv, kt, *pkernel.octet_topk_plain(
+            *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile, tie_safe=True,
+            block_sublanes=bs, codec=cfg.query_codec, **eng.partition_kw))
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("lane_k,fold,fbs", K1_GEOMS,
+                         ids=[f"k{k}_fold{f}_fbs{b}" for k, f, b in K1_GEOMS])
+@pytest.mark.parametrize("codec", ["h16", "f32", "int8x4", "i8s", "i4s"])
+def test_k1_matches_slots_plain(gpu, corpus, codec, lane_k, fold, fbs, P,
+                                tie_safe):
+    """K1 (K10b at P = 3) on production and tie-safe buffers, every codec,
+    lane_k 4, 8 and 16, fold 1 and 8, wide octets."""
+    cfg = pt.TopKSpMVConfig(**dict(
+        HEADLINE, query_codec=codec, rescore_pool=None, lane_k=lane_k,
+        fold_tile=fold, fused_block_sublanes=fbs, num_partitions=P,
+        tie_safe_topk=tie_safe))
+    eng = pt.TopKSpMV(corpus[0], cfg, device=gpu)
+    if fbs == 64:
+        assert any(p.blocks_per_octet > 1 for p in eng.fused.plan)
+    table, _ = eng._table(corpus[1][0])
+    _k1_check(eng, cfg, table)
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("cols", ["limit", "past_limit", "65536"])
+def test_k1_f32_tables_at_and_past_shared_memory(gpu, cols, tie_safe):
+    """f32 tables as wide as a CUDA block's shared memory holds (58,112
+    columns on the H100: the merge's lists reuse the table's bytes, so it
+    stays in shared memory) and past it (codec "f32_global"), on one
+    partition and on two: K1 against its slot plain."""
+    limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
+    ncols = {"limit": limit // 512 * 128,
+             "past_limit": limit // 512 * 128 + 128, "65536": 65536}[cols]
+    assert pkernel.tables_in_smem(4 * ncols, limit) == int(cols == "limit")
+    coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=43)
+    q = create_query_batch(1, ncols, seed=44)[0]
+    for P in (1, 2):
+        cfg = pt.TopKSpMVConfig(**dict(
+            HEADLINE, query_codec="f32", max_cols=ncols, rescore_pool=None,
+            tie_safe_topk=tie_safe, num_partitions=P))
+        eng = pt.TopKSpMV(coo, cfg, device=gpu)
+        table, _ = eng._table(q)
+        _k1_check(eng, cfg, table)
+
+
+def test_k1_back_to_back_launches(gpu, corpus):
+    """20 launches back to back on one stream (each merge's tickets left
+    0 for the next) equal the launches run alone."""
+    cfg = pt.TopKSpMVConfig(**dict(HEADLINE, rescore_pool=None))
+    eng = pt.TopKSpMV(corpus[0], cfg, device=gpu)
+    qs = create_query_batch(20, 1024, seed=45)
+    alone = []
+    for q in qs:
+        alone.append(eng.candidates(q))
+        torch.cuda.synchronize()
+    chained = [eng.candidates(q) for q in qs]
+    torch.cuda.synchronize()
+    for (av, at), (cv, ct) in zip(alone, chained):
+        assert torch.equal(av, cv) and torch.equal(at, ct)
 
 
 @pytest.mark.parametrize("fbs,fold,lane_k", [(1024, 8, 8), (1024, 1, 8),
@@ -975,21 +1080,23 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
                                         integer):
     """K10a-d's production buffers (tie_safe_topk=False) against the
     per-octet and per-work-item emulations, partition by partition: each
-    partition has fewer octets or work items than it has CUDA blocks
-    (single query) and slots (the slice batch; K10d h16's slots harvest
-    their octets in turn, as ``_emulate_production`` does)."""
+    partition has fewer octets or work items than it has CUDA blocks (K7)
+    and slots (K10b's, ``octet_topk_grid``; the slice batch's; K10d h16's
+    slots harvest their octets in turn, as ``_emulate_production``
+    does)."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              tie_safe_topk=False)
     P = cfg.num_partitions
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
     part_rows = eng.words.shape[0] // P
-    nblk = pkernel._sweep_blocks(sms, part_rows, P)
     qs = _slice_queries(int_corpus, integer, 3, 30)
     tables = _slice_tables(cfg, qs, gpu)
     octet = cfg.fused_layout == "octet"
     if octet:
+        _, nblk = pkernel.octet_topk_grid(gpu, cfg, part_rows, P)
         _, slots = pkernel.octet_h16_grid(3, sms, P, cfg.lane_k)
     else:
+        nblk = pkernel._sweep_blocks(sms, part_rows, P)
         _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
                                          part_rows // 8, P)
     table, _ = eng._table(qs[0])
