@@ -32,6 +32,12 @@ every phase runs:
      included, every codec (f32 at 65,536 columns too), fold 1 and 8,
      lane_k 4, 8 and 16, wide octets, the unmerged launch's slots too;
      every K1 instantiation's registers (none may spill);
+  2c. ``k7_small``: K7 and K10a (P = 3) the same way against
+     ``slice_topk_slots_plain`` (every codec, fold 1, 2 and 8, lane_k 4,
+     8 and 16, wide slices, f32 at 65,536 columns); every K7
+     instantiation's registers and K3's (none may spill). The other small
+     slice phases hold K7 to its slot plain too (``_slice_agree``), tie-safe
+     and not;
   3. the main path at full size: the 10M x 1024 gamma corpus (seed 1) in
      the headline config, 32 queries through ``TopKSpMV.query()`` held
      against the exact scipy top-100, sweep and end-to-end times, and the
@@ -41,7 +47,8 @@ every phase runs:
      and without its lane merge, the ``torch.topk`` merge of its slots
      (the route before the merge moved onto the card), its production
      buffers against its slot plain; K3's library yardstick (one
-     ``torch`` int32 sum of the words' chunks, equal to K3's checksum);
+     ``torch`` int32 sum of the words' chunks, equal to K3's checksum)
+     and K3 alone on the card;
   5. the batch path on the same engine: ``query_batch`` of the 32 queries
      in one group against the same gold sets and against ``query()``,
      K6 against its plain version, and the ``batch32_*`` numbers of
@@ -82,7 +89,12 @@ every phase runs:
      top-100, ``query_batch`` in groups of 32 (rescored engines, with the
      ``batch32_*`` numbers) or 8, one ``scores()``, K7, K8 (on the path's
      group) and K9 held to and timed against their plain versions, K3 on
-     the words; an engine without a rescore is held to its plain path
+     the words; K7 alone on the card with and without its lane merge,
+     the ``torch.topk`` merge of its slots, its production buffers against
+     its slot plain, its slots' balance (``k7_deal`` against the old
+     round-robin); on 2 partitions the same config with the int8x4
+     codec too (its words the f32 engine's), its 32 ``query()`` a path
+     of its own (K10a), K10a held and timed on it as K7 is; an engine without a rescore is held to its plain path
      bit for bit, and its ``query_batch`` to its ``query()``;
  11. the octet-layout engines on the 10M corpus, each built from its
      config and driven alike (``phase_octet_engine``): the headline
@@ -126,7 +138,7 @@ every phase runs:
      ``labs`` times each lab's variants on 1 GiB of its words
      (4096 lab blocks for L7, L4, L5, L3; 2048 for L1 and L6; 2**21 rows
      for L2; L8 at 32 and 512 chunks with its one-hot arm, and at 65536
-     without it) beside K3 on
+     without it) beside K3 and its library yardstick on
      the same words, each kernel alone and with its wrapper's merge, and
      checks each against its plain version at that size (kernel_lab,
      fused_lab and dma_lab on the words with real values);
@@ -566,6 +578,81 @@ def phase_k1_small(dev):
     return res
 
 
+# K7's small cases: (lane_k, fold_tile, fused block sublanes): tiled
+# sub-tiles at fold 8 and 2, runs at fold 1, wide slices at 32
+K7_GEOMS = ((8, 8, 1024), (4, 1, 1024), (16, 2, 32))
+# each codec's width quantum (bench.py's slice engine, the default, c3)
+K7_QUANTUM = dict(h16=2, f32=8, int8x4=4, i8s=4, i4s=4)
+# K7's translation unit of each codec (csrc/slice_topk.cuh's instantiations)
+K7_UNITS = dict(h16="slice_topk.cu", f32="slice_topk_f32.cu",
+                int8x4="slice_topk_q.cu", i8s="slice_topk_q.cu",
+                i4s="slice_topk_q.cu")
+
+
+def phase_k7_small(dev):
+    """K7 and K10a (P = 3) against their slot plain
+    (``slice_topk_slots_plain`` on the kernel's grid) at 50k rows, bit for
+    bit, tags included: tie-safe and production buffers, every codec,
+    fold 1, 2 and 8, lane_k 4, 8 and 16, wide slices, and f32 at 65,536
+    columns (tables in global memory); the unmerged launch's slots against
+    the plain's; then the registers and spills of every K7 and K3
+    instantiation, of which none may spill."""
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    q = create_query_batch(1, NUM_COLS, seed=8)[0]
+    wcoo = create_sparse_matrix(20_000, F32_MAX_COLS, AVG_DEG, "gamma",
+                                seed=19)
+    wq = create_query_batch(1, F32_MAX_COLS, seed=20)[0]
+    cases = [(coo, q, dict(k=100, max_cols=NUM_COLS, query_codec=c,
+                           width_quantum=K7_QUANTUM[c], lane_k=k,
+                           fold_tile=f, fused_block_sublanes=b,
+                           num_partitions=P))
+             for c in K7_QUANTUM for k, f, b in K7_GEOMS for P in (1, 3)]
+    cases += [(wcoo, wq, dict(k=100, max_cols=F32_MAX_COLS,
+                              num_partitions=P)) for P in (1, 2)]
+    out = []
+    for corpus, query, kw in cases:
+        cfg = TopKSpMVConfig(**kw)
+        eng = TopKSpMV(corpus, cfg, device=dev)
+        table, _ = eng._table(query)
+        P = cfg.num_partitions
+        arg, _ = K._kernel_codec(dev, cfg.query_codec, table.shape[0])
+        _k7_agree(eng, table, cfg, f"K7 {kw}")
+        blocks, slots = K.slice_topk_grid(dev, cfg, eng.words.shape[0] // P,
+                                          P)
+        out.append(dict(codec=K.KERNEL_CODECS[arg], lane_k=cfg.lane_k,
+                        fold_tile=cfg.fold_tile,
+                        fused_block_sublanes=cfg.fused_block_sublanes,
+                        partitions=P, blocks=blocks, slots=slots,
+                        modes=sorted({K.slice_work(r, cfg.fold_tile)[0]
+                                      for r in eng.plan_rows.tolist()}),
+                        zero_real_buckets=int((eng.nreal == 0).sum()),
+                        slots_plain_equal=True, unmerged_equal=True))
+        del eng
+    require(any(K.WIDE in c["modes"] for c in out), "wide slices ran")
+    require(any(K.TILED in c["modes"] for c in out), "sub-tiles ran")
+    require(any(c["zero_real_buckets"] for c in out if c["partitions"] > 1),
+            "a partition holds a bucket with no real slice")
+    require({c["codec"] for c in out} == set(K.KERNEL_CODECS),
+            "every codec ran, f32 in shared and in global memory")
+    regs = {k: dict(registers=r, spill_bytes=sp)
+            for k, (r, sp) in _build.ptxas_report().items()
+            if k.startswith(("slice_topk_kernel<", "stream_words_kernel"))}
+    require(len(regs) == 5 * 3 * 2 + 1,
+            f"every K7 instantiation and K3 reported ({len(regs)} of 31)")
+    require(all(v["spill_bytes"] == 0 for v in regs.values()),
+            "no K7 or K3 instantiation spills")
+    res = dict(phase="k7_vs_slots_plain_small", rows=coo.num_rows,
+               cases=out, registers=regs, nvidia_smi=smi_line())
+    emit(res)
+    return res
+
+
 def phase_main(dev):
     """The main path at full size; returns (engine, queries, results,
     gold top-100 sets, query() indices)."""
@@ -715,6 +802,8 @@ def phase_kernels_full(eng, qs, dev):
     k3_plain_ms = cuda_ms(lambda: stream_words_plain(eng.words, salt),
                           reps=3)
     k3_library_ms = _k3_library_ms(eng.words, salt, ks)
+    k3_alone_ms = _device_ms([lambda: stream_words_device(eng.words, salt)],
+                             10)[0][0]
     k1_bound = sweep_bound(eng, 1, topk_out_bytes(eng, 1))
     # K3: the words read once, an add per word
     k3_bound = bound(eng.hbm_bytes + 2 * 8 * 128 * 4, eng.words.numel())
@@ -733,7 +822,7 @@ def phase_kernels_full(eng, qs, dev):
                                         / 1e9),
                k1_bound_ms=k1_bound[0], k1_bound_by=k1_bound[1],
                k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, k3_max_abs_err=0,
-               k3_library_ms=k3_library_ms,
+               k3_library_ms=k3_library_ms, k3_alone_ms=k3_alone_ms,
                k3_gb_per_s=eng.hbm_bytes / (k3_ms * 1e-3) / 1e9,
                k3_library_gb_per_s=eng.hbm_bytes / (k3_library_ms * 1e-3)
                / 1e9,
@@ -809,6 +898,111 @@ def _k1_alone_ms(eng, table, cfg, reps=10):
     for fn in fns:
         fn()
     return tuple(_device_ms([fn], reps)[0][0] for fn in fns)
+
+
+def _k7_slots_plain(eng, table, cfg, merged=True):
+    """``slice_topk_slots_plain`` on K7's grid for cfg (its buffers
+    tie-safe or not), on the engine's partitions."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = cfg.num_partitions
+    _, slots = K.slice_topk_grid(eng.words.device, cfg,
+                                 eng.words.shape[0] // P, P)
+    return K.slice_topk_slots_plain(
+        eng.words, table, eng.nreal, eng.plan_rows, num_slots=slots,
+        lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=eng.fused.block_sublanes, codec=cfg.query_codec,
+        merged=merged, **eng.partition_kw)
+
+
+def _k7_agree(eng, table, cfg, what):
+    """Require K7 (K10a) under cfg, tie-safe and with production buffers,
+    to give ``slice_topk_slots_plain``'s pairs on its grid bit for bit,
+    tags included, merged on the card and (the unmerged launch) slot by
+    slot; tie-safe, its values those of ``slice_topk_plain`` too. Returns
+    the tie-safe pools' max abs error against ``slice_topk_plain``."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bs = eng.fused.block_sublanes
+    P = cfg.num_partitions
+    err = None
+    for tie_safe in (True, False):
+        tcfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe)
+        kv, kt = K.topk_spmv_fused_device(*args, cfg=tcfg, block_sublanes=bs,
+                                          **eng.partition_kw)
+        pv, pt = _k7_slots_plain(eng, table, tcfg)
+        uv, ut = K._slice_topk_cuda(*args, P,
+                                    eng.partition_kw.get("part_slices", 0),
+                                    tcfg, bs, unmerged=True)
+        sv, st = _k7_slots_plain(eng, table, tcfg, merged=False)
+        torch.cuda.synchronize()
+        require(torch.equal(kv, pv) and torch.equal(kt, pt),
+                f"{what} tie_safe={tie_safe}: K7 equals its slot plain")
+        require(torch.equal(uv, sv) and torch.equal(ut, st),
+                f"{what} tie_safe={tie_safe}: unmerged slots equal the "
+                "plain's")
+        if tie_safe:
+            err = compare_pools(kv, kt, *K.slice_topk_plain(
+                *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                tie_safe=True, block_sublanes=bs, codec=cfg.query_codec,
+                **eng.partition_kw))
+    return err
+
+
+def _k7_alone_ms(eng, table, cfg, reps=10):
+    """K7 alone on the card, device time (``_device_ms``) on the engine's
+    stream: (the launch, its lane merge included; the launch with the
+    merge left out, ``unmerged``; one per-lane ``torch.topk`` over those
+    unmerged slots, the merge of the route before K7's card merge)."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = eng.config.num_partitions
+    ps = eng.partition_kw.get("part_slices", 0)
+    args = (eng.words, table, eng.nreal, eng.plan_rows, P, ps, cfg,
+            eng.fused.block_sublanes)
+    slots = K._slice_topk_cuda(*args, unmerged=True)
+    fns = [lambda: K._slice_topk_cuda(*args),
+           lambda: K._slice_topk_cuda(*args, unmerged=True),
+           lambda: K.merge_lane_topk(*slots, cfg.lane_k, lead=1)]
+    for fn in fns:
+        fn()
+    return tuple(_device_ms([fn], reps)[0][0] for fn in fns)
+
+
+def _k7_deal_balance(eng, slots):
+    """What each of K7's ``slots`` slots sweeps under its deal
+    (``ops/kernel.py::k7_deal``) and, for comparison, under the kernel
+    before it (work item g to CUDA block g mod sms x 8, round-robin), from
+    the engine's plan (first partition): the largest slot's (block's)
+    rows and work over the mean, and its items (a count, no device
+    time)."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    cfg = eng.config
+    nreal = eng.nreal.reshape(cfg.num_partitions, -1)[0]
+    rows, work = K.k7_item_work(eng.plan_rows, nreal, cfg.fold_tile)
+    old = torch.cuda.get_device_properties(
+        eng.words.device).multi_processor_count * 8
+    deals = dict(runs=(K.k7_deal(eng.plan_rows, nreal, slots,
+                                 cfg.fold_tile).numpy(), slots),
+                 round_robin_before=(np.arange(len(work)) % old, old))
+    out = {}
+    for name, (slot, n) in deals.items():
+        for what, x in (("rows", rows), ("work", work)):
+            per_slot = np.bincount(slot, weights=x, minlength=n)
+            out[f"slot_{what}_max_over_mean_{name}"] = float(
+                per_slot.max() / per_slot.mean())
+        out[f"slot_items_max_{name}"] = int(np.bincount(
+            slot, weights=rows > 0, minlength=n).max())
+    return out
 
 
 def _k3_library_ms(words, salt, k3_sum):
@@ -1026,7 +1220,9 @@ def _slice_agree(eng, cfg, q, qs, dev):
     engine under cfg (tie-safe buffers) against their plain versions,
     which sum in the kernels' order for both codecs: per-lane values and
     K9's slice scores must be bit-equal, and (value, tag) pairs equal
-    above each lane's floor. Returns the three max abs errors."""
+    above each lane's floor; K7, tie-safe and with production buffers,
+    bit for bit against its slot plain too (``_k7_agree``). Returns the
+    three max abs errors."""
     import torch
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -1039,10 +1235,7 @@ def _slice_agree(eng, cfg, q, qs, dev):
              eng.plan_rows)
     n = eng.row_ids.shape[0]
     P = cfg.num_partitions
-    kv, kt = K.topk_spmv_fused_device(*args, cfg=cfg, block_sublanes=bs,
-                                      **parts)
-    pv, pt = K.slice_topk_plain(*args, fold_tile=cfg.fold_tile,
-                                **_slice_plain_kw(cfg), **parts)
+    k7 = _k7_agree(eng, table, cfg, "K7")
     bv, bt = K.topk_spmv_fused_batch_device(*bargs, cfg=cfg,
                                             block_sublanes=bs, **parts)
     bpv, bpt = K.slice_topk_batch_plain(*bargs, **_slice_plain_kw(cfg),
@@ -1054,7 +1247,7 @@ def _slice_agree(eng, cfg, q, qs, dev):
     torch.cuda.synchronize()
     require(torch.equal(ks, ps), "K9 slice scores equal the plain "
             "version's bit for bit")
-    return (compare_pools(kv, kt, pv, pt), compare_pools(bv, bt, bpv, bpt),
+    return (k7, compare_pools(bv, bt, bpv, bpt),
             float((ks - ps).abs().max()))
 
 
@@ -1200,8 +1393,11 @@ def _slice_counts():
 def _slice_kernel_times(eng, qs, dev, group):
     """K7, K8 (one group of the first ``group`` queries of qs, the
     path's group size) and K9 held to their plain versions at this
-    engine's shapes (``_slice_agree``, tie-safe buffers: bit-equal), then
-    each timed against its plain version."""
+    engine's shapes (``_slice_agree``, tie-safe buffers: bit-equal; K7's
+    production buffers bit for bit against its slot plain), then each
+    timed against its plain version; K7 alone on the card with and
+    without its lane merge (``_k7_alone_ms``), its grid and its slots'
+    balance (``_k7_deal_balance``)."""
     import dataclasses
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -1222,7 +1418,14 @@ def _slice_kernel_times(eng, qs, dev, group):
     bounds = dict(k7=sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
                   k8=sweep_bound(eng, len(qs), topk_out_bytes(eng, len(qs))),
                   k9=sweep_bound(eng, 1, eng.row_ids.numel() * 4))
+    alone, unmerged, topk_merge = _k7_alone_ms(eng, table, cfg)
+    blocks, slots = K.slice_topk_grid(dev, cfg, eng.words.shape[0] // P, P)
     return dict(
+        k7_alone_ms=alone, k7_unmerged_ms=unmerged,
+        k7_card_merge_ms=alone - unmerged,
+        k7_topk_merge_of_the_slots_ms=topk_merge, k7_blocks=blocks,
+        k7_slots=slots, k7_slots_plain_equal=True,
+        **{f"k7_{k}": v for k, v in _k7_deal_balance(eng, slots).items()},
         k7_ms=cuda_ms(lambda: K.topk_spmv_fused_device(
             *args, cfg=cfg, block_sublanes=bs, **parts), reps=20, warmup=2),
         k7_plain_ms=cuda_ms(lambda: K.slice_topk_plain(
@@ -1298,6 +1501,71 @@ def _unrescored_agree(eng, qs, group, single, svals, bidx, bvals, dev):
                   "query_batch against query()", rtol=rtol)
 
 
+def _k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev):
+    """The partitioned default engine with the int8x4 query codec, built
+    through ``TopKSpMV`` (its words are the f32 engine's ``eng``'s,
+    required equal: formats/sell_buckets.py re-encodes only i8s and i4s,
+    and ``prod_int8x4`` reads the same col | bf16 word): its query() path
+    over every query, the slice counts zeroed just before (its K10a
+    launches) and its answers held to the precision floor of ``eng``'s
+    path; then K10a on its words and table held to its slot plain,
+    tie-safe and not, and to ``slice_topk_plain`` (``_k7_agree``), and
+    timed through its wrapper, alone, unmerged and against its plain
+    version."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    cfg = dataclasses.replace(eng.config, query_codec="int8x4")
+    e8 = TopKSpMV(coo, cfg, device=dev)
+    require(torch.equal(e8.words, eng.words),
+            "the int8x4 engine's words are the f32 engine's")
+    e8.query(qs[0])                                       # warm
+    torch.cuda.synchronize()
+    _reset_slice_counts()
+    idx, q_ms = [], []
+    for q in qs:
+        t0 = time.perf_counter()
+        i, v = e8.query(q)
+        torch.cuda.synchronize()
+        q_ms.append((time.perf_counter() - t0) * 1e3)
+        require(i.shape == (cfg.k,) and bool((i >= 0).all())
+                and bool(torch.isfinite(v).all()),
+                "int8x4 query returns k valid rows with finite scores")
+        idx.append(i.cpu().numpy())
+    launches = _slice_counts()["slice_topk"]
+    floor, ref = ((MIN_PRECISION, gold) if cfg.rescore_pool else
+                  (MIN_PRECISION_BF16, gold_bf16))
+    prec = float(np.mean(_precision(ref, idx, cfg.k)))
+    require(prec >= floor, f"the partitioned int8x4 path's precision@100 "
+            f"{prec} >= {floor}")
+    table, _ = e8._table(qs[0])
+    err = _k7_agree(e8, table, cfg, "K10a int8x4")
+    bs = e8.fused.block_sublanes
+    args = (e8.words, table, e8.nreal, e8.plan_rows)
+    ms = cuda_ms(lambda: K.topk_spmv_fused_device(
+        *args, cfg=cfg, block_sublanes=bs, **e8.partition_kw), reps=20,
+        warmup=2)
+    alone, unmerged, _ = _k7_alone_ms(e8, table, cfg)
+    plain_ms = cuda_ms(lambda: K.slice_topk_plain(
+        *args, fold_tile=cfg.fold_tile, **_slice_plain_kw(cfg),
+        **e8.partition_kw), reps=2)
+    b = bound(e8.hbm_bytes + table.numel() * 4 + topk_out_bytes(e8, 1),
+              2 * e8.num_nnz)
+    del e8
+    torch.cuda.empty_cache()
+    return dict(k10a_int8x4_ms=ms, k10a_int8x4_launches=launches,
+                k10a_int8x4_precision_mean=prec,
+                k10a_int8x4_query_e2e_ms_median=statistics.median(q_ms),
+                k10a_int8x4_alone_ms=alone, k10a_int8x4_unmerged_ms=unmerged,
+                k10a_int8x4_plain_ms=plain_ms, k10a_int8x4_max_abs_err=err,
+                k10a_int8x4_bound_ms=b[0], k10a_int8x4_bound_by=b[1],
+                k10a_int8x4_slots_plain_equal=True)
+
+
 def phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
                        group):
     """One slice-layout engine built from ``config`` on the full corpus
@@ -1370,6 +1638,8 @@ def phase_slice_engine(coo, csr, qs, gold, gold_bf16, dev, name, config,
         batch_group_size=group, batch_e2e_ms_per_query=b_ms / len(qs),
         scores_e2e_ms=s_ms)
     times = _slice_kernel_times(eng, qs, dev, group)
+    if cfg.num_partitions > 1 and cfg.query_codec == "f32":
+        times.update(_k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev))
     if group == BATCH_GROUP:
         many = create_query_batch(BATCH_GROUP * BATCH_GROUPS, NUM_COLS,
                                   seed=BATCH_SEED)
@@ -2538,12 +2808,14 @@ def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
     (kernel, plain) calls on the check inputs. Each variant's kernel is
     held to its plain version on its check inputs by ``agree`` (the plain
     call timed once between CUDA events); then, counters at 0, each is
-    timed by ``_common.measure`` beside K3 on its words. Bound: the words,
+    timed by ``_common.measure`` beside K3 on its words (and K3's library
+    yardstick there, ``_k3_library_ms``). Bound: the words,
     ``table_bytes`` and ``out_bytes`` (default the merged (value, tag)
     buffers) moved once, or ``ops_per`` operations per nnz per query."""
     import torch
 
     from spmv_topk_tpu_torch.experiments import _common as lc
+    from spmv_topk_tpu_torch.ops.streamprobe import stream_words_device
 
     of = words if isinstance(words, dict) else dict.fromkeys(variants, words)
     out_bytes = lc.LANE_K * 128 * 8 if out_bytes is None else out_bytes
@@ -2558,10 +2830,16 @@ def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
         end.synchronize()
         e = agree(v, kern, ref)
         res[v] = dict(max_abs_err=e, plain_ms=start.elapsed_time(end))
-    k3 = {}
+    k3, k3_library = {}, {}
+    w0 = next(iter(of.values()))
+    salt = torch.arange(128, dtype=torch.int32,
+                        device=w0.device).reshape(1, 128) * 7919
     for w in of.values():
         if w.data_ptr() not in k3:
-            k3[w.data_ptr()] = lc.stream_ms(lc.as_words32(w))
+            w32 = lc.as_words32(w)
+            k3[w.data_ptr()] = lc.stream_ms(w32)
+            k3_library[w.data_ptr()] = _k3_library_ms(
+                w32, salt, stream_words_device(w32, salt))
     counters = _lab_counters()
     for c in counters.values():
         c.launches = 0
@@ -2581,10 +2859,10 @@ def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
                                              "gb_per_s", "share_of_k3")})
     launches = {k: c.launches for k, c in counters.items() if c.launches}
     require(launches.get(name, 0) > 0, f"the {lab} path launched {name}")
-    w0 = next(iter(of.values()))
     nbytes = w0.numel() * w0.element_size()
     return dict(nb=nb, words_bytes=nbytes, k3_ms=k3[w0.data_ptr()],
                 k3_gb_per_s=nbytes / k3[w0.data_ptr()] / 1e6,
+                k3_library_ms=k3_library[w0.data_ptr()],
                 launches=launches, variants=res)
 
 
@@ -3505,7 +3783,7 @@ def lab_entry(name, source, replaces, res, default, variants_of=None,
     return dict(name=name, **where, **top, library_calls=LAB_NO_LIBRARY,
                 default_variant=default, nb=res["nb"],
                 words_bytes=res["words_bytes"],
-                variants=variants)
+                k3_library_ms=res["k3_library_ms"], variants=variants)
 
 
 def _reset_octet_counts():
@@ -3545,7 +3823,7 @@ def kernel_entry(name, source, replaces, launches, res, key, library_ms,
 # The phases a run can name on the command line, in the order they run,
 # and what each needs run before it (the 10M corpus, its queries and gold
 # sets come with any of the full-size phases).
-PHASES = ("small", "k1_small", "slice_small", "partition_small",
+PHASES = ("small", "k1_small", "k7_small", "slice_small", "partition_small",
           "codecs_small", "bucket_small", "labs_small", "sass", "main",
           "library",
           "slice_engines", "default_config", "bucket_path", "octet_engines",
@@ -3611,6 +3889,7 @@ def main(argv=()):
     phase_environment()
     torch.cuda.synchronize()
     for name, fn in (("small", phase_small), ("k1_small", phase_k1_small),
+                     ("k7_small", phase_k7_small),
                      ("slice_small", phase_slice_small),
                      ("partition_small", phase_partition_small),
                      ("codecs_small", phase_codecs_small),
@@ -3723,6 +4002,9 @@ def summarize(R, complete):
                       ("p16", "pack16_lab_path")):
         if have(key):
             by_path[path or R[key]["phase"]] = R[key]["launches"]
+    if have("pdf"):
+        by_path["partitioned_int8x4_path"] = dict(
+            slice_topk=R["pdf"]["k10a_int8x4_launches"])
     for codec, r in (R.get("oc") or {}).items():
         by_path[f"octet_{codec}_path"] = r["launches"]
     for lab in ("kernel_lab", "fused_lab", "h16_lab", "fold_lab", "batch_lab",
@@ -3772,16 +4054,32 @@ def summarize(R, complete):
                     unmerged_ms=r[f"{kn}_unmerged_ms"],
                     template="spmv_topk_tpu_torch/csrc/octet_topk.cuh")
 
+    def k7_extra(r, kn):
+        """K7's keys beside kernel_entry's: alone on the card with its
+        merge and without it (``_k7_alone_ms``), its template (each
+        codec's unit is its source, K7_UNITS)."""
+        return dict(alone_ms=r[f"{kn}_alone_ms"],
+                    unmerged_ms=r[f"{kn}_unmerged_ms"],
+                    template="spmv_topk_tpu_torch/csrc/slice_topk.cuh")
+
     def slice_entry(name, src, kn, line, q, fq):
         sl, df, sc = R["sl"], R["df"], dict(i8s=R["c3"], i4s=R["c8"],
                                             int8x4=R["i8"])
+
+        def extra(r):
+            return k7_extra(r, kn) if kn == "k7" else {}
+
+        def unit(codec):
+            return K7_UNITS[codec] if kn == "k7" else src
+
         return kernel_entry(
-            name, src, f"{ker}:{line}", sl["launches"][name], sl,
+            name, unit("h16"), f"{ker}:{line}", sl["launches"][name], sl,
             kn, lib[f"spmv_topk_{q}_ms"] if kn != "k9" else spmv,
-            **{codec: kernel_entry(name, src, f"{ker}:{line}",
+            **extra(sl),
+            **{codec: kernel_entry(name, unit(codec), f"{ker}:{line}",
                                    r["launches"][name], r, kn,
                                    lib[f"spmv_topk_{cq}_ms"] if kn != "k9"
-                                   else spmv)
+                                   else spmv, **extra(r))
                for codec, r, cq in (
                    ("f32", df, fq), ("i8s", sc["i8s"], fq),
                    ("i4s", sc["i4s"], q), ("int8x4", sc["int8x4"], fq))})
@@ -3826,7 +4124,7 @@ def summarize(R, complete):
             "spmv_topk_tpu/ops/streamprobe.py:54", launches["stream_words"],
             R["full"], "k3", R["full"]["k3_library_ms"],
             library_calls="words.view(-1, 8, 128).sum(0, dtype=torch.int32)"
-            " + salt")),
+            " + salt", alone_ms=R["full"]["k3_alone_ms"])),
         *((slices, lambda a=a: slice_entry(*a)) for a in (
             ("slice_topk", "slice_topk.cu", "k7", 864, 1, 1),
             ("slice_topk_batch", "slice_topk_batch.cuh", "k8", 1381,
@@ -3861,15 +4159,23 @@ def summarize(R, complete):
             f"{ker}:2039", R["po"]["launches"]["octet_scores_h16"], R["po"],
             "k4", spmv, partitions=PARTITIONS, **one)),
         (("pdf", "sharded", "lib"), lambda: kernel_entry(
-            "slice_topk_partitioned", "slice_topk.cu", f"{ker}:927",
+            "slice_topk_partitioned", K7_UNITS["f32"], f"{ker}:927",
             R["pdf"]["launches"]["slice_topk"], R["pdf"], "k7", topk1,
-            partitions=PARTITIONS, **two,
+            partitions=PARTITIONS, **two, **k7_extra(R["pdf"], "k7"),
             i8s=kernel_entry(
-                "slice_topk_i8s_partitioned", "slice_topk.cu", f"{ker}:927",
+                "slice_topk_i8s_partitioned", K7_UNITS["i8s"], f"{ker}:927",
                 sharded("slice_i8s_p2")["launches"]["slice_topk"],
                 sharded("slice_i8s_p2"), "k10a", topk1,
                 partitions=PARTITIONS, path="sharded_slice_i8s_p2",
-                **two))),
+                template="spmv_topk_tpu_torch/csrc/slice_topk.cuh", **two),
+            int8x4=kernel_entry(
+                "slice_topk_int8x4_partitioned", K7_UNITS["int8x4"],
+                f"{ker}:927", R["pdf"]["k10a_int8x4_launches"], R["pdf"],
+                "k10a_int8x4", topk1, partitions=PARTITIONS,
+                path="partitioned_int8x4_path",
+                alone_ms=R["pdf"]["k10a_int8x4_alone_ms"],
+                unmerged_ms=R["pdf"]["k10a_int8x4_unmerged_ms"],
+                template="spmv_topk_tpu_torch/csrc/slice_topk.cuh", **two))),
         (("pdf", "sharded", "lib"), lambda: kernel_entry(
             "slice_topk_batch_partitioned", "slice_topk_batch.cuh",
             f"{ker}:1440", R["pdf"]["launches"]["slice_topk_batch"],
@@ -3922,7 +4228,8 @@ def summarize(R, complete):
             R["labs"]["fused_lab"], "v_bare",
             variants_of=dict(v_prod=dict(
                 name="slice_topk", source=(
-                    "spmv_topk_tpu_torch/csrc/slice_topk.cu"),
+                    "spmv_topk_tpu_torch/csrc/slice_topk_q.cu"),
+                template="spmv_topk_tpu_torch/csrc/slice_topk.cuh",
                 replaces=f"{ker}:864")))),
         (("labs",), lambda: lab_entry(
             "lab_h16", "lab_h16.cu", "experiments/h16_lab.py:189",

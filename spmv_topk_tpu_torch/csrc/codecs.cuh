@@ -200,7 +200,29 @@ __device__ __forceinline__ Table<typename C::Tab> stage_table(unsigned char* sme
   }
 }
 
-// The dynamic shared memory of stage_table.
+// stage_table for a block of THREADS threads, a multiple of 128 (K1, K7):
+// h16's row in a static array, the other kShared codecs' table copied by
+// every thread of the block.
+template <class C, int THREADS>
+__device__ __forceinline__ Table<typename C::Tab> stage_block(unsigned char* smem,
+                                                             const typename C::Tab* table,
+                                                             int rows, int shift) {
+  if constexpr (kStaticTable<C, true>) {
+    __shared__ typename C::Tab row[kLanes];
+    if (threadIdx.x < kLanes) row[threadIdx.x] = table[threadIdx.x];
+    __syncthreads();
+    return {row, 1, shift};
+  } else if constexpr (!C::kShared) {
+    return {table, rows, shift};
+  } else {
+    typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
+    for (int i = threadIdx.x; i < rows * kLanes; i += THREADS) tab[i] = table[i];
+    __syncthreads();
+    return {tab, rows, shift};
+  }
+}
+
+// The dynamic shared memory of stage_table (stage_block: STATIC_H16).
 template <class C, bool STATIC_H16>
 inline size_t table_smem_bytes(int rows) {
   return C::kShared && !kStaticTable<C, STATIC_H16> ? sizeof(typename C::Tab) * rows * kLanes : 0;

@@ -1,9 +1,10 @@
 // The lane merge on the card, shared by K13 (bucket_topk.cu), K6 h16
-// (octet_topk_batch_h16.cu) and K1 (octet_topk.cuh): sorted per-lane lists
-// of K (value, tag) entries, merged in the order value descending, then
-// tag ascending, and the tickets that elect the last block of a set of
-// blocks to merge the set's lists (ops/kernel.py::lane_merge_plain is its
-// plain version).
+// (octet_topk_batch_h16.cu), K1 (octet_topk.cuh) and K7 (slice_topk.cuh):
+// sorted per-lane lists of K (value, tag) entries, merged in the order
+// value descending, then tag ascending, and the tickets that elect the
+// last block of a set of blocks to merge the set's lists
+// (ops/kernel.py::lane_merge_plain is its plain version); merge_slots is
+// K1's and K7's whole merge of a launch's slots.
 //
 // Top-k under one total order does not depend on how the entries are
 // grouped, so any tree of these merges gives what one merge of every list
@@ -182,6 +183,70 @@ inline int set_size_of(int n) {
   int s = 1;
   while (s * s < n) ++s;
   return s;
+}
+
+// Where merge_slots leaves its lists: unmerged, each slot's sorted buffer
+// (list p * slots + slot of the workspace ws_v / ws_t); merged, the
+// blocks' and sets' lists there and the result in out_v / out_t, (P, K,
+// 128); tickets: P * (1 + sets) zeros, left 0.
+struct SlotMerge {
+  bool merged;
+  int set_size;   // set_size_of(blocks)
+  float* ws_v;
+  int32_t* ws_t;
+  unsigned* tickets;
+  float* out_v;
+  int32_t* out_t;
+};
+
+// The merge of a launch of G-slot blocks (128-thread groups, one lane
+// buffer each; one wave of gridDim.x blocks a partition, gridDim.y
+// partitions), in three levels: each slot sorts its buffer and a block
+// merges its slots' in shared memory (smem: G lists of K x 128 entries,
+// no longer read by anyone when called) into one list of the workspace;
+// a ticket elects the last block to finish in each set of set_size
+// blocks, which merges the set's lists; a second ticket elects the last
+// set, which merges the sets' into the outputs. Each elected block resets
+// its ticket.
+template <int K, int G>
+__device__ __forceinline__ void merge_slots(float (&tv)[K], int32_t (&tt)[K], unsigned char* smem,
+                                            const SlotMerge& a) {
+  const int lane = threadIdx.x % octet::kLanes;
+  const int group = threadIdx.x / octet::kLanes;
+  const int block = blockIdx.x, blocks = gridDim.x, p = blockIdx.y;
+  sort<K>(tv, tt);
+  if (!a.merged) {
+    store<K>(tv, tt, a.ws_v, a.ws_t, (p * blocks + block) * G + group, lane);
+    return;
+  }
+  // 1. the block's slots -> its list, p * (blocks + sets) + block
+  const int sets = (blocks + a.set_size - 1) / a.set_size;
+  const int64_t base = (int64_t)p * (blocks + sets) * K * octet::kLanes;
+  float* wv = a.ws_v + base;
+  int32_t* wt = a.ws_t + base;
+  float* sv = reinterpret_cast<float*>(smem);
+  int32_t* st = reinterpret_cast<int32_t*>(sv + G * K * octet::kLanes);
+  __syncthreads();   // no thread reads the table any more: its bytes hold sv, st
+  combine<K>(tv, tt, sv, st, group, lane, G);
+  if (group == 0) store<K>(tv, tt, wv, wt, block, lane);
+  // 2. the last block of each set -> the set's list, after the blocks'
+  // (the outputs when there is one set)
+  const int set = block / a.set_size, first = set * a.set_size;
+  const int in_set = min(a.set_size, blocks - first);
+  unsigned* ticket = a.tickets + (int64_t)p * (1 + sets);
+  if (!arrive(ticket + 1 + set, in_set)) return;
+  gather<K, G>(tv, tt, wv, wt, first, in_set, group, lane);
+  combine<K>(tv, tt, sv, st, group, lane, min(G, in_set));
+  if (sets == 1) {
+    if (group == 0) store<K>(tv, tt, a.out_v, a.out_t, p, lane);
+    return;
+  }
+  if (group == 0) store<K>(tv, tt, wv, wt, blocks + set, lane);
+  // 3. the last set -> the outputs
+  if (!arrive(ticket, sets)) return;
+  gather<K, G>(tv, tt, wv, wt, blocks, sets, group, lane);
+  combine<K>(tv, tt, sv, st, group, lane, min(G, sets));
+  if (group == 0) store<K>(tv, tt, a.out_v, a.out_t, p, lane);
 }
 
 }  // namespace lane_merge

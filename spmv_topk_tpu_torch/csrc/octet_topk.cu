@@ -79,8 +79,8 @@ int octet_topk(const int64_t* p) {
   c.p = k1::Params{static_cast<const int32_t*>(ptr(0)), ptr(1),
                    static_cast<const int32_t*>(ptr(2)), static_cast<const int32_t*>(ptr(3)),
                    num_buckets, arg(5), table_rows, codec::sign_shift(codec), arg(13), arg(14),
-                   set_size, merged, ws_v, ws_t, static_cast<unsigned*>(ptr(18)),
-                   static_cast<float*>(ptr(20)), static_cast<int32_t*>(ptr(21))};
+                   {merged, set_size, ws_v, ws_t, static_cast<unsigned*>(ptr(18)),
+                    static_cast<float*>(ptr(20)), static_cast<int32_t*>(ptr(21))}};
   c.codec = codec;
   c.lane_k = lane_k;
   c.blocks = blocks;

@@ -113,13 +113,8 @@ struct Params {
   const void* table;
   const int32_t* nreal;
   const int32_t* plan;
-  int num_buckets, block_sublanes, table_rows, shift, part_rows, part_slices, set_size;
-  bool merged;
-  float* ws_v;
-  int32_t* ws_t;
-  unsigned* tickets;
-  float* out_v;
-  int32_t* out_t;
+  int num_buckets, block_sublanes, table_rows, shift, part_rows, part_slices;
+  SlotMerge merge;
 };
 
 // A slot's walk over its run of octets: the current one (global index g,
@@ -220,27 +215,6 @@ __device__ __forceinline__ void load_chunk(uint32_t (&w)[kMembers], const Octet&
   for (int m = 0; m < kMembers; ++m) w[m] = static_cast<uint32_t>(__ldg(row + m * kLanes));
 }
 
-// The query table, copied into shared memory by all the block's threads
-// (h16: a static row; C::kShared), else the global table.
-template <class C>
-__device__ __forceinline__ codec::Table<typename C::Tab> stage(unsigned char* smem,
-                                                              const typename C::Tab* table,
-                                                              int rows, int shift) {
-  if constexpr (codec::kStaticTable<C, true>) {
-    __shared__ typename C::Tab row[kLanes];
-    if (threadIdx.x < kLanes) row[threadIdx.x] = table[threadIdx.x];
-    __syncthreads();
-    return {row, 1, shift};
-  } else if constexpr (!C::kShared) {
-    return {table, rows, shift};
-  } else {
-    typename C::Tab* tab = reinterpret_cast<typename C::Tab*>(smem);
-    for (int i = threadIdx.x; i < rows * kLanes; i += kThreads) tab[i] = table[i];
-    __syncthreads();
-    return {tab, rows, shift};
-  }
-}
-
 template <class C, int K, bool TIE_SAFE, bool EXACT>
 __global__ void __launch_bounds__(kThreads, 1) octet_topk_kernel(const Params a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -249,8 +223,8 @@ __global__ void __launch_bounds__(kThreads, 1) octet_topk_kernel(const Params a)
   const int block = blockIdx.x, blocks = gridDim.x;
   const int num_slots = blocks * kGroups;
   const int slot = block * kGroups + group;
-  const auto tab =
-      stage<C>(smem, static_cast<const typename C::Tab*>(a.table), a.table_rows, a.shift);
+  const auto tab = codec::stage_block<C, kThreads>(
+      smem, static_cast<const typename C::Tab*>(a.table), a.table_rows, a.shift);
 
   float tv[K];
   int32_t tt[K];
@@ -340,40 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1) octet_topk_kernel(const Params a)
 
   // The lane merge (lane_merge.cuh). Unmerged: each slot's sorted buffer,
   // list p * num_slots + slot of the workspace.
-  const int p = blockIdx.y;
-  sort<K>(tv, tt);
-  if (!a.merged) {
-    store<K>(tv, tt, a.ws_v, a.ws_t, p * num_slots + slot, lane);
-    return;
-  }
-  // 1. the block's slots -> its list, p * (blocks + sets) + block
-  const int sets = (blocks + a.set_size - 1) / a.set_size;
-  const int64_t base = (int64_t)p * (blocks + sets) * K * kLanes;
-  float* wv = a.ws_v + base;
-  int32_t* wt = a.ws_t + base;
-  float* sv = reinterpret_cast<float*>(smem);
-  int32_t* st = reinterpret_cast<int32_t*>(sv + kGroups * K * kLanes);
-  __syncthreads();   // no thread reads the table any more: its bytes hold sv, st
-  combine<K>(tv, tt, sv, st, group, lane, kGroups);
-  if (group == 0) store<K>(tv, tt, wv, wt, block, lane);
-  // 2. the last block of each set -> the set's list, after the blocks'
-  // (the outputs when there is one set)
-  const int set = block / a.set_size, first = set * a.set_size;
-  const int in_set = min(a.set_size, blocks - first);
-  unsigned* ticket = a.tickets + (int64_t)p * (1 + sets);
-  if (!arrive(ticket + 1 + set, in_set)) return;
-  gather<K, kGroups>(tv, tt, wv, wt, first, in_set, group, lane);
-  combine<K>(tv, tt, sv, st, group, lane, min(kGroups, in_set));
-  if (sets == 1) {
-    if (group == 0) store<K>(tv, tt, a.out_v, a.out_t, p, lane);
-    return;
-  }
-  if (group == 0) store<K>(tv, tt, wv, wt, blocks + set, lane);
-  // 3. the last set -> the outputs
-  if (!arrive(ticket, sets)) return;
-  gather<K, kGroups>(tv, tt, wv, wt, blocks, sets, group, lane);
-  combine<K>(tv, tt, sv, st, group, lane, min(kGroups, sets));
-  if (group == 0) store<K>(tv, tt, a.out_v, a.out_t, p, lane);
+  merge_slots<K, kGroups>(tv, tt, smem, a.merge);
 }
 
 // Dynamic shared memory: the table (C::kShared, but h16's static row),

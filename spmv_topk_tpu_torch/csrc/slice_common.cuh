@@ -1,5 +1,8 @@
-// Pieces shared by the slice-stream kernels: K7 (slice_topk.cu), K8
-// (slice_topk_batch.cu) and K9 (slice_scores.cu).
+// Pieces shared by the slice-stream kernels: K7 (slice_topk.cuh), K8
+// (slice_topk_batch.cu) and K9 (slice_scores.cu). The work items and
+// their members are Bucket's and members_of's for all three; K7 walks
+// them with a cursor of its own (slice_topk.cuh::Walk), K8 and K9 with
+// the Walker below.
 //
 // The stream (formats/sell_buckets.py::fuse_buckets) is a sequence of
 // uniform blocks of block_sublanes rows x 128 lanes of int32 words. A
@@ -49,6 +52,7 @@ struct Bucket {
   int width, spb, bps, slice_base, blk_start, n_real;
   int mode, units, per_unit;
   int Gp, Ps, nper;   // kTiled: sub-tiles of Ps periods, nper periods a block
+  int ps_log, q, rem; // kTiled: Ps = 1 << ps_log, nper = q Gp + rem
 };
 
 __device__ __forceinline__ Bucket load_bucket(const int32_t* plan, const int32_t* nreal,
@@ -62,7 +66,7 @@ __device__ __forceinline__ Bucket load_bucket(const int32_t* plan, const int32_t
   k.blk_start = __ldg(p + kBlkStart);
   k.n_real = __ldg(nreal + b);
   const int nb = __ldg(p + kNumBlocks);
-  k.Gp = k.Ps = k.nper = 0;
+  k.Gp = k.Ps = k.nper = k.ps_log = k.q = k.rem = 0;
   if (k.bps > 1) {
     k.mode = kWide;
     k.units = nb / k.bps;
@@ -80,6 +84,11 @@ __device__ __forceinline__ Bucket load_bucket(const int32_t* plan, const int32_t
     k.nper = nper;
     k.Gp = (nper + fold_tile - 1) / fold_tile;
     k.per_unit = k.Gp * Ps + k.spb - nper * Ps;
+    k.ps_log = __ffs(Ps) - 1;
+    if (k.Gp) {
+      k.q = nper / k.Gp;
+      k.rem = nper % k.Gp;
+    }
   } else {
     k.mode = kRuns;
     k.per_unit = (k.spb + kRun - 1) / kRun;
@@ -87,12 +96,38 @@ __device__ __forceinline__ Bucket load_bucket(const int32_t* plan, const int32_t
   return k;
 }
 
-// One work item: count member slices j0, j0 + dj, ... of one unit.
-struct Item {
+// The members of a work item: count slices j0, j0 + dj, ... of its unit
+// (slice index within the block; a wide slice's one item is its span's
+// slice 0), harvested as the top 2 of the members (top2) or each one.
+struct Members {
+  int j0, dj, count;
+  bool top2;
+};
+
+// Item gi of one of bucket k's units (ops/kernel.py::slice_work).
+__device__ __forceinline__ Members members_of(const Bucket& k, int gi, int fold_tile) {
+  Members m{0, 1, 1, false};
+  if (k.mode == kRuns) {
+    m.j0 = gi * kRun;
+    m.count = min(kRun, k.spb - m.j0);
+  } else if (k.mode == kTiled) {
+    if (gi < k.Gp * k.Ps) {   // sub-tile (g, s): slice s of periods g, g + Gp, ...
+      const int g = gi >> k.ps_log;
+      m.j0 = k.Ps * g + (gi & (k.Ps - 1));
+      m.dj = k.Ps * k.Gp;
+      m.count = min(fold_tile, k.q + (g < k.rem ? 1 : 0));
+      m.top2 = true;
+    } else {                  // a block's last slices, one at a time
+      m.j0 = k.nper * k.Ps + gi - k.Gp * k.Ps;
+    }
+  }
+  return m;
+}
+
+// One work item: its members (members_of) of unit u.
+struct Item : Members {
   const int32_t* src;   // the lane's word of the unit's first row
   int u;                // unit
-  int j0, dj, count;    // members (slice index within the block)
-  bool top2;            // harvest the top 2 of the members, else each one
 };
 
 // Walks the work items of every bucket in increasing order: the bucket
@@ -125,25 +160,7 @@ struct Walker {
     const int64_t blk = k.mode == kWide ? (int64_t)k.blk_start + (int64_t)it.u * k.bps
                                         : (int64_t)k.blk_start + it.u;
     it.src = words + blk * block_sublanes * kLanes + lane;
-    it.j0 = 0;
-    it.dj = 1;
-    it.count = 1;
-    it.top2 = false;
-    if (k.mode == kRuns) {
-      it.j0 = gi * kRun;
-      it.count = min(kRun, k.spb - it.j0);
-    } else if (k.mode == kTiled) {
-      const int nt = k.Gp * k.Ps;
-      if (gi < nt) {                // sub-tile (g, s): slice s of periods g, g + Gp, ...
-        const int gp = gi / k.Ps;
-        it.j0 = k.Ps * gp + gi % k.Ps;
-        it.dj = k.Ps * k.Gp;
-        it.count = min(fold_tile, (k.nper - gp + k.Gp - 1) / k.Gp);
-        it.top2 = true;
-      } else {                      // a block's last slices, one at a time
-        it.j0 = k.nper * k.Ps + gi - nt;
-      }
-    }
+    static_cast<Members&>(it) = members_of(k, gi, fold_tile);
     return true;
   }
 

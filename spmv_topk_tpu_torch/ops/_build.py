@@ -10,8 +10,8 @@ of the package, and only a launch on a CUDA tensor needs the library.
 ``ptxas_report`` reads each kernel's registers and spills from the build.
 
 Every C entry point takes its pointers and the CUDA stream as
-``c_void_p`` (``bucket_topk``, ``octet_topk``: one pointer to its
-arguments packed as int64) and returns ``cudaGetLastError()``; ``check`` raises when that is
+``c_void_p`` (``bucket_topk``, ``octet_topk``, ``slice_topk``: one
+pointer to its arguments packed as int64) and returns ``cudaGetLastError()``; ``check`` raises when that is
 not 0.
 """
 
@@ -63,10 +63,11 @@ _SIGNATURES = {
     "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp, _i64] * 2
     + [_vp] * 3,
     "octet_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
-    "slice_topk": [_vp] * 4 + [_i32] * 11 + [_vp] * 3,
+    "slice_topk": [_vp],    # int64 arguments packed (csrc/slice_topk.cu)
+    "slice_topk_occupancy": [_i32] * 4,
     "slice_topk_batch": [_vp] * 4 + [_i32] * 12 + [_vp] * 3,
     "slice_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
-    "stream_words": [_vp, _i64, _vp, _i32, _vp],
+    "stream_words": [_vp, _i64] + [_vp] * 3 + [_i32, _vp],
     "bucket_scores": [_vp] * 2 + [_i32] * 5 + [_vp] * 2,
     "bucket_topk": [_vp],   # int64 arguments packed (csrc/bucket_topk.cu)
     "bucket_topk_occupancy": [_i32] * 3,

@@ -38,7 +38,9 @@ lane per row):
   - ``topk_spmv_fused_device`` (K7, one query) harvests the slice scores
     into per-lane buffers: every slice (``fold_tile=1``), or the top 2 of
     each strided sub-tile of ``fold_tile`` slices, as the JAX kernel
-    does (``slice_work``);
+    does (``slice_work``); they merge into one ``(lane_k, 128)`` pair on
+    the card in the same launch (``slice_topk_slots_plain`` is that
+    kernel on its slots);
   - ``topk_spmv_fused_batch_device`` (K8) folds every slice of Q queries,
     whatever ``fold_tile`` is (the JAX batch kernel has no tiled fold);
   - ``spmv_fused_scores_device`` (K9) writes the slice scores: plain SpMV.
@@ -46,11 +48,11 @@ lane per row):
 On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
 ``octet_topk.cuh``, K6 ``octet_topk_batch.cuh`` and, for h16,
 ``octet_topk_batch_h16.cu``, K4 ``octet_scores.cu``, K7
-``slice_topk.cu``, K8 ``slice_topk_batch.cuh``, K9 ``slice_scores.cu``,
+``slice_topk.cuh``, K8 ``slice_topk_batch.cuh``, K9 ``slice_scores.cu``,
 the codecs in ``codecs.cuh``; they replace the pallas_calls of
-``spmv_topk_tpu/ops/kernel.py``). K1, K13 and K6 h16 merge their slots'
-buffers on the card, in the same launch (``csrc/lane_merge.cuh``); the
-other Top-K sweeps merge their per-CUDA-block buffers with one per-lane
+``spmv_topk_tpu/ops/kernel.py``). K1, K7, K13 and K6 h16 merge their
+slots' buffers on the card, in the same launch (``csrc/lane_merge.cuh``);
+the other Top-K sweeps merge their per-CUDA-block buffers with one per-lane
 ``torch.topk``, the same algebra as the JAX package's per-lane
 ``lax.top_k`` over its per-bucket buffers. On a
 CPU tensor each runs its plain PyTorch version (``octet_topk_plain``, ``octet_topk_batch_plain``, ``octet_scores_plain``,
@@ -121,14 +123,23 @@ K1_GROUPS = 4
 # chunks, in chunks (locating, masking and harvesting it); the kernel's
 # compile-time kOctetCost (csrc/octet_topk.cuh) is the same number
 K1_OCTET_COST = 1
+# K7 (csrc/slice_topk.cuh): 128-thread slots a CUDA block (its grid is
+# K1's, ``octet_grid``), and its deal of work items to slots (k7_deal):
+# an item's work beside its real members' rows (each member's in whole
+# chunks of K7_CHUNK_ROWS, as the kernel reads them), in rows; the
+# kernel's compile-time kItemCost and kChunkRows are the same numbers
+K7_GROUPS = 4
+K7_ITEM_COST = 16
+K7_CHUNK_ROWS = 8
 # (C entry point, device index, its arguments) -> a kernel's resident
 # blocks an SM (_resident_blocks); (kernel, device index, stream) -> the
-# merge workspace and tickets of K13, K6 h16 and K1 (_merge_workspace)
+# workspace and tickets of K13, K6 h16, K1, K7 and K3 (_merge_workspace)
 _OCCUPANCY = {}
 _MERGE_WORKSPACE = {}
-# CUDA blocks per SM of the sweeps that merge with torch.topk: each block
-# of a Top-K sweep owns one set of lane buffers, so this also sets the
-# merge width (blocks * lane_k per lane)
+# CUDA blocks per SM of the sweeps K4, K9 and K11, and the slots of the
+# batch sweeps that merge with torch.topk (``batch_grid``: K6 but h16, K8,
+# K12; each slot owns one set of lane buffers, so this also sets their
+# merge width, slots * lane_k per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
 # K6 (but h16) and K8: queries live in one CUDA block when
@@ -459,12 +470,13 @@ def octet_topk_slots_plain(words, table, nreal, plan_rows, *, num_slots: int,
 
 
 def _slot_pools(words, table, nreal, plan_rows, *, num_partitions,
-                part_slices, merged, lane_k, **kw):
-    """The slot plain of one query table (``_octet_slots_one`` of each
-    partition): merged, (lane_k, 128) ((P, lane_k, 128) for P > 1); else
-    each slot's sorted buffer, (P, slots, lane_k, 128)."""
-    parts = [_octet_slots_one(w, table, n, plan_rows, lane_k=lane_k,
-                              tag_offset=p * part_slices, **kw)
+                part_slices, merged, lane_k, one=None, **kw):
+    """The slot plain of one query table (``one`` of each partition, by
+    default ``_octet_slots_one``): merged, (lane_k, 128) ((P, lane_k, 128)
+    for P > 1); else each slot's sorted buffer, (P, slots, lane_k, 128)."""
+    one = one or _octet_slots_one
+    parts = [one(w, table, n, plan_rows, lane_k=lane_k,
+                 tag_offset=p * part_slices, **kw)
              for p, (w, n) in enumerate(_partitions(words, nreal,
                                                     num_partitions))]
     if merged:
@@ -710,8 +722,8 @@ def _check_inputs(words, nreal, plan_rows, block_sublanes, num_partitions,
 
 
 def _sweep_blocks(sms: int, part_rows: int, num_partitions: int) -> int:
-    """CUDA blocks per partition of the sweeps K4, K7 and K9 (K1 has its
-    own grid, ``octet_grid``): the card's sms * _BLOCKS_PER_SM shared
+    """CUDA blocks per partition of the sweeps K4 and K9 (K1 and K7 have
+    their own grid, ``octet_grid``): the card's sms * _BLOCKS_PER_SM shared
     among the partitions, and no more than a partition has chunks (every
     octet, or slice, holds at least one)."""
     return max(1, min(-(-sms * _BLOCKS_PER_SM // num_partitions),
@@ -1143,8 +1155,8 @@ def slice_plan_rows(plan, num_blocks: int, nreal,
 
 def slice_work(row, fold_tile: int):
     """How the slice sweeps cut one bucket into work items (the kernels
-    do the same in csrc/slice_common.cuh::Bucket): (mode, units,
-    per_unit, Gp, Ps, nper).
+    do the same in csrc/slice_common.cuh::Bucket, and give an item's
+    members by members_of): (mode, units, per_unit, Gp, Ps, nper).
 
     A unit is one block of a narrow bucket or one slice of a wide one
     (WIDE: the slice, folded alone, its partial sums carried over its
@@ -1371,6 +1383,256 @@ def slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
+def _slice_items(row, n_real: int, fold_tile: int):
+    """The work items of one slice bucket (plan row ``row``, ``n_real``
+    real slices) in the kernels' order (``slice_work``; csrc/
+    slice_common.cuh::members_of): (members, nr, top2), numpy. members (items,
+    _RUN) int64: each item's member slices, bucket-relative, in member
+    order, -1 past its count; nr (items,): its real members (slices below
+    n_real, a prefix of its members); top2 (items,): a sub-tile, which
+    gives the top 2 of its real members, where every other item gives
+    each."""
+    mode, units, per, Gp, Ps, nper = slice_work(row, fold_tile)
+    spb = row[1]
+    if mode == WIDE:
+        members = np.full((units, _RUN), -1, np.int64)
+        members[:, 0] = np.arange(units)
+        top2 = np.zeros(units, bool)
+    else:
+        unit = np.full((per, _RUN), -1, np.int64)   # the items of a unit
+        tiles = np.zeros(per, bool)
+        for gi in range(per):
+            if mode == RUNS:
+                j0, dj, count = gi * _RUN, 1, min(_RUN, spb - gi * _RUN)
+            elif gi < Gp * Ps:               # sub-tile (g, s)
+                g, sub = divmod(gi, Ps)
+                j0, dj = Ps * g + sub, Ps * Gp
+                count = min(fold_tile, -(-(nper - g) // Gp))
+                tiles[gi] = True
+            else:                            # a block's last slices
+                j0, dj, count = nper * Ps + gi - Gp * Ps, 1, 1
+            unit[gi, :count] = j0 + dj * np.arange(count)
+        first = spb * np.arange(units).reshape(-1, 1, 1)
+        members = np.where(unit >= 0, unit + first, -1).reshape(-1, _RUN)
+        top2 = np.tile(tiles, units)
+    nr = ((members >= 0) & (members < n_real)).sum(axis=1)
+    return members, nr, top2
+
+
+def k7_item_work(plan_rows, nreal, fold_tile: int):
+    """Each of one partition's slice work items in plan order (``nreal``:
+    its (B, 1) real slices): (rows, work), (items,) int64 numpy: its real
+    members' rows (nr * W) and its work in K7's deal, nr times W rounded
+    up to whole chunks of K7_CHUNK_ROWS, plus K7_ITEM_COST; 0 with no real
+    member (the kernel skips it)."""
+    n_real = torch.as_tensor(nreal).reshape(-1).tolist()
+    rows, work = [], []
+    for b, row in enumerate(plan_rows.tolist()):
+        nr = _slice_items(row, n_real[b], fold_tile)[1].astype(np.int64)
+        chunked = -(-row[0] // K7_CHUNK_ROWS) * K7_CHUNK_ROWS
+        rows.append(nr * row[0])
+        work.append(np.where(nr > 0, nr * chunked + K7_ITEM_COST, 0))
+    return np.concatenate(rows), np.concatenate(work)
+
+
+def k7_deal(plan_rows, nreal, num_slots: int, fold_tile: int) -> torch.Tensor:
+    """K7's static deal (``csrc/slice_topk.cuh::slot_walk``): the slot of
+    each of one partition's work items, in plan order, (items,) int64 on
+    the CPU. Each of the ``num_slots`` slots takes a contiguous run of
+    about equal work, an item's work w(g) its real members' rows in whole
+    chunks plus K7_ITEM_COST (0 with no real member, ``k7_item_work``);
+    item g goes to the slot holding its work's midpoint, floor((2 c(g) +
+    w(g)) * num_slots / (2 C)), c(g) the work before it and C the
+    partition's."""
+    _, work = k7_item_work(plan_rows, nreal, fold_tile)
+    mid2 = 2 * np.cumsum(work) - work   # twice each midpoint
+    slot = mid2 * num_slots // max(2 * int(work.sum()), 1)
+    return torch.from_numpy(np.minimum(slot, num_slots - 1))
+
+
+def slice_topk_slots_plain(words, table, nreal, plan_rows, *, num_slots: int,
+                           lane_k: int, fold_tile: int, tie_safe: bool,
+                           block_sublanes: int, codec: str = "f32",
+                           num_partitions: int = 1, part_slices: int = 0,
+                           merged: bool = True):
+    """Plain version of K7 (K10a with P > 1 partitions) as the kernel
+    computes it, on ``num_slots`` slots a partition (``slice_topk_grid``):
+    each slot takes a contiguous run of the partition's work items
+    (``k7_deal``) and harvests those with a real member, in order, into
+    lane buffers from ``topk_init``'s entries (-inf when ``tie_safe``): a
+    sub-tile's top 2 of its real members (lowest member among ties;
+    nothing when one is NaN), every other item each real member in turn,
+    the scores summed as ``_bucket_scores`` sums them, by argmin
+    replacement (when score >= the minimum: the first slot holding it
+    when tie-safe, else every one); then ``lane_merge_plain`` over every
+    slot's entries, the initial ones included -> (topv, topt), each
+    (lane_k, 128) ((P, lane_k, 128) for P > 1), tags offset by p *
+    part_slices in partition p. The kernel gives these pairs bit for bit
+    on any data, tags and ties included; with ``merged`` False, each
+    slot's buffer in the merge's order, (P, slots, lane_k, 128), as the
+    kernel's unmerged launch leaves them. Against ``slice_topk_plain``:
+    the same values whenever the buffers are tie-safe, and the same
+    (value, tag) pairs above each lane's smallest kept value."""
+    return _slot_pools(words, table, nreal, plan_rows, one=_slice_slots_one,
+                       num_slots=num_slots, lane_k=lane_k,
+                       fold_tile=fold_tile, tie_safe=tie_safe,
+                       block_sublanes=block_sublanes, codec=codec,
+                       num_partitions=num_partitions, part_slices=part_slices,
+                       merged=merged)
+
+
+def _slice_slots_one(words, table, nreal, plan_rows, *, num_slots, lane_k,
+                     fold_tile, tie_safe, block_sublanes, codec, tag_offset):
+    """``slice_topk_slots_plain``'s slots of one query and one partition,
+    before the merge: (values, tags), each (num_slots, lane_k, 128)."""
+    dev = words.device
+    K = lane_k
+    n_real = nreal.reshape(-1).tolist()
+    # each item's harvest steps in plan order: (items, _RUN, 128) scores,
+    # tags and whether the step is taken
+    scores, tags, valid, nrs = [], [], [], []
+    for b, row in enumerate(plan_rows.tolist()):
+        members, nr, top2 = _slice_items(row, n_real[b], fold_tile)
+        nrs.append(nr)
+        sc = _bucket_scores(words, table, row, codec, block_sublanes)
+        m = torch.from_numpy(members).to(dev)
+        real = torch.from_numpy(np.arange(_RUN) < nr[:, None]).to(dev)
+        v = torch.where(real[..., None], sc[m.clamp(min=0)], NEG_INF)
+        t = (row[3] + tag_offset + m).int()[..., None].expand_as(v)
+        ok = real[..., None].expand_as(v)
+        # a sub-tile: its top 2, both left out where a real member is NaN
+        nan = (torch.isnan(v) & real[..., None]).any(dim=1, keepdim=True)
+        top_v, top_t, top_ok = [], [], []
+        for i, (m1, sl) in enumerate(_harvest(v, 1, 2)):
+            top_v.append(m1)
+            top_t.append(t.gather(1, sl.clamp(max=_RUN - 1).long()))
+            top_ok.append(~nan & torch.from_numpy(nr > i).to(dev).view(
+                -1, 1, 1))
+        pad = _RUN - 2
+        tile = torch.from_numpy(top2).to(dev).view(-1, 1, 1)
+        scores.append(torch.where(tile, torch.cat(
+            top_v + [v[:, :pad]], dim=1), v))
+        tags.append(torch.where(tile, torch.cat(top_t + [t[:, :pad]], dim=1),
+                                t))
+        valid.append(torch.where(tile, torch.cat(
+            top_ok + [torch.zeros_like(ok[:, :pad])], dim=1), ok))
+    scores, tags, valid = torch.cat(scores), torch.cat(tags), torch.cat(valid)
+    slot = k7_deal(plan_rows, nreal, num_slots, fold_tile)
+    # the items with a real member (the kernel skips the others) by slot
+    keep = torch.from_numpy(np.concatenate(nrs) > 0)
+    slot = slot[keep].to(dev)
+    keep = keep.to(dev)
+    scores, tags, valid = scores[keep], tags[keep], valid[keep]
+    n = scores.shape[0]
+    turn = torch.arange(n, device=dev) - torch.searchsorted(slot, slot)
+    turns = int(turn.max()) + 1 if n else 0
+    order = torch.full((turns, num_slots), n, dtype=torch.long, device=dev)
+    order[turn, slot] = torch.arange(n, device=dev)
+    pad = lambda x: torch.cat([x, x.new_zeros((1, *x.shape[1:]))])  # noqa: E731
+    scores, tags, valid = (pad(x)[order] for x in (scores, tags, valid))
+    taken = valid.any(dim=-1).nonzero()[:, 2]   # the steps some lane takes
+    steps = int(taken.max()) + 1 if taken.numel() else 0
+    init = (torch.full((K,), NEG_INF, device=dev) if tie_safe else
+            torch.from_numpy(topk_init(K)).to(dev))
+    v = init.view(1, K, 1).expand(num_slots, K, LANES).clone()
+    t = torch.zeros((num_slots, K, LANES), dtype=torch.int32, device=dev)
+    kslot = torch.arange(K, device=dev).view(1, K, 1)
+    for i in range(turns):
+        for step in range(steps):
+            score = scores[i, :, step].unsqueeze(1)
+            cur = v.amin(dim=1, keepdim=True)
+            hit = v == cur
+            if tie_safe:
+                hit = kslot == hit.int().argmax(dim=1, keepdim=True)
+            rep = hit & (score >= cur) & valid[i, :, step].unsqueeze(1)
+            v = torch.where(rep, score, v)
+            t = torch.where(rep, tags[i, :, step].unsqueeze(1), t)
+    return v, t
+
+
+def slice_topk_grid(dev, cfg: TopKSpMVConfig, part_rows: int,
+                    num_partitions: int = 1):
+    """K7's (CUDA blocks, slots) a partition on CUDA ``dev`` for cfg's
+    codec, lane_k and buffers, on partitions of ``part_rows`` rows of
+    words: ``octet_grid`` (K7_GROUPS slots a block, as K1's) of the
+    kernel's resident blocks an SM, no more blocks than give each chunk
+    of rows a slot."""
+    rows, _ = _table_spec(cfg)
+    arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
+    per_sm = _resident_blocks(dev, "slice_topk_occupancy", arg, cfg.lane_k,
+                              int(bool(cfg.tie_safe_topk)), rows)
+    return octet_grid(_device_info(dev)[0], num_partitions, per_sm,
+                      part_rows // _S)
+
+
+def _slice_topk_cuda(words, table, nreal, plan_rows, P, part_slices, cfg,
+                     block_sublanes, *, unmerged=False):
+    """K7's launch on CUDA tensors, for ``topk_spmv_fused_device`` (which
+    passes P and the tag offset; the sweep's codec, lane_k, fold and
+    buffers are cfg's, as ``slice_topk_grid`` reads them): one launch that
+    returns the merged pair, its lane merge on the card
+    (``slice_topk_slots_plain`` on ``slice_topk_grid``'s slots computes
+    what it gives), and no torch op after it; with ``unmerged`` each
+    slot's buffer, sorted (value descending, then tag ascending), (P,
+    slots, lane_k, 128) values and tags, the merge not run, for timing
+    the sweep alone. The merge's lists reuse the table's shared memory
+    once the sweep is done, so a table keeps the block's whole opt-in
+    budget (``_kernel_codec``)."""
+    B = plan_rows.shape[0]
+    K = cfg.lane_k
+    rows, dtype = _table_spec(cfg)
+    if block_sublanes % K7_CHUNK_ROWS:
+        # a wide slice's block sums close after whole chunks
+        raise ValueError(f"block_sublanes={block_sublanes}: K7 reads a "
+                         f"member's rows in chunks of {K7_CHUNK_ROWS}, so "
+                         "its blocks must hold whole chunks")
+    _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                  ("table", table, (rows, LANES), dtype),
+                  plan_cols=len(SLICE_PLAN_COLUMNS))
+    _check_lane_k(K)
+    if cfg.fold_tile not in (1, 2, 4, 8):
+        raise ValueError(f"fold_tile={cfg.fold_tile}: K7 takes 1, 2, 4 "
+                         "or 8")
+    dev = words.device
+    arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
+    part_rows = words.shape[0] // P
+    blocks, slots = slice_topk_grid(dev, cfg, part_rows, P)
+    sets = _merge_sets(blocks)
+    lib = _build.lib()
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if unmerged:
+            ws = torch.empty(P * slots * 2 * K * LANES, dtype=torch.int32,
+                             device=dev)
+            tickets = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            ws, tickets = _merge_workspace("k7", dev, stream,
+                                           P * (blocks + sets) * 2 * K * LANES,
+                                           P * (1 + sets))
+        lists = ws.numel() // (2 * K * LANES)
+        out_v = torch.empty((P, K, LANES), dtype=torch.float32, device=dev)
+        out_t = torch.empty((P, K, LANES), dtype=torch.int32, device=dev)
+        # the arguments as int64 values, in csrc/slice_topk.cu's order
+        args = array.array("q", (
+            words.data_ptr(), table.data_ptr(), nreal.data_ptr(),
+            plan_rows.data_ptr(), B, block_sublanes, rows, arg, K,
+            cfg.fold_tile, int(bool(cfg.tie_safe_topk)), blocks, P,
+            part_rows, part_slices, int(not unmerged), ws.data_ptr(), lists,
+            tickets.data_ptr(), tickets.numel(), out_v.data_ptr(),
+            out_t.data_ptr(), stream))
+        err = lib.slice_topk(args.buffer_info()[0])
+    _build.check(err, "slice_topk")
+    topk_spmv_fused_device.launches += 1
+    if unmerged:
+        n = P * slots * K * LANES
+        return (ws[:n].view(torch.float32).view(P, slots, K, LANES),
+                ws[lists * K * LANES:][:n].view(P, slots, K, LANES))
+    if P == 1:
+        return out_v[0], out_t[0]
+    return out_v, out_t
+
+
 def _check_slice(cfg: TopKSpMVConfig) -> None:
     if cfg.chunk_sublanes != _S:
         raise ValueError(f"the slice sweeps need chunk_sublanes={_S}")
@@ -1390,39 +1652,23 @@ def topk_spmv_fused_device(words, table, nreal, plan_rows, *,
     Returns (topv f32, topt i32), each (lane_k, 128) ((P, lane_k, 128)
     for P > 1), sorted descending.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel (an
-    f32 table larger than a CUDA block's shared memory is read from
-    global memory, ``tables_in_smem``).
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch that returns the merged pair (``_slice_topk_cuda``; an f32
+    table larger than a CUDA block's shared memory is read from global
+    memory, ``tables_in_smem``).
     """
     _check_slice(cfg)
     P = num_partitions
     ps = _part_slices(P, part_slices)
-    kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
-              tie_safe=bool(cfg.tie_safe_topk),
-              block_sublanes=block_sublanes, codec=cfg.query_codec)
     if words.device.type == "cpu":
         return slice_topk_plain(words, table, nreal, plan_rows,
-                                num_partitions=P, part_slices=ps, **kw)
-    B = plan_rows.shape[0]
-    rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("table", table, (rows, LANES), dtype),
-                        plan_cols=len(SLICE_PLAN_COLUMNS))
-    _check_lane_k(cfg.lane_k)
-    dev = words.device
-    codec, _ = _kernel_codec(dev, cfg.query_codec, rows)
-    part_rows = words.shape[0] // P
-    nblk = _sweep_blocks(sms, part_rows, P)
-    out_v = torch.empty((P, nblk, cfg.lane_k, LANES), dtype=torch.float32,
-                        device=dev)
-    out_t = torch.empty((P, nblk, cfg.lane_k, LANES), dtype=torch.int32,
-                        device=dev)
-    _launch(dev, "slice_topk", words.data_ptr(), table.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            codec, cfg.lane_k, cfg.fold_tile, int(kw["tie_safe"]), nblk, P,
-            part_rows, ps, out_v.data_ptr(), out_t.data_ptr())
-    topk_spmv_fused_device.launches += 1
-    return merge_lane_topk(out_v, out_t, cfg.lane_k, lead=int(P > 1))
+                                num_partitions=P, part_slices=ps,
+                                lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                                tie_safe=bool(cfg.tie_safe_topk),
+                                block_sublanes=block_sublanes,
+                                codec=cfg.query_codec)
+    return _slice_topk_cuda(words, table, nreal, plan_rows, P, ps, cfg,
+                            block_sublanes)
 
 
 topk_spmv_fused_device.launches = 0
@@ -1856,8 +2102,9 @@ def _bucket_topk_slots(dev, arg: int, lane_k: int, rows: int,
 def _merge_workspace(kind: str, dev, stream: int, words: int, tickets: int):
     """The merge workspace (int32, at least ``words`` entries) and tickets
     (at least ``tickets`` zeros, which each launch leaves 0) of the lane
-    merges on the card, K13's (``kind`` "k13"), K6 h16's ("k6_h16") or
-    K1's ("k1"), on
+    merges on the card, K13's (``kind`` "k13"), K6 h16's ("k6_h16"), K1's
+    ("k1") or K7's ("k7"), or of K3's sum ("k3", its accumulator and
+    ticket), on
     ``dev`` for launches on ``stream``: allocated once per (kind, device,
     stream) and grown when a launch needs more."""
     key = (kind, dev.index, stream)

@@ -4,18 +4,24 @@ The benchmark's stream floor: the rate at which the card delivers the
 same words the Top-K sweep reads, with one add per word, so a sweep's
 time can be read against what this card delivers in the same run.
 ``stream_words_device`` launches ``csrc/stream_probe.cu`` on a CUDA
-tensor and runs ``stream_words_plain`` on a CPU tensor.
+tensor, one launch a call that seeds the salt itself (no torch op before
+or after it), and runs ``stream_words_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from ..config import LANES
 from . import _build
+from .kernel import _device_info, _merge_workspace
 
 _S = 8
-_BLOCKS_PER_SM = 8
+# the kernel's accumulator (one (8, 128) chunk of uint32) and its ticket,
+# zeros that each launch leaves 0
+_WORKSPACE = _S * LANES + 1
 
 
 def stream_words_plain(words: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
@@ -42,17 +48,21 @@ def stream_words_device(words: torch.Tensor, salt: torch.Tensor) -> torch.Tensor
     if words.dtype != torch.int32 or not words.is_contiguous() \
             or words.data_ptr() % 16:
         raise ValueError("words must be contiguous 16-byte aligned int32")
-    if salt.device != dev or salt.dtype != torch.int32 or salt.numel() != LANES:
+    if salt.device != dev or salt.dtype != torch.int32 or \
+            salt.numel() != LANES or not salt.is_contiguous():
         raise ValueError(f"salt must be (1, {LANES}) int32 on {dev}")
-    out = salt.reshape(1, LANES).expand(_S, LANES).contiguous()
     num_chunks = words.shape[0] // _S
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblk = max(1, min(sms * _BLOCKS_PER_SM, num_chunks))
+    if num_chunks < 1:
+        raise ValueError("words hold no chunk")
     lib = _build.lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.stream_words(words.data_ptr(), num_chunks, out.data_ptr(),
-                               nblk, stream)
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        _, ws = _merge_workspace("k3", dev, stream, 0, _WORKSPACE)
+        out = torch.empty((_S, LANES), dtype=torch.int32, device=dev)
+        err = lib.stream_words(words.data_ptr(), num_chunks, salt.data_ptr(),
+                               ws.data_ptr(), out.data_ptr(),
+                               _device_info(dev)[0], stream)
     _build.check(err, "stream_words")
     stream_words_device.launches += 1
     return out

@@ -9,8 +9,10 @@ file imports no jax, so it runs on a GPU host without the JAX package
 Kernels: K1 (single-query octet sweep; with its lane merge on the card,
 held bit for bit to ``octet_topk_slots_plain``, tags included), K6
 (multi-query octet sweep),
-K4 (octet SpMV), K3 (stream probe), on the slice stream K7
-(single-query sweep), K8 (multi-query sweep) and K9 (SpMV), and all six
+K4 (octet SpMV), K3 (stream probe, one launch a call), on the slice
+stream K7 (single-query sweep; its lane merge on the card, held bit for
+bit to ``slice_topk_slots_plain``, tags included), K8 (multi-query sweep)
+and K9 (SpMV), and all six
 on partitioned streams (K10a-d and the partitioned K4/K9), with every
 query codec (int8x4, i8s, i4s on both streams, f32 on the octet stream),
 and the per-bucket ops K11, K13, K12 over pack_sell_buckets' buckets (the
@@ -521,6 +523,26 @@ def test_stream_kernel_matches_plain(gpu, corpus):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("chunks", [1, 3, 1055, 1057, 109_696])
+def test_stream_kernel_chunk_counts(gpu, chunks):
+    """K3 on 1, 3, one under and one over two blocks an SM's worth of
+    chunks (132 SMs) and the headline corpus's 109,696, words near the
+    int32 limits (the sums wrap) and a salt that varies by lane and call:
+    its plain version's checksum, one launch a call."""
+    rng = np.random.default_rng(chunks)
+    words = torch.from_numpy(rng.choice(
+        np.array([2**31 - 1, -2**31, 2**31 - 2, -2**31 + 1, 7, -3],
+                 np.int32), (chunks * 8, 128))).to(gpu)
+    for call in range(3):
+        salt = torch.from_numpy(rng.integers(-2**31, 2**31, (1, 128)).astype(
+            np.int32)).to(gpu)
+        before = pstream.stream_words_device.launches
+        got = pstream.stream_words_device(words, salt)
+        assert pstream.stream_words_device.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, pstream.stream_words_plain(words, salt)), call
+
+
 def test_query_on_gpu_matches_cpu(gpu, corpus):
     """The rescored top-100 on the card equals the plain path's on the
     CPU (both re-rank their pools exactly on the host)."""
@@ -690,16 +712,19 @@ def test_slice_batch_kernel_ignores_subgroup(gpu, corpus, int_corpus,
         _lanes_equal(kv[q], kt[q], sv, st)
 
 
-def _emulate_slice_production(eng, table, cfg, nblk, fold_tile):
+def _emulate_slice_production(eng, table, cfg, nblk, fold_tile, deal=None):
     """Merged production (non-tie-safe) buffers of a slice sweep whose
-    nblk CUDA blocks each take at most one work item (ops/kernel.py::
-    slice_work) into fresh buffers: every slot holding the minimum is
-    replaced, from distinct sentinels; a sub-tile gives its top 2, any
-    other item each real slice in order."""
+    nblk slots each take at most one work item (ops/kernel.py::
+    slice_work) into fresh buffers (K8), or (``deal``: the slot of each
+    item, K7's ``k7_deal``) whose slots harvest their items in order:
+    every slot holding the minimum is replaced, from distinct sentinels; a
+    sub-tile gives its top 2, any other item each real slice in order."""
     gpu = eng.words.device
     K, L = cfg.lane_k, 128
     init = torch.from_numpy(pkernel.topk_init(K)).to(gpu).view(K, 1)
     bufs_v, bufs_t = [], []
+    slot_of = None if deal is None else iter(deal.tolist())
+    dealt = {}   # K7: slot -> its buffers
     for b, row in enumerate(eng.plan_rows.tolist()):
         W, spb, bps, base = row[:4]
         n = int(eng.nreal[b, 0])
@@ -729,16 +754,24 @@ def _emulate_slice_production(eng, table, cfg, nblk, fold_tile):
                         steps.append((m1, base + real[sl.long()]))
                 else:
                     steps = [(sc[t:t + 1], base + t) for t in real.tolist()]
-                tv, tt = init.expand(K, L).clone(), torch.zeros(
+                fresh = init.expand(K, L).clone(), torch.zeros(
                     (K, L), dtype=torch.int32, device=gpu)
+                slot = None if slot_of is None else next(slot_of)
+                tv, tt = dealt.get(slot, fresh) if deal is not None else fresh
                 for score, tag in steps:
                     cur = tv.amin(dim=0, keepdim=True)
                     rep = (tv == cur) & (score >= cur)
                     tv = torch.where(rep, score, tv)
                     tt = torch.where(rep, torch.as_tensor(
                         tag, device=gpu).int().expand(K, L), tt)
-                bufs_v.append(tv)
-                bufs_t.append(tt)
+                if deal is not None:
+                    dealt[slot] = tv, tt
+                else:
+                    bufs_v.append(tv)
+                    bufs_t.append(tt)
+    for slot in sorted(dealt):   # the slots without an item come below
+        bufs_v.append(dealt[slot][0])
+        bufs_t.append(dealt[slot][1])
     assert len(bufs_v) <= nblk
     for _ in range(nblk - len(bufs_v)):
         bufs_v.append(init.expand(K, L))
@@ -754,18 +787,21 @@ def _emulate_slice_production(eng, table, cfg, nblk, fold_tile):
 def test_slice_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
                                     integer):
     """K7's and K8's production buffers (tie_safe_topk=False) against the
-    per-work-item emulation: the corpus has fewer work items than the
-    sweeps have CUDA blocks (K7) and slots (K8)."""
+    per-work-item emulation: K7's slots harvest their runs of items
+    (``k7_deal`` on ``slice_topk_grid``'s slots) in order; the corpus has
+    fewer work items than K8 has slots."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              tie_safe_topk=False)
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    nblk = min(sms * pkernel._BLOCKS_PER_SM, eng.words.shape[0] // 8)
+    _, nblk = pkernel.slice_topk_grid(gpu, cfg, eng.words.shape[0])
     qs = _slice_queries(int_corpus, integer, 3, 25)
     table, _ = eng._table(qs[0])
     kv, kt = pkernel.topk_spmv_fused_device(
         eng.words, table, eng.nreal, eng.plan_rows, cfg=cfg,
         block_sublanes=cfg.fused_block_sublanes)
-    ev, et = _emulate_slice_production(eng, table, cfg, nblk, cfg.fold_tile)
+    ev, et = _emulate_slice_production(
+        eng, table, cfg, nblk, cfg.fold_tile,
+        deal=pkernel.k7_deal(eng.plan_rows, eng.nreal, nblk, cfg.fold_tile))
     _lanes_equal(kv, kt, ev, et)
     tables = _slice_tables(cfg, qs, gpu)
     _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
@@ -966,6 +1002,119 @@ def test_slice_f32_tables_past_shared_memory_read_global(gpu, cols, P):
     assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
 
 
+# K7 (csrc/slice_topk.cuh): one launch, its lane merge on the card;
+# slice_topk_slots_plain on slice_topk_grid's slots computes what it gives.
+# (lane_k, fold_tile, fused block sublanes): tiled sub-tiles (fold 8 and
+# 2), runs (fold 1; fold 4 past the unroll threshold at 2048), wide
+# slices (32)
+K7_GEOMS = [(8, 8, 1024), (4, 1, 1024), (16, 2, 32), (8, 4, 2048)]
+# each codec's width quantum (its engines': bench.py, the default, c3)
+K7_QUANTUM = dict(h16=2, f32=8, int8x4=4, i8s=4, i4s=4)
+
+
+def _k7_slots_plain(eng, cfg, table, merged=True):
+    P = cfg.num_partitions
+    _, slots = pkernel.slice_topk_grid(eng.words.device, cfg,
+                                       eng.words.shape[0] // P, P)
+    return pkernel.slice_topk_slots_plain(
+        eng.words, table, eng.nreal, eng.plan_rows, num_slots=slots,
+        lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=cfg.fused_block_sublanes, codec=cfg.query_codec,
+        merged=merged, **eng.partition_kw)
+
+
+def _k7_check(eng, cfg, table):
+    """K7 against its slot plain, merged (one launch) and unmerged, bit
+    for bit, tags included; tie-safe, its values those of
+    ``slice_topk_plain`` too."""
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    bs = cfg.fused_block_sublanes
+    before = pkernel.topk_spmv_fused_device.launches
+    kv, kt = pkernel.topk_spmv_fused_device(
+        *args, cfg=cfg, block_sublanes=bs, **eng.partition_kw)
+    assert pkernel.topk_spmv_fused_device.launches == before + 1
+    pv, pt_ = _k7_slots_plain(eng, cfg, table)
+    torch.cuda.synchronize()
+    P = cfg.num_partitions
+    assert kv.shape == (*((P,) if P > 1 else ()), cfg.lane_k, 128)
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    uv, ut = pkernel._slice_topk_cuda(
+        *args, P, eng.partition_kw.get("part_slices", 0), cfg, bs,
+        unmerged=True)
+    sv, st = _k7_slots_plain(eng, cfg, table, merged=False)
+    torch.cuda.synchronize()
+    assert torch.equal(uv, sv) and torch.equal(ut, st)
+    if cfg.tie_safe_topk:
+        _pools_equal(kv, kt, *pkernel.slice_topk_plain(
+            *args, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile, tie_safe=True,
+            block_sublanes=bs, codec=cfg.query_codec, **eng.partition_kw))
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("lane_k,fold,fbs", K7_GEOMS,
+                         ids=[f"k{k}_fold{f}_fbs{b}" for k, f, b in K7_GEOMS])
+@pytest.mark.parametrize("codec", list(K7_QUANTUM))
+def test_k7_matches_slots_plain(gpu, corpus, codec, lane_k, fold, fbs, P,
+                                tie_safe):
+    """K7 (K10a at P = 3) on production and tie-safe buffers, every codec,
+    lane_k 4, 8 and 16, the three kinds of work item (tiled sub-tiles at
+    fold 8 and 2; runs at fold 1 and past the unroll threshold; wide
+    slices)."""
+    cfg = pt.TopKSpMVConfig(
+        k=100, lane_k=lane_k, max_cols=1024, query_codec=codec,
+        fused_layout="slice", width_quantum=K7_QUANTUM[codec],
+        fold_tile=fold, block_sublanes=512, fused_block_sublanes=fbs,
+        num_partitions=P, tie_safe_topk=tie_safe)
+    eng = pt.TopKSpMV(corpus[0], cfg, device=gpu)
+    modes = {pkernel.slice_work(r, fold)[0] for r in eng.plan_rows.tolist()}
+    want = {1024: pkernel.TILED if fold > 1 else pkernel.RUNS,
+            32: pkernel.WIDE, 2048: pkernel.RUNS}[fbs]
+    assert want in modes
+    if fbs == 2048:
+        assert modes == {pkernel.RUNS}
+    table, _ = eng._table(corpus[1][0])
+    _k7_check(eng, cfg, table)
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("cols", ["limit", "past_limit", "65536"])
+def test_k7_f32_tables_at_and_past_shared_memory(gpu, cols, tie_safe):
+    """f32 tables as wide as a CUDA block's shared memory holds (58,112
+    columns on the H100: the merge's lists reuse the table's bytes, so it
+    stays in shared memory) and past it (codec "f32_global"), on one
+    partition and on two: K7 against its slot plain."""
+    limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
+    ncols = {"limit": limit // 512 * 128,
+             "past_limit": limit // 512 * 128 + 128, "65536": 65536}[cols]
+    assert pkernel.tables_in_smem(4 * ncols, limit) == int(cols == "limit")
+    coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=46)
+    q = create_query_batch(1, ncols, seed=47)[0]
+    for P in (1, 2):
+        cfg = pt.TopKSpMVConfig(k=100, max_cols=ncols, num_partitions=P,
+                                tie_safe_topk=tie_safe)
+        eng = pt.TopKSpMV(coo, cfg, device=gpu)
+        table, _ = eng._table(q)
+        _k7_check(eng, cfg, table)
+
+
+def test_k7_back_to_back_launches(gpu, corpus):
+    """20 launches back to back on one stream (each merge's tickets left
+    0 for the next) equal the launches run alone."""
+    eng = pt.TopKSpMV(corpus[0], pt.TopKSpMVConfig(**SLICE_DEFAULT),
+                      device=gpu)
+    qs = create_query_batch(20, 1024, seed=48)
+    alone = []
+    for q in qs:
+        alone.append(eng.candidates(q))
+        torch.cuda.synchronize()
+    chained = [eng.candidates(q) for q in qs]
+    torch.cuda.synchronize()
+    for (av, at), (cv, ct) in zip(alone, chained):
+        assert torch.equal(av, cv) and torch.equal(at, ct)
+
+
 # ------------------------------------------------------------- partitions
 # K10a-d: K7, K8, K1, K6 with a partition axis, and the partitioned K4 and
 # K9, on engines of P row partitions on one plan skeleton. A pool per
@@ -1080,10 +1229,10 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
                                         integer):
     """K10a-d's production buffers (tie_safe_topk=False) against the
     per-octet and per-work-item emulations, partition by partition: each
-    partition has fewer octets or work items than it has CUDA blocks (K7)
-    and slots (K10b's, ``octet_topk_grid``; the slice batch's; K10d h16's
-    slots harvest their octets in turn, as ``_emulate_production``
-    does)."""
+    partition has fewer octets or work items than it has slots (K10b's,
+    ``octet_topk_grid``; the slice batch's; K10d h16's slots harvest their
+    octets in turn, as ``_emulate_production`` does); K10a's slots
+    (``slice_topk_grid``) harvest their runs of items (``k7_deal``)."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              tie_safe_topk=False)
     P = cfg.num_partitions
@@ -1096,7 +1245,7 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
         _, nblk = pkernel.octet_topk_grid(gpu, cfg, part_rows, P)
         _, slots = pkernel.octet_h16_grid(3, sms, P, cfg.lane_k)
     else:
-        nblk = pkernel._sweep_blocks(sms, part_rows, P)
+        _, nblk = pkernel.slice_topk_grid(gpu, cfg, part_rows, P)
         _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
                                          part_rows // 8, P)
     table, _ = eng._table(qs[0])
@@ -1105,17 +1254,19 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
     for p in range(P):
         view = _part_view(eng, p)
         off = p * eng.partition_kw["part_slices"]
-        for got_v, got_t, tab, blocks, fold in (
-                (kv[p], kt[p], table, nblk, cfg.fold_tile),
+        for got_v, got_t, tab, blocks, fold, single in (
+                (kv[p], kt[p], table, nblk, cfg.fold_tile, True),
                 *((bv[q, p], bt[q, p], tables[q], slots,
-                   cfg.fold_tile if octet else 1) for q in range(3))):
+                   cfg.fold_tile if octet else 1, False) for q in range(3))):
             if octet:
                 ev, et = _emulate_production(
                     view, tab, dataclasses.replace(cfg, fold_tile=fold),
                     blocks)
             else:
-                ev, et = _emulate_slice_production(view, tab, cfg, blocks,
-                                                   fold)
+                ev, et = _emulate_slice_production(
+                    view, tab, cfg, blocks, fold,
+                    deal=pkernel.k7_deal(view.plan_rows, view.nreal, blocks,
+                                         fold) if single else None)
             _lanes_equal(got_v, got_t, ev, _offset_real(ev, et, off))
 
 
