@@ -61,14 +61,13 @@ every phase runs:
      version and against the exact f32 product;
   7. partitioned engines (``num_partitions`` > 1) at 50k rows, P = 3 and
      4: K10a-d (K1, K6, K7, K8 with a partition axis; the batch ones on
-     5 queries in uneven subgroups) and the partitioned K4/K9 against
+     5 queries) and the partitioned K4/K9 against
      their plain versions, tie-safe, bit-equal: octet h16 at fold 8 and
      fold 1, slice h16 at quantum 2, slice f32 on integer-valued and on
      real data, wide octets and wide slices, and at least one partition
      holding a bucket with no real slice; then f32 K7, K8, K9 at 65,536
      columns (tables read from global memory) on one and two partitions;
-  8. the query codecs at 50k rows: K7, K8 (5 queries in uneven
-     subgroups), K9 for int8x4, i8s and i4s, and K1, K6, K4 for f32,
+  8. the query codecs at 50k rows: K7, K8 (5 queries), K9 for int8x4, i8s and i4s, and K1, K6, K4 for f32,
      int8x4, i8s and i4s at fold 8 and, with wide octets, fold 1, wide
      slices, int8x4 at 1536 columns and i4s at 2048 (tables of several
      rows) and P = 3 partitions of each stream, all against their plain
@@ -89,13 +88,15 @@ every phase runs:
      top-100, ``query_batch`` in groups of 32 (rescored engines, with the
      ``batch32_*`` numbers) or 8, one ``scores()``, K7, K8 (on the path's
      group) and K9 held to and timed against their plain versions, K3 on
-     the words; K7 alone on the card with and without its lane merge,
-     the ``torch.topk`` merge of its slots, its production buffers against
-     its slot plain, its slots' balance (``k7_deal`` against the old
-     round-robin); on 2 partitions the same config with the int8x4
-     codec too (its words the f32 engine's), its 32 ``query()`` a path
-     of its own (K10a), K10a held and timed on it as K7 is; an engine without a rescore is held to its plain path
-     bit for bit, and its ``query_batch`` to its ``query()``;
+     the words; K7 and K8 alone on the card with and without their lane
+     merge, the ``torch.topk`` merge of their slots, their production
+     buffers against their slot plains, their slots' balance (``k7_deal``
+     against the old round-robin), K8's grid, passes, registers and spills;
+     on 2 partitions the same config with the int8x4 codec too (its words
+     the f32 engine's), its 32 ``query()`` and its ``query_batch`` in
+     groups of 8 a path of its own (K10a, K10c), both held and timed on it
+     as K7 and K8 are; an engine without a rescore is held to its plain
+     path bit for bit, and its ``query_batch`` to its ``query()``;
  11. the octet-layout engines on the 10M corpus, each built from its
      config and driven alike (``phase_octet_engine``): the headline
      config on 2 partitions (K10b, K10d, the partitioned K4), and with
@@ -653,6 +654,94 @@ def phase_k7_small(dev):
     return res
 
 
+# K8's cases at 50k rows: (lane_k, fused block sublanes); 32-row blocks
+# make wide slices
+K8_GEOMS = ((8, 1024), (4, 1024), (16, 32))
+# K8's translation unit of each codec (csrc/slice_topk_batch.cuh's
+# instantiations)
+K8_UNITS = dict(h16="slice_topk_batch.cu", f32="slice_topk_batch_f32.cu",
+                int8x4="slice_topk_batch_q.cu", i8s="slice_topk_batch_q.cu",
+                i4s="slice_topk_batch_q.cu")
+# K8's instantiations: h16 passes of 8, 16, 32; f32 in shared memory,
+# int8x4 and Sign (i8s, i4s) passes of 8 and 16, f32 in global memory 8;
+# lane_k 4, 8, 16; tie-safe and not
+K8_INSTANTIATIONS = (3 + 3 * 2 + 1) * 3 * 2
+# the queries of a full-size group whose K8 pairs are held to the slot
+# plain (the kernel runs the whole group, on the group's grid)
+K8_HELD = 4
+
+
+def phase_k8_small(dev):
+    """K8 and K10c (P = 2) against their slot plain
+    (``slice_topk_batch_slots_plain`` on the kernel's grid) at 50k rows,
+    bit for bit, tags included, merged on the card and the unmerged
+    launch's slots: tie-safe and production buffers, every codec at its
+    width quantum, lane_k 4, 8 and 16, wide slices, 5 queries (a short
+    pass), 1 and 33 (passes split, the last of one query), and f32 at
+    65,536 columns (tables in global memory); then the registers and spills
+    of every K8 instantiation, of which none may spill."""
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    qs = create_query_batch(33, NUM_COLS, seed=9)
+    wcoo = create_sparse_matrix(20_000, F32_MAX_COLS, AVG_DEG, "gamma",
+                                seed=19)
+    wqs = create_query_batch(5, F32_MAX_COLS, seed=20)
+    base = dict(k=100, max_cols=NUM_COLS)
+    cases = [(coo, qs[:5], dict(base, query_codec=c,
+                                width_quantum=K7_QUANTUM[c], lane_k=k,
+                                fused_block_sublanes=b, num_partitions=P))
+             for c in K7_QUANTUM for k, b in K8_GEOMS for P in (1, 2)]
+    cases += [(coo, qs[:n], dict(base, query_codec=c,
+                                 width_quantum=K7_QUANTUM[c]))
+              for c in K7_QUANTUM for n in (1, 33)]
+    cases += [(wcoo, wqs, dict(k=100, max_cols=F32_MAX_COLS,
+                               num_partitions=P)) for P in (1, 2)]
+    out = []
+    for corpus, queries, kw in cases:
+        cfg = TopKSpMVConfig(**kw)
+        eng = TopKSpMV(corpus, cfg, device=dev)
+        P = cfg.num_partitions
+        tables = _tables(queries, dev, cfg.query_codec)
+        _k8_agree(eng, tables, cfg, f"K8 {len(queries)} queries {kw}")
+        codec, qp, passes, slots = K.k8_launch(dev, cfg, len(queries), P)
+        out.append(dict(codec=codec, lane_k=cfg.lane_k,
+                        fused_block_sublanes=cfg.fused_block_sublanes,
+                        partitions=P, queries=len(queries),
+                        pass_queries=qp, passes=passes, slots=slots,
+                        modes=sorted({K.slice_work(r, 1)[0]
+                                      for r in eng.plan_rows.tolist()}),
+                        zero_real_buckets=int((eng.nreal == 0).sum()),
+                        slots_plain_equal=True, unmerged_equal=True))
+        del eng
+    require(any(K.WIDE in c["modes"] for c in out), "wide slices ran")
+    require(any(c["passes"] > 1 and c["queries"] % c["pass_queries"] == 1
+                for c in out), "a pass of one query after full ones ran")
+    require({c["codec"] for c in out} == set(K.KERNEL_CODECS),
+            "every codec ran, f32 in shared and in global memory")
+    regs = _k8_registers(_build.ptxas_report())
+    require(len(regs) == K8_INSTANTIATIONS,
+            f"every K8 instantiation reported ({len(regs)} of "
+            f"{K8_INSTANTIATIONS})")
+    require(all(v["spill_bytes"] == 0 for v in regs.values()),
+            "no K8 instantiation spills")
+    res = dict(phase="k8_vs_slots_plain_small", rows=coo.num_rows,
+               cases=out, registers=regs, nvidia_smi=smi_line())
+    emit(res)
+    return res
+
+
+def _k8_registers(report):
+    """{K8 instantiation: registers, spill bytes} of a ptxas report."""
+    return {k: dict(registers=r, spill_bytes=sp)
+            for k, (r, sp) in report.items()
+            if k.startswith("slice_topk_batch_kernel<")}
+
+
 def phase_main(dev):
     """The main path at full size; returns (engine, queries, results,
     gold top-100 sets, query() indices)."""
@@ -975,24 +1064,24 @@ def _k7_alone_ms(eng, table, cfg, reps=10):
     return tuple(_device_ms([fn], reps)[0][0] for fn in fns)
 
 
-def _k7_deal_balance(eng, slots):
-    """What each of K7's ``slots`` slots sweeps under its deal
-    (``ops/kernel.py::k7_deal``) and, for comparison, under the kernel
-    before it (work item g to CUDA block g mod sms x 8, round-robin), from
-    the engine's plan (first partition): the largest slot's (block's)
-    rows and work over the mean, and its items (a count, no device
-    time)."""
-    import torch
-
+def _k7_deal_balance(eng, slots, fold_tile=None, old=None):
+    """What each of ``slots`` slots sweeps under K7's deal
+    (``ops/kernel.py::k7_deal``, at cfg's fold_tile or ``fold_tile``; K8
+    deals at 1) and, for comparison, under the kernel before it (work item
+    g to slot g mod ``old``, round-robin; K7's before it: sms x 8 CUDA
+    blocks), from the engine's plan (first partition): the largest slot's
+    (block's) rows and work over the mean, and its items (a count, no
+    device time)."""
     from spmv_topk_tpu_torch.ops import kernel as K
 
     cfg = eng.config
+    fold = cfg.fold_tile if fold_tile is None else fold_tile
     nreal = eng.nreal.reshape(cfg.num_partitions, -1)[0]
-    rows, work = K.k7_item_work(eng.plan_rows, nreal, cfg.fold_tile)
-    old = torch.cuda.get_device_properties(
-        eng.words.device).multi_processor_count * 8
+    rows, work = K.k7_item_work(eng.plan_rows, nreal, fold)
+    if old is None:
+        old = _device_info_sms(eng.words.device) * 8
     deals = dict(runs=(K.k7_deal(eng.plan_rows, nreal, slots,
-                                 cfg.fold_tile).numpy(), slots),
+                                 fold).numpy(), slots),
                  round_robin_before=(np.arange(len(work)) % old, old))
     out = {}
     for name, (slot, n) in deals.items():
@@ -1003,6 +1092,146 @@ def _k7_deal_balance(eng, slots):
         out[f"slot_items_max_{name}"] = int(np.bincount(
             slot, weights=rows > 0, minlength=n).max())
     return out
+
+
+def _k8_slots_plain(eng, tables, cfg, held):
+    """``slice_topk_batch_slots_plain`` on K8's grid for cfg (its buffers
+    tie-safe or not) and a launch of the tables' queries, for the first
+    ``held`` of them, on the engine's partitions: (the merged pairs, each
+    slot's sorted buffers), the merge taken over those buffers
+    (``lane_merge_plain``: its order is total, so sorting first changes
+    nothing)."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = cfg.num_partitions
+    *_, slots = K.k8_launch(eng.words.device, cfg, tables.shape[0], P)
+    tables = tables[:held]
+    sv, st = K.slice_topk_batch_slots_plain(
+        eng.words, tables, eng.nreal, eng.plan_rows, num_slots=slots,
+        lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=eng.fused.block_sublanes, codec=cfg.query_codec,
+        merged=False, **eng.partition_kw)
+    pairs = [K.lane_merge_plain(v, t, cfg.lane_k)
+             for v, t in zip(sv.flatten(0, 1), st.flatten(0, 1))]
+    shape = (tables.shape[0], *(() if P == 1 else (P,)), cfg.lane_k, 128)
+    return ((torch.stack([v for v, _ in pairs]).view(shape),
+             torch.stack([t for _, t in pairs]).view(shape)), (sv, st))
+
+
+def _k8_agree(eng, tables, cfg, what, held=None):
+    """Require K8 (K10c) under cfg on the tables' queries, tie-safe and
+    with production buffers, to give ``slice_topk_batch_slots_plain``'s
+    pairs on its grid bit for bit, tags included, merged on the card and
+    (the unmerged launch) slot by slot, for the first ``held`` queries (by
+    default all: the slot plain takes a second or two a query at full
+    size); tie-safe, every query's values those of
+    ``slice_topk_batch_plain`` too. Returns the tie-safe pools' max abs
+    error against ``slice_topk_batch_plain``."""
+    import dataclasses
+
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    bs = eng.fused.block_sublanes
+    P = cfg.num_partitions
+    err = None
+    for tie_safe in (True, False):
+        tcfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe)
+        kv, kt = K.topk_spmv_fused_batch_device(*args, cfg=tcfg,
+                                                block_sublanes=bs,
+                                                **eng.partition_kw)
+        uv, ut = K._slice_topk_batch_cuda(
+            *args, P, eng.partition_kw.get("part_slices", 0), tcfg, bs,
+            unmerged=True)
+        n = held or tables.shape[0]
+        (pv, pt), (sv, st) = _k8_slots_plain(eng, tables, tcfg, n)
+        torch.cuda.synchronize()
+        require(torch.equal(kv[:n], pv) and torch.equal(kt[:n], pt),
+                f"{what} tie_safe={tie_safe}: K8 equals its slot plain")
+        require(torch.equal(uv[:n], sv) and torch.equal(ut[:n], st),
+                f"{what} tie_safe={tie_safe}: unmerged slots equal the "
+                "plain's")
+        if tie_safe:
+            err = compare_pools(kv, kt, *K.slice_topk_batch_plain(
+                *args, **_slice_plain_kw(tcfg), **eng.partition_kw))
+    return err
+
+
+def _k8_alone_ms(eng, tables, cfg, reps=10):
+    """K8 alone on the card, device time (``_device_ms``): (the launch,
+    its lane merge included; the launch with the merge left out,
+    ``unmerged``; one per-lane ``torch.topk`` over those unmerged slots,
+    the merge of the kernel before this one)."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = eng.config.num_partitions
+    ps = eng.partition_kw.get("part_slices", 0)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows, P, ps, cfg,
+            eng.fused.block_sublanes)
+    slots = K._slice_topk_batch_cuda(*args, unmerged=True)
+    fns = [lambda: K._slice_topk_batch_cuda(*args),
+           lambda: K._slice_topk_batch_cuda(*args, unmerged=True),
+           lambda: K.merge_lane_topk(*slots, cfg.lane_k,
+                                     lead=1 + int(P > 1))]
+    for fn in fns:
+        fn()
+    return tuple(_device_ms([fn], reps)[0][0] for fn in fns)
+
+
+def _k8_instantiation(codec, pass_queries, lane_k, tie_safe):
+    """The name ``_build.ptxas_report`` gives K8's kernel for a kernel
+    codec (KERNEL_CODECS), pass, lane_k and buffers."""
+    pc = {"h16": f"H16Pass<{pass_queries}>",
+          "f32": f"FloatPass<F32T<1>,{pass_queries}>",
+          "f32_global": f"FloatPass<F32T<0>,{pass_queries}>",
+          "int8x4": f"FloatPass<Int8x4,{pass_queries}>",
+          "i8s": f"FloatPass<Sign,{pass_queries}>",
+          "i4s": f"FloatPass<Sign,{pass_queries}>"}[codec]
+    return f"slice_topk_batch_kernel<{pc},{lane_k},{int(tie_safe)}>"
+
+
+def _k8_times(eng, tables, cfg, key="k8"):
+    """K8's numbers at an engine's shapes beyond its wrapper's time: alone
+    on the card with and without its merge and the ``torch.topk`` merge
+    of its unmerged slots (``_k8_alone_ms``), its grid, passes and slots,
+    its slots' balance (``_k7_deal_balance`` at fold_tile 1 against the
+    kernel before it: item g to slot g mod its slots), and the registers
+    and spill bytes of the instantiation it launches."""
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    dev = eng.words.device
+    P = cfg.num_partitions
+    Q = tables.shape[0]
+    codec, qp, passes, slots = K.k8_launch(dev, cfg, Q, P)
+    alone, unmerged, topk_merge = _k8_alone_ms(eng, tables, cfg)
+    sms = _device_info_sms(dev)
+    *_, old = K.batch_grid(Q, K.BATCH_SUBGROUP, sms,
+                                 eng.words.shape[0] // P // 8, P)
+    name = _k8_instantiation(codec, qp, cfg.lane_k,
+                             bool(cfg.tie_safe_topk))
+    regs, spill = _build.ptxas_report()[name]
+    groups = 128 // K.k8_block_lanes(qp, cfg.lane_k, codec)
+    return {f"{key}_alone_ms": alone, f"{key}_unmerged_ms": unmerged,
+            f"{key}_card_merge_ms": alone - unmerged,
+            f"{key}_topk_merge_of_the_slots_ms": topk_merge,
+            f"{key}_kernel_codec": codec, f"{key}_pass_queries": qp,
+            f"{key}_passes": passes, f"{key}_slots": slots,
+            f"{key}_cuda_blocks": slots * groups * P * passes,
+            f"{key}_instantiation": name, f"{key}_registers": regs,
+            f"{key}_spill_bytes": spill, f"{key}_slots_plain_equal": True,
+            **{f"{key}_{k}": v for k, v in _k7_deal_balance(
+                eng, slots, fold_tile=1, old=old).items()}}
+
+
+def _device_info_sms(dev):
+    import torch
+
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _k3_library_ms(words, salt, k3_sum):
@@ -1215,14 +1444,15 @@ def _slice_plain_kw(cfg):
                 codec=cfg.query_codec)
 
 
-def _slice_agree(eng, cfg, q, qs, dev):
+def _slice_agree(eng, cfg, q, qs, dev, held=None):
     """K7 (query q), K8 (queries qs in one group) and K9 (query q) of one
     engine under cfg (tie-safe buffers) against their plain versions,
     which sum in the kernels' order for both codecs: per-lane values and
     K9's slice scores must be bit-equal, and (value, tag) pairs equal
-    above each lane's floor; K7, tie-safe and with production buffers,
-    bit for bit against its slot plain too (``_k7_agree``). Returns the
-    three max abs errors."""
+    above each lane's floor; K7 and K8, tie-safe and with production
+    buffers, bit for bit against their slot plains too (``_k7_agree``,
+    ``_k8_agree``, K8's for its first ``held`` queries). Returns the three
+    max abs errors."""
     import torch
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -1236,10 +1466,7 @@ def _slice_agree(eng, cfg, q, qs, dev):
     n = eng.row_ids.shape[0]
     P = cfg.num_partitions
     k7 = _k7_agree(eng, table, cfg, "K7")
-    bv, bt = K.topk_spmv_fused_batch_device(*bargs, cfg=cfg,
-                                            block_sublanes=bs, **parts)
-    bpv, bpt = K.slice_topk_batch_plain(*bargs, **_slice_plain_kw(cfg),
-                                        **parts)
+    k8 = _k8_agree(eng, bargs[1], cfg, f"K8 {len(qs)} queries", held)
     ks = K.spmv_fused_scores_device(*args, cfg=cfg, block_sublanes=bs,
                                     num_slices=n, num_partitions=P)
     ps = K.slice_scores_plain(*args, num_slices=n, block_sublanes=bs,
@@ -1247,8 +1474,7 @@ def _slice_agree(eng, cfg, q, qs, dev):
     torch.cuda.synchronize()
     require(torch.equal(ks, ps), "K9 slice scores equal the plain "
             "version's bit for bit")
-    return (k7, compare_pools(bv, bt, bpv, bpt),
-            float((ks - ps).abs().max()))
+    return k7, k8, float((ks - ps).abs().max())
 
 
 def phase_slice_small(dev):
@@ -1394,10 +1620,11 @@ def _slice_kernel_times(eng, qs, dev, group):
     """K7, K8 (one group of the first ``group`` queries of qs, the
     path's group size) and K9 held to their plain versions at this
     engine's shapes (``_slice_agree``, tie-safe buffers: bit-equal; K7's
-    production buffers bit for bit against its slot plain), then each
-    timed against its plain version; K7 alone on the card with and
-    without its lane merge (``_k7_alone_ms``), its grid and its slots'
-    balance (``_k7_deal_balance``)."""
+    and K8's production buffers bit for bit against their slot plains),
+    then each timed against its plain version; K7 and K8 alone on the
+    card with and without their lane merge (``_k7_alone_ms``,
+    ``_k8_times``: K8's grid, passes, registers and spills too), their
+    grids and their slots' balance (``_k7_deal_balance``)."""
     import dataclasses
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -1405,7 +1632,8 @@ def _slice_kernel_times(eng, qs, dev, group):
     cfg = eng.config
     qs = qs[:group]
     k7, k8, k9 = _slice_agree(
-        eng, dataclasses.replace(cfg, tie_safe_topk=True), qs[0], qs, dev)
+        eng, dataclasses.replace(cfg, tie_safe_topk=True), qs[0], qs, dev,
+        held=K8_HELD)
     bs = cfg.fused_block_sublanes
     parts = eng.partition_kw
     table, _ = eng._table(qs[0])
@@ -1420,7 +1648,7 @@ def _slice_kernel_times(eng, qs, dev, group):
                   k9=sweep_bound(eng, 1, eng.row_ids.numel() * 4))
     alone, unmerged, topk_merge = _k7_alone_ms(eng, table, cfg)
     blocks, slots = K.slice_topk_grid(dev, cfg, eng.words.shape[0] // P, P)
-    return dict(
+    return dict(**_k8_times(eng, bargs[1], cfg),
         k7_alone_ms=alone, k7_unmerged_ms=unmerged,
         k7_card_merge_ms=alone - unmerged,
         k7_topk_merge_of_the_slots_ms=topk_merge, k7_blocks=blocks,
@@ -1508,10 +1736,11 @@ def _k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev):
     and ``prod_int8x4`` reads the same col | bf16 word): its query() path
     over every query, the slice counts zeroed just before (its K10a
     launches) and its answers held to the precision floor of ``eng``'s
-    path; then K10a on its words and table held to its slot plain,
-    tie-safe and not, and to ``slice_topk_plain`` (``_k7_agree``), and
-    timed through its wrapper, alone, unmerged and against its plain
-    version."""
+    path, then its query_batch in groups of 8 the same way (its K10c
+    launches); then K10a on its words and table held to its slot plain,
+    tie-safe and not, and to ``slice_topk_plain`` (``_k7_agree``), K10c
+    on the first group's tables the same way (``_k8_agree``), each timed
+    through its wrapper, alone, unmerged and against its plain version."""
     import dataclasses
 
     import torch
@@ -1542,6 +1771,16 @@ def _k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev):
     prec = float(np.mean(_precision(ref, idx, cfg.k)))
     require(prec >= floor, f"the partitioned int8x4 path's precision@100 "
             f"{prec} >= {floor}")
+    # the path's query_batch in groups of 8: its K10c launches
+    _reset_slice_counts()
+    bidx, _ = e8.query_batch(qs, group_size=DEFAULT_GROUP)
+    torch.cuda.synchronize()
+    batch_launches = _slice_counts()["slice_topk_batch"]
+    bprec = float(np.mean(_precision(ref, bidx.cpu().numpy(), cfg.k)))
+    require(bprec >= floor, f"the partitioned int8x4 path's batch "
+            f"precision@100 {bprec} >= {floor}")
+    tables = _tables(qs[:DEFAULT_GROUP], dev, cfg.query_codec)
+    err10c = _k8_agree(e8, tables, cfg, "K10c int8x4", held=K8_HELD)
     table, _ = e8._table(qs[0])
     err = _k7_agree(e8, table, cfg, "K10a int8x4")
     bs = e8.fused.block_sublanes
@@ -1555,9 +1794,23 @@ def _k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev):
         **e8.partition_kw), reps=2)
     b = bound(e8.hbm_bytes + table.numel() * 4 + topk_out_bytes(e8, 1),
               2 * e8.num_nnz)
+    bargs = (e8.words, tables, e8.nreal, e8.plan_rows)
+    b10c = sweep_bound(e8, DEFAULT_GROUP, topk_out_bytes(e8, DEFAULT_GROUP))
+    k10c = dict(
+        k10c_int8x4_ms=cuda_ms(lambda: K.topk_spmv_fused_batch_device(
+            *bargs, cfg=cfg, block_sublanes=bs, **e8.partition_kw), reps=10,
+            warmup=2),
+        k10c_int8x4_plain_ms=cuda_ms(lambda: K.slice_topk_batch_plain(
+            *bargs, **_slice_plain_kw(cfg), **e8.partition_kw), reps=1,
+            warmup=0),
+        k10c_int8x4_launches=batch_launches,
+        k10c_int8x4_batch_precision_mean=bprec,
+        k10c_int8x4_max_abs_err=err10c, k10c_int8x4_queries=DEFAULT_GROUP,
+        k10c_int8x4_bound_ms=b10c[0], k10c_int8x4_bound_by=b10c[1],
+        **_k8_times(e8, tables, cfg, key="k10c_int8x4"))
     del e8
     torch.cuda.empty_cache()
-    return dict(k10a_int8x4_ms=ms, k10a_int8x4_launches=launches,
+    return dict(**k10c, k10a_int8x4_ms=ms, k10a_int8x4_launches=launches,
                 k10a_int8x4_precision_mean=prec,
                 k10a_int8x4_query_e2e_ms_median=statistics.median(q_ms),
                 k10a_int8x4_alone_ms=alone, k10a_int8x4_unmerged_ms=unmerged,
@@ -3518,7 +3771,8 @@ def _shard_kernel_times(view, qs, dev, group):
     """The sweeps of one shard of a partitioned sharded engine (K10a and
     K10c on the slice stream, K10b and K10d on the octet stream: a query,
     and one group of ``group``) held to their plain versions (tie-safe,
-    bit for bit) and timed against them; K10b alone on the card too."""
+    bit for bit) and timed against them; K10b and K10c alone on the card
+    too (K10c with its grid, slots and registers, ``_k8_times``)."""
     import dataclasses
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -3527,8 +3781,8 @@ def _shard_kernel_times(view, qs, dev, group):
     octet = cfg.fused_layout == "octet"
     safe = dataclasses.replace(cfg, tie_safe_topk=True)
     qs = qs[:group]
-    e1, e2, _ = (_octet_agree if octet else _slice_agree)(
-        view, safe, qs[0], qs, dev)
+    e1, e2, _ = (_octet_agree(view, safe, qs[0], qs, dev) if octet else
+                 _slice_agree(view, safe, qs[0], qs, dev, held=K8_HELD))
     bs = cfg.fused_block_sublanes
     parts = view.partition_kw
     table, _ = view._table(qs[0])
@@ -3557,6 +3811,8 @@ def _shard_kernel_times(view, qs, dev, group):
     if octet:   # K10b alone on the card, with and without its lane merge
         alone[f"{k1}_alone_ms"], alone[f"{k1}_unmerged_ms"], _ = \
             _k1_alone_ms(view, table, cfg)
+    else:       # K10c alone, its grid, slots and registers
+        alone.update(_k8_times(view, bargs[1], cfg, key=k2))
     return {**alone,
         f"{k1}_ms": cuda_ms(lambda: one(*args, cfg=cfg, block_sublanes=bs,
                                         **parts), reps=20, warmup=2),
@@ -3823,7 +4079,8 @@ def kernel_entry(name, source, replaces, launches, res, key, library_ms,
 # The phases a run can name on the command line, in the order they run,
 # and what each needs run before it (the 10M corpus, its queries and gold
 # sets come with any of the full-size phases).
-PHASES = ("small", "k1_small", "k7_small", "slice_small", "partition_small",
+PHASES = ("small", "k1_small", "k7_small", "k8_small", "slice_small",
+          "partition_small",
           "codecs_small", "bucket_small", "labs_small", "sass", "main",
           "library",
           "slice_engines", "default_config", "bucket_path", "octet_engines",
@@ -3890,6 +4147,7 @@ def main(argv=()):
     torch.cuda.synchronize()
     for name, fn in (("small", phase_small), ("k1_small", phase_k1_small),
                      ("k7_small", phase_k7_small),
+                     ("k8_small", phase_k8_small),
                      ("slice_small", phase_slice_small),
                      ("partition_small", phase_partition_small),
                      ("codecs_small", phase_codecs_small),
@@ -4004,7 +4262,8 @@ def summarize(R, complete):
             by_path[path or R[key]["phase"]] = R[key]["launches"]
     if have("pdf"):
         by_path["partitioned_int8x4_path"] = dict(
-            slice_topk=R["pdf"]["k10a_int8x4_launches"])
+            slice_topk=R["pdf"]["k10a_int8x4_launches"],
+            slice_topk_batch=R["pdf"]["k10c_int8x4_launches"])
     for codec, r in (R.get("oc") or {}).items():
         by_path[f"octet_{codec}_path"] = r["launches"]
     for lab in ("kernel_lab", "fused_lab", "h16_lab", "fold_lab", "batch_lab",
@@ -4062,15 +4321,32 @@ def summarize(R, complete):
                     unmerged_ms=r[f"{kn}_unmerged_ms"],
                     template="spmv_topk_tpu_torch/csrc/slice_topk.cuh")
 
+    def k8_extra(r, kn):
+        """K8's keys beside kernel_entry's: alone on the card with its
+        merge and without it, its pass, passes and slots, the registers
+        and spills of its instantiation (``_k8_times``), its template
+        (each codec's unit is its source, K8_UNITS)."""
+        return dict(alone_ms=r[f"{kn}_alone_ms"],
+                    unmerged_ms=r[f"{kn}_unmerged_ms"],
+                    topk_merge_of_the_slots_ms=r[
+                        f"{kn}_topk_merge_of_the_slots_ms"],
+                    pass_queries=r[f"{kn}_pass_queries"],
+                    passes=r[f"{kn}_passes"], slots=r[f"{kn}_slots"],
+                    registers=r[f"{kn}_registers"],
+                    spill_bytes=r[f"{kn}_spill_bytes"],
+                    template="spmv_topk_tpu_torch/csrc/slice_topk_batch.cuh")
+
     def slice_entry(name, src, kn, line, q, fq):
         sl, df, sc = R["sl"], R["df"], dict(i8s=R["c3"], i4s=R["c8"],
                                             int8x4=R["i8"])
+        units = dict(k7=K7_UNITS, k8=K8_UNITS).get(kn)
 
         def extra(r):
-            return k7_extra(r, kn) if kn == "k7" else {}
+            return (k7_extra(r, kn) if kn == "k7" else
+                    k8_extra(r, kn) if kn == "k8" else {})
 
         def unit(codec):
-            return K7_UNITS[codec] if kn == "k7" else src
+            return units[codec] if units else src
 
         return kernel_entry(
             name, unit("h16"), f"{ker}:{line}", sl["launches"][name], sl,
@@ -4177,17 +4453,25 @@ def summarize(R, complete):
                 unmerged_ms=R["pdf"]["k10a_int8x4_unmerged_ms"],
                 template="spmv_topk_tpu_torch/csrc/slice_topk.cuh", **two))),
         (("pdf", "sharded", "lib"), lambda: kernel_entry(
-            "slice_topk_batch_partitioned", "slice_topk_batch.cuh",
+            "slice_topk_batch_partitioned", K8_UNITS["f32"],
             f"{ker}:1440", R["pdf"]["launches"]["slice_topk_batch"],
             R["pdf"], "k8", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
             partitions=PARTITIONS, queries=DEFAULT_GROUP, **two,
+            **k8_extra(R["pdf"], "k8"),
             i8s=kernel_entry(
-                "slice_topk_batch_i8s_partitioned", "slice_topk_batch.cuh",
+                "slice_topk_batch_i8s_partitioned", K8_UNITS["i8s"],
                 f"{ker}:1440", sharded("slice_i8s_p2")["launches"][
                     "slice_topk_batch"], sharded("slice_i8s_p2"), "k10c",
                 lib[f"spmv_topk_{DEFAULT_GROUP}_ms"], partitions=PARTITIONS,
-                queries=DEFAULT_GROUP, path="sharded_slice_i8s_p2",
-                **two))),
+                queries=DEFAULT_GROUP, path="sharded_slice_i8s_p2", **two,
+                **k8_extra(sharded("slice_i8s_p2"), "k10c")),
+            int8x4=kernel_entry(
+                "slice_topk_batch_int8x4_partitioned", K8_UNITS["int8x4"],
+                f"{ker}:1440", R["pdf"]["k10c_int8x4_launches"], R["pdf"],
+                "k10c_int8x4", lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
+                partitions=PARTITIONS, queries=DEFAULT_GROUP,
+                path="partitioned_int8x4_path", **two,
+                **k8_extra(R["pdf"], "k10c_int8x4")))),
         (("pdf", "lib"), lambda: kernel_entry(
             "slice_scores_partitioned", "slice_scores.cu", f"{ker}:1909",
             R["pdf"]["launches"]["slice_scores"], R["pdf"], "k9", spmv,

@@ -100,7 +100,9 @@ struct H16 {
 
 // The float codecs: decode() is the query-independent part of a word
 // (_codec_split's shared), apply() the product against one query's table;
-// add() both and the rounded add.
+// add() both and the rounded add; product() the product against the
+// table entry the decode names (apply's gather done by the caller: K8's
+// pass tables hold one entry for each query of a pass side by side).
 template <class D>
 struct FloatCodec {
   using Acc = float;
@@ -110,6 +112,10 @@ struct FloatCodec {
     return __fadd_rn(a, D::apply(D::decode(u, t), t.p));
   }
   __device__ static __forceinline__ float finish(Acc a) { return a; }
+  template <class Dec, typename T>
+  __device__ static __forceinline__ float apply(const Dec& d, const T* tab) {
+    return D::product(d, load<D::kShared>(tab + d.idx));
+  }
 };
 
 __device__ __forceinline__ float bf16_value(uint32_t u) { return __uint_as_float(u << 16); }
@@ -126,8 +132,8 @@ struct F32T : FloatCodec<F32T<SHARED>> {
     const uint32_t col = u >> 16;
     return {(col >> 7) < static_cast<uint32_t>(t.rows) ? col : (col & 0x7Fu), bf16_value(u)};
   }
-  __device__ static __forceinline__ float apply(const Dec& d, const Tab* tab) {
-    return __fmul_rn(d.val, load<SHARED>(tab + d.idx));
+  __device__ static __forceinline__ float product(const Dec& d, Tab entry) {
+    return __fmul_rn(d.val, entry);
   }
 };
 using F32 = F32T<true>;
@@ -145,8 +151,8 @@ struct Int8x4 : FloatCodec<Int8x4> {
     const uint32_t r = row < static_cast<uint32_t>(t.rows) ? row : 0u;
     return {r * kLanes + ((u >> 16) & 0x7Fu), (u >> 20) & 24u, bf16_value(u)};
   }
-  __device__ static __forceinline__ float apply(const Dec& d, const Tab* tab) {
-    const int32_t byte = static_cast<int32_t>((static_cast<uint32_t>(tab[d.idx]) >> d.sh) & 0xFFu);
+  __device__ static __forceinline__ float product(const Dec& d, Tab entry) {
+    const int32_t byte = static_cast<int32_t>((static_cast<uint32_t>(entry) >> d.sh) & 0xFFu);
     return __fmul_rn(d.val, static_cast<float>(byte - 128));
   }
 };
@@ -163,8 +169,8 @@ struct Sign : FloatCodec<Sign> {
     const uint32_t r = (static_cast<int32_t>(u) < 0 && t.rows > 1) ? 1u : 0u;
     return {r * kLanes + ((u >> 16) & 0x7Fu), (u >> 24) & 31u, t.shift, bf16_value(u)};
   }
-  __device__ static __forceinline__ float apply(const Dec& d, const Tab* tab) {
-    const int32_t q = static_cast<int32_t>(static_cast<uint32_t>(tab[d.idx]) << d.a) >> d.shift;
+  __device__ static __forceinline__ float product(const Dec& d, Tab entry) {
+    const int32_t q = static_cast<int32_t>(static_cast<uint32_t>(entry) << d.a) >> d.shift;
     return __fmul_rn(d.val, static_cast<float>(q));
   }
 };
@@ -229,13 +235,13 @@ inline size_t table_smem_bytes(int rows) {
 }
 
 // ------------------------------------------------------------- multi-query
-// The batch sweeps (K6 but for h16, K8, K12) hold a subgroup of at most 8
+// The batch sweeps K6 (but for h16) and K12 hold a subgroup of at most 8
 // queries (QG, the subgroup rounded up to a power of two) in one CUDA
 // block. load() fills shared memory with the subgroup's tables and returns
 // what add() gathers from; add() adds word u's product for every query to
 // acc[QG]. smem_bytes() is the dynamic shared memory load() takes.
 
-// h16 (K8, K12): the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
+// h16 (K12): the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
 // repacked into tab[1024]: entry c (a 10-bit column) holds that column's
 // signed nibble for every query, query dq at bits [4dq, 4dq+4), so one
 // shared-memory gather per nnz serves the whole subgroup (_h16_shared,
@@ -451,6 +457,150 @@ struct BatchOf {
 template <>
 struct BatchOf<H16> {
   using type = H16Batch;
+};
+
+// ------------------------------------------------------------ K8's passes
+// K8 (slice_topk_batch.cuh) reads each word of the stream once for a pass
+// of QP queries. A pass codec: Sums, one member's sums for every query of
+// the pass; table_bytes(rows), the shared memory of the pass's tables;
+// load(), their fill by a block's threads; view(), what add() reads; add(),
+// up to kWords words of a member (those below `left`) added to the sums in
+// row order; finish(), query q's sum as a float.
+struct PassView {
+  const unsigned char* tab;   // the pass's table in shared memory
+  const void* global;         // or query q0's table in global memory
+  int rows, shift, nq;
+};
+
+// h16, QP 8, 16 or 32: H16x32's table (16 bytes a column, QP / 8 of its
+// words filled) and dp2a products, exact integers; words past a member's
+// rows are read as 0, whose products are 0, so add() takes them all.
+template <int QP>
+struct H16Pass {
+  static_assert(QP == 8 || QP == 16 || QP == 32, "h16 passes are 8, 16 or 32 queries");
+  static constexpr int kQueries = QP;
+  static constexpr bool kExact = true;
+  struct Sums {
+    int32_t acc[QP];
+    int32_t vs;
+  };
+  __host__ __device__ static size_t table_bytes(int) { return H16x32::kTableBytes; }
+  __device__ static __forceinline__ void load(unsigned char* smem, const void* tables, int q0,
+                                              int nq, int, int t, int threads) {
+    H16x32::load<QP / 8>(reinterpret_cast<uint32_t*>(smem), static_cast<const int32_t*>(tables),
+                         q0, nq, t, threads);
+  }
+  __device__ static __forceinline__ void clear(Sums& s) {
+#pragma unroll
+    for (int q = 0; q < QP; ++q) s.acc[q] = 0;
+    s.vs = 0;
+  }
+  template <int N>
+  __device__ static __forceinline__ void add(Sums& s, const uint32_t (&w)[N], int,
+                                             const PassView& v) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      H16x32::add<QP / 8>(s.acc, s.vs, w[i], reinterpret_cast<const uint4*>(v.tab));
+  }
+  __device__ static __forceinline__ float finish(const Sums& s, int q) {
+    return static_cast<float>(H16x32::finish(s.acc[q], s.vs, q % 8));
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T entry_of(uint32_t bits) {
+  if constexpr (std::is_same_v<T, float>)
+    return __uint_as_float(bits);
+  else
+    return static_cast<T>(bits);
+}
+
+// The float codecs, QP 8 or 16: the pass's tables side by side, entry e of
+// the codec's table (row e / 128, lane e % 128) in S = QP / 4 16-byte
+// words, word r holding pass queries 4r .. 4r + 3 (0 past the pass's nq):
+// one decode of a word and S 16-byte gathers serve the pass, then a
+// rounded product and add a query. Word r of entry e sits at 16-byte
+// index e S + (r ^ swizzle(e)), swizzle(e) = (e / (8 / S)) % S, so that the
+// r-th gathers of a warp's random entries spread over all 8 bank groups
+// of 16 bytes (e S alone would give 8 / S of them). An f32 table past
+// shared memory (F32Global) stays in global memory, the caller's (Q,
+// rows, 128) tables, one read-only 4-byte gather a query (queries past nq
+// read query q0's).
+template <class C, int QP>
+struct FloatPass {
+  static_assert(QP == 8 || QP == 16, "float passes are 8 or 16 queries");
+  using Tab = typename C::Tab;
+  static constexpr int kQueries = QP;
+  static constexpr bool kExact = false;
+  static constexpr int kWords = QP / 4;   // S
+  struct Sums {
+    float acc[QP];
+  };
+  __host__ __device__ static int swizzle(uint32_t e) { return (e / (8 / kWords)) % kWords; }
+  __host__ __device__ static size_t table_bytes(int rows) {
+    return C::kShared ? sizeof(Tab) * QP * rows * kLanes : 0;
+  }
+  __device__ static __forceinline__ void load(unsigned char* smem, const void* tables, int q0,
+                                              int nq, int rows, int t, int threads) {
+    if constexpr (C::kShared) {
+      const int cols = rows * kLanes;
+      const Tab* src = static_cast<const Tab*>(tables);
+      Tab* tab = reinterpret_cast<Tab*>(smem);
+      for (int i = t; i < cols * QP; i += threads) {
+        const int j = i / cols, e = i % cols;   // reads in table order
+        tab[(e * kWords + ((j / 4) ^ swizzle(e))) * 4 + j % 4] =
+            j < nq ? src[(int64_t)(q0 + j) * cols + e] : Tab(0);
+      }
+    }
+  }
+  __device__ static __forceinline__ void clear(Sums& s) {
+#pragma unroll
+    for (int q = 0; q < QP; ++q) s.acc[q] = 0.0f;
+  }
+  __device__ static __forceinline__ void add_word(Sums& s, uint32_t u, const PassView& v) {
+    const typename C::Dec d = C::decode(u, Table<Tab>{nullptr, v.rows, v.shift});
+    if constexpr (C::kShared) {
+      const uint4* g = reinterpret_cast<const uint4*>(v.tab) + d.idx * kWords;
+      const int sw = swizzle(d.idx);
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {
+        const uint4 x = g[r ^ sw];
+        const uint32_t e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          s.acc[4 * r + k] = __fadd_rn(s.acc[4 * r + k], C::product(d, entry_of<Tab>(e[k])));
+      }
+    } else {
+      const Tab* t = static_cast<const Tab*>(v.global);
+      const int64_t cols = (int64_t)v.rows * kLanes;
+#pragma unroll
+      for (int q = 0; q < QP; ++q)
+        s.acc[q] = __fadd_rn(s.acc[q], C::product(d, __ldg(t + (q < v.nq ? q : 0) * cols + d.idx)));
+    }
+  }
+  template <int N>
+  __device__ static __forceinline__ void add(Sums& s, const uint32_t (&w)[N], int left,
+                                             const PassView& v) {
+    if (left >= N) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) add_word(s, w[i], v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < left) add_word(s, w[i], v);
+    }
+  }
+  __device__ static __forceinline__ float finish(const Sums& s, int q) { return s.acc[q]; }
+};
+
+// The pass codec of a single-query codec and a pass size.
+template <class C, int QP>
+struct PassOf {
+  using type = FloatPass<C, QP>;
+};
+template <int QP>
+struct PassOf<H16, QP> {
+  using type = H16Pass<QP>;
 };
 
 // Shared memory beyond the 48 KB default needs opting in per kernel.

@@ -1,8 +1,8 @@
 // Pieces shared by the slice-stream kernels: K7 (slice_topk.cuh), K8
-// (slice_topk_batch.cu) and K9 (slice_scores.cu). The work items and
-// their members are Bucket's and members_of's for all three; K7 walks
-// them with a cursor of its own (slice_topk.cuh::Walk), K8 and K9 with
-// the Walker below.
+// (slice_topk_batch.cuh) and K9 (slice_scores.cu). The work items and
+// their members are Bucket's and members_of's for all three; K7 and K8
+// walk them with K7's cursor (slice_topk.cuh::Walk), K9 with the Walker
+// below.
 //
 // The stream (formats/sell_buckets.py::fuse_buckets) is a sequence of
 // uniform blocks of block_sublanes rows x 128 lanes of int32 words. A

@@ -271,7 +271,7 @@ __device__ __forceinline__ void advance(Walk& w, const Params& a, const int32_t*
 }
 
 // Slot `slot`'s walk (settled) over its run [begin, end) of the
-// partition's items: item g when floor((2 c(g) + w(g)) slots / (2 C)) ==
+// partition's items (K8's slots too, at fold_tile 1): item g when floor((2 c(g) + w(g)) slots / (2 C)) ==
 // slot. Each warp finds it alone, 32 buckets at a time: the partition's
 // work C, then the items below each end's midpoint, then the bucket of
 // the first.

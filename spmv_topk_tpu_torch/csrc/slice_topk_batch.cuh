@@ -1,201 +1,408 @@
 // Multi-query slice-stream Top-K sweep (kernel K8; K10c with partitions)
-// for Hopper (sm_90a), every query codec (codecs.cuh). slice_topk_batch.cu
-// holds the h16 and f32 instantiations and the C entry point,
-// slice_topk_batch_q.cu the int8x4 / i8s / i4s ones (a translation unit of
-// their own, built in parallel).
+// for Hopper (sm_90a), every query codec, the lane merge included.
+// slice_topk_batch.cu holds the h16 instantiations and the C entry point,
+// slice_topk_batch_f32.cu the f32 ones (tables in shared or global memory)
+// and slice_topk_batch_q.cu int8x4's, i8s's and i4s's (translation units
+// of their own, so that nvcc builds them in parallel).
 //
-// Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel_batch (the
-// pallas_calls of topk_spmv_fused_batch_device and, with P row
-// partitions, topk_spmv_fused_batch_part_device: the partition is the
-// grid's y index, as in K7, and each query keeps a pool per partition,
-// (Q, P, lane_k, 128) after the merge).
+// Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel_batch (:1150): the
+// pallas_calls of topk_spmv_fused_batch_device (:1381) and, with P row
+// partitions, topk_spmv_fused_batch_part_device (:1440): partition p is
+// the grid's y index, its tags offset by p * part_slices, with a pool of
+// its own, (Q, P, lane_k, 128).
 //
 // What it computes. For each of Q queries, every real slice's 128 row
-// scores (as K7 and K9 compute them), each folded into that query's
-// per-lane (value, slice tag) buffers of lane_k entries by argmin
-// replacement. The JAX batch kernel has no tiled fold: it folds every
-// slice whatever fold_tile is, and so does this one (work items are runs
-// of slices and wide slices). As in the JAX kernel the query-independent
-// part of a word's decode (_codec_split: columns, values) is done once
-// and applied per query.
+// scores (a lane adds up its W decoded words in row order from 0, h16 in
+// exact integers, the float codecs each product and add rounded; a wide
+// slice adds its block sums in float in block order from 0), each folded
+// into that query's per-lane (value, slice tag) buffers of lane_k entries
+// by argmin replacement, whatever fold_tile is (the JAX batch kernel has
+// no tiled fold); then each lane's top lane_k of every slot's entries (the
+// initial ones included) in the order value descending, then tag
+// ascending: out[q][p] = (lane_k, 128). ops/kernel.py::
+// slice_topk_batch_slots_plain computes what it gives, bit for bit.
 //
-// Design. Up to 8 queries (cfg.batch_subgroup) are live in one CUDA block
-// of 128 threads, one per lane; their sums and buffer pairs sit in
-// registers, sized for QG, the subgroup rounded up to a power of two.
-// h16: the subgroup's int4x8 tables are repacked in shared memory as in
-// K6 (codecs.cuh::H16Batch), entry c (a 10-bit column) holding that
-// column's nibble for every query of the subgroup, so one gather per nnz
-// serves all of them. The other codecs: the subgroup's tables side by
-// side (codecs.cuh::Batch), QG x table_rows x 512 bytes (32 KB for 8 f32
-// queries at 1024 columns, 8 KB for int8x4 or i8s, 4 KB for i4s), one
-// gather per query per nnz; the wrapper cuts the subgroup to the tables
-// that fit a block's shared memory (ops/kernel.py::tables_in_smem: 227 KB
-// on the H100, so one f32 table up to 58,112 columns), and past one f32
-// table the subgroup's tables are gathered from global memory through
-// the read-only path (Batch<F32Global>: 256 KB a query at 65,536 columns,
-// which L2 holds). The grid is (slots) x (subgroups), subgroup
-// fastest, so the blocks that read the same work items for different
-// subgroups are launch neighbours and can meet in L2; each block writes
-// its buffers to out[q][slot] and one per-lane torch.topk per query merges
-// the slots.
+// Slots. As K7's at fold_tile 1: the work items (runs of up to 8 slices
+// of a block, a wide slice alone) go to the slots by K7's static deal
+// (ops/kernel.py::k7_deal; slice_topk.cuh::slot_walk finds a slot's
+// contiguous run of items of about equal work), and each slot harvests its
+// items in order, an item's real members in turn.
 //
-// Bound. Per word: one coalesced load, the shared decode, and per live
-// query a gather and 2-4 arithmetic operations. With 32 queries the
-// per-query work outweighs the bytes (the stream is read once per
-// subgroup), so the sweep should be bound by the SMs' instruction
-// throughput rather than by device memory.
+// Design. One read of the stream a pass of QP queries: h16 passes of 8,
+// 16 or 32 (codecs.cuh::H16Pass, K6 h16's table: 16 bytes a column and
+// dp2a products), the float codecs' of 8 or 16 (FloatPass: the pass's
+// tables side by side, one decode and QP / 4 16-byte gathers a word; f32
+// tables past shared memory in passes of 8, read from global memory). A
+// CUDA block is 8 member warps per 32 lanes of the stream (L = 64 lanes,
+// 16 warps; 32 lanes where the buffers need it, kBlockLanes; 128 / L
+// blocks share a slot): the warps of member m add up member m of each
+// item, each thread one lane, for every query of the pass, its loads two
+// or three batches ahead (kAhead), into the next item. The sums go
+// through shared memory to the harvest; the (lane, query) buffers live in
+// shared memory with
+// their minima: thread (lane, m) compares the item's largest real member
+// of queries m, m + 8, ... with the minimum, and only the pairs that can
+// enter go on a queue that every thread then takes from (K6 h16's
+// harvest). Passes, partitions and slots are the grid's axes, one block an
+// SM (ops/kernel.py::k8_grid). The merge: each block sorts its buffers
+// into the workspace, a ticket elects the last block of each set of about
+// sqrt(slots) slots to merge the set's, a second ticket the last set
+// (K6 h16's); no torch op runs after the launch.
+//
+// Bound. A pass reads every packed word once: 430 MB of h16 words for
+// bench.py's slice engine (a group of 32 in one pass), 937 MB of f32 words
+// for the default engine (a group of 8), at 3.35 TB/s 0.128 / 0.280 ms;
+// per word and pass about 66 instructions and two 16-byte gathers for 32
+// h16 queries, a decode, QP / 4 gathers and 2 QP float operations for the
+// float codecs: bound by the SMs' issue and shared-memory gathers on h16,
+// near the bytes on the float codecs.
 
 #pragma once
 
-#include "slice_common.cuh"
+#include "slice_topk.cuh"
 
 namespace k8 {
 
 using namespace slice;
+using namespace lane_merge;
+using codec::PassView;
+using octet::buffer_min;
+using octet::kMembers;
+using octet::topk_init;
 
-template <class C, int QG>
-__device__ __forceinline__ void rows_sums(const int32_t* src, int rows,
-                                          const Table<unsigned char>& tab, int nq,
-                                          typename C::Acc (&acc)[QG]) {
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq) acc[dq] = 0;
-#pragma unroll 2
-  for (int r = 0; r < rows; ++r)
-    C::template add<QG>(acc, static_cast<uint32_t>(__ldg(src + (int64_t)r * kLanes)), tab, nq);
-}
+constexpr int kUnroll = 4;   // words of a member a load batch reads
 
-// Member m's score for every live query (see member_score).
-template <class C, int QG>
-__device__ __forceinline__ void member_scores(const Walker& w, const Item& it, int m,
-                                              const Table<unsigned char>& tab, int nq,
-                                              float (&sc)[QG]) {
-  const int32_t* src = w.rows_of(it, m);
-  typename C::Acc acc[QG];
-  if (w.k.mode != kWide) {
-    rows_sums<C, QG>(src, w.k.width, tab, nq, acc);
-#pragma unroll
-    for (int dq = 0; dq < QG; ++dq) sc[dq] = C::finish(acc[dq]);
-    return;
+// Load batches in flight ahead of the sums: 3, but 2 for h16's passes of
+// 32 (their 33 sums leave no registers for a third).
+template <class PC>
+constexpr int kAhead = PC::kExact && PC::kQueries == 32 ? 2 : 3;
+
+// Stream lanes a block sweeps: 64 (16 warps), or 32 where a pass's
+// buffers need the shared memory or its harvest the registers (h16 at
+// lane_k 16, as K6 h16; the float codecs past 128 buffer entries a lane).
+// ops/kernel.py::k8_block_lanes.
+template <int QP, int K, bool H16>
+constexpr int kBlockLanes = (H16 ? K <= 8 : QP * K <= 128) ? 64 : 32;
+
+// The block's dynamic shared memory, in this order: the pass's table; the
+// member sums of the item, (query, member, lane) float; the (lane, query)
+// buffers, (query, entry, lane) values then tags; their minima, (query,
+// lane); the harvest queue, (query, lane) pairs as uint16.
+// ops/kernel.py::k8_smem_bytes computes the same bytes.
+template <class PC, int K>
+struct Smem {
+  static constexpr int kQ = PC::kQueries;
+  static constexpr int kL = kBlockLanes<kQ, K, PC::kExact>;
+  size_t sums, buf_v, buf_t, min, queue, bytes;
+  __host__ __device__ explicit Smem(int table_rows) {
+    sums = (PC::table_bytes(table_rows) + 15) / 16 * 16;
+    buf_v = sums + sizeof(float) * kQ * kMembers * kL;
+    buf_t = buf_v + sizeof(float) * kQ * K * kL;
+    min = buf_t + sizeof(int32_t) * kQ * K * kL;
+    queue = min + sizeof(float) * kQ * kL;
+    bytes = queue + sizeof(uint16_t) * kQ * kL;
   }
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq) sc[dq] = 0.0f;
-  for (int blk = 0; blk < w.k.bps; ++blk) {
-    const int rows = min(w.block_sublanes, w.k.width - blk * w.block_sublanes);
-    rows_sums<C, QG>(src + (int64_t)blk * w.block_sublanes * kLanes, rows, tab, nq, acc);
-#pragma unroll
-    for (int dq = 0; dq < QG; ++dq) sc[dq] = __fadd_rn(sc[dq], C::finish(acc[dq]));
-  }
-}
+};
 
-template <class C, int K, int QG, bool TIE_SAFE>
-__global__ void __launch_bounds__(kLanes)
-slice_topk_batch_kernel(const int32_t* __restrict__ words, const void* __restrict__ tables,
-                        const int32_t* __restrict__ nreal,
-                        const int32_t* __restrict__ plan, int num_buckets,
-                        int block_sublanes, int table_rows, int shift, int num_queries,
-                        int subgroup, int num_subgroups, int part_rows, int part_slices,
-                        float* __restrict__ out_v, int32_t* __restrict__ out_t) {
-  static_assert(QG >= 1 && QG <= 8, "an h16 table entry holds 8 nibbles");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x;
-  const int sg = blockIdx.x % num_subgroups;
-  const int slot = blockIdx.x / num_subgroups;
-  const int num_slots = gridDim.x / num_subgroups;
-  const int q0 = sg * subgroup;
-  const int nq = min(subgroup, num_queries - q0);   // <= QG
-  const auto tab = C::template load<QG>(smem, tables, q0, nq, table_rows, shift, lane);
-  __syncthreads();
-
-  float tv[QG][K];
-  int32_t tt[QG][K];
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq) octet::topk_init<K, TIE_SAFE>(tv[dq], tt[dq]);
-
-  // fold_tile 1: runs of slices and wide slices, every slice folded
-  const Partition part = partition(words, nreal, num_buckets, part_rows, part_slices);
-  Walker w(part.words, plan, part.nreal, num_buckets, block_sublanes, 1, lane);
-  Item it;
-  for (int g = slot; w.locate(g, it); g += num_slots) {
-    for (int m = 0; m < it.count; ++m) {
-      if (!w.real(it, m)) continue;
-      float sc[QG];
-      member_scores<C, QG>(w, it, m, tab, nq, sc);
-      const int tag = part.tag_offset + w.tag(it, m);
-#pragma unroll
-      for (int dq = 0; dq < QG; ++dq) {
-        if (dq >= nq) break;
-        octet::topk_update<K, TIE_SAFE>(tv[dq], tt[dq], sc[dq], tag);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int dq = 0; dq < QG; ++dq) {
-    if (dq >= nq) break;
-    const int64_t out0 =
-        (((int64_t)(q0 + dq) * gridDim.y + blockIdx.y) * num_slots + slot) * K * kLanes + lane;
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      out_v[out0 + s * kLanes] = tv[dq][s];
-      out_t[out0 + s * kLanes] = tt[dq][s];
-    }
-  }
-}
-
-struct Args {
+// The kernel's arguments.
+struct Params {
   const int32_t* words;
   const void* tables;
   const int32_t* nreal;
   const int32_t* plan;
-  int codec, num_buckets, block_sublanes, table_rows, shift, lane_k, num_queries, subgroup,
-      num_subgroups, num_cuda_blocks, num_partitions, part_rows, part_slices;
-  bool tie_safe;
+  int num_buckets, block_sublanes, table_rows, shift, num_queries, part_rows, part_slices;
+  bool merged;
+  int set_size;   // lane_merge::set_size_of(slots)
+  float* ws_v;
+  int32_t* ws_t;
+  unsigned* tickets;
   float* out_v;
   int32_t* out_t;
+};
+
+template <class PC, int K, bool TIE_SAFE>
+__global__ void __launch_bounds__(kMembers * kBlockLanes<PC::kQueries, K, PC::kExact>, 1)
+slice_topk_batch_kernel(const Params a) {
+  constexpr int QP = PC::kQueries;   // queries a pass computes
+  constexpr int L = kBlockLanes<QP, K, PC::kExact>;
+  constexpr int T = kMembers * L;
+  constexpr int kGroups = kLanes / L;   // blocks (lane groups) a slot
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int queued;
+  const Smem<PC, K> S(a.table_rows);
+  float* sums = reinterpret_cast<float*>(smem + S.sums);
+  float* buf_v = reinterpret_cast<float*>(smem + S.buf_v);
+  int32_t* buf_t = reinterpret_cast<int32_t*>(smem + S.buf_t);
+  float* buf_min = reinterpret_cast<float*>(smem + S.min);
+  uint16_t* queue = reinterpret_cast<uint16_t*>(smem + S.queue);
+  const int warp = threadIdx.x / 32;
+  const int member = warp % kMembers;
+  const int lane = (warp / kMembers) * 32 + threadIdx.x % 32;   // of the block's L
+  const int slot = blockIdx.x / kGroups;
+  const int num_slots = gridDim.x / kGroups;
+  const int stream_lane = (blockIdx.x % kGroups) * L + lane;
+  const int q0 = blockIdx.z * QP;
+  const int nq = min(QP, a.num_queries - q0);
+  PC::load(smem, a.tables, q0, nq, a.table_rows, threadIdx.x, T);
+  {
+    float iv[K];
+    int32_t it[K];
+    topk_init<K, TIE_SAFE>(iv, it);
+    for (int i = threadIdx.x; i < QP * K * L; i += T) {
+      buf_v[i] = iv[(i / L) % K];
+      buf_t[i] = 0;
+    }
+    for (int i = threadIdx.x; i < QP * L; i += T) buf_min[i] = buffer_min(iv);
+  }
+  if (threadIdx.x == 0) queued = 0;
+  __syncthreads();
+  const int64_t cols = (int64_t)a.table_rows * kLanes;
+  const PassView view{smem, static_cast<const unsigned char*>(a.tables) +
+                                (int64_t)q0 * cols * 4,
+                      a.table_rows, a.shift, nq};
+
+  const Partition part = partition(a.words, a.nreal, a.num_buckets, a.part_rows, a.part_slices);
+  // K7's walk at fold_tile 1 (every slice its own harvest step)
+  k7::Params deal{};
+  deal.plan = a.plan;
+  deal.num_buckets = a.num_buckets;
+  deal.block_sublanes = a.block_sublanes;
+  deal.fold_tile = 1;
+  k7::Walk wk = k7::slot_walk(deal, part.nreal, slot, num_slots);
+  // this warp's member's words j .. j + kUnroll - 1 of the walk's item (0
+  // past its rows, or for a member past the item's real ones); kAhead
+  // batches in flight
+  auto load = [&](uint32_t(&w)[kUnroll], int j) {
+    const bool mine = member < wk.it.nr;
+    const int width = wk.s.k.width;
+    const int32_t* src =
+        part.words + wk.it.off + (int64_t)member * wk.it.mstride + stream_lane;
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i)
+      w[i] = mine && j + i < width ? static_cast<uint32_t>(__ldg(src + (int64_t)(j + i) * kLanes))
+                                   : 0u;
+  };
+  constexpr int A = kAhead<PC>;
+  uint32_t w[A][kUnroll];
+  if (wk.g < wk.end) {
+#pragma unroll
+    for (int b = 0; b < A; ++b) load(w[b], b * kUnroll);
+  }
+  while (wk.g < wk.end) {
+    const k7::Item it = wk.it;
+    if (member < it.nr) {
+      // member `member`'s sums for the pass's queries, into sums[q][member]:
+      // a narrow slice's W rows; a wide slice's block sums added in float
+      // in block order (block_sublanes a multiple of kUnroll)
+      const int width = wk.s.k.width;
+      const bool wide = wk.s.k.mode == kWide;
+      float* out = sums + member * L + lane;
+      typename PC::Sums acc;
+      PC::clear(acc);
+      bool first = true;
+      auto flush = [&]() {
+#pragma unroll
+        for (int q = 0; q < QP; ++q) {
+          const float s = PC::finish(acc, q);
+          float& o = out[q * kMembers * L];
+          o = wide ? __fadd_rn(first ? 0.0f : o, s) : s;
+        }
+        PC::clear(acc);
+        first = false;
+      };
+      for (int j = 0; j < width; j += kUnroll) {
+        if (wide && j > 0 && j % a.block_sublanes == 0) flush();
+        uint32_t next[kUnroll];
+        load(next, j + A * kUnroll);
+        PC::add(acc, w[0], width - j, view);
+#pragma unroll
+        for (int i = 0; i < kUnroll; ++i) {
+#pragma unroll
+          for (int b = 0; b + 1 < A; ++b) w[b][i] = w[b + 1][i];
+          w[A - 1][i] = next[i];
+        }
+      }
+      flush();
+    }
+    // the next item with a real member, its first loads in flight during
+    // the harvest
+    k7::advance(wk, deal, part.nreal);
+    if (wk.g < wk.end) {
+#pragma unroll
+      for (int b = 0; b < A; ++b) load(w[b], b * kUnroll);
+    }
+    __syncthreads();
+    // The harvest. Thread (lane, member) checks queries member, member + 8,
+    // ...: a (lane, query) pair goes on the queue when the item's largest
+    // real member is not below its buffer's minimum (fmaxf passes over a
+    // NaN member, which never enters); below it, nothing of the item does.
+#pragma unroll
+    for (int i = 0; i < QP / kMembers; ++i) {
+      const int q = member + kMembers * i;
+      if (q >= nq) break;   // uniform in the warp
+      const float* in = sums + q * kMembers * L + lane;
+      float top = in[0];
+#pragma unroll
+      for (int m = 1; m < kMembers; ++m)
+        if (m < it.nr) top = fmaxf(top, in[m * L]);
+      const bool enter = top >= buf_min[q * L + lane];
+      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, enter);
+      if (ballot) {
+        const int leader = __ffs(ballot) - 1;
+        int at = 0;
+        if (threadIdx.x % 32 == leader) at = atomicAdd(&queued, __popc(ballot));
+        at = __shfl_sync(0xFFFFFFFFu, at, leader);
+        if (enter)
+          queue[at + __popc(ballot & ((1u << (threadIdx.x % 32)) - 1u))] =
+              static_cast<uint16_t>(q * L + lane);
+      }
+    }
+    __syncthreads();
+    // Each queued pair harvested by one thread: the item's real members in
+    // turn (K7's replacement), its buffer read from and written back to
+    // shared memory.
+    const int n = queued;   // the same in every thread
+    if (n == 0) continue;   // no one reads the sums again: no third barrier
+    const int32_t tag0 = part.tag_offset + it.tag0;
+    for (int e = threadIdx.x; e < n; e += T) {
+      const int pair = queue[e];
+      const int q = pair / L, l = pair % L;
+      float tv[K];
+      int32_t tt[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        tv[k] = buf_v[(q * K + k) * L + l];
+        tt[k] = buf_t[(q * K + k) * L + l];
+      }
+      float tmin = buf_min[q * L + l];
+#pragma unroll
+      for (int m = 0; m < kMembers; ++m) {
+        if (m >= it.nr) break;
+        const float sc = sums[(q * kMembers + m) * L + l];
+        if (sc >= tmin) k7::replace<K, TIE_SAFE>(tv, tt, tmin, sc, tag0 + m * it.dj);
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        buf_v[(q * K + k) * L + l] = tv[k];
+        buf_t[(q * K + k) * L + l] = tt[k];
+      }
+      buf_min[q * L + l] = tmin;
+    }
+    __syncthreads();   // the sums, the buffers and the queue are free again
+    if (threadIdx.x == 0) queued = 0;
+  }
+
+  // The lane merge (lane_merge.cuh), K6 h16's. 1. Each (lane, query)
+  // buffer, sorted, to the slot's list of the query and partition: list
+  // (q * P + p) * num_slots + slot of the workspace.
+  const int P = gridDim.y, p = blockIdx.y;
+#pragma unroll
+  for (int i = 0; i < QP / kMembers; ++i) {
+    const int q = member + kMembers * i;
+    if (q >= nq) break;
+    float tv[K];
+    int32_t tt[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      tv[k] = buf_v[(q * K + k) * L + lane];
+      tt[k] = buf_t[(q * K + k) * L + lane];
+    }
+    sort<K>(tv, tt);
+    store<K>(tv, tt, a.ws_v, a.ws_t, ((q0 + q) * P + p) * num_slots + slot, stream_lane);
+  }
+  if (!a.merged) return;
+  // 2. The last block of each set of set_size slots (a ticket per set, for
+  // each lane group, partition and pass) merges the set's lists into the
+  // set's list, after the slots' lists, or into the outputs when there is
+  // one set; 3. the last set's merges the set lists into the outputs.
+  const int sets = (num_slots + a.set_size - 1) / a.set_size;
+  const int set = slot / a.set_size, first = set * a.set_size;
+  const int in_set = min(a.set_size, num_slots - first);
+  unsigned* ticket =
+      a.tickets + (((int64_t)blockIdx.z * P + p) * kGroups + blockIdx.x % kGroups) * (1 + sets);
+  const int64_t set_lists = (int64_t)a.num_queries * P * num_slots;
+  if (!arrive(ticket + 1 + set, in_set)) return;
+#pragma unroll
+  for (int i = 0; i < QP / kMembers; ++i) {
+    const int q = member + kMembers * i;
+    if (q >= nq) break;
+    const int64_t qp = (int64_t)(q0 + q) * P + p;
+    float tv[K];
+    int32_t tt[K];
+    gather<K, 1>(tv, tt, a.ws_v + qp * num_slots * K * kLanes,
+                 a.ws_t + qp * num_slots * K * kLanes, first, in_set, 0, stream_lane);
+    if (sets == 1)
+      store<K>(tv, tt, a.out_v, a.out_t, qp, stream_lane);
+    else
+      store<K>(tv, tt, a.ws_v, a.ws_t, set_lists + qp * sets + set, stream_lane);
+  }
+  if (sets == 1 || !arrive(ticket, sets)) return;
+#pragma unroll
+  for (int i = 0; i < QP / kMembers; ++i) {
+    const int q = member + kMembers * i;
+    if (q >= nq) break;
+    const int64_t qp = (int64_t)(q0 + q) * P + p;
+    float tv[K];
+    int32_t tt[K];
+    gather<K, 1>(tv, tt, a.ws_v + (set_lists + qp * sets) * K * kLanes,
+                 a.ws_t + (set_lists + qp * sets) * K * kLanes, 0, sets, 0, stream_lane);
+    store<K>(tv, tt, a.out_v, a.out_t, qp, stream_lane);
+  }
+}
+
+// One launch: the grid is (slots x lane groups, partitions, passes).
+struct Call {
+  Params p;
+  int codec, lane_k, pass_queries, slots, num_partitions, passes;
+  bool tie_safe;
   cudaStream_t stream;
 };
 
-template <class C, int K, int QG, bool TIE_SAFE>
-cudaError_t launch(const Args& a) {
-  auto kernel = slice_topk_batch_kernel<C, K, QG, TIE_SAFE>;
-  const size_t smem = C::smem_bytes(QG, a.table_rows);
+template <class PC, int K, bool TIE_SAFE>
+cudaError_t run(const Call& c) {
+  auto kernel = slice_topk_batch_kernel<PC, K, TIE_SAFE>;
+  const size_t smem = Smem<PC, K>(c.p.table_rows).bytes;
   const cudaError_t err = codec::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.num_cuda_blocks, a.num_partitions);
-  kernel<<<grid, kLanes, smem, a.stream>>>(
-      a.words, a.tables, a.nreal, a.plan, a.num_buckets, a.block_sublanes, a.table_rows, a.shift,
-      a.num_queries, a.subgroup, a.num_subgroups, a.part_rows, a.part_slices, a.out_v, a.out_t);
+  constexpr int L = kBlockLanes<PC::kQueries, K, PC::kExact>;
+  const dim3 grid(c.slots * (kLanes / L), c.num_partitions, c.passes);
+  kernel<<<grid, kMembers * L, smem, c.stream>>>(c.p);
   return cudaSuccess;
 }
 
-template <class C, int K, int QG>
-cudaError_t launch_q(const Args& a) {
-  return a.tie_safe ? launch<C, K, QG, true>(a) : launch<C, K, QG, false>(a);
+template <class PC>
+cudaError_t run_k(const Call& c) {
+  switch (c.lane_k) {
+    case 4: return c.tie_safe ? run<PC, 4, true>(c) : run<PC, 4, false>(c);
+    case 8: return c.tie_safe ? run<PC, 8, true>(c) : run<PC, 8, false>(c);
+    case 16: return c.tie_safe ? run<PC, 16, true>(c) : run<PC, 16, false>(c);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-template <class C, int K>
-cudaError_t launch_k(const Args& a) {
-  if (a.subgroup == 1) return launch_q<C, K, 1>(a);
-  if (a.subgroup == 2) return launch_q<C, K, 2>(a);
-  if (a.subgroup <= 4) return launch_q<C, K, 4>(a);
-  return launch_q<C, K, 8>(a);
-}
-
-// Launches the sweep for the codecs of `only` (codec::dispatch).
+// The call for the codecs of `only` (codec::dispatch): h16 in passes of 8,
+// 16 or 32 queries, the float codecs of 8 or 16, f32 tables in global
+// memory of 8 (16 spilled at lane_k 4: each query's gather its own
+// address).
 template <unsigned only>
-cudaError_t launch_codecs(const Args& a) {
-  return codec::dispatch<only>(a.codec, [&](auto tag) {
-    using B = typename codec::BatchOf<typename decltype(tag)::type>::type;
-    switch (a.lane_k) {
-      case 4: return launch_k<B, 4>(a);
-      case 8: return launch_k<B, 8>(a);
-      case 16: return launch_k<B, 16>(a);
+cudaError_t run_codecs(const Call& c) {
+  return codec::dispatch<only>(c.codec, [&](auto tag) {
+    using C = typename decltype(tag)::type;
+    switch (c.pass_queries) {
+      case 8: return run_k<typename codec::PassOf<C, 8>::type>(c);
+      case 16:
+        if constexpr (!std::is_same_v<C, codec::F32Global>)
+          return run_k<typename codec::PassOf<C, 16>::type>(c);
+        return cudaErrorInvalidValue;
+      case 32:
+        if constexpr (std::is_same_v<C, codec::H16>) return run_k<codec::H16Pass<32>>(c);
+        return cudaErrorInvalidValue;
       default: return cudaErrorInvalidValue;
     }
   });
 }
 
-// int8x4, i8s and i4s (slice_topk_batch_q.cu).
-cudaError_t launch_quantized(const Args& a);
+cudaError_t run_f32(const Call& c);         // f32, f32_global (slice_topk_batch_f32.cu)
+cudaError_t run_quantized(const Call& c);   // int8x4, i8s, i4s (slice_topk_batch_q.cu)
 
 }  // namespace k8

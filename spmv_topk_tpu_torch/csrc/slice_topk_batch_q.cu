@@ -1,12 +1,12 @@
-// Kernel K8 (slice_topk_batch.cuh) for the int8x4, i8s and i4s codecs.
+// Kernel K8 (slice_topk_batch.cuh) for int8x4, i8s and i4s.
 
 #include "slice_topk_batch.cuh"
 
 namespace k8 {
 
-cudaError_t launch_quantized(const Args& a) {
+cudaError_t run_quantized(const Call& c) {
   using namespace codec;
-  return launch_codecs<codec_set<kInt8x4, kI8s, kI4s>()>(a);
+  return run_codecs<codec_set<kInt8x4, kI8s, kI4s>()>(c);
 }
 
 }  // namespace k8

@@ -42,7 +42,9 @@ lane per row):
     the card in the same launch (``slice_topk_slots_plain`` is that
     kernel on its slots);
   - ``topk_spmv_fused_batch_device`` (K8) folds every slice of Q queries,
-    whatever ``fold_tile`` is (the JAX batch kernel has no tiled fold);
+    whatever ``fold_tile`` is (the JAX batch kernel has no tiled fold),
+    the stream read once a pass of queries and the merge on the card
+    (``slice_topk_batch_slots_plain`` is that kernel on its slots);
   - ``spmv_fused_scores_device`` (K9) writes the slice scores: plain SpMV.
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
@@ -50,7 +52,7 @@ On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
 ``octet_topk_batch_h16.cu``, K4 ``octet_scores.cu``, K7
 ``slice_topk.cuh``, K8 ``slice_topk_batch.cuh``, K9 ``slice_scores.cu``,
 the codecs in ``codecs.cuh``; they replace the pallas_calls of
-``spmv_topk_tpu/ops/kernel.py``). K1, K7, K13 and K6 h16 merge their
+``spmv_topk_tpu/ops/kernel.py``). K1, K7, K8, K13 and K6 h16 merge their
 slots' buffers on the card, in the same launch (``csrc/lane_merge.cuh``);
 the other Top-K sweeps merge their per-CUDA-block buffers with one per-lane
 ``torch.topk``, the same algebra as the JAX package's per-lane
@@ -131,19 +133,28 @@ K1_OCTET_COST = 1
 K7_GROUPS = 4
 K7_ITEM_COST = 16
 K7_CHUNK_ROWS = 8
+# K8 (csrc/slice_topk_batch.cuh): the queries a pass reads the stream
+# once for, by codec (h16's table packs up to 32, H16x32; the float
+# codecs' tables sit side by side, 8 or 16), and the rows of a member a
+# load batch reads (kUnroll: a wide slice's block sums close after whole
+# batches)
+K8_PASS_QUERIES = {"h16": (8, 16, 32), "f32": (8, 16), "f32_global": (8,),
+                   "int8x4": (8, 16), "i8s": (8, 16), "i4s": (8, 16)}
+K8_UNROLL = 4
 # (C entry point, device index, its arguments) -> a kernel's resident
 # blocks an SM (_resident_blocks); (kernel, device index, stream) -> the
-# workspace and tickets of K13, K6 h16, K1, K7 and K3 (_merge_workspace)
+# workspace and tickets of K13, K6 h16, K1, K7, K8 and K3
+# (_merge_workspace)
 _OCCUPANCY = {}
 _MERGE_WORKSPACE = {}
 # CUDA blocks per SM of the sweeps K4, K9 and K11, and the slots of the
-# batch sweeps that merge with torch.topk (``batch_grid``: K6 but h16, K8,
+# batch sweeps that merge with torch.topk (``batch_grid``: K6 but h16,
 # K12; each slot owns one set of lane buffers, so this also sets their
 # merge width, slots * lane_k per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
-# K6 (but h16) and K8: queries live in one CUDA block when
-# cfg.batch_subgroup is 0, and at most (K8's h16 table entry packs 8
+# K6 (but h16) and K12: queries live in one CUDA block when
+# cfg.batch_subgroup is 0, and at most (K12's h16 table entry packs 8
 # queries' nibbles; registers run out first)
 BATCH_SUBGROUP = 4
 MAX_BATCH_SUBGROUP = 8
@@ -908,8 +919,8 @@ topk_spmv_fused_octet_device.launches = 0
 
 def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int,
                partitions: int = 1):
-    """K6's and K8's grid: (queries per CUDA block, subgroups, slots per
-    partition).
+    """The grid of K6 (but h16) and K12: (queries per CUDA block,
+    subgroups, slots per partition).
 
     ``subgroup`` is cfg.batch_subgroup (0: BATCH_SUBGROUP), capped at
     MAX_BATCH_SUBGROUP and at the query count. The stream is read once
@@ -1383,6 +1394,32 @@ def slice_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
+def slice_topk_batch_slots_plain(words, tables, nreal, plan_rows, *,
+                                 num_slots: int, lane_k: int, tie_safe: bool,
+                                 block_sublanes: int, codec: str = "f32",
+                                 num_partitions: int = 1,
+                                 part_slices: int = 0, merged: bool = True):
+    """Plain version of K8 (K10c with P > 1 partitions) as the kernel
+    computes it, on ``num_slots`` slots a partition and pass (``k8_grid``):
+    for each query of the (Q, TR, 128) tables, ``slice_topk_slots_plain``
+    at fold_tile 1 (K7's deal, ``k7_deal``; every slice harvested alone,
+    an item's real members in turn), tags offset by p * part_slices in
+    partition p -> (topv, topt), each (Q, lane_k, 128) ((Q, P, lane_k,
+    128) for P > 1); with ``merged`` False each slot's sorted buffer, (Q,
+    P, slots, lane_k, 128), as the kernel's unmerged launch leaves them.
+    The kernel gives these pairs bit for bit on any data, tags and ties
+    included, however its queries split into passes. Against
+    ``slice_topk_batch_plain``: the same values whenever the buffers are
+    tie-safe, and the same (value, tag) pairs above each lane's smallest
+    kept value."""
+    outs = [slice_topk_slots_plain(
+        words, t, nreal, plan_rows, num_slots=num_slots, lane_k=lane_k,
+        fold_tile=1, tie_safe=tie_safe, block_sublanes=block_sublanes,
+        codec=codec, num_partitions=num_partitions, part_slices=part_slices,
+        merged=merged) for t in tables]
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
 def _slice_items(row, n_real: int, fold_tile: int):
     """The work items of one slice bucket (plan row ``row``, ``n_real``
     real slices) in the kernels' order (``slice_work``; csrc/
@@ -1685,47 +1722,163 @@ def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
     ``topk_spmv_fused_device``. Returns (topv f32, topt i32), each (Q,
     lane_k, 128) ((Q, P, lane_k, 128) for P > 1), sorted descending per
     lane. Every slice is folded, whatever ``cfg.fold_tile`` is (as in the
-    JAX batch kernel), and each query's candidates do not depend on
-    ``cfg.batch_subgroup`` (it only sets how many queries share a CUDA
-    block; see ``batch_grid``; subgroups are cut to the tables that fit
-    shared memory, ``tables_in_smem``, and f32 tables are read from global
-    memory when none fits).
+    JAX batch kernel), and ``cfg.batch_subgroup`` is not read.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch that returns the merged pairs (``_slice_topk_batch_cuda``: the
+    stream read once a pass of up to 32 h16 or 16 other queries,
+    ``k8_pass``, and the lane merge on the card).
     """
     _check_slice(cfg)
     P = num_partitions
     ps = _part_slices(P, part_slices)
-    kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
-              block_sublanes=block_sublanes, codec=cfg.query_codec)
     if words.device.type == "cpu":
-        return slice_topk_batch_plain(words, tables, nreal, plan_rows,
-                                      num_partitions=P, part_slices=ps, **kw)
+        return slice_topk_batch_plain(
+            words, tables, nreal, plan_rows, num_partitions=P, part_slices=ps,
+            lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+            block_sublanes=block_sublanes, codec=cfg.query_codec)
+    return _slice_topk_batch_cuda(words, tables, nreal, plan_rows, P, ps, cfg,
+                                  block_sublanes)
+
+
+def k8_block_lanes(pass_queries: int, lane_k: int, codec: str) -> int:
+    """Stream lanes of one of K8's CUDA blocks (csrc/slice_topk_batch.cuh::
+    kBlockLanes): 64, or 32 where a pass's (lane, query) buffers need the
+    room (h16 at lane_k 16, the other codecs past 128 entries a lane); 128
+    / that many blocks share a slot."""
+    wide = lane_k <= 8 if codec == "h16" else pass_queries * lane_k <= 128
+    return 64 if wide else 32
+
+
+def k8_smem_bytes(codec: str, pass_queries: int, lane_k: int,
+                  table_rows: int) -> int:
+    """K8's dynamic shared memory a block (csrc/slice_topk_batch.cuh::
+    Smem) for a kernel codec (KERNEL_CODECS) and pass: the pass's table
+    (h16's 16 KB; the float codecs' tables side by side, none for
+    f32_global), the member sums, the (lane, query) buffers, their minima
+    and the harvest queue."""
+    L = k8_block_lanes(pass_queries, lane_k, codec)
+    Q = pass_queries
+    table = (16 * 1024 if codec == "h16" else 0 if codec == "f32_global"
+             else 4 * Q * table_rows * LANES)
+    return -(-table // 16) * 16 + Q * L * (4 * 8 + 8 * lane_k + 4 + 2)
+
+
+def k8_pass(codec: str, num_queries: int, lane_k: int, table_rows: int,
+            smem_limit: int, pass_queries: int | None = None):
+    """K8's (kernel codec, queries a pass) for ``num_queries`` queries of
+    the config's ``codec``: h16 in passes of 8, 16 or 32 (the fewest that
+    hold the queries, as K6 h16's), the other codecs of 8, or 16 for more
+    than 8 queries; an f32 pass whose tables do not fit ``smem_limit``
+    bytes beside the rest (``k8_smem_bytes``) takes 8 queries, and past
+    that the f32 tables are read from global memory (``f32_global``, in
+    passes of 8). ``pass_queries`` forces the pass (one of
+    K8_PASS_QUERIES[codec])."""
+    sizes = K8_PASS_QUERIES[codec]
+    if pass_queries is None:
+        pass_queries = next((n for n in sizes if n >= num_queries), sizes[-1])
+    elif pass_queries not in sizes:
+        raise ValueError(f"a {codec} pass of {pass_queries} queries: K8 "
+                         f"takes {sizes}")
+    if k8_smem_bytes(codec, pass_queries, lane_k, table_rows) <= smem_limit:
+        return codec, pass_queries
+    if codec != "f32":
+        raise ValueError(f"a {codec} table of {table_rows} rows does not fit "
+                         "shared memory")
+    if k8_smem_bytes(codec, 8, lane_k, table_rows) <= smem_limit:
+        return codec, 8
+    return "f32_global", 8
+
+
+def k8_grid(num_queries: int, sms: int, pass_queries: int, lane_k: int,
+            codec: str = "h16", partitions: int = 1):
+    """K8's grid (``csrc/slice_topk_batch.cuh``): (passes, slots). A pass
+    sweeps the stream once for up to ``pass_queries`` queries; the passes,
+    partitions and the 128 / ``k8_block_lanes`` lane groups of a slot are
+    CUDA blocks of their own, one an SM: slots per partition and pass are
+    the SMs over those (rounded down, so that no block waits for a second
+    wave), at least one. Each slot writes lane_k * 128 (value, tag) pairs
+    per query to the merge."""
+    passes = -(-num_queries // pass_queries)
+    groups = LANES // k8_block_lanes(pass_queries, lane_k, codec)
+    return passes, max(1, sms // (groups * partitions * passes))
+
+
+def k8_launch(dev, cfg: TopKSpMVConfig, num_queries: int, partitions: int,
+              pass_queries: int | None = None):
+    """K8's launch shape on CUDA ``dev`` for cfg's codec and lane_k:
+    (kernel codec, queries a pass, passes, slots)."""
+    sms, limit = _device_info(dev)
+    rows, _ = _table_spec(cfg)
+    codec, qp = k8_pass(cfg.query_codec, num_queries, cfg.lane_k, rows,
+                        limit, pass_queries)
+    return (codec, qp,
+            *k8_grid(num_queries, sms, qp, cfg.lane_k, codec, partitions))
+
+
+def _slice_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
+                           cfg, block_sublanes, *, unmerged=False):
+    """K8's launch on CUDA tensors, for ``topk_spmv_fused_batch_device``
+    (which passes P and the tag offset; codec, lane_k and buffers are
+    cfg's): one launch that returns the merged pairs, its lane merge on the
+    card (``slice_topk_batch_slots_plain`` on ``k8_launch``'s slots
+    computes what it gives), and no torch op after it; with ``unmerged``
+    each slot's buffers, sorted (value descending, then tag ascending),
+    (Q, P, slots, lane_k, 128) values and tags, the merge not run, for
+    timing the sweep alone."""
     B = plan_rows.shape[0]
     Q = tables.shape[0]
+    K = cfg.lane_k
     if Q < 1:
         raise ValueError("no queries")
+    if block_sublanes % K8_UNROLL or (cfg.query_codec == "h16"
+                                      and block_sublanes > 65535):
+        # a wide slice's block sums close after whole load batches; h16's
+        # packed sums stay exact below 65,535 words
+        raise ValueError(f"block_sublanes={block_sublanes}: K8 needs a "
+                         f"multiple of {K8_UNROLL} (h16: at most 65,535)")
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("tables", tables, (Q, rows, LANES), dtype),
-                        plan_cols=len(SLICE_PLAN_COLUMNS))
-    _check_lane_k(cfg.lane_k)
+    _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                  ("tables", tables, (Q, rows, LANES), dtype),
+                  plan_cols=len(SLICE_PLAN_COLUMNS))
+    _check_lane_k(K)
     dev = words.device
-    codec, fit = _kernel_codec(dev, cfg.query_codec, rows)
-    part_rows = words.shape[0] // P
-    sub, n_sub, slots = batch_grid(Q, min(cfg.batch_subgroup
-                                          or BATCH_SUBGROUP, fit),
-                                   sms, part_rows // _S, P)
-    out_v = torch.empty((Q, P, slots, cfg.lane_k, LANES),
-                        dtype=torch.float32, device=dev)
-    out_t = torch.empty((Q, P, slots, cfg.lane_k, LANES), dtype=torch.int32,
-                        device=dev)
-    _launch(dev, "slice_topk_batch", words.data_ptr(), tables.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            codec, cfg.lane_k, int(kw["tie_safe"]), Q, sub, slots * n_sub,
-            P, part_rows, ps, out_v.data_ptr(), out_t.data_ptr())
+    codec, qp, passes, slots = k8_launch(dev, cfg, Q, P)
+    sets = _merge_sets(slots)
+    lists = Q * P * (slots if unmerged else slots + sets)
+    tickets = passes * P * 4 * (1 + sets)
+    lib = _build.lib()
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if unmerged:
+            ws = torch.empty(lists * 2 * K * LANES, dtype=torch.int32,
+                             device=dev)
+            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        else:
+            ws, ticket = _merge_workspace("k8", dev, stream,
+                                          lists * 2 * K * LANES, tickets)
+        lists = ws.numel() // (2 * K * LANES)
+        out_v = torch.empty((Q, P, K, LANES), dtype=torch.float32, device=dev)
+        out_t = torch.empty((Q, P, K, LANES), dtype=torch.int32, device=dev)
+        # the arguments as int64 values, in csrc/slice_topk_batch.cu's order
+        args = array.array("q", (
+            words.data_ptr(), tables.data_ptr(), nreal.data_ptr(),
+            plan_rows.data_ptr(), B, block_sublanes, rows,
+            KERNEL_CODECS.index(codec), K, int(bool(cfg.tie_safe_topk)), Q,
+            qp, slots, P, words.shape[0] // P, part_slices,
+            int(not unmerged), ws.data_ptr(), lists, ticket.data_ptr(),
+            ticket.numel(), out_v.data_ptr(), out_t.data_ptr(), stream))
+        err = lib.slice_topk_batch(args.buffer_info()[0])
+    _build.check(err, "slice_topk_batch")
     topk_spmv_fused_batch_device.launches += 1
-    return merge_lane_topk(out_v, out_t, cfg.lane_k, lead=1 + int(P > 1))
+    if unmerged:
+        n = Q * P * slots * K * LANES
+        return (ws[:n].view(torch.float32).view(Q, P, slots, K, LANES),
+                ws[lists * K * LANES:][:n].view(Q, P, slots, K, LANES))
+    if P == 1:
+        return out_v.view(Q, K, LANES), out_t.view(Q, K, LANES)
+    return out_v, out_t
 
 
 topk_spmv_fused_batch_device.launches = 0
@@ -2103,8 +2256,8 @@ def _merge_workspace(kind: str, dev, stream: int, words: int, tickets: int):
     """The merge workspace (int32, at least ``words`` entries) and tickets
     (at least ``tickets`` zeros, which each launch leaves 0) of the lane
     merges on the card, K13's (``kind`` "k13"), K6 h16's ("k6_h16"), K1's
-    ("k1") or K7's ("k7"), or of K3's sum ("k3", its accumulator and
-    ticket), on
+    ("k1"), K7's ("k7") or K8's ("k8"), or of K3's sum ("k3", its
+    accumulator and ticket), on
     ``dev`` for launches on ``stream``: allocated once per (kind, device,
     stream) and grown when a launch needs more."""
     key = (kind, dev.index, stream)

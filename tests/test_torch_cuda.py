@@ -611,7 +611,7 @@ def int_corpus(corpus):
     coo, _ = corpus
     rng = np.random.default_rng(27)
     vals = rng.integers(-8, 9, coo.nnz).astype(np.float32)
-    qs = rng.integers(-8, 9, (32, 1024)).astype(np.float32)
+    qs = rng.integers(-8, 9, (33, 1024)).astype(np.float32)
     return pt.CooMatrix(coo.rows, coo.cols, vals, coo.num_rows,
                         coo.num_cols), qs
 
@@ -636,6 +636,36 @@ def _plain_kw(cfg, tie_safe):
     return dict(lane_k=cfg.lane_k, tie_safe=tie_safe,
                 block_sublanes=cfg.fused_block_sublanes,
                 codec=cfg.query_codec)
+
+
+def _k8_slots_equal(eng, tables, cfg):
+    """K8 (K10c) with production buffers (tie_safe_topk=False) on the
+    tables' queries against ``slice_topk_batch_slots_plain`` on its grid
+    (``k8_launch``'s slots), bit for bit, tags included; its unmerged
+    launch's slots, merged by ``lane_merge_plain``, give the pairs its
+    merge on the card gave."""
+    prod = dataclasses.replace(cfg, tie_safe_topk=False)
+    P = cfg.num_partitions
+    bs = cfg.fused_block_sublanes
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    kv, kt = pkernel.topk_spmv_fused_batch_device(*args, cfg=prod,
+                                                  block_sublanes=bs,
+                                                  **eng.partition_kw)
+    *_, slots = pkernel.k8_launch(eng.words.device, prod, tables.shape[0], P)
+    pv, pt_ = pkernel.slice_topk_batch_slots_plain(
+        *args, num_slots=slots, **_plain_kw(prod, False),
+        **eng.partition_kw)
+    uv, ut = pkernel._slice_topk_batch_cuda(
+        *args, P, eng.partition_kw.get("part_slices", 0), prod, bs,
+        unmerged=True)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    merged = [pkernel.lane_merge_plain(v, t, cfg.lane_k)
+              for v, t in zip(uv.flatten(0, 1), ut.flatten(0, 1))]
+    assert torch.equal(torch.stack([v for v, _ in merged]).view(kv.shape),
+                       kv)
+    assert torch.equal(torch.stack([t for _, t in merged]).view(kt.shape),
+                       kt)
 
 
 @pytest.mark.parametrize("lane_k", [8, 16, 4])
@@ -663,7 +693,7 @@ def test_slice_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
     _lanes_equal(kv, kt, pv, pt_)
 
 
-@pytest.mark.parametrize("Q,subgroup", [(1, 0), (5, 2), (32, 0)])
+@pytest.mark.parametrize("Q,subgroup", [(1, 0), (5, 2), (32, 0), (33, 0)])
 @pytest.mark.parametrize("name,kw,integer,lane_k", [
     ("h16_fold8", SLICE_BENCH, False, 8),
     ("f32_fold1", SLICE_DEFAULT, True, 8),
@@ -675,8 +705,10 @@ def test_slice_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
          "f32_wide_real"])
 def test_slice_batch_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
                                           integer, lane_k, Q, subgroup):
-    """K8 with tie-safe buffers against its plain version, per query;
-    Q=5 in subgroups of 2 leaves an uneven last subgroup."""
+    """K8 with tie-safe buffers against its plain version, per query
+    (subgroups shape nothing; 33 queries split into passes, the last of
+    one query); with production buffers bit for bit against its slot
+    plain, and its merge on the card against its unmerged slots."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              lane_k=lane_k, tie_safe_topk=True,
                              batch_subgroup=subgroup)
@@ -693,6 +725,7 @@ def test_slice_batch_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
     assert kv.shape == (Q, lane_k, 128)
     for q in range(Q):
         _lanes_equal(kv[q], kt[q], pv[q], pt_[q])
+    _k8_slots_equal(eng, tables, cfg)
 
 
 @pytest.mark.parametrize("integer", [False, True], ids=["h16", "f32"])
@@ -700,31 +733,42 @@ def test_slice_batch_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
 def test_slice_batch_kernel_ignores_subgroup(gpu, corpus, int_corpus,
                                              subgroup, integer):
     """Every subgroup size gives each query the candidates of K7 with
-    every slice folded (fold_tile 1: K8 folds every slice)."""
+    every slice folded (fold_tile 1: K8 folds every slice); the production
+    buffers do not depend on it either (K8's grid does not read it), bit
+    for bit against the slot plain."""
     kw = SLICE_DEFAULT if integer else SLICE_BENCH
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              fold_tile=1, tie_safe_topk=True,
                              batch_subgroup=subgroup)
     qs = _slice_queries(int_corpus, integer, 7, 24)
-    kv, kt = eng.batch_candidates(_slice_tables(cfg, qs, gpu))
+    tables = _slice_tables(cfg, qs, gpu)
+    kv, kt = eng.batch_candidates(tables)
     for q in range(7):
         sv, st = eng.candidates(qs[q])
         _lanes_equal(kv[q], kt[q], sv, st)
+    _k8_slots_equal(eng, tables, cfg)
+    bs = dict(block_sublanes=cfg.fused_block_sublanes)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    prod = dataclasses.replace(cfg, tie_safe_topk=False)
+    got = pkernel.topk_spmv_fused_batch_device(*args, cfg=prod, **bs)
+    want = pkernel.topk_spmv_fused_batch_device(
+        *args, cfg=dataclasses.replace(prod, batch_subgroup=0), **bs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-def _emulate_slice_production(eng, table, cfg, nblk, fold_tile, deal=None):
+def _emulate_slice_production(eng, table, cfg, nblk, fold_tile, deal):
     """Merged production (non-tie-safe) buffers of a slice sweep whose
-    nblk slots each take at most one work item (ops/kernel.py::
-    slice_work) into fresh buffers (K8), or (``deal``: the slot of each
-    item, K7's ``k7_deal``) whose slots harvest their items in order:
-    every slot holding the minimum is replaced, from distinct sentinels; a
-    sub-tile gives its top 2, any other item each real slice in order."""
+    nblk slots harvest the work items (ops/kernel.py::slice_work) dealt
+    them (``deal``: the slot of each item, ``k7_deal``; K7's and K8's) in
+    order: every slot holding the minimum is replaced, from distinct
+    sentinels; a sub-tile gives its top 2, any other item each real slice
+    in order."""
     gpu = eng.words.device
     K, L = cfg.lane_k, 128
     init = torch.from_numpy(pkernel.topk_init(K)).to(gpu).view(K, 1)
     bufs_v, bufs_t = [], []
-    slot_of = None if deal is None else iter(deal.tolist())
-    dealt = {}   # K7: slot -> its buffers
+    slot_of = iter(deal.tolist())
+    dealt = {}   # slot -> its buffers
     for b, row in enumerate(eng.plan_rows.tolist()):
         W, spb, bps, base = row[:4]
         n = int(eng.nreal[b, 0])
@@ -756,19 +800,15 @@ def _emulate_slice_production(eng, table, cfg, nblk, fold_tile, deal=None):
                     steps = [(sc[t:t + 1], base + t) for t in real.tolist()]
                 fresh = init.expand(K, L).clone(), torch.zeros(
                     (K, L), dtype=torch.int32, device=gpu)
-                slot = None if slot_of is None else next(slot_of)
-                tv, tt = dealt.get(slot, fresh) if deal is not None else fresh
+                slot = next(slot_of)
+                tv, tt = dealt.get(slot, fresh)
                 for score, tag in steps:
                     cur = tv.amin(dim=0, keepdim=True)
                     rep = (tv == cur) & (score >= cur)
                     tv = torch.where(rep, score, tv)
                     tt = torch.where(rep, torch.as_tensor(
                         tag, device=gpu).int().expand(K, L), tt)
-                if deal is not None:
-                    dealt[slot] = tv, tt
-                else:
-                    bufs_v.append(tv)
-                    bufs_t.append(tt)
+                dealt[slot] = tv, tt
     for slot in sorted(dealt):   # the slots without an item come below
         bufs_v.append(dealt[slot][0])
         bufs_t.append(dealt[slot][1])
@@ -788,11 +828,11 @@ def test_slice_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
                                     integer):
     """K7's and K8's production buffers (tie_safe_topk=False) against the
     per-work-item emulation: K7's slots harvest their runs of items
-    (``k7_deal`` on ``slice_topk_grid``'s slots) in order; the corpus has
-    fewer work items than K8 has slots."""
+    (``k7_deal`` on ``slice_topk_grid``'s slots) in order, K8's theirs at
+    fold_tile 1 (``k7_deal`` on ``k8_launch``'s slots); K8 against its
+    slot plain too."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              tie_safe_topk=False)
-    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
     _, nblk = pkernel.slice_topk_grid(gpu, cfg, eng.words.shape[0])
     qs = _slice_queries(int_corpus, integer, 3, 25)
     table, _ = eng._table(qs[0])
@@ -804,12 +844,14 @@ def test_slice_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
         deal=pkernel.k7_deal(eng.plan_rows, eng.nreal, nblk, cfg.fold_tile))
     _lanes_equal(kv, kt, ev, et)
     tables = _slice_tables(cfg, qs, gpu)
-    _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
-                                     eng.words.shape[0] // 8)
+    *_, slots = pkernel.k8_launch(gpu, cfg, 3, 1)
     bv, bt = eng.batch_candidates(tables)
     for q in range(3):
-        ev, et = _emulate_slice_production(eng, tables[q], cfg, slots, 1)
+        ev, et = _emulate_slice_production(
+            eng, tables[q], cfg, slots, 1,
+            deal=pkernel.k7_deal(eng.plan_rows, eng.nreal, slots, 1))
         _lanes_equal(bv[q], bt[q], ev, et)
+    _k8_slots_equal(eng, tables, cfg)
 
 
 @pytest.mark.parametrize("name,kw,integer", [
@@ -905,6 +947,7 @@ def test_slice_f32_kernels_take_wide_tables(gpu):
                                               **_plain_kw(cfg, True))
     for q in range(8):
         _lanes_equal(bv[q], bt[q], bpv[q], bpt[q])
+    _k8_slots_equal(eng, tables, cfg)
     n = eng.row_ids.shape[0]
     got = pkernel.spmv_fused_scores_device(*args, cfg=cfg, num_slices=n,
                                            **kw)
@@ -916,10 +959,12 @@ def test_slice_f32_kernels_take_wide_tables(gpu):
 
 @pytest.mark.parametrize("cols", ["16384", "limit"])
 def test_slice_f32_kernels_at_the_shared_memory_limit(gpu, cols):
-    """16384 columns: a 64 KB f32 table, so K8 cuts the default subgroup
-    of 4 to 2; at the widest table a CUDA block's shared memory holds
-    (58112 columns on the H100), to 1. K7, K8 (5 queries) and K9 against
-    their plain versions, bit-equal."""
+    """16384 columns: a 64 KB f32 table, two of them a CUDA block's shared
+    memory holds; the widest table that fits alone (58112 columns on the
+    H100). K7, K8 (5 queries: its pass of 8 tables does not fit beside
+    its buffers, so it reads them from global memory) and K9 against their
+    plain versions, bit-equal; K8's production buffers against its slot
+    plain."""
     limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
     ncols = 16384 if cols == "16384" else limit // 512 * 128
     fit = pkernel.tables_in_smem(4 * ncols, limit)
@@ -942,6 +987,7 @@ def test_slice_f32_kernels_at_the_shared_memory_limit(gpu, cols):
                                               **_plain_kw(cfg, True))
     for q in range(5):
         _lanes_equal(bv[q], bt[q], bpv[q], bpt[q])
+    _k8_slots_equal(eng, bargs[1], cfg)
     n = eng.row_ids.shape[0]
     got = pkernel.spmv_fused_scores_device(*args, cfg=cfg, num_slices=n,
                                            **kw)
@@ -955,10 +1001,11 @@ def test_slice_f32_kernels_at_the_shared_memory_limit(gpu, cols):
 @pytest.mark.parametrize("cols", ["past_limit", "65536"])
 def test_slice_f32_tables_past_shared_memory_read_global(gpu, cols, P):
     """One column group more than a CUDA block's shared memory holds, and
-    the f32 column field's 65,536: no table fits, so K7, K8 (5 queries in
-    the default subgroup of 4) and K9 gather from the tables in global
-    memory, bit-equal to their plain versions, on one partition and on
-    two; the engine's query, query_batch and scores launch them."""
+    the f32 column field's 65,536: no table fits, so K7, K8 (5 queries,
+    a pass of 8) and K9 gather from the tables in global memory, bit-equal
+    to their plain versions, on one partition and on two (K8's production
+    buffers to its slot plain); the engine's query, query_batch and
+    scores launch them."""
     limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
     ncols = limit // 512 * 128 + 128 if cols == "past_limit" else 65536
     assert pkernel.tables_in_smem(4 * ncols, limit) == 0
@@ -983,6 +1030,7 @@ def test_slice_f32_tables_past_shared_memory_read_global(gpu, cols, P):
     bpv, bpt = pkernel.slice_topk_batch_plain(*bargs, **eng.partition_kw,
                                               **_plain_kw(cfg, True))
     _pools_equal(bv, bt, bpv, bpt)
+    _k8_slots_equal(eng, bargs[1], cfg)
     n = eng.row_ids.shape[0]
     got = pkernel.spmv_fused_scores_device(*args, cfg=cfg, num_slices=n,
                                            num_partitions=P, **bs)
@@ -1159,8 +1207,8 @@ def test_partition_kernels_match_plain(gpu, corpus, int_corpus, name, kw,
     """K10a/b (one query), K10c/d (5 queries in subgroups of 2) and the
     partitioned K4/K9 against their plain versions: sorted values
     bit-equal, (value, tag) pairs above each lane's floor, scores
-    bit-equal; at least one partition holds a bucket with no real
-    slice."""
+    bit-equal; K10c's production buffers against its slot plain; at
+    least one partition holds a bucket with no real slice."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              lane_k=lane_k, batch_subgroup=2)
     P = cfg.num_partitions
@@ -1209,6 +1257,8 @@ def test_partition_kernels_match_plain(gpu, corpus, int_corpus, name, kw,
     _pools_equal(kv, kt, *plain[0])
     _pools_equal(bv, bt, *plain[1])
     assert torch.equal(ks, plain[2])
+    if not octet:
+        _k8_slots_equal(eng, bargs[1], cfg)
 
 
 def _offset_real(tv, tt, off):
@@ -1229,10 +1279,11 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
                                         integer):
     """K10a-d's production buffers (tie_safe_topk=False) against the
     per-octet and per-work-item emulations, partition by partition: each
-    partition has fewer octets or work items than it has slots (K10b's,
-    ``octet_topk_grid``; the slice batch's; K10d h16's slots harvest their
-    octets in turn, as ``_emulate_production`` does); K10a's slots
-    (``slice_topk_grid``) harvest their runs of items (``k7_deal``)."""
+    partition has fewer octets than it has slots (K10b's,
+    ``octet_topk_grid``; K10d h16's slots harvest their octets in turn,
+    as ``_emulate_production`` does); K10a's slots (``slice_topk_grid``)
+    and K10c's (``k8_launch``, at fold_tile 1) harvest their runs of
+    items (``k7_deal``)."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              tie_safe_topk=False)
     P = cfg.num_partitions
@@ -1246,8 +1297,7 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
         _, slots = pkernel.octet_h16_grid(3, sms, P, cfg.lane_k)
     else:
         _, nblk = pkernel.slice_topk_grid(gpu, cfg, part_rows, P)
-        _, _, slots = pkernel.batch_grid(3, cfg.batch_subgroup, sms,
-                                         part_rows // 8, P)
+        *_, slots = pkernel.k8_launch(gpu, cfg, 3, P)
     table, _ = eng._table(qs[0])
     kv, kt = eng.candidates(qs[0])
     bv, bt = eng.batch_candidates(tables)
@@ -1266,7 +1316,7 @@ def test_partition_kernels_non_tie_safe(gpu, corpus, int_corpus, name, kw,
                 ev, et = _emulate_slice_production(
                     view, tab, cfg, blocks, fold,
                     deal=pkernel.k7_deal(view.plan_rows, view.nreal, blocks,
-                                         fold) if single else None)
+                                         fold))
             _lanes_equal(got_v, got_t, ev, _offset_real(ev, et, off))
 
 
@@ -1325,7 +1375,8 @@ def _sweeps(octet):
 
 def _codec_agree(eng, cfg, q, qs):
     """The three sweeps of eng under cfg (tie-safe) against their plain
-    versions: pools and scores bit-equal; one launch each."""
+    versions: pools and scores bit-equal; one launch each; K8's (K10c's)
+    production buffers against its slot plain."""
     octet = cfg.fused_layout == "octet"
     bs = cfg.fused_block_sublanes
     P = cfg.num_partitions
@@ -1366,6 +1417,8 @@ def _codec_agree(eng, cfg, q, qs):
     _pools_equal(kv, kt, *plain[0])
     _pools_equal(bv, bt, *plain[1])
     assert torch.equal(ks, plain[2])
+    if not octet:
+        _k8_slots_equal(eng, bargs[1], cfg)
 
 
 @pytest.mark.parametrize("P", [1, 2])
