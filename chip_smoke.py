@@ -38,6 +38,13 @@ every phase runs:
      instantiation's registers and K3's (none may spill). The other small
      slice phases hold K7 to its slot plain too (``_slice_agree``), tie-safe
      and not;
+  2d. ``k6_small``: K6 and K10d (P = 2) for f32, int8x4, i8s and i4s
+     the same way against ``octet_topk_batch_slots_plain`` on the
+     kernel's grid (fold 1 and 8, lane_k 4, 8 and 16, wide octets of 8-
+     and 3-chunk spans, 1, 5 and 33 queries, f32 and int8x4 at 65,536
+     columns: every (kernel codec, pass) of ``k6_pass``), the unmerged
+     launch's slots too; every K6 instantiation's registers (none may
+     spill);
   3. the main path at full size: the 10M x 1024 gamma corpus (seed 1) in
      the headline config, 32 queries through ``TopKSpMV.query()`` held
      against the exact scipy top-100, sweep and end-to-end times, and the
@@ -67,11 +74,11 @@ every phase runs:
      real data, wide octets and wide slices, and at least one partition
      holding a bucket with no real slice; then f32 K7, K8, K9 at 65,536
      columns (tables read from global memory) on one and two partitions;
-  8. the query codecs at 50k rows: K7, K8 (5 queries), K9 for int8x4, i8s and i4s, and K1, K6, K4 for f32,
-     int8x4, i8s and i4s at fold 8 and, with wide octets, fold 1, wide
-     slices, int8x4 at 1536 columns and i4s at 2048 (tables of several
-     rows) and P = 3 partitions of each stream, all against their plain
-     versions, tie-safe, bit-equal;
+  8. the query codecs at 50k rows: K7, K8 (5 queries), K9 for int8x4, i8s
+     and i4s, and K1, K6, K4 for f32, int8x4, i8s and i4s at fold 8 and,
+     with wide octets, fold 1, wide slices, int8x4 at 1536 columns and
+     i4s at 2048 (tables of several rows) and P = 3 partitions of each
+     stream, all against their plain versions, tie-safe, bit-equal;
   9. the library yardsticks on the 10M corpus: one ``torch.sparse.mm`` of
      its CSR (the SpMV kernels' counterpart), and that plus
      ``torch.topk`` (the Top-K sweeps'), for 1, 8 and 32 queries; timed
@@ -99,13 +106,15 @@ every phase runs:
      path bit for bit, and its ``query_batch`` to its ``query()``;
  11. the octet-layout engines on the 10M corpus, each built from its
      config and driven alike (``phase_octet_engine``): the headline
-     config on 2 partitions (K10b, K10d, the partitioned K4), and with
-     each other codec (f32, int8x4, i8s, i4s). Each: 32 ``query()``
-     against the exact top-100, ``query_batch`` of the 32 in one group
-     and the ``batch32_*`` numbers, one ``scores()``, the three kernels
-     held to and timed against their plain versions on the path's
-     shapes (K6 on its group of 32), K1 (K10b) alone on the card with
-     and without its merge and against its slot plain, K3 and its
+     config on 2 partitions (K10b, K10d, the partitioned K4), the same
+     with the f32 codec (``partitioned_octet_f32_path``), and with each
+     other codec (f32, int8x4, i8s, i4s). Each: 32 ``query()`` against
+     the exact top-100, ``query_batch`` of the 32 in one group and the
+     ``batch32_*`` numbers, one ``scores()``, the three kernels held to
+     and timed against their plain versions on the path's shapes (K6 on
+     its group of 32), K1 (K10b) and K6 (K10d) alone on the card with and
+     without their merge and against their slot plains (K6's first 4
+     queries of the group), K6's pass, slots and registers, K3 and its
      library yardstick on the words;
  12. the per-bucket ops K11, K13, K12 over every bucket of
      ``pack_sell_buckets``: at 50k rows every codec against their plain
@@ -208,8 +217,12 @@ C8 = dict(k=100, max_cols=1024, query_codec="i4s", width_quantum=4,
           rescore_pool=400)
 # the int8x4 codec of bench/sweep.py (:79) at c3's geometry
 INT8X4 = dict(C3, query_codec="int8x4")
-# the f32 column field's width: the widest f32 table (256 KB)
+# the f32 column field's width: the widest f32 table (256 KB), and the
+# widest int8x4 table (128 rows, 64 KB)
 F32_MAX_COLS = 65536
+# the kernel codecs of the single-query sweeps (int8x4_global is the batch
+# sweeps' only)
+SINGLE_QUERY_CODECS = {"h16", "f32", "f32_global", "int8x4", "i8s", "i4s"}
 # NVIDIA's data sheet for the H100 SXM (at its 700 W limit): HBM3 bytes
 # per second, and float32 operations per second outside the tensor cores
 # (the rate used for the sweeps' multiply-adds of either codec)
@@ -384,25 +397,12 @@ def _batch_plain_and_kernel(eng, tables, cfg):
 
 
 def _k6_slots_equal(eng, tables, cfg):
-    """Whether K6 h16 (merged on the card) gives ``octet_topk_batch_slots_
+    """Whether K6 (merged on the card) gives ``octet_topk_batch_slots_
     plain``'s pairs on the kernel's grid bit for bit, tags included."""
     import torch
 
-    from spmv_topk_tpu_torch.ops import kernel as K
-
-    args = (eng.words, tables, eng.nreal, eng.plan_rows)
-    bs = eng.fused.block_sublanes
-    kv, kt = K.topk_spmv_fused_batch_octet_device(*args, cfg=cfg,
-                                                  block_sublanes=bs,
-                                                  **eng.partition_kw)
-    sms = torch.cuda.get_device_properties(eng.words.device) \
-        .multi_processor_count
-    _, slots = K.octet_h16_grid(tables.shape[0], sms, cfg.num_partitions,
-                                cfg.lane_k)
-    pv, pt = K.octet_topk_batch_slots_plain(
-        *args, num_slots=slots, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
-        tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
-        **eng.partition_kw)
+    (pv, pt), _ = _batch_slots_plain(eng, tables, cfg, tables.shape[0])
+    kv, kt = _batch_launch(eng, tables, cfg)
     torch.cuda.synchronize()
     return bool(torch.equal(kv, pv) and torch.equal(kt, pt))
 
@@ -564,7 +564,7 @@ def phase_k1_small(dev):
     require(any(c["wide_buckets"] for c in out), "wide octets ran")
     require(any(c["zero_real_buckets"] for c in out if c["partitions"] > 1),
             "a partition holds a bucket with no real slice")
-    require({c["codec"] for c in out} == set(K.KERNEL_CODECS),
+    require({c["codec"] for c in out} == SINGLE_QUERY_CODECS,
             "every codec ran, f32 in shared and in global memory")
     regs = {k: dict(registers=r, spill_bytes=sp)
             for k, (r, sp) in _build.ptxas_report().items()
@@ -639,7 +639,7 @@ def phase_k7_small(dev):
     require(any(K.TILED in c["modes"] for c in out), "sub-tiles ran")
     require(any(c["zero_real_buckets"] for c in out if c["partitions"] > 1),
             "a partition holds a bucket with no real slice")
-    require({c["codec"] for c in out} == set(K.KERNEL_CODECS),
+    require({c["codec"] for c in out} == SINGLE_QUERY_CODECS,
             "every codec ran, f32 in shared and in global memory")
     regs = {k: dict(registers=r, spill_bytes=sp)
             for k, (r, sp) in _build.ptxas_report().items()
@@ -663,9 +663,9 @@ K8_UNITS = dict(h16="slice_topk_batch.cu", f32="slice_topk_batch_f32.cu",
                 int8x4="slice_topk_batch_q.cu", i8s="slice_topk_batch_q.cu",
                 i4s="slice_topk_batch_q.cu")
 # K8's instantiations: h16 passes of 8, 16, 32; f32 in shared memory,
-# int8x4 and Sign (i8s, i4s) passes of 8 and 16, f32 in global memory 8;
-# lane_k 4, 8, 16; tie-safe and not
-K8_INSTANTIATIONS = (3 + 3 * 2 + 1) * 3 * 2
+# int8x4 and Sign (i8s, i4s) passes of 8 and 16, f32 and int8x4 in global
+# memory 8; lane_k 4, 8, 16; tie-safe and not
+K8_INSTANTIATIONS = (3 + 3 * 2 + 2) * 3 * 2
 # the queries of a full-size group whose K8 pairs are held to the slot
 # plain (the kernel runs the whole group, on the group's grid)
 K8_HELD = 4
@@ -677,9 +677,9 @@ def phase_k8_small(dev):
     bit for bit, tags included, merged on the card and the unmerged
     launch's slots: tie-safe and production buffers, every codec at its
     width quantum, lane_k 4, 8 and 16, wide slices, 5 queries (a short
-    pass), 1 and 33 (passes split, the last of one query), and f32 at
-    65,536 columns (tables in global memory); then the registers and spills
-    of every K8 instantiation, of which none may spill."""
+    pass), 1 and 33 (passes split, the last of one query), and f32 and
+    int8x4 at 65,536 columns (tables in global memory); then the registers
+    and spills of every K8 instantiation, of which none may spill."""
     from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
     from spmv_topk_tpu_torch.formats import (create_query_batch,
                                              create_sparse_matrix)
@@ -699,15 +699,16 @@ def phase_k8_small(dev):
     cases += [(coo, qs[:n], dict(base, query_codec=c,
                                  width_quantum=K7_QUANTUM[c]))
               for c in K7_QUANTUM for n in (1, 33)]
-    cases += [(wcoo, wqs, dict(k=100, max_cols=F32_MAX_COLS,
-                               num_partitions=P)) for P in (1, 2)]
+    cases += [(wcoo, wqs, dict(k=100, max_cols=F32_MAX_COLS, query_codec=c,
+                               width_quantum=K7_QUANTUM[c], num_partitions=P))
+              for c in ("f32", "int8x4") for P in (1, 2)]
     out = []
     for corpus, queries, kw in cases:
         cfg = TopKSpMVConfig(**kw)
         eng = TopKSpMV(corpus, cfg, device=dev)
         P = cfg.num_partitions
         tables = _tables(queries, dev, cfg.query_codec)
-        _k8_agree(eng, tables, cfg, f"K8 {len(queries)} queries {kw}")
+        _batch_agree(eng, tables, cfg, f"K8 {len(queries)} queries {kw}")
         codec, qp, passes, slots = K.k8_launch(dev, cfg, len(queries), P)
         out.append(dict(codec=codec, lane_k=cfg.lane_k,
                         fused_block_sublanes=cfg.fused_block_sublanes,
@@ -722,7 +723,7 @@ def phase_k8_small(dev):
     require(any(c["passes"] > 1 and c["queries"] % c["pass_queries"] == 1
                 for c in out), "a pass of one query after full ones ran")
     require({c["codec"] for c in out} == set(K.KERNEL_CODECS),
-            "every codec ran, f32 in shared and in global memory")
+            "every codec ran, f32 and int8x4 in shared and in global memory")
     regs = _k8_registers(_build.ptxas_report())
     require(len(regs) == K8_INSTANTIATIONS,
             f"every K8 instantiation reported ({len(regs)} of "
@@ -740,6 +741,154 @@ def _k8_registers(report):
     return {k: dict(registers=r, spill_bytes=sp)
             for k, (r, sp) in report.items()
             if k.startswith("slice_topk_batch_kernel<")}
+
+
+# K6's cases at 50k rows: (lane_k, fold_tile, fused block sublanes); 64
+# makes wide octets of 8-chunk spans, 24 of 3-chunk spans (a load batch
+# ends at each span's end)
+K6_GEOMS = ((8, 8, 1024), (4, 1, 1024), (16, 8, 64), (8, 1, 24))
+K6_CODECS = ("f32", "int8x4", "i8s", "i4s")
+# K6's translation unit of each codec but h16 (csrc/octet_topk_batch.cuh's
+# instantiations; h16's kernel is octet_topk_batch_h16.cu)
+K6_UNITS = dict(f32="octet_topk_batch_f32.cu",
+                int8x4="octet_topk_batch_int8x4.cu",
+                i8s="octet_topk_batch_i8s.cu", i4s="octet_topk_batch_i4s.cu")
+# K6's instantiations but h16's: f32, int8x4, i8s and i4s passes of 8
+# and 16, f32 and int8x4 in global memory 8; lane_k 4, 8, 16; tie-safe
+# and not; fold 1 and 8
+K6_INSTANTIATIONS = (4 * 2 + 2) * 3 * 2 * 2
+
+
+def phase_k6_small(dev):
+    """K6 and K10d (P = 2) for f32, int8x4, i8s and i4s against their slot
+    plain (``octet_topk_batch_slots_plain`` on the kernel's grid) at 50k
+    rows, bit for bit, tags included, merged on the card and the unmerged
+    launch's slots: tie-safe and production buffers, every codec at its
+    width quantum, fold 1 and 8, lane_k 4, 8 and 16, wide octets (spans of
+    8 and of 3 chunks), 5 queries (a short pass), 1 and 33 (passes split,
+    the last of one query), and f32 and int8x4 at 65,536 columns (tables
+    in global memory), so that every (kernel codec, pass) ``k6_pass`` can
+    give runs; then the registers and spills of every K6 instantiation, of
+    which none may spill."""
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.formats import (create_query_batch,
+                                             create_sparse_matrix)
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    coo = create_sparse_matrix(50_000, NUM_COLS, AVG_DEG, "gamma", seed=7)
+    qs = create_query_batch(33, NUM_COLS, seed=9)
+    wcoo = create_sparse_matrix(20_000, F32_MAX_COLS, AVG_DEG, "gamma",
+                                seed=19)
+    wqs = create_query_batch(5, F32_MAX_COLS, seed=20)
+    base = dict(HEADLINE, rescore_pool=None)
+    cases = [(coo, qs[:5], dict(base, query_codec=c,
+                                width_quantum=K7_QUANTUM[c], lane_k=k,
+                                fold_tile=f, fused_block_sublanes=b,
+                                num_partitions=P))
+             for c in K6_CODECS for k, f, b in K6_GEOMS for P in (1, 2)]
+    cases += [(coo, qs[:n], dict(base, query_codec=c,
+                                 width_quantum=K7_QUANTUM[c]))
+              for c in K6_CODECS for n in (1, 33)]
+    cases += [(wcoo, wqs, dict(base, query_codec=c,
+                               width_quantum=K7_QUANTUM[c],
+                               max_cols=F32_MAX_COLS, num_partitions=P))
+              for c in ("f32", "int8x4") for P in (1, 2)]
+    out = []
+    for corpus, queries, kw in cases:
+        cfg = TopKSpMVConfig(**kw)
+        eng = TopKSpMV(corpus, cfg, device=dev)
+        P = cfg.num_partitions
+        tables = _tables(queries, dev, cfg.query_codec)
+        _batch_agree(eng, tables, cfg, f"K6 {len(queries)} queries {kw}")
+        codec, qp, passes, slots = K.k6_launch(dev, cfg, len(queries), P)
+        out.append(dict(codec=codec, lane_k=cfg.lane_k,
+                        fold_tile=cfg.fold_tile,
+                        fused_block_sublanes=cfg.fused_block_sublanes,
+                        partitions=P, queries=len(queries),
+                        pass_queries=qp, passes=passes, slots=slots,
+                        wide_buckets=sum(p.blocks_per_octet > 1
+                                         for p in eng.fused.plan),
+                        zero_real_buckets=int((eng.nreal == 0).sum()),
+                        slots_plain_equal=True, unmerged_equal=True))
+        del eng
+    require(any(c["wide_buckets"] and c["fused_block_sublanes"] == 24
+                for c in out), "wide octets of 3-chunk spans ran")
+    require(any(c["passes"] > 1 and c["queries"] % c["pass_queries"] == 1
+                for c in out), "a pass of one query after full ones ran")
+    require({(c["codec"], c["pass_queries"]) for c in out} ==
+            {(c, q) for c, qs in K.K6_PASS_QUERIES.items() for q in qs},
+            "every (kernel codec, pass) ran, f32 and int8x4 in shared and "
+            "in global memory")
+    regs = _k6_registers(_build.ptxas_report())
+    require(len(regs) == K6_INSTANTIATIONS,
+            f"every K6 instantiation reported ({len(regs)} of "
+            f"{K6_INSTANTIATIONS})")
+    require(all(v["spill_bytes"] == 0 for v in regs.values()),
+            "no K6 instantiation spills")
+    res = dict(phase="k6_vs_slots_plain_small", rows=coo.num_rows,
+               cases=out, registers=regs, nvidia_smi=smi_line())
+    emit(res)
+    return res
+
+
+def _k6_registers(report):
+    """{K6 instantiation but h16's: registers, spill bytes} of a ptxas
+    report."""
+    return {k: dict(registers=r, spill_bytes=sp)
+            for k, (r, sp) in report.items()
+            if k.startswith("octet_topk_batch_kernel<")}
+
+
+def _k6_instantiation(codec, pass_queries, lane_k, tie_safe, exact,
+                      queries):
+    """The name ``_build.ptxas_report`` gives K6's kernel for a kernel
+    codec (KERNEL_CODECS), pass, lane_k, buffers, fold and a launch of
+    ``queries`` queries (h16 sizes its sums for the first pass's queries
+    rounded up to 8, 16 or 32)."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    q = pass_queries
+    flags = f"{lane_k},{int(tie_safe)},{int(exact)}>"
+    if codec == "h16":
+        live = min(queries, q)
+        nr = 1 if live <= 8 else 2 if live <= 16 else 4
+        return f"octet_topk_batch_h16_kernel<{nr},{flags}"
+    if codec.startswith("f32") or codec == "int8x4_global":
+        c = dict(f32="F32T<1>", f32_global="F32T<0>",
+                 int8x4_global="Int8x4T<0>")[codec]
+        pc = f"FloatPass<{c},{q}>"
+    else:
+        c = "Int8x4T<1>" if codec == "int8x4" else "Sign"
+        pc = f"Bf16Pass<{c},{q},{K.TABLE_FIELDS[codec]}>"
+    return f"octet_topk_batch_kernel<{pc},{flags}"
+
+
+def _k6_times(eng, tables, cfg, key="k6"):
+    """K6's numbers at an octet engine's shapes beyond its wrapper's time:
+    alone on the card with and without its merge and the ``torch.topk``
+    merge of its unmerged slots (``_k6_alone_ms``), its pass, passes and
+    slots, and the registers and spill bytes of the instantiation it
+    launches."""
+    from spmv_topk_tpu_torch.ops import _build
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    P = cfg.num_partitions
+    codec, qp, passes, slots = K.k6_launch(eng.words.device, cfg,
+                                           tables.shape[0], P)
+    alone, unmerged, topk_merge = _k6_alone_ms(eng, tables, cfg)
+    name = _k6_instantiation(codec, qp, cfg.lane_k, bool(cfg.tie_safe_topk),
+                             cfg.fold_tile == 1, tables.shape[0])
+    regs, spill = _build.ptxas_report()[name]
+    groups = 128 // K.batch_block_lanes(qp, cfg.lane_k, codec)
+    return {f"{key}_alone_ms": alone, f"{key}_unmerged_ms": unmerged,
+            f"{key}_card_merge_ms": alone - unmerged,
+            f"{key}_topk_merge_of_the_slots_ms": topk_merge,
+            f"{key}_kernel_codec": codec, f"{key}_pass_queries": qp,
+            f"{key}_passes": passes, f"{key}_slots": slots,
+            f"{key}_cuda_blocks": slots * groups * P * passes,
+            f"{key}_instantiation": name, f"{key}_registers": regs,
+            f"{key}_spill_bytes": spill}
 
 
 def phase_main(dev):
@@ -1094,25 +1243,33 @@ def _k7_deal_balance(eng, slots, fold_tile=None, old=None):
     return out
 
 
-def _k8_slots_plain(eng, tables, cfg, held):
-    """``slice_topk_batch_slots_plain`` on K8's grid for cfg (its buffers
-    tie-safe or not) and a launch of the tables' queries, for the first
-    ``held`` of them, on the engine's partitions: (the merged pairs, each
-    slot's sorted buffers), the merge taken over those buffers
-    (``lane_merge_plain``: its order is total, so sorting first changes
-    nothing)."""
+def _batch_slots_plain(eng, tables, cfg, held):
+    """The slot plain of the engine's batch sweep (K8,
+    ``slice_topk_batch_slots_plain``, on the slice layout; K6,
+    ``octet_topk_batch_slots_plain``, on the octet layout) on its grid for
+    cfg (its buffers tie-safe or not) and a launch of the tables' queries,
+    for the first ``held`` of them, on the engine's partitions: (the
+    merged pairs, each slot's sorted buffers), the merge taken over those
+    buffers (``lane_merge_plain``: its order is total, so sorting first
+    changes nothing)."""
     import torch
 
     from spmv_topk_tpu_torch.ops import kernel as K
 
     P = cfg.num_partitions
-    *_, slots = K.k8_launch(eng.words.device, cfg, tables.shape[0], P)
+    octet = cfg.fused_layout == "octet"
+    launch = K.k6_launch if octet else K.k8_launch
+    *_, slots = launch(eng.words.device, cfg, tables.shape[0], P)
     tables = tables[:held]
-    sv, st = K.slice_topk_batch_slots_plain(
-        eng.words, tables, eng.nreal, eng.plan_rows, num_slots=slots,
-        lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
-        block_sublanes=eng.fused.block_sublanes, codec=cfg.query_codec,
-        merged=False, **eng.partition_kw)
+    kw = dict(num_slots=slots, lane_k=cfg.lane_k,
+              tie_safe=bool(cfg.tie_safe_topk),
+              block_sublanes=eng.fused.block_sublanes, codec=cfg.query_codec,
+              merged=False, **eng.partition_kw)
+    plain = K.octet_topk_batch_slots_plain if octet else \
+        K.slice_topk_batch_slots_plain
+    if octet:
+        kw["fold_tile"] = cfg.fold_tile
+    sv, st = plain(eng.words, tables, eng.nreal, eng.plan_rows, **kw)
     pairs = [K.lane_merge_plain(v, t, cfg.lane_k)
              for v, t in zip(sv.flatten(0, 1), st.flatten(0, 1))]
     shape = (tables.shape[0], *(() if P == 1 else (P,)), cfg.lane_k, 128)
@@ -1120,15 +1277,31 @@ def _k8_slots_plain(eng, tables, cfg, held):
              torch.stack([t for _, t in pairs]).view(shape)), (sv, st))
 
 
-def _k8_agree(eng, tables, cfg, what, held=None):
-    """Require K8 (K10c) under cfg on the tables' queries, tie-safe and
-    with production buffers, to give ``slice_topk_batch_slots_plain``'s
-    pairs on its grid bit for bit, tags included, merged on the card and
-    (the unmerged launch) slot by slot, for the first ``held`` queries (by
+def _batch_launch(eng, tables, cfg, unmerged=False):
+    """The engine's batch sweep (K6 on the octet layout, K8 on the slice
+    layout) under cfg on the tables' queries, through its launch."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    args = (eng.words, tables, eng.nreal, eng.plan_rows,
+            cfg.num_partitions, eng.partition_kw.get("part_slices", 0), cfg)
+    bs = eng.fused.block_sublanes
+    if cfg.fused_layout == "octet":
+        return K.octet_topk_batch_cuda(*args, **K._sweep_kw(cfg, bs),
+                                       unmerged=unmerged)
+    return K._slice_topk_batch_cuda(*args, bs, unmerged=unmerged)
+
+
+def _batch_agree(eng, tables, cfg, what, held=None, plain=True):
+    """Require the engine's batch sweep (K8 / K10c on the slice layout, K6
+    / K10d on the octet layout) under cfg on the tables' queries,
+    tie-safe and with production buffers, to give its slot plain's pairs
+    on its grid bit for bit, tags included, merged on the card and (the
+    unmerged launch) slot by slot, for the first ``held`` queries (by
     default all: the slot plain takes a second or two a query at full
-    size); tie-safe, every query's values those of
-    ``slice_topk_batch_plain`` too. Returns the tie-safe pools' max abs
-    error against ``slice_topk_batch_plain``."""
+    size); tie-safe, every query's values those of the layout's batch
+    plain (``slice_topk_batch_plain``, ``octet_topk_batch_plain``) too
+    unless not ``plain``. Returns the tie-safe pools' max abs error
+    against that plain (None without it)."""
     import dataclasses
 
     import torch
@@ -1136,28 +1309,27 @@ def _k8_agree(eng, tables, cfg, what, held=None):
     from spmv_topk_tpu_torch.ops import kernel as K
 
     args = (eng.words, tables, eng.nreal, eng.plan_rows)
-    bs = eng.fused.block_sublanes
-    P = cfg.num_partitions
+    octet = cfg.fused_layout == "octet"
+    name = "K6" if octet else "K8"
     err = None
     for tie_safe in (True, False):
         tcfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe)
-        kv, kt = K.topk_spmv_fused_batch_device(*args, cfg=tcfg,
-                                                block_sublanes=bs,
-                                                **eng.partition_kw)
-        uv, ut = K._slice_topk_batch_cuda(
-            *args, P, eng.partition_kw.get("part_slices", 0), tcfg, bs,
-            unmerged=True)
+        kv, kt = _batch_launch(eng, tables, tcfg)
+        uv, ut = _batch_launch(eng, tables, tcfg, unmerged=True)
         n = held or tables.shape[0]
-        (pv, pt), (sv, st) = _k8_slots_plain(eng, tables, tcfg, n)
+        (pv, pt), (sv, st) = _batch_slots_plain(eng, tables, tcfg, n)
         torch.cuda.synchronize()
         require(torch.equal(kv[:n], pv) and torch.equal(kt[:n], pt),
-                f"{what} tie_safe={tie_safe}: K8 equals its slot plain")
+                f"{what} tie_safe={tie_safe}: {name} equals its slot plain")
         require(torch.equal(uv[:n], sv) and torch.equal(ut[:n], st),
                 f"{what} tie_safe={tie_safe}: unmerged slots equal the "
                 "plain's")
-        if tie_safe:
-            err = compare_pools(kv, kt, *K.slice_topk_batch_plain(
+        if tie_safe and plain:
+            ref = (K.octet_topk_batch_plain(
+                *args, **K._sweep_kw(tcfg, eng.fused.block_sublanes),
+                **eng.partition_kw) if octet else K.slice_topk_batch_plain(
                 *args, **_slice_plain_kw(tcfg), **eng.partition_kw))
+            err = compare_pools(kv, kt, *ref)
     return err
 
 
@@ -1188,7 +1360,8 @@ def _k8_instantiation(codec, pass_queries, lane_k, tie_safe):
     pc = {"h16": f"H16Pass<{pass_queries}>",
           "f32": f"FloatPass<F32T<1>,{pass_queries}>",
           "f32_global": f"FloatPass<F32T<0>,{pass_queries}>",
-          "int8x4": f"FloatPass<Int8x4,{pass_queries}>",
+          "int8x4": f"FloatPass<Int8x4T<1>,{pass_queries}>",
+          "int8x4_global": f"FloatPass<Int8x4T<0>,{pass_queries}>",
           "i8s": f"FloatPass<Sign,{pass_queries}>",
           "i4s": f"FloatPass<Sign,{pass_queries}>"}[codec]
     return f"slice_topk_batch_kernel<{pc},{lane_k},{int(tie_safe)}>"
@@ -1215,7 +1388,7 @@ def _k8_times(eng, tables, cfg, key="k8"):
     name = _k8_instantiation(codec, qp, cfg.lane_k,
                              bool(cfg.tie_safe_topk))
     regs, spill = _build.ptxas_report()[name]
-    groups = 128 // K.k8_block_lanes(qp, cfg.lane_k, codec)
+    groups = 128 // K.batch_block_lanes(qp, cfg.lane_k, codec)
     return {f"{key}_alone_ms": alone, f"{key}_unmerged_ms": unmerged,
             f"{key}_card_merge_ms": alone - unmerged,
             f"{key}_topk_merge_of_the_slots_ms": topk_merge,
@@ -1250,10 +1423,9 @@ def _k3_library_ms(words, salt, k3_sum):
 
 def _k6_alone_ms(eng, tables, cfg, reps=10):
     """K6 alone on the card, device time (``_device_ms``) on the engine's
-    stream: (the launch, its lane merge included for h16; the launch with
-    the merge left out, ``unmerged``; one per-lane ``torch.topk`` over
-    those unmerged slots, the merge the route before h16's card merge
-    ran)."""
+    stream: (the launch, its lane merge included; the launch with the
+    merge left out, ``unmerged``; one per-lane ``torch.topk`` over those
+    unmerged slots, the merge of the kernels before K6's card merges)."""
     from spmv_topk_tpu_torch.ops import kernel as K
 
     P = eng.config.num_partitions
@@ -1451,8 +1623,8 @@ def _slice_agree(eng, cfg, q, qs, dev, held=None):
     K9's slice scores must be bit-equal, and (value, tag) pairs equal
     above each lane's floor; K7 and K8, tie-safe and with production
     buffers, bit for bit against their slot plains too (``_k7_agree``,
-    ``_k8_agree``, K8's for its first ``held`` queries). Returns the three
-    max abs errors."""
+    ``_batch_agree``, K8's for its first ``held`` queries). Returns the
+    three max abs errors."""
     import torch
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -1466,7 +1638,7 @@ def _slice_agree(eng, cfg, q, qs, dev, held=None):
     n = eng.row_ids.shape[0]
     P = cfg.num_partitions
     k7 = _k7_agree(eng, table, cfg, "K7")
-    k8 = _k8_agree(eng, bargs[1], cfg, f"K8 {len(qs)} queries", held)
+    k8 = _batch_agree(eng, bargs[1], cfg, f"K8 {len(qs)} queries", held)
     ks = K.spmv_fused_scores_device(*args, cfg=cfg, block_sublanes=bs,
                                     num_slices=n, num_partitions=P)
     ps = K.slice_scores_plain(*args, num_slices=n, block_sublanes=bs,
@@ -1739,7 +1911,7 @@ def _k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev):
     path, then its query_batch in groups of 8 the same way (its K10c
     launches); then K10a on its words and table held to its slot plain,
     tie-safe and not, and to ``slice_topk_plain`` (``_k7_agree``), K10c
-    on the first group's tables the same way (``_k8_agree``), each timed
+    on the first group's tables the same way (``_batch_agree``), each timed
     through its wrapper, alone, unmerged and against its plain version."""
     import dataclasses
 
@@ -1780,7 +1952,7 @@ def _k10a_int8x4(coo, eng, qs, gold, gold_bf16, dev):
     require(bprec >= floor, f"the partitioned int8x4 path's batch "
             f"precision@100 {bprec} >= {floor}")
     tables = _tables(qs[:DEFAULT_GROUP], dev, cfg.query_codec)
-    err10c = _k8_agree(e8, tables, cfg, "K10c int8x4", held=K8_HELD)
+    err10c = _batch_agree(e8, tables, cfg, "K10c int8x4", held=K8_HELD)
     table, _ = e8._table(qs[0])
     err = _k7_agree(e8, table, cfg, "K10a int8x4")
     bs = e8.fused.block_sublanes
@@ -2209,7 +2381,6 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
             *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
         f"{k6}_plain_ms": cuda_ms(lambda: K.octet_topk_batch_plain(
             *bargs, **plain_kw), reps=1, warmup=0),
-        f"{k6}_alone_ms": _k6_alone_ms(eng, bargs[1], cfg)[0],
         f"{k4}_ms": cuda_ms(lambda: K.spmv_fused_scores_octet_device(
             *args, cfg=cfg, **skw), reps=20, warmup=2),
         f"{k4}_plain_ms": cuda_ms(lambda: K.octet_scores_plain(
@@ -2219,11 +2390,16 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
         "k3_library_ms": _k3_library_ms(
             eng.words, salt, stream_words_device(eng.words, salt))}
     # K1 (K10b) alone on the card, with and without its lane merge, and
-    # its production buffers against its slot plain, tags included
+    # its production buffers against its slot plain, tags included; K6
+    # (K10d) the same, its pass and registers, its first K8_HELD queries'
+    # production buffers held to its slot plain
     times[f"{k1}_alone_ms"], times[f"{k1}_unmerged_ms"], _ = _k1_alone_ms(
         eng, table, cfg)
     require(_k1_slots_equal(eng, table, cfg),
             f"{name}: {k1} (production buffers) equals its slot plain")
+    times.update(_k6_times(eng, bargs[1], cfg, key=k6))
+    _batch_agree(eng, bargs[1], cfg, f"{name}: {k6}", held=K8_HELD,
+                 plain=False)
     bounds = {k1: sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
               k6: sweep_bound(eng, len(group),
                               topk_out_bytes(eng, len(group))),
@@ -4079,7 +4255,8 @@ def kernel_entry(name, source, replaces, launches, res, key, library_ms,
 # The phases a run can name on the command line, in the order they run,
 # and what each needs run before it (the 10M corpus, its queries and gold
 # sets come with any of the full-size phases).
-PHASES = ("small", "k1_small", "k7_small", "k8_small", "slice_small",
+PHASES = ("small", "k1_small", "k7_small", "k8_small", "k6_small",
+          "slice_small",
           "partition_small",
           "codecs_small", "bucket_small", "labs_small", "sass", "main",
           "library",
@@ -4148,6 +4325,7 @@ def main(argv=()):
     for name, fn in (("small", phase_small), ("k1_small", phase_k1_small),
                      ("k7_small", phase_k7_small),
                      ("k8_small", phase_k8_small),
+                     ("k6_small", phase_k6_small),
                      ("slice_small", phase_slice_small),
                      ("partition_small", phase_partition_small),
                      ("codecs_small", phase_codecs_small),
@@ -4197,6 +4375,10 @@ def main(argv=()):
             R["po"] = phase_octet_engine(
                 coo, csr, qs, gold, dev, "partitioned_octet",
                 dict(HEADLINE, num_partitions=PARTITIONS), p1_octet_bytes)
+            R["pof"] = phase_octet_engine(
+                coo, csr, qs, gold, dev, "partitioned_octet_f32",
+                dict(HEADLINE, query_codec="f32", num_partitions=PARTITIONS),
+                p1_octet_bytes)
             R["oc"] = {codec: phase_octet_engine(
                 coo, csr, qs, gold, dev, f"octet_{codec}",
                 dict(HEADLINE, query_codec=codec), p1_octet_bytes)
@@ -4254,6 +4436,7 @@ def summarize(R, complete):
             octet_scores_h16=R["scores"]["launches"])
     for key, path in (("sl", "slice_path"), ("df", "default_path"),
                       ("po", "partitioned_octet_path"),
+                      ("pof", "partitioned_octet_f32_path"),
                       ("pdf", "partitioned_default_path"),
                       ("c3", None), ("c8", None), ("i8", None),
                       ("bk", "bucket_path"), ("bkh", "bucket_h16_path"),
@@ -4336,6 +4519,21 @@ def summarize(R, complete):
                     spill_bytes=r[f"{kn}_spill_bytes"],
                     template="spmv_topk_tpu_torch/csrc/slice_topk_batch.cuh")
 
+    def k6_extra(r, kn):
+        """K6's keys beside kernel_entry's: alone on the card with its
+        merge and without it, the ``torch.topk`` merge of its unmerged
+        slots, its pass, passes and slots, the registers and spills of its
+        instantiation (``_k6_times``), its template."""
+        return dict(alone_ms=r[f"{kn}_alone_ms"],
+                    unmerged_ms=r[f"{kn}_unmerged_ms"],
+                    topk_merge_of_the_slots_ms=r[
+                        f"{kn}_topk_merge_of_the_slots_ms"],
+                    pass_queries=r[f"{kn}_pass_queries"],
+                    passes=r[f"{kn}_passes"], slots=r[f"{kn}_slots"],
+                    registers=r[f"{kn}_registers"],
+                    spill_bytes=r[f"{kn}_spill_bytes"],
+                    template="spmv_topk_tpu_torch/csrc/octet_topk_batch.cuh")
+
     def slice_entry(name, src, kn, line, q, fq):
         sl, df, sc = R["sl"], R["df"], dict(i8s=R["c3"], i4s=R["c8"],
                                             int8x4=R["i8"])
@@ -4387,8 +4585,9 @@ def summarize(R, complete):
             launches["octet_topk_batch_h16"], R["batch"], "k6",
             lib[f"spmv_topk_{BATCH_GROUP}_ms"], queries=BATCH_GROUP, **two,
             alone_ms=R["batch"]["k6_alone_ms"],
-            **octet_codecs("octet_topk_batch_h16", "octet_topk_batch.cuh",
-                           1641, "k6", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+            **octet_codecs("octet_topk_batch_h16", K6_UNITS, 1641, "k6",
+                           lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                           extra_of=lambda r: k6_extra(r, "k6"),
                            queries=BATCH_GROUP, **two))),
         (("main_res", "scores", "oc", "lib"), lambda: kernel_entry(
             "octet_scores_h16", "octet_scores.cu", f"{ker}:2039",
@@ -4408,32 +4607,52 @@ def summarize(R, complete):
             ("slice_scores", "slice_scores.cu", "k9", 1909, 1, 1))),
         # K10a-d and the partitioned K4/K9: the same kernels with a
         # partition axis, on the partitioned paths
-        (("po", "sharded", "lib"), lambda: kernel_entry(
+        (("po", "pof", "sharded", "lib"), lambda: kernel_entry(
             "octet_topk_h16_partitioned", K1_UNITS["h16"], f"{ker}:1116",
             R["po"]["launches"]["octet_topk_h16"], R["po"], "k10b", topk1,
             partitions=PARTITIONS, **two, **k1_extra(R["po"], "k10b"),
+            f32=kernel_entry(
+                "octet_topk_f32_partitioned", K1_UNITS["f32"],
+                f"{ker}:1116", R["pof"]["launches"]["octet_topk_f32"],
+                R["pof"], "k10b", topk1, partitions=PARTITIONS,
+                path="partitioned_octet_f32_path", **two,
+                **k1_extra(R["pof"], "k10b")),
             i4s=kernel_entry(
                 "octet_topk_i4s_partitioned", K1_UNITS["i4s"],
                 f"{ker}:1116", sharded("octet_i4s_p2")["launches"][
                     "octet_topk"], sharded("octet_i4s_p2"), "k10b", topk1,
                 partitions=PARTITIONS, path="sharded_octet_i4s_p2",
                 **two, **k1_extra(sharded("octet_i4s_p2"), "k10b")))),
-        (("po", "sharded", "lib"), lambda: kernel_entry(
+        (("po", "pof", "sharded", "lib"), lambda: kernel_entry(
             "octet_topk_batch_h16_partitioned", "octet_topk_batch_h16.cu",
             f"{ker}:1693", R["po"]["launches"]["octet_topk_batch_h16"],
             R["po"], "k10d", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
             partitions=PARTITIONS, queries=BATCH_GROUP, **two,
-            alone_ms=R["po"]["k10d_alone_ms"],
+            **dict(k6_extra(R["po"], "k10d"),
+                   template="spmv_topk_tpu_torch/csrc/"
+                   "octet_topk_batch_h16.cu"),
+            f32=kernel_entry(
+                "octet_topk_batch_f32_partitioned", K6_UNITS["f32"],
+                f"{ker}:1693", R["pof"]["launches"]["octet_topk_batch_f32"],
+                R["pof"], "k10d", lib[f"spmv_topk_{BATCH_GROUP}_ms"],
+                partitions=PARTITIONS, queries=BATCH_GROUP,
+                path="partitioned_octet_f32_path", **two,
+                **k6_extra(R["pof"], "k10d")),
             i4s=kernel_entry(
-                "octet_topk_batch_i4s_partitioned", "octet_topk_batch.cuh",
+                "octet_topk_batch_i4s_partitioned", K6_UNITS["i4s"],
                 f"{ker}:1693", sharded("octet_i4s_p2")["launches"][
                     "octet_topk_batch"], sharded("octet_i4s_p2"), "k10d",
                 lib[f"spmv_topk_{BATCH_GROUP}_ms"], partitions=PARTITIONS,
                 queries=BATCH_GROUP, path="sharded_octet_i4s_p2", **two))),
-        (("po", "lib"), lambda: kernel_entry(
+        (("po", "pof", "lib"), lambda: kernel_entry(
             "octet_scores_h16_partitioned", "octet_scores.cu",
             f"{ker}:2039", R["po"]["launches"]["octet_scores_h16"], R["po"],
-            "k4", spmv, partitions=PARTITIONS, **one)),
+            "k4", spmv, partitions=PARTITIONS, **one,
+            f32=kernel_entry(
+                "octet_scores_f32_partitioned", "octet_scores.cu",
+                f"{ker}:2039", R["pof"]["launches"]["octet_scores_f32"],
+                R["pof"], "k4", spmv, partitions=PARTITIONS,
+                path="partitioned_octet_f32_path", **one))),
         (("pdf", "sharded", "lib"), lambda: kernel_entry(
             "slice_topk_partitioned", K7_UNITS["f32"], f"{ker}:927",
             R["pdf"]["launches"]["slice_topk"], R["pdf"], "k7", topk1,

@@ -41,7 +41,7 @@ constexpr int kLanes = 128;
 
 // The kernels' codec argument: ops/kernel.py::KERNEL_CODECS lists the same
 // names in the same order (a CPU test holds the two together).
-enum Codec { kH16, kF32, kF32Global, kInt8x4, kI8s, kI4s, kNumCodecs };
+enum Codec { kH16, kF32, kF32Global, kInt8x4, kI8s, kI4s, kInt8x4Global, kNumCodecs };
 
 // Sign's final arithmetic shift for the i8s and i4s codec arguments.
 inline int sign_shift(int codec) { return codec == kI4s ? 28 : 24; }
@@ -139,9 +139,10 @@ struct F32T : FloatCodec<F32T<SHARED>> {
 using F32 = F32T<true>;
 using F32Global = F32T<false>;
 
-struct Int8x4 : FloatCodec<Int8x4> {
+template <bool SHARED>
+struct Int8x4T : FloatCodec<Int8x4T<SHARED>> {
   using Tab = int32_t;
-  static constexpr bool kShared = true;
+  static constexpr bool kShared = SHARED;
   struct Dec {
     uint32_t idx, sh;
     float val;
@@ -156,6 +157,8 @@ struct Int8x4 : FloatCodec<Int8x4> {
     return __fmul_rn(d.val, static_cast<float>(byte - 128));
   }
 };
+using Int8x4 = Int8x4T<true>;
+using Int8x4Global = Int8x4T<false>;   // the batch sweeps' tables past shared memory
 
 struct Sign : FloatCodec<Sign> {
   using Tab = int32_t;
@@ -235,11 +238,11 @@ inline size_t table_smem_bytes(int rows) {
 }
 
 // ------------------------------------------------------------- multi-query
-// The batch sweeps K6 (but for h16) and K12 hold a subgroup of at most 8
-// queries (QG, the subgroup rounded up to a power of two) in one CUDA
-// block. load() fills shared memory with the subgroup's tables and returns
-// what add() gathers from; add() adds word u's product for every query to
-// acc[QG]. smem_bytes() is the dynamic shared memory load() takes.
+// The batch sweep K12 holds a subgroup of at most 8 queries (QG, the
+// subgroup rounded up to a power of two) in one CUDA block. load() fills
+// shared memory with the subgroup's tables and returns what add() gathers
+// from; add() adds word u's product for every query to acc[QG].
+// smem_bytes() is the dynamic shared memory load() takes.
 
 // h16 (K12): the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
 // repacked into tab[1024]: entry c (a 10-bit column) holds that column's
@@ -460,8 +463,8 @@ struct BatchOf<H16> {
 };
 
 // ------------------------------------------------------------ K8's passes
-// K8 (slice_topk_batch.cuh) reads each word of the stream once for a pass
-// of QP queries. A pass codec: Sums, one member's sums for every query of
+// K8 (slice_topk_batch.cuh) and K6 but h16 (octet_topk_batch.cuh) read
+// each word of the stream once for a pass of QP queries. A pass codec: Sums, one member's sums for every query of
 // the pass; table_bytes(rows), the shared memory of the pass's tables;
 // load(), their fill by a block's threads; view(), what add() reads; add(),
 // up to kWords words of a member (those below `left`) added to the sums in
@@ -522,10 +525,10 @@ __device__ __forceinline__ T entry_of(uint32_t bits) {
 // rounded product and add a query. Word r of entry e sits at 16-byte
 // index e S + (r ^ swizzle(e)), swizzle(e) = (e / (8 / S)) % S, so that the
 // r-th gathers of a warp's random entries spread over all 8 bank groups
-// of 16 bytes (e S alone would give 8 / S of them). An f32 table past
-// shared memory (F32Global) stays in global memory, the caller's (Q,
-// rows, 128) tables, one read-only 4-byte gather a query (queries past nq
-// read query q0's).
+// of 16 bytes (e S alone would give 8 / S of them). An f32 or int8x4
+// table past shared memory (F32Global, Int8x4Global) stays in global
+// memory, the caller's (Q, rows, 128) tables, one read-only 4-byte gather
+// a query (queries past nq read query q0's).
 template <class C, int QP>
 struct FloatPass {
   static_assert(QP == 8 || QP == 16, "float passes are 8 or 16 queries");
@@ -593,6 +596,121 @@ struct FloatPass {
   __device__ static __forceinline__ float finish(const Sums& s, int q) { return s.acc[q]; }
 };
 
+// ------------------------------------------------------------ K6's passes
+// K6 (octet_topk_batch.cuh) reads the quantized codecs (C Int8x4 or Sign)
+// against a pass table of QP 8, 16 or 32 queries that holds each query's
+// decoded field as a bf16 value: a table entry (row e / 128, lane e % 128)
+// holds F fields (int8x4 and i8s 4 bytes, i4s 8 nibbles), and field f of
+// entry e is column c = e F + (f ^ turn(e)) of the pass table, 2 QP bytes
+// in S = QP / 8 16-byte words, word r holding queries 8r .. 8r + 7 as
+// bf16 pairs (query 8r + 2k in the low half of its 32-bit word k, 8r +
+// 2k + 1 in the high half; 0 past the pass's nq), at 16-byte index c S +
+// (r ^ swizzle(c)), FloatPass's swizzle. The field's place in its entry's
+// F columns turns with the entry: the warp's 32 rows at one word index
+// hold columns near each other (a row's nnz are in column order), so
+// mostly one field index f, and with c = e F + f the gathers would all
+// fall on one or two of the 8 bank groups of 16 bytes (c mod 8 would be
+// f, or f and e's parity); with the turn, turn(e) = (e / (8 / F)) % F,
+// c mod 8 follows the entry's lane. A field's value is an integer of at
+// most 8 bits (int8x4: byte - 128; i8s, i4s: the signed byte or nibble),
+// exact in bf16, so the table's value is the float the codec's product
+// takes, and a query's product is one shift or mask of the gathered word
+// (its bits to a float's top half) and the rounded multiply and add: no
+// int-to-float conversion in the sweep, and an eighth (i4s: a sixteenth)
+// of the bytes FloatPass gathers per query.
+//
+// Which field a word names: int8x4's byte (w >> 20) & 24 is byte-aligned
+// by its decode; the sign-layout codecs' shift a = (w >> 24) & 31 names
+// field a / 8 (i8s, a in {0, 8, 16, 24}) or a / 4 (i4s, a a multiple of
+// 4), which is what ops/quantized_query.py::encode_words_sign_layout
+// writes (i8s shifts of 24 - 8 index, i4s 28 - 4 index). A word with
+// another shift reads the field below it: the pass table assumes the
+// packer's words (ops/kernel.py::octet_topk_batch_slots_plain).
+template <class C, int QP, int F>
+struct Bf16Pass {
+  static_assert(QP == 8 || QP == 16 || QP == 32, "bf16 passes are 8, 16 or 32 queries");
+  static_assert(F == 4 || F == 8, "4 bytes or 8 nibbles an entry");
+  static constexpr int kQueries = QP;
+  static constexpr bool kExact = false;
+  static constexpr int kWords = QP / 8;   // S
+  struct Sums {
+    float acc[QP];
+  };
+  __host__ __device__ static int swizzle(uint32_t c) { return (c / (8 / kWords)) % kWords; }
+  __host__ __device__ static uint32_t turn(uint32_t e) { return (e / (8 / F)) % F; }
+  __host__ __device__ static size_t table_bytes(int rows) {
+    return (size_t)2 * QP * F * rows * kLanes;
+  }
+  // field f of table entry `entry`, the value the codec's product takes
+  __device__ static __forceinline__ int32_t field(uint32_t entry, int f) {
+    if constexpr (std::is_same_v<C, Int8x4>)
+      return static_cast<int32_t>((entry >> (8 * f)) & 0xFFu) - 128;
+    else if constexpr (F == 4)
+      return static_cast<int32_t>(entry << (8 * f)) >> 24;
+    else
+      return static_cast<int32_t>(entry << (4 * f)) >> 28;
+  }
+  __device__ static __forceinline__ uint32_t bf16_of(int32_t q) {
+    return __float_as_uint(static_cast<float>(q)) >> 16;   // exact: |q| <= 128
+  }
+  __device__ static __forceinline__ void load(unsigned char* smem, const void* tables, int q0,
+                                              int nq, int rows, int t, int threads) {
+    const int entries = rows * kLanes, cols = entries * F;
+    const uint32_t* src = static_cast<const uint32_t*>(tables);
+    uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
+    for (int i = t; i < cols * (QP / 2); i += threads) {
+      const int j = i / cols, c = i % cols;   // query pair j: queries 2j, 2j + 1
+      const int e = c / F, f = (c % F) ^ turn(e);
+      uint32_t pair = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (2 * j + h < nq)
+          pair |= bf16_of(field(__ldg(src + (int64_t)(q0 + 2 * j + h) * entries + e), f))
+                  << (16 * h);
+      tab[(c * kWords + ((j / 4) ^ swizzle(c))) * 4 + j % 4] = pair;
+    }
+  }
+  __device__ static __forceinline__ void clear(Sums& s) {
+#pragma unroll
+    for (int q = 0; q < QP; ++q) s.acc[q] = 0.0f;
+  }
+  __device__ static __forceinline__ void add_word(Sums& s, uint32_t u, const PassView& v) {
+    const typename C::Dec d = C::decode(u, Table<int32_t>{nullptr, v.rows, v.shift});
+    uint32_t f;
+    if constexpr (std::is_same_v<C, Int8x4>)
+      f = d.sh >> 3;
+    else
+      f = F == 4 ? d.a >> 3 : d.a >> 2;
+    const uint32_t c = d.idx * F + (f ^ turn(d.idx));
+    const uint4* g = reinterpret_cast<const uint4*>(v.tab) + c * kWords;
+    const int sw = swizzle(c);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {
+      const uint4 x = g[r ^ sw];
+      const uint32_t e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float* a = s.acc + 8 * r + 2 * k;
+        a[0] = __fadd_rn(a[0], __fmul_rn(d.val, __uint_as_float(e[k] << 16)));
+        a[1] = __fadd_rn(a[1], __fmul_rn(d.val, __uint_as_float(e[k] & 0xFFFF0000u)));
+      }
+    }
+  }
+  template <int N>
+  __device__ static __forceinline__ void add(Sums& s, const uint32_t (&w)[N], int left,
+                                             const PassView& v) {
+    if (left >= N) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) add_word(s, w[i], v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        if (i < left) add_word(s, w[i], v);
+    }
+  }
+  __device__ static __forceinline__ float finish(const Sums& s, int q) { return s.acc[q]; }
+};
+
 // The pass codec of a single-query codec and a pass size.
 template <class C, int QP>
 struct PassOf {
@@ -612,15 +730,17 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // dispatch(codec, f) calls f(Tag<C>{}) with the single-query codec C of a
-// codec argument (f32 in shared or global memory; i8s and i4s are Sign),
-// or returns cudaErrorInvalidValue. The codecs of `only` (a bit per codec
-// argument) are the ones this translation unit instantiates.
+// codec argument (f32 and int8x4 in shared or global memory; i8s and i4s
+// are Sign), or returns cudaErrorInvalidValue. The codecs of `only` (a bit
+// per codec argument) are the ones this translation unit instantiates.
 template <class C>
 struct Tag {
   using type = C;
 };
 
-constexpr unsigned kAllCodecs = (1u << kNumCodecs) - 1;
+// every codec argument but int8x4_global, which only the batch sweeps K6
+// and K8 take (their int8x4 pass tables past shared memory)
+constexpr unsigned kAllCodecs = (1u << kInt8x4Global) - 1;
 
 template <unsigned only = kAllCodecs, class F>
 inline cudaError_t dispatch(int codec, F&& f) {
@@ -635,6 +755,8 @@ inline cudaError_t dispatch(int codec, F&& f) {
     if (codec == kInt8x4) return f(Tag<Int8x4>{});
   if constexpr ((only >> kI8s & 1u) || (only >> kI4s & 1u))
     if (codec == kI8s || codec == kI4s) return f(Tag<Sign>{});
+  if constexpr (only >> kInt8x4Global & 1u)
+    if (codec == kInt8x4Global) return f(Tag<Int8x4Global>{});
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
-// The lane merge on the card, shared by K13 (bucket_topk.cu), K6 h16
-// (octet_topk_batch_h16.cu), K1 (octet_topk.cuh), K7 (slice_topk.cuh) and
-// K8 (slice_topk_batch.cuh):
+// The lane merge on the card, shared by K13 (bucket_topk.cu), K6
+// (octet_topk_batch_h16.cu, octet_topk_batch.cuh), K1 (octet_topk.cuh), K7
+// (slice_topk.cuh) and K8 (slice_topk_batch.cuh; the batch sweeps through
+// batch_sweep.cuh::merge_pass):
 // sorted per-lane lists of K (value, tag) entries, merged in the order
 // value descending, then tag ascending, and the tickets that elect the
 // last block of a set of blocks to merge the set's lists

@@ -102,7 +102,7 @@ __device__ __forceinline__ float buffer_min(const float (&tv)[K]) {
 }
 
 // harvest of the octet's member scores sc (consumed) into a lane buffer
-// whose minimum tmin is kept beside it (K6 h16, K1): the same
+// whose minimum tmin is kept beside it (K6, K1): the same
 // replacements, but a round of the top-3 fold whose candidate is below
 // the minimum ends the harvest (the later rounds' candidates are no
 // larger, and the minimum only rises), and the minimum is found once per
@@ -257,64 +257,6 @@ __device__ __forceinline__ void octet_sums(const Octet& oc, const codec::Table<t
         const float part = __fadd_rn(even[m], odd[m]);
         sc[m] = wide ? __fadd_rn(sc[m], part) : part;
       }
-    }
-  }
-}
-
-// The same for each query of a batch subgroup (batch codec B, K6's order,
-// _fused_kernel_batch_octet): h16 in int32 as above; the float codecs add
-// each block span's chunks into one accumulator per query from 0, in chunk
-// order, and a wide octet its span sums in block order.
-template <class B, int QG>
-__device__ __forceinline__ void octet_sums_batch(const Octet& oc,
-                                                 const codec::Table<unsigned char>& t, int nq,
-                                                 int chunks_per_block,
-                                                 float (&sc)[kMembers][QG]) {
-  if constexpr (B::kExact) {
-    // one loop over the W chunks, as K1's h16 sums (with the block spans'
-    // loop nest around it, nvcc scheduled QG = 2 with half the loads in
-    // flight, and the sweep took twice as long)
-    typename B::Acc acc[kMembers][QG];
-#pragma unroll
-    for (int m = 0; m < kMembers; ++m)
-#pragma unroll
-      for (int dq = 0; dq < QG; ++dq) acc[m][dq] = 0;
-#pragma unroll 2
-    for (int j = 0; j < oc.width; ++j) {
-      const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
-#pragma unroll
-      for (int m = 0; m < kMembers; ++m)
-        B::template add<QG>(acc[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t, nq);
-    }
-#pragma unroll
-    for (int m = 0; m < kMembers; ++m)
-#pragma unroll
-      for (int dq = 0; dq < QG; ++dq) sc[m][dq] = B::finish(acc[m][dq]);
-  } else {
-    const bool wide = oc.width > chunks_per_block;
-#pragma unroll
-    for (int m = 0; m < kMembers; ++m)
-#pragma unroll
-      for (int dq = 0; dq < QG; ++dq) sc[m][dq] = 0.0f;
-    for (int j0 = 0; j0 < oc.width; j0 += chunks_per_block) {
-      const int j1 = min(oc.width, j0 + chunks_per_block);
-      float acc[kMembers][QG];
-#pragma unroll
-      for (int m = 0; m < kMembers; ++m)
-#pragma unroll
-        for (int dq = 0; dq < QG; ++dq) acc[m][dq] = 0.0f;
-#pragma unroll 2
-      for (int j = j0; j < j1; ++j) {
-        const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
-#pragma unroll
-        for (int m = 0; m < kMembers; ++m)
-          B::template add<QG>(acc[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t, nq);
-      }
-#pragma unroll
-      for (int m = 0; m < kMembers; ++m)
-#pragma unroll
-        for (int dq = 0; dq < QG; ++dq)
-          sc[m][dq] = wide ? __fadd_rn(sc[m][dq], acc[m][dq]) : acc[m][dq];
     }
   }
 }

@@ -5,10 +5,10 @@
 // Replaces the h16 route of spmv_topk_tpu/ops/kernel.py::
 // _fused_kernel_batch_octet (the pallas_calls of
 // topk_spmv_fused_batch_octet_device and, with P row partitions,
-// topk_spmv_fused_batch_octet_part_device). The other codecs keep
-// octet_topk_batch.cuh.
+// topk_spmv_fused_batch_octet_part_device). The other codecs' sweep,
+// octet_topk_batch.cuh, has this kernel's design.
 //
-// What it computes. What octet_topk_batch.cuh computes for h16: for each
+// What it computes. For each
 // query, every octet's 8 member scores (int32 sums of the word products,
 // exact, converted once), members past the bucket's real slices -inf,
 // harvested (top 3 of 8, or every member with fold_tile 1: EXACT) into
@@ -28,17 +28,16 @@
 // the stream is read once per pass of 32 queries, by one warp, 128
 // contiguous bytes a row; the loads run two batches ahead, into the next
 // octet. The member sums go through shared memory to the harvest. The
-// (lane, query) buffers live in shared memory, with their minima: thread
-// (lane, m) compares the octet's largest member of queries m, m + 8, ...
-// with the minimum, and only the pairs that can enter (at first most of
-// them, soon a few) go on a queue that every thread then takes from, so a
-// replacement costs a warp only where a pair needs it. Three barriers an
-// octet. Blocks grid-stride over the octets, one block an SM (the
-// registers of 512 threads; the shared memory); the grid is (slots x lane
-// groups, partitions, passes of 32 queries). The merge: each block sorts
+// (lane, query) buffers live in shared memory, with their minima, behind
+// the harvest queue of batch_sweep.cuh (shared with K6's other codecs and
+// K8): only the pairs that can enter (at first most of them, soon a few)
+// are harvested. Three barriers an octet. Blocks grid-stride over the
+// octets, one block an SM (the registers of 512 threads; the shared
+// memory); the grid is (slots x lane groups, partitions, passes of 32
+// queries). The merge: each block sorts
 // its buffers into the workspace, a ticket elects the last block of each
 // set of about sqrt(slots) slots to merge the set's, a second ticket the
-// last set (as K13 does).
+// last set (as K13 does; batch_sweep.cuh::merge_pass).
 //
 // Bound. Per word and pass: one coalesced load, two 16-byte gathers and
 // about 66 instructions, 33 of them dp2a, for 32 queries. At the 10M x
@@ -50,8 +49,7 @@
 // (chip_smoke.py, batch phase; the work an octet beside the products, at
 // about 11 words a member, is most of the difference).
 
-#include "lane_merge.cuh"
-#include "octet_common.cuh"
+#include "batch_sweep.cuh"
 
 namespace k6h16 {
 
@@ -116,16 +114,7 @@ octet_topk_batch_h16_kernel(const int32_t* __restrict__ words, const int32_t* __
   const int q0 = blockIdx.z * codec::kH16x32Queries;
   const int nq = min(QP, num_queries - q0);
   H16x32::load<NR>(reinterpret_cast<uint32_t*>(smem), tables, q0, nq, threadIdx.x, T);
-  {
-    float iv[K];
-    int32_t it[K];
-    topk_init<K, TIE_SAFE>(iv, it);
-    for (int i = threadIdx.x; i < QP * K * L; i += T) {
-      buf_v[i] = iv[(i / L) % K];
-      buf_t[i] = 0;
-    }
-    for (int i = threadIdx.x; i < QP * L; i += T) buf_min[i] = buffer_min(iv);
-  }
+  batch::init_buffers<K, TIE_SAFE, QP, L, T>(buf_v, buf_t, buf_min);
   if (threadIdx.x == 0) queued = 0;
   __syncthreads();
 
@@ -197,119 +186,12 @@ octet_topk_batch_h16_kernel(const int32_t* __restrict__ words, const int32_t* __
     g += num_slots;
     oc = next(g);
     __syncthreads();
-    // The harvest. Thread (lane, member) checks queries member, member + 8,
-    // ...: a (lane, query) pair goes on the queue when the octet's
-    // largest member is not below its buffer's minimum (member 0 is real,
-    // so the largest is a sum); below it, nothing of the octet enters.
-    const int32_t* in = sums + lane;
-    auto real = [&](int m) { return cur.index + m * cur.stride < cur.n_real; };
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const int q = member + 8 * i;
-      if (q >= nq) break;   // uniform in the warp
-      int32_t top = in[q * kMembers * L];
-#pragma unroll
-      for (int m = 1; m < kMembers; ++m)
-        if (real(m)) top = max(top, in[(q * kMembers + m) * L]);
-      const bool enter = static_cast<float>(top) >= buf_min[q * L + lane];
-      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, enter);
-      if (ballot) {
-        const int leader = __ffs(ballot) - 1;
-        int at = 0;
-        if (threadIdx.x % 32 == leader) at = atomicAdd(&queued, __popc(ballot));
-        at = __shfl_sync(0xFFFFFFFFu, at, leader);
-        if (enter)
-          queue[at + __popc(ballot & ((1u << (threadIdx.x % 32)) - 1u))] =
-              static_cast<uint16_t>(q * L + lane);
-      }
-    }
-    __syncthreads();
-    // Each queued pair harvested by one thread, its buffer read from and
-    // written back to shared memory.
-    const int n = queued;
-    for (int e = threadIdx.x; e < n; e += T) {
-      const int pair = queue[e];
-      const int q = pair / L, l = pair % L;
-      float tv[K], sc[kMembers];
-      int32_t tt[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        tv[k] = buf_v[(q * K + k) * L + l];
-        tt[k] = buf_t[(q * K + k) * L + l];
-      }
-#pragma unroll
-      for (int m = 0; m < kMembers; ++m)
-        sc[m] = real(m) ? static_cast<float>(sums[(q * kMembers + m) * L + l]) : -INFINITY;
-      float tmin = buf_min[q * L + l];
-      harvest_above<K, TIE_SAFE, EXACT>(tv, tt, tmin, sc, part.tag_offset + cur.slice0,
-                                        cur.stride);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        buf_v[(q * K + k) * L + l] = tv[k];
-        buf_t[(q * K + k) * L + l] = tt[k];
-      }
-      buf_min[q * L + l] = tmin;
-    }
-    __syncthreads();   // the sums, the buffers and the queue are free again
-    if (threadIdx.x == 0) queued = 0;
+    batch::octet_harvest<K, TIE_SAFE, EXACT, QP, L>(sums, buf_v, buf_t, buf_min, queue, queued,
+                                                   cur, part.tag_offset + cur.slice0, member,
+                                                   lane, nq);
   }
-
-  // The lane merge (lane_merge.cuh). 1. Each (lane, query) buffer,
-  // sorted, to the slot's list of the query and partition: list
-  // (q * P + p) * num_slots + slot of the workspace.
-  const int P = gridDim.y, p = blockIdx.y;
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int q = member + 8 * i;
-    if (q >= nq) break;
-    float tv[K];
-    int32_t tt[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      tv[k] = buf_v[(q * K + k) * L + lane];
-      tt[k] = buf_t[(q * K + k) * L + lane];
-    }
-    sort<K>(tv, tt);
-    store<K>(tv, tt, ws_v, ws_t, ((q0 + q) * P + p) * num_slots + slot, stream_lane);
-  }
-  if (!merged) return;
-  // 2. The last block of each set of set_size slots (a ticket per set, for
-  // each lane group, partition and pass) merges the set's lists into the
-  // set's list, after the slots' lists, or into the outputs when there is
-  // one set; 3. the last set's merges the set lists into the outputs.
-  const int sets = (num_slots + set_size - 1) / set_size;
-  const int set = slot / set_size, first = set * set_size;
-  const int in_set = min(set_size, num_slots - first);
-  unsigned* ticket =
-      tickets + (((int64_t)blockIdx.z * P + p) * kGroups + blockIdx.x % kGroups) * (1 + sets);
-  const int64_t set_lists = (int64_t)num_queries * P * num_slots;
-  if (!arrive(ticket + 1 + set, in_set)) return;
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int q = member + 8 * i;
-    if (q >= nq) break;
-    const int64_t qp = (int64_t)(q0 + q) * P + p;
-    float tv[K];
-    int32_t tt[K];
-    gather<K, 1>(tv, tt, ws_v + qp * num_slots * K * kLanes, ws_t + qp * num_slots * K * kLanes,
-                 first, in_set, 0, stream_lane);
-    if (sets == 1)
-      store<K>(tv, tt, out_v, out_t, qp, stream_lane);
-    else
-      store<K>(tv, tt, ws_v, ws_t, set_lists + qp * sets + set, stream_lane);
-  }
-  if (sets == 1 || !arrive(ticket, sets)) return;
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int q = member + 8 * i;
-    if (q >= nq) break;
-    const int64_t qp = (int64_t)(q0 + q) * P + p;
-    float tv[K];
-    int32_t tt[K];
-    gather<K, 1>(tv, tt, ws_v + (set_lists + qp * sets) * K * kLanes,
-                 ws_t + (set_lists + qp * sets) * K * kLanes, 0, sets, 0, stream_lane);
-    store<K>(tv, tt, out_v, out_t, qp, stream_lane);
-  }
+  batch::merge_pass<K, QP, L>(buf_v, buf_t, member, lane, q0, nq, num_queries, merged, set_size,
+                              ws_v, ws_t, tickets, out_v, out_t);
 }
 
 struct Args {

@@ -16,9 +16,10 @@ extern "C" {
 //     codecs.cuh::kH16x32MaxWidth), 6 table_rows, 7 codec
 //     (codecs.cuh::Codec), 8 lane_k, 9 tie_safe;
 //   10 num_queries Q; 11 pass_queries: queries a pass reads the stream
-//     for (h16 8, 16 or 32; the others 8 or 16), ceil(Q / pass_queries)
+//     for (h16 8, 16 or 32; the others 8 or 16, tables in global memory
+//     8), ceil(Q / pass_queries)
 //     passes; 12 slots: a partition's and a pass's, 128 / block lanes
-//     CUDA blocks each (ops/kernel.py::k8_grid); 13 num_partitions;
+//     CUDA blocks each (ops/kernel.py::pass_grid); 13 num_partitions;
 //     14 part_rows; 15 part_slices: slice tags a partition;
 //   16 merged: 0 leaves each slot's sorted buffers in the workspace,
 //      (Q, num_partitions, slots, lane_k, 128) values then tags, and runs

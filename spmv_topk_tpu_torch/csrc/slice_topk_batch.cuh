@@ -2,8 +2,8 @@
 // for Hopper (sm_90a), every query codec, the lane merge included.
 // slice_topk_batch.cu holds the h16 instantiations and the C entry point,
 // slice_topk_batch_f32.cu the f32 ones (tables in shared or global memory)
-// and slice_topk_batch_q.cu int8x4's, i8s's and i4s's (translation units
-// of their own, so that nvcc builds them in parallel).
+// and slice_topk_batch_q.cu int8x4's (likewise), i8s's and i4s's
+// (translation units of their own, so that nvcc builds them in parallel).
 //
 // Replaces spmv_topk_tpu/ops/kernel.py::_fused_kernel_batch (:1150): the
 // pallas_calls of topk_spmv_fused_batch_device (:1381) and, with P row
@@ -44,7 +44,7 @@
 // of queries m, m + 8, ... with the minimum, and only the pairs that can
 // enter go on a queue that every thread then takes from (K6 h16's
 // harvest). Passes, partitions and slots are the grid's axes, one block an
-// SM (ops/kernel.py::k8_grid). The merge: each block sorts its buffers
+// SM (ops/kernel.py::pass_grid). The merge: each block sorts its buffers
 // into the workspace, a ticket elects the last block of each set of about
 // sqrt(slots) slots to merge the set's, a second ticket the last set
 // (K6 h16's); no torch op runs after the launch.
@@ -59,6 +59,7 @@
 
 #pragma once
 
+#include "batch_sweep.cuh"
 #include "slice_topk.cuh"
 
 namespace k8 {
@@ -66,59 +67,14 @@ namespace k8 {
 using namespace slice;
 using namespace lane_merge;
 using codec::PassView;
-using octet::buffer_min;
 using octet::kMembers;
-using octet::topk_init;
 
 constexpr int kUnroll = 4;   // words of a member a load batch reads
 
-// Load batches in flight ahead of the sums: 3, but 2 for h16's passes of
-// 32 (their 33 sums leave no registers for a third).
-template <class PC>
-constexpr int kAhead = PC::kExact && PC::kQueries == 32 ? 2 : 3;
-
-// Stream lanes a block sweeps: 64 (16 warps), or 32 where a pass's
-// buffers need the shared memory or its harvest the registers (h16 at
-// lane_k 16, as K6 h16; the float codecs past 128 buffer entries a lane).
-// ops/kernel.py::k8_block_lanes.
-template <int QP, int K, bool H16>
-constexpr int kBlockLanes = (H16 ? K <= 8 : QP * K <= 128) ? 64 : 32;
-
-// The block's dynamic shared memory, in this order: the pass's table; the
-// member sums of the item, (query, member, lane) float; the (lane, query)
-// buffers, (query, entry, lane) values then tags; their minima, (query,
-// lane); the harvest queue, (query, lane) pairs as uint16.
-// ops/kernel.py::k8_smem_bytes computes the same bytes.
-template <class PC, int K>
-struct Smem {
-  static constexpr int kQ = PC::kQueries;
-  static constexpr int kL = kBlockLanes<kQ, K, PC::kExact>;
-  size_t sums, buf_v, buf_t, min, queue, bytes;
-  __host__ __device__ explicit Smem(int table_rows) {
-    sums = (PC::table_bytes(table_rows) + 15) / 16 * 16;
-    buf_v = sums + sizeof(float) * kQ * kMembers * kL;
-    buf_t = buf_v + sizeof(float) * kQ * K * kL;
-    min = buf_t + sizeof(int32_t) * kQ * K * kL;
-    queue = min + sizeof(float) * kQ * kL;
-    bytes = queue + sizeof(uint16_t) * kQ * kL;
-  }
-};
-
-// The kernel's arguments.
-struct Params {
-  const int32_t* words;
-  const void* tables;
-  const int32_t* nreal;
-  const int32_t* plan;
-  int num_buckets, block_sublanes, table_rows, shift, num_queries, part_rows, part_slices;
-  bool merged;
-  int set_size;   // lane_merge::set_size_of(slots)
-  float* ws_v;
-  int32_t* ws_t;
-  unsigned* tickets;
-  float* out_v;
-  int32_t* out_t;
-};
+using batch::kAhead;
+using batch::kBlockLanes;
+using batch::Params;
+using batch::Smem;
 
 template <class PC, int K, bool TIE_SAFE>
 __global__ void __launch_bounds__(kMembers * kBlockLanes<PC::kQueries, K, PC::kExact>, 1)
@@ -144,16 +100,7 @@ slice_topk_batch_kernel(const Params a) {
   const int q0 = blockIdx.z * QP;
   const int nq = min(QP, a.num_queries - q0);
   PC::load(smem, a.tables, q0, nq, a.table_rows, threadIdx.x, T);
-  {
-    float iv[K];
-    int32_t it[K];
-    topk_init<K, TIE_SAFE>(iv, it);
-    for (int i = threadIdx.x; i < QP * K * L; i += T) {
-      buf_v[i] = iv[(i / L) % K];
-      buf_t[i] = 0;
-    }
-    for (int i = threadIdx.x; i < QP * L; i += T) buf_min[i] = buffer_min(iv);
-  }
+  batch::init_buffers<K, TIE_SAFE, QP, L, T>(buf_v, buf_t, buf_min);
   if (threadIdx.x == 0) queued = 0;
   __syncthreads();
   const int64_t cols = (int64_t)a.table_rows * kLanes;
@@ -246,16 +193,7 @@ slice_topk_batch_kernel(const Params a) {
       for (int m = 1; m < kMembers; ++m)
         if (m < it.nr) top = fmaxf(top, in[m * L]);
       const bool enter = top >= buf_min[q * L + lane];
-      const unsigned ballot = __ballot_sync(0xFFFFFFFFu, enter);
-      if (ballot) {
-        const int leader = __ffs(ballot) - 1;
-        int at = 0;
-        if (threadIdx.x % 32 == leader) at = atomicAdd(&queued, __popc(ballot));
-        at = __shfl_sync(0xFFFFFFFFu, at, leader);
-        if (enter)
-          queue[at + __popc(ballot & ((1u << (threadIdx.x % 32)) - 1u))] =
-              static_cast<uint16_t>(q * L + lane);
-      }
+      batch::enqueue(enter, queued, queue, q * L + lane);
     }
     __syncthreads();
     // Each queued pair harvested by one thread: the item's real members in
@@ -292,62 +230,9 @@ slice_topk_batch_kernel(const Params a) {
     if (threadIdx.x == 0) queued = 0;
   }
 
-  // The lane merge (lane_merge.cuh), K6 h16's. 1. Each (lane, query)
-  // buffer, sorted, to the slot's list of the query and partition: list
-  // (q * P + p) * num_slots + slot of the workspace.
-  const int P = gridDim.y, p = blockIdx.y;
-#pragma unroll
-  for (int i = 0; i < QP / kMembers; ++i) {
-    const int q = member + kMembers * i;
-    if (q >= nq) break;
-    float tv[K];
-    int32_t tt[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      tv[k] = buf_v[(q * K + k) * L + lane];
-      tt[k] = buf_t[(q * K + k) * L + lane];
-    }
-    sort<K>(tv, tt);
-    store<K>(tv, tt, a.ws_v, a.ws_t, ((q0 + q) * P + p) * num_slots + slot, stream_lane);
-  }
-  if (!a.merged) return;
-  // 2. The last block of each set of set_size slots (a ticket per set, for
-  // each lane group, partition and pass) merges the set's lists into the
-  // set's list, after the slots' lists, or into the outputs when there is
-  // one set; 3. the last set's merges the set lists into the outputs.
-  const int sets = (num_slots + a.set_size - 1) / a.set_size;
-  const int set = slot / a.set_size, first = set * a.set_size;
-  const int in_set = min(a.set_size, num_slots - first);
-  unsigned* ticket =
-      a.tickets + (((int64_t)blockIdx.z * P + p) * kGroups + blockIdx.x % kGroups) * (1 + sets);
-  const int64_t set_lists = (int64_t)a.num_queries * P * num_slots;
-  if (!arrive(ticket + 1 + set, in_set)) return;
-#pragma unroll
-  for (int i = 0; i < QP / kMembers; ++i) {
-    const int q = member + kMembers * i;
-    if (q >= nq) break;
-    const int64_t qp = (int64_t)(q0 + q) * P + p;
-    float tv[K];
-    int32_t tt[K];
-    gather<K, 1>(tv, tt, a.ws_v + qp * num_slots * K * kLanes,
-                 a.ws_t + qp * num_slots * K * kLanes, first, in_set, 0, stream_lane);
-    if (sets == 1)
-      store<K>(tv, tt, a.out_v, a.out_t, qp, stream_lane);
-    else
-      store<K>(tv, tt, a.ws_v, a.ws_t, set_lists + qp * sets + set, stream_lane);
-  }
-  if (sets == 1 || !arrive(ticket, sets)) return;
-#pragma unroll
-  for (int i = 0; i < QP / kMembers; ++i) {
-    const int q = member + kMembers * i;
-    if (q >= nq) break;
-    const int64_t qp = (int64_t)(q0 + q) * P + p;
-    float tv[K];
-    int32_t tt[K];
-    gather<K, 1>(tv, tt, a.ws_v + (set_lists + qp * sets) * K * kLanes,
-                 a.ws_t + (set_lists + qp * sets) * K * kLanes, 0, sets, 0, stream_lane);
-    store<K>(tv, tt, a.out_v, a.out_t, qp, stream_lane);
-  }
+  // The lane merge (lane_merge.cuh), K6 h16's
+  batch::merge_pass<K, QP, L>(buf_v, buf_t, member, lane, q0, nq, a.num_queries, a.merged,
+                              a.set_size, a.ws_v, a.ws_t, a.tickets, a.out_v, a.out_t);
 }
 
 // One launch: the grid is (slots x lane groups, partitions, passes).
@@ -381,9 +266,9 @@ cudaError_t run_k(const Call& c) {
 }
 
 // The call for the codecs of `only` (codec::dispatch): h16 in passes of 8,
-// 16 or 32 queries, the float codecs of 8 or 16, f32 tables in global
-// memory of 8 (16 spilled at lane_k 4: each query's gather its own
-// address).
+// 16 or 32 queries, the float codecs of 8 or 16, f32 and int8x4 tables
+// in global memory of 8 (16 spilled at lane_k 4: each query's gather its
+// own address).
 template <unsigned only>
 cudaError_t run_codecs(const Call& c) {
   return codec::dispatch<only>(c.codec, [&](auto tag) {
@@ -391,7 +276,7 @@ cudaError_t run_codecs(const Call& c) {
     switch (c.pass_queries) {
       case 8: return run_k<typename codec::PassOf<C, 8>::type>(c);
       case 16:
-        if constexpr (!std::is_same_v<C, codec::F32Global>)
+        if constexpr (C::kShared)
           return run_k<typename codec::PassOf<C, 16>::type>(c);
         return cudaErrorInvalidValue;
       case 32:
@@ -403,6 +288,6 @@ cudaError_t run_codecs(const Call& c) {
 }
 
 cudaError_t run_f32(const Call& c);         // f32, f32_global (slice_topk_batch_f32.cu)
-cudaError_t run_quantized(const Call& c);   // int8x4, i8s, i4s (slice_topk_batch_q.cu)
+cudaError_t run_quantized(const Call& c);   // int8x4 (and global), i8s, i4s (slice_topk_batch_q.cu)
 
 }  // namespace k8

@@ -506,6 +506,29 @@ def stream_ms(words: torch.Tensor, **kw) -> float:
     return sweep_ms(lambda: stream_words_device(words, salt), **kw)
 
 
+def variant_dir(out_dir: str, sources, parts) -> str:
+    """Write an ablation variant's copies of ``sources`` (file names in
+    the package's csrc/) into ``out_dir``, each (old, new) of ``parts``
+    replaced in the one source that holds ``old``; return ``out_dir``.
+    A unit built there with ``-I out_dir -I csrc`` includes the copies
+    (a source's own directory comes first) and csrc's other headers."""
+    from ..ops import _build
+
+    os.makedirs(out_dir, exist_ok=True)
+    texts = {name: open(os.path.join(_build.CSRC_DIR, name)).read()
+             for name in sources}
+    for old, new in parts:
+        holders = [name for name, text in texts.items() if old in text]
+        if len(holders) != 1:
+            raise RuntimeError(f"{len(holders)} of {list(sources)} hold "
+                               f"{old!r}: the kernel's source changed")
+        texts[holders[0]] = texts[holders[0]].replace(old, new)
+    for name, text in texts.items():
+        with open(os.path.join(out_dir, name), "w") as fh:
+            fh.write(text)
+    return out_dir
+
+
 def smi_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     out = subprocess.run(

@@ -2,10 +2,10 @@
 (``csrc/octet_topk_batch_h16.cu``) against copies of it with one part
 taken out, timed on the headline corpus for one group of 32 queries.
 
-Each variant is the kernel's source with a few lines replaced (``PARTS``),
-built with nvcc beside the package's library (``build/
-spmv_topk_tpu_torch/ablation/``) and launched through the same entry
-point, the lane merge left out (the sweep alone, as
+Each variant is the kernel's source (and batch_sweep.cuh, its harvest)
+with a few lines replaced (``PARTS``), built with nvcc beside the
+package's library (``build/spmv_topk_tpu_torch/ablation/<variant>/``)
+and launched through the same entry point, the lane merge left out (the sweep alone, as
 ``ops/kernel.py::octet_topk_batch_cuda(..., unmerged=True)``):
 
   kernel       the kernel as it is;
@@ -45,14 +45,16 @@ import torch
 from ..config import LANES
 from ..ops import _build
 from ..ops import kernel as K
-from ._common import smi_line
+from ._common import smi_line, variant_dir
 
-SOURCE = os.path.join(_build.CSRC_DIR, "octet_topk_batch_h16.cu")
+# the kernel's source and the harvest it shares with K6's other codecs
+# and K8, the files a variant patches
+SOURCES = ("octet_topk_batch_h16.cu", "batch_sweep.cuh")
 OUT_DIR = os.path.join(_build.BUILD_DIR, "ablation")
 # variant -> (old, new) replacements of the kernel's source
 _DECODE = ("H16x32::add<NR>(acc, vs, w0[i], tab);", "acc[i] += w0[i];")
-_HARVEST = ("const bool enter = static_cast<float>(top) >= "
-            "buf_min[q * L + lane];", "const bool enter = false;")
+_HARVEST = ("enqueue(static_cast<float>(top) >= buf_min[q * L + lane],",
+            "enqueue(false,")
 PARTS = {
     "kernel": (),
     "no_loads": ((
@@ -75,25 +77,15 @@ HEADLINE = dict(k=100, lane_k=8, max_cols=1024, query_codec="h16",
                 fused_block_sublanes=1024, rescore_pool=400)
 
 
-def variant_source(name: str) -> str:
-    src = open(SOURCE).read()
-    for old, new in PARTS[name]:
-        if old not in src:
-            raise RuntimeError(f"{name}: the kernel's source no longer "
-                               f"holds {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def build(name: str) -> str:
-    """nvcc the variant into a shared library; its path."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    cu = os.path.join(OUT_DIR, f"{name}.cu")
-    so = os.path.join(OUT_DIR, f"{name}.so")
-    with open(cu, "w") as fh:
-        fh.write(variant_source(name))
+    """nvcc the variant (its copies of the kernel's source and of
+    batch_sweep.cuh, the harvest it shares) into a shared library; its
+    path."""
+    d = variant_dir(os.path.join(OUT_DIR, name), SOURCES, PARTS[name])
+    so = os.path.join(d, f"{name}.so")
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                          "-I", _build.CSRC_DIR, "-o", so, cu],
+                          "-I", d, "-I", _build.CSRC_DIR, "-o", so,
+                          os.path.join(d, SOURCES[0])],
                          capture_output=True, text=True, timeout=900)
     if res.returncode:
         raise RuntimeError(f"nvcc {name} failed:\n{res.stderr[-4000:]}")

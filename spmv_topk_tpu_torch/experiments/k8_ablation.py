@@ -69,9 +69,11 @@ import torch
 from ..config import LANES
 from ..ops import _build
 from ..ops import kernel as K
-from ._common import cuda_ms, smi_line, stream_ms, sweep_ms
+from ._common import cuda_ms, smi_line, stream_ms, sweep_ms, variant_dir
 
-HEADER = os.path.join(_build.CSRC_DIR, "slice_topk_batch.cuh")
+# the sources a variant patches: the kernel and the batch sweeps' shared
+# pieces
+SOURCES = ("slice_topk_batch.cuh", "batch_sweep.cuh")
 UNITS = [os.path.join(_build.CSRC_DIR, u)
          for u in ("slice_topk_batch.cu", "slice_topk_batch_f32.cu")]
 OUT_DIR = os.path.join(_build.BUILD_DIR, "k8_ablation")
@@ -245,16 +247,6 @@ extern "C" int slice_topk_batch_old(const int32_t* words, const void* tables,
 """
 
 
-def variant_source(name: str) -> str:
-    src = open(HEADER).read()
-    for old, new in (*_TRIM, *PARTS[name]):
-        if old not in src:
-            raise RuntimeError(f"{name}: the kernel's source no longer "
-                               f"holds {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def _nvcc(d: str, cu: str, so: str, what: str) -> str:
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
                           "-I", d, "-I", _build.CSRC_DIR, "-o", so, cu],
@@ -265,8 +257,9 @@ def _nvcc(d: str, cu: str, so: str, what: str) -> str:
 
 
 def build(name: str) -> str:
-    """nvcc a variant (its header beside the h16 and f32 units) or the
-    old kernel into a shared library; its path."""
+    """nvcc a variant (its copies of the kernel's header and of
+    batch_sweep.cuh beside the h16 and f32 units) or the old kernel into
+    a shared library; its path."""
     d = os.path.join(OUT_DIR, name)
     os.makedirs(d, exist_ok=True)
     cu = os.path.join(d, "unit.cu")
@@ -274,8 +267,7 @@ def build(name: str) -> str:
         with open(cu, "w") as fh:
             fh.write(OLD_SOURCE)
         return _nvcc(d, cu, os.path.join(d, "k8old.so"), name)
-    with open(os.path.join(d, "slice_topk_batch.cuh"), "w") as fh:
-        fh.write(variant_source(name))
+    variant_dir(d, SOURCES, (*_TRIM, *PARTS[name]))
     with open(cu, "w") as fh:
         fh.write("".join(open(u).read() for u in UNITS) + _NO_QUANTIZED)
     return _nvcc(d, cu, os.path.join(d, "k8.so"), name)

@@ -10,9 +10,10 @@ of the package, and only a launch on a CUDA tensor needs the library.
 ``ptxas_report`` reads each kernel's registers and spills from the build.
 
 Every C entry point takes its pointers and the CUDA stream as
-``c_void_p`` (``bucket_topk``, ``octet_topk``, ``slice_topk``,
-``slice_topk_batch``: one pointer to its arguments packed as int64) and returns ``cudaGetLastError()``; ``check`` raises when that is
-not 0.
+``c_void_p`` (``bucket_topk``, ``octet_topk``, ``octet_topk_batch``,
+``slice_topk``, ``slice_topk_batch``: one pointer to its arguments
+packed as int64) and returns ``cudaGetLastError()``; ``check`` raises
+when that is not 0.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ _i64 = ctypes.c_int64
 _SIGNATURES = {
     "octet_topk": [_vp],    # int64 arguments packed (csrc/octet_topk.cu)
     "octet_topk_occupancy": [_i32] * 5,
-    "octet_topk_batch": [_vp] * 4 + [_i32] * 13 + [_vp] * 3,
+    "octet_topk_batch": [_vp],   # int64 arguments packed (octet_topk_batch.cu)
     "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp, _i64] * 2
     + [_vp] * 3,
     "octet_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,

@@ -139,23 +139,23 @@ K7_CHUNK_ROWS = 8
 # load batch reads (kUnroll: a wide slice's block sums close after whole
 # batches)
 K8_PASS_QUERIES = {"h16": (8, 16, 32), "f32": (8, 16), "f32_global": (8,),
-                   "int8x4": (8, 16), "i8s": (8, 16), "i4s": (8, 16)}
+                   "int8x4": (8, 16), "i8s": (8, 16), "i4s": (8, 16),
+                   "int8x4_global": (8,)}
 K8_UNROLL = 4
 # (C entry point, device index, its arguments) -> a kernel's resident
 # blocks an SM (_resident_blocks); (kernel, device index, stream) -> the
-# workspace and tickets of K13, K6 h16, K1, K7, K8 and K3
-# (_merge_workspace)
+# workspace and tickets of K13, K6, K1, K7, K8 and K3 (_merge_workspace)
 _OCCUPANCY = {}
 _MERGE_WORKSPACE = {}
 # CUDA blocks per SM of the sweeps K4, K9 and K11, and the slots of the
-# batch sweeps that merge with torch.topk (``batch_grid``: K6 but h16,
-# K12; each slot owns one set of lane buffers, so this also sets their
-# merge width, slots * lane_k per lane)
+# batch sweep that merges with torch.topk (``batch_grid``: K12; each slot
+# owns one set of lane buffers, so this also sets their merge width,
+# slots * lane_k per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
-# K6 (but h16) and K12: queries live in one CUDA block when
-# cfg.batch_subgroup is 0, and at most (K12's h16 table entry packs 8
-# queries' nibbles; registers run out first)
+# K12: queries live in one CUDA block when cfg.batch_subgroup is 0, and
+# at most (K12's h16 table entry packs 8 queries' nibbles; registers run
+# out first)
 BATCH_SUBGROUP = 4
 MAX_BATCH_SUBGROUP = 8
 # K6 h16 (csrc/octet_topk_batch_h16.cu): queries a pass reads the stream
@@ -163,6 +163,20 @@ MAX_BATCH_SUBGROUP = 8
 # 128 / that many blocks share a slot's octets)
 H16_PASS_QUERIES = 32
 H16_BLOCK_LANES = {4: 64, 8: 64, 16: 32}
+# K6 for the other codecs (csrc/octet_topk_batch.cuh): the queries a pass
+# reads the stream once for, by kernel codec: f32 on FloatPass tables,
+# int8x4, i8s and i4s on Bf16Pass tables (8 or 16); f32 and int8x4 tables
+# too large for those read from global memory (FloatPass, 8). Bf16Pass
+# passes of 32 (blocks of 32 lanes for their buffers' room, 8 warps an SM)
+# took 3-8% longer a group of 32 than two passes of 16 on the H100
+# (experiments/k6_ablation.py pass32); a group of 8 took 28% less in a
+# pass of 8 than in one of 16
+K6_PASS_QUERIES = {"f32": (8, 16), "f32_global": (8,), "int8x4": (8, 16),
+                   "int8x4_global": (8,), "i8s": (8, 16), "i4s": (8, 16)}
+# columns a query table entry holds (ops/quantized_query.py): f32 one
+# value, int8x4 and i8s 4 bytes, i4s 8 nibbles (each a column of K6's
+# Bf16Pass table); h16's one table row holds every column
+TABLE_FIELDS = {"f32": 1, "int8x4": 4, "i8s": 4, "i4s": 8}
 # plain versions decode at most ~16M words at once (bounds the int64
 # gather indices)
 _STEP_WORDS = 1 << 24
@@ -172,8 +186,11 @@ SLICE_PLAN_COLUMNS = ("width", "slices_per_block", "blocks_per_slice",
 # The kernels' codec argument is an index in this table (csrc/codecs.cuh,
 # enum Codec, in the same order): the config's codecs, and f32 with its
 # tables read from global memory (a table past a CUDA block's shared
-# memory, ``tables_in_smem``)
-KERNEL_CODECS = ("h16", "f32", "f32_global", "int8x4", "i8s", "i4s")
+# memory, ``tables_in_smem``), and int8x4 with its tables read from
+# global memory (the batch sweeps K6 and K8 only: their pass tables past
+# shared memory)
+KERNEL_CODECS = ("h16", "f32", "f32_global", "int8x4", "i8s", "i4s",
+                 "int8x4_global")
 # the sign-layout codecs' final arithmetic shift (``prod_sign``)
 SIGN_SHIFTS = {"i8s": 24, "i4s": 28}
 # summation orders of the octet sweeps' float codecs: K1 and K4 add the
@@ -420,29 +437,41 @@ def octet_topk_batch_plain(words, tables, nreal, plan_rows, **kw):
 def octet_topk_batch_slots_plain(words, tables, nreal, plan_rows, *,
                                  num_slots: int, lane_k: int, fold_tile: int,
                                  tie_safe: bool, block_sublanes: int,
-                                 num_partitions: int = 1,
+                                 codec: str, num_partitions: int = 1,
                                  part_slices: int = 0,
                                  chunk_sublanes: int = 8,
                                  merged: bool = True):
-    """Plain version of K6 h16 as the kernel computes it, on ``num_slots``
-    slots a partition (``octet_h16_grid``): for each query of the (Q, 1,
-    128) h16 tables and each partition, slot j harvests the plan's octets
-    j, j + num_slots, ... that hold a real member, in order, into lane
-    buffers from ``topk_init``'s entries (-inf when ``tie_safe``): the top
-    3 of the 8 members (each member with ``fold_tile`` 1) by argmin
-    replacement (when score >= the minimum: the first slot holding it when
-    tie-safe, else every one); then ``lane_merge_plain`` over every slot's
-    entries, the initial ones included -> (topv, topt), each (Q, lane_k,
-    128) ((Q, P, lane_k, 128) for P > 1 partitions). The kernel gives
-    these pairs bit for bit on any data, tags and ties included; with
+    """Plain version of K6 (K10d with P > 1 partitions) as the kernels
+    compute it, every codec (h16: ``csrc/octet_topk_batch_h16.cu``; the
+    others: ``csrc/octet_topk_batch.cuh``), on ``num_slots`` slots a
+    partition and pass (``k6_launch``): for each query of the (Q, rows,
+    128) tables of ``codec`` and each partition, the octets' member scores
+    in K6's order (CHAIN, ``_octet_sums``: h16 exact int32 sums, the other
+    codecs one float accumulator a member from 0 in chunk order, a block
+    span at a time, a wide octet's span sums added in block order), and
+    slot j harvests the plan's octets j, j + num_slots, ... that hold a
+    real member, in order, into lane buffers from ``topk_init``'s entries
+    (-inf when ``tie_safe``): the top 3 of the 8 members (each member with
+    ``fold_tile`` 1) by argmin replacement (when score >= the minimum: the
+    first slot holding it when tie-safe, else every one); then
+    ``lane_merge_plain`` over every slot's entries, the initial ones
+    included -> (topv, topt), each (Q, lane_k, 128) ((Q, P, lane_k, 128)
+    for P > 1 partitions), tags offset by p * part_slices in partition p.
+    The kernels give these pairs bit for bit, tags and ties included,
+    however the queries split into passes: on any data for h16 and f32,
+    and for int8x4, i8s and i4s on words whose field shift the packer
+    wrote (``encode_words_sign_layout``: an i8s shift a multiple of 8, an
+    i4s shift a multiple of 4; int8x4's is by its decode), which the
+    kernel's pass tables assume (csrc/codecs.cuh::Bf16Pass). With
     ``merged`` False, each slot's buffer in the merge's order, (Q, P,
-    slots, lane_k, 128), as the kernel's unmerged launch leaves them.
+    slots, lane_k, 128), as the kernels' unmerged launch leaves them.
     Against ``octet_topk_batch_plain``: the same values whenever the
-    buffers are tie-safe."""
+    buffers are tie-safe, and the same (value, tag) pairs above each
+    lane's smallest kept value."""
     outs = [_slot_pools(words, table, nreal, plan_rows, num_slots=num_slots,
                         lane_k=lane_k, fold_tile=fold_tile, tie_safe=tie_safe,
                         block_sublanes=block_sublanes, S=chunk_sublanes,
-                        codec="h16", sum_order=CHAIN, runs=False,
+                        codec=codec, sum_order=CHAIN, runs=False,
                         num_partitions=num_partitions,
                         part_slices=part_slices, merged=merged)
             for table in tables]
@@ -641,10 +670,10 @@ def merge_lane_topk(topv, topt, lane_k: int, lead: int = 0):
 
 def _table_spec(cfg: TopKSpMVConfig):
     """(rows, dtype) of one query table of the codec (``pack_query_table``:
-    h16 one int4x8 row; f32 a row per 128 columns; int8x4 and i8s a row of
-    4-byte words per 512 columns, i4s of 8-nibble words per 1024)."""
-    per_row = {"h16": cfg.max_cols, "f32": LANES, "int8x4": 4 * LANES,
-               "i8s": 4 * LANES, "i4s": 8 * LANES}[cfg.query_codec]
+    h16 one int4x8 row; the others a row of 128 entries of TABLE_FIELDS
+    columns: f32 128 columns, int8x4 and i8s 512, i4s 1024)."""
+    codec = cfg.query_codec
+    per_row = cfg.max_cols if codec == "h16" else LANES * TABLE_FIELDS[codec]
     dtype = torch.float32 if cfg.query_codec == "f32" else torch.int32
     return -(-cfg.max_cols // per_row), dtype
 
@@ -655,7 +684,8 @@ def tables_in_smem(table_bytes: int, smem_limit: int) -> int:
     up to MAX_BATCH_SUBGROUP (the batch sweeps size their tables for their
     subgroup rounded up to one, and cut the subgroup to it), or 0 when not
     even one fits: the sweeps then gather from the tables in global memory
-    (f32 only, codec "f32_global": no other codec's table comes near)."""
+    (f32 only, codec "f32_global": no other codec's table comes near; the
+    batch sweeps K6 and K8 size theirs with ``k6_pass``, ``k8_pass``)."""
     if table_bytes > smem_limit:
         return 0
     fit = 1
@@ -919,8 +949,8 @@ topk_spmv_fused_octet_device.launches = 0
 
 def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int,
                partitions: int = 1):
-    """The grid of K6 (but h16) and K12: (queries per CUDA block,
-    subgroups, slots per partition).
+    """The grid of K12: (queries per CUDA block, subgroups, slots per
+    partition).
 
     ``subgroup`` is cfg.batch_subgroup (0: BATCH_SUBGROUP), capped at
     MAX_BATCH_SUBGROUP and at the query count. The stream is read once
@@ -963,14 +993,13 @@ def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
     ``topk_spmv_fused_octet_device``. Returns (topv f32, topt i32), each
     (Q, lane_k, 128) ((Q, P, lane_k, 128) for P > 1), sorted descending
     per lane: each query's candidates are those of the single-query sweep
-    (for the float codecs, summed in K6's order, CHAIN), whatever
-    ``cfg.batch_subgroup`` is. h16 reads the stream once per pass of up to
-    32 queries and ignores it (``octet_h16_grid``); for the other codecs
-    it sets how many queries share a CUDA block (``batch_grid``;
-    subgroups are cut to the tables that fit shared memory,
-    ``tables_in_smem``).
+    (for the float codecs, summed in K6's order, CHAIN).
+    ``cfg.batch_subgroup`` is not read.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch that returns the merged pairs (``octet_topk_batch_cuda``: the
+    stream read once a pass of queries, ``k6_launch``, and the lane merge
+    on the card).
     """
     kw = _sweep_kw(cfg, block_sublanes)
     ps = _part_slices(num_partitions, part_slices)
@@ -982,80 +1011,150 @@ def topk_spmv_fused_batch_octet_device(words, tables, nreal, plan_rows, *,
                                  num_partitions, ps, cfg, **kw)
 
 
+def k6_smem_bytes(codec: str, pass_queries: int, lane_k: int,
+                  table_rows: int) -> int:
+    """K6's dynamic shared memory a block (csrc/batch_sweep.cuh::Smem) for
+    a kernel codec but h16 (KERNEL_CODECS) and pass: the pass's table (f32
+    the tables side by side, FloatPass; none for f32_global and
+    int8x4_global; int8x4, i8s and i4s a bf16 value a field and query,
+    Bf16Pass), the member sums, the (lane, query) buffers, their minima
+    and the harvest queue."""
+    Q = pass_queries
+    cols = table_rows * LANES
+    if codec.endswith("_global"):
+        table = 0
+    elif codec == "f32":
+        table = 4 * Q * cols
+    else:
+        table = 2 * Q * TABLE_FIELDS[codec] * cols
+    return _pass_smem_bytes(codec, Q, lane_k, table)
+
+
+def k6_pass(codec: str, num_queries: int, lane_k: int, table_rows: int,
+            smem_limit: int, pass_queries: int | None = None):
+    """K6's (kernel codec, queries a pass) for ``num_queries`` queries of
+    the config's ``codec`` but h16: passes of 8, or 16 for more than 8
+    queries; a pass whose table does not fit ``smem_limit`` bytes beside
+    the rest (``k6_smem_bytes``) takes the next smaller one: 8, then f32
+    and int8x4 tables are read from global memory (``f32_global``,
+    ``int8x4_global``, in passes of 8; i8s and i4s tables are at most 2
+    rows). ``pass_queries`` forces the pass (one of
+    K6_PASS_QUERIES[codec], the table in shared memory)."""
+    if pass_queries is not None:
+        if pass_queries not in K6_PASS_QUERIES[codec]:
+            raise ValueError(f"a {codec} pass of {pass_queries} queries: K6 "
+                             f"takes {K6_PASS_QUERIES[codec]}")
+        if k6_smem_bytes(codec, pass_queries, lane_k,
+                         table_rows) > smem_limit:
+            raise ValueError(f"a {codec} pass of {pass_queries} queries "
+                             f"and {table_rows} table rows does not fit "
+                             "shared memory")
+        return codec, pass_queries
+    first = 8 if num_queries <= 8 else 16
+    for qp in (16, 8):
+        if qp <= first and \
+                k6_smem_bytes(codec, qp, lane_k, table_rows) <= smem_limit:
+            return codec, qp
+    if codec not in ("f32", "int8x4"):
+        raise ValueError(f"a {codec} table of {table_rows} rows does not fit "
+                         "shared memory")
+    return f"{codec}_global", 8
+
+
+def k6_launch(dev, cfg: TopKSpMVConfig, num_queries: int, partitions: int,
+              pass_queries: int | None = None):
+    """K6's launch shape on CUDA ``dev`` for cfg's codec and lane_k:
+    (kernel codec, queries a pass, passes, slots). h16 reads the stream
+    once a pass of H16_PASS_QUERIES (``octet_h16_grid``); the other codecs
+    in ``k6_pass``'s passes."""
+    sms, limit = _device_info(dev)
+    if cfg.query_codec == "h16":
+        if pass_queries not in (None, H16_PASS_QUERIES):
+            raise ValueError(f"K6 h16 takes passes of {H16_PASS_QUERIES}")
+        return ("h16", H16_PASS_QUERIES,
+                *octet_h16_grid(num_queries, sms, partitions, cfg.lane_k))
+    rows, _ = _table_spec(cfg)
+    codec, qp = k6_pass(cfg.query_codec, num_queries, cfg.lane_k, rows,
+                        limit, pass_queries)
+    return (codec, qp, *pass_grid(num_queries, sms, qp, cfg.lane_k, codec,
+                                  partitions))
+
+
 def octet_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
                           cfg, *, lane_k, fold_tile, tie_safe,
                           block_sublanes, chunk_sublanes, codec,
-                          unmerged=False):
+                          unmerged=False, pass_queries=None):
     """K6's launch on CUDA tensors, for ``topk_spmv_fused_batch_octet_device``
-    (which passes P, the tag offset and the config's sweep keywords): the
-    merged pair, or with ``unmerged`` each slot's buffers, (Q, P, slots,
-    lane_k, 128) values and tags (h16: each sorted, value descending then
-    tag ascending; the merge is not run), for timing the sweep alone.
-
-    h16 (``csrc/octet_topk_batch_h16.cu``) merges the slots on the card in
-    the same launch (``octet_topk_batch_slots_plain`` computes what it
-    gives); the other codecs' slots merge in one per-lane ``torch.topk``."""
+    (which passes P, the tag offset and the config's sweep keywords): one
+    launch that returns the merged pairs, its lane merge on the card
+    (``octet_topk_batch_slots_plain`` on ``k6_launch``'s slots computes
+    what it gives), and no torch op after it; with ``unmerged`` each slot's
+    buffers, sorted (value descending, then tag ascending), (Q, P, slots,
+    lane_k, 128) values and tags, the merge not run, for timing the sweep
+    alone. h16 runs ``csrc/octet_topk_batch_h16.cu``, the other codecs
+    ``csrc/octet_topk_batch.cuh`` (``pass_queries`` forces their pass,
+    ``k6_pass``)."""
     B = plan_rows.shape[0]
     Q = tables.shape[0]
     if Q < 1:
         raise ValueError("no queries")
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("tables", tables, (Q, rows, LANES), dtype))
+    _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                  ("tables", tables, (Q, rows, LANES), dtype))
     _check_sweep(lane_k, fold_tile, chunk_sublanes)
     dev = words.device
     part_rows = words.shape[0] // P
-    lead = 1 + int(P > 1)
-    common = (words.data_ptr(), tables.data_ptr(), nreal.data_ptr(),
-              plan_rows.data_ptr(), B, block_sublanes)
-    if codec == "h16":
-        passes, slots = octet_h16_grid(Q, sms, P, lane_k)
-        lists = Q * P * (slots + _merge_sets(slots))
-        # a ticket per set and a last one, for every block of a slot (at
-        # most 4), partition and pass
-        tickets = passes * P * 4 * (1 + _merge_sets(slots))
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    kcodec, qp, passes, slots = k6_launch(dev, cfg, Q, P, pass_queries)
+    sets = _merge_sets(slots)
+    lists = Q * P * (slots + sets)
+    # a ticket per set and a last one, for every block of a slot (at most
+    # 4), partition and pass
+    tickets = passes * P * 4 * (1 + sets)
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
         if unmerged:
             ws = torch.empty(lists * 2 * lane_k * LANES, dtype=torch.int32,
                              device=dev)
             ticket = torch.zeros(tickets, dtype=torch.int32, device=dev)
         else:
-            ws, ticket = _merge_workspace("k6_h16", dev, stream,
+            ws, ticket = _merge_workspace("k6", dev, stream,
                                           lists * 2 * lane_k * LANES, tickets)
         lists = ws.numel() // (2 * lane_k * LANES)
         out_v = torch.empty((Q, P, lane_k, LANES), dtype=torch.float32,
                             device=dev)
         out_t = torch.empty((Q, P, lane_k, LANES), dtype=torch.int32,
                             device=dev)
-        _launch(dev, "octet_topk_batch_h16", *common, lane_k,
-                int(fold_tile == 1), int(tie_safe), Q, slots, P, part_rows,
-                part_slices, int(not unmerged), ws.data_ptr(), lists,
-                ticket.data_ptr(), ticket.numel(), out_v.data_ptr(),
-                out_t.data_ptr())
-        topk_spmv_fused_batch_octet_device.launches += 1
-        if unmerged:
-            n = Q * P * slots * lane_k * LANES
-            return (ws[:n].view(torch.float32).view(Q, P, slots, lane_k, LANES),
-                    ws[lists * lane_k * LANES:][:n].view(Q, P, slots, lane_k,
-                                                         LANES))
-        if P == 1:
-            return out_v.view(Q, lane_k, LANES), out_t.view(Q, lane_k, LANES)
-        return out_v, out_t
-    arg, fit = _kernel_codec(dev, cfg.query_codec, rows)
-    sub, n_sub, slots = batch_grid(
-        Q, min(cfg.batch_subgroup or BATCH_SUBGROUP, fit), sms,
-        part_rows // chunk_sublanes, P)
-    out_v = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.float32,
-                        device=dev)
-    out_t = torch.empty((Q, P, slots, lane_k, LANES), dtype=torch.int32,
-                        device=dev)
-    _launch(dev, "octet_topk_batch", *common, rows, arg, lane_k,
-            int(fold_tile == 1), int(tie_safe), Q, sub, slots * n_sub, P,
-            part_rows, part_slices, out_v.data_ptr(), out_t.data_ptr())
+        common = (words.data_ptr(), tables.data_ptr(), nreal.data_ptr(),
+                  plan_rows.data_ptr(), B, block_sublanes)
+        if kcodec == "h16":
+            err = _build.lib().octet_topk_batch_h16(
+                *common, lane_k, int(fold_tile == 1), int(tie_safe), Q, slots,
+                P, part_rows, part_slices, int(not unmerged), ws.data_ptr(),
+                lists, ticket.data_ptr(), ticket.numel(), out_v.data_ptr(),
+                out_t.data_ptr(), stream)
+            name = "octet_topk_batch_h16"
+        else:
+            # the arguments as int64 values, in csrc/octet_topk_batch.cu's
+            # order
+            args = array.array("q", (
+                *common, rows, KERNEL_CODECS.index(kcodec), lane_k,
+                int(fold_tile == 1), int(tie_safe), Q, qp, slots, P,
+                part_rows, part_slices, int(not unmerged), ws.data_ptr(),
+                lists, ticket.data_ptr(), ticket.numel(), out_v.data_ptr(),
+                out_t.data_ptr(), stream))
+            err = _build.lib().octet_topk_batch(args.buffer_info()[0])
+            name = "octet_topk_batch"
+    _build.check(err, name)
     topk_spmv_fused_batch_octet_device.launches += 1
     if unmerged:
-        return out_v, out_t
-    return merge_lane_topk(out_v, out_t, lane_k, lead=lead)
+        n = Q * P * slots * lane_k * LANES
+        return (ws[:n].view(torch.float32).view(Q, P, slots, lane_k, LANES),
+                ws[lists * lane_k * LANES:][:n].view(Q, P, slots, lane_k,
+                                                     LANES))
+    if P == 1:
+        return out_v.view(Q, lane_k, LANES), out_t.view(Q, lane_k, LANES)
+    return out_v, out_t
 
 
 def _merge_sets(lists: int) -> int:
@@ -1400,7 +1499,7 @@ def slice_topk_batch_slots_plain(words, tables, nreal, plan_rows, *,
                                  num_partitions: int = 1,
                                  part_slices: int = 0, merged: bool = True):
     """Plain version of K8 (K10c with P > 1 partitions) as the kernel
-    computes it, on ``num_slots`` slots a partition and pass (``k8_grid``):
+    computes it, on ``num_slots`` slots a partition and pass (``pass_grid``):
     for each query of the (Q, TR, 128) tables, ``slice_topk_slots_plain``
     at fold_tile 1 (K7's deal, ``k7_deal``; every slice harvested alone,
     an item's real members in turn), tags offset by p * part_slices in
@@ -1741,11 +1840,12 @@ def topk_spmv_fused_batch_device(words, tables, nreal, plan_rows, *,
                                   block_sublanes)
 
 
-def k8_block_lanes(pass_queries: int, lane_k: int, codec: str) -> int:
-    """Stream lanes of one of K8's CUDA blocks (csrc/slice_topk_batch.cuh::
-    kBlockLanes): 64, or 32 where a pass's (lane, query) buffers need the
-    room (h16 at lane_k 16, the other codecs past 128 entries a lane); 128
-    / that many blocks share a slot."""
+def batch_block_lanes(pass_queries: int, lane_k: int, codec: str) -> int:
+    """Stream lanes of one of the batch sweeps' CUDA blocks, K8's and K6's
+    (csrc/batch_sweep.cuh::kBlockLanes; K6 h16's kBlockLanes): 64, or 32
+    where a pass's (lane, query) buffers need the room (h16 at lane_k 16,
+    the other codecs past 128 entries a lane); 128 / that many blocks
+    share a slot."""
     wide = lane_k <= 8 if codec == "h16" else pass_queries * lane_k <= 128
     return 64 if wide else 32
 
@@ -1755,13 +1855,21 @@ def k8_smem_bytes(codec: str, pass_queries: int, lane_k: int,
     """K8's dynamic shared memory a block (csrc/slice_topk_batch.cuh::
     Smem) for a kernel codec (KERNEL_CODECS) and pass: the pass's table
     (h16's 16 KB; the float codecs' tables side by side, none for
-    f32_global), the member sums, the (lane, query) buffers, their minima
-    and the harvest queue."""
-    L = k8_block_lanes(pass_queries, lane_k, codec)
-    Q = pass_queries
-    table = (16 * 1024 if codec == "h16" else 0 if codec == "f32_global"
-             else 4 * Q * table_rows * LANES)
-    return -(-table // 16) * 16 + Q * L * (4 * 8 + 8 * lane_k + 4 + 2)
+    f32_global and int8x4_global), the member sums, the (lane, query)
+    buffers, their minima and the harvest queue."""
+    table = (16 * 1024 if codec == "h16" else 0 if codec.endswith("_global")
+             else 4 * pass_queries * table_rows * LANES)
+    return _pass_smem_bytes(codec, pass_queries, lane_k, table)
+
+
+def _pass_smem_bytes(codec: str, pass_queries: int, lane_k: int,
+                     table: int) -> int:
+    """csrc/batch_sweep.cuh::Smem's bytes: a table of ``table`` bytes,
+    16-byte aligned, then each (lane, query)'s member sums, buffer of
+    lane_k (value, tag) pairs, minimum and queue entry."""
+    L = batch_block_lanes(pass_queries, lane_k, codec)
+    return -(-table // 16) * 16 + pass_queries * L * (
+        4 * 8 + 8 * lane_k + 4 + 2)
 
 
 def k8_pass(codec: str, num_queries: int, lane_k: int, table_rows: int,
@@ -1769,11 +1877,12 @@ def k8_pass(codec: str, num_queries: int, lane_k: int, table_rows: int,
     """K8's (kernel codec, queries a pass) for ``num_queries`` queries of
     the config's ``codec``: h16 in passes of 8, 16 or 32 (the fewest that
     hold the queries, as K6 h16's), the other codecs of 8, or 16 for more
-    than 8 queries; an f32 pass whose tables do not fit ``smem_limit``
-    bytes beside the rest (``k8_smem_bytes``) takes 8 queries, and past
-    that the f32 tables are read from global memory (``f32_global``, in
-    passes of 8). ``pass_queries`` forces the pass (one of
-    K8_PASS_QUERIES[codec])."""
+    than 8 queries; an f32 or int8x4 pass whose tables do not fit
+    ``smem_limit`` bytes beside the rest (``k8_smem_bytes``) takes 8
+    queries, and past that the tables are read from global memory
+    (``f32_global``, ``int8x4_global``, in passes of 8; h16's table is one
+    row, i8s's and i4s's at most 2). ``pass_queries`` forces the pass (one
+    of K8_PASS_QUERIES[codec])."""
     sizes = K8_PASS_QUERIES[codec]
     if pass_queries is None:
         pass_queries = next((n for n in sizes if n >= num_queries), sizes[-1])
@@ -1782,25 +1891,27 @@ def k8_pass(codec: str, num_queries: int, lane_k: int, table_rows: int,
                          f"takes {sizes}")
     if k8_smem_bytes(codec, pass_queries, lane_k, table_rows) <= smem_limit:
         return codec, pass_queries
-    if codec != "f32":
+    if codec not in ("f32", "int8x4"):
         raise ValueError(f"a {codec} table of {table_rows} rows does not fit "
                          "shared memory")
     if k8_smem_bytes(codec, 8, lane_k, table_rows) <= smem_limit:
         return codec, 8
-    return "f32_global", 8
+    return f"{codec}_global", 8
 
 
-def k8_grid(num_queries: int, sms: int, pass_queries: int, lane_k: int,
-            codec: str = "h16", partitions: int = 1):
-    """K8's grid (``csrc/slice_topk_batch.cuh``): (passes, slots). A pass
-    sweeps the stream once for up to ``pass_queries`` queries; the passes,
-    partitions and the 128 / ``k8_block_lanes`` lane groups of a slot are
-    CUDA blocks of their own, one an SM: slots per partition and pass are
-    the SMs over those (rounded down, so that no block waits for a second
-    wave), at least one. Each slot writes lane_k * 128 (value, tag) pairs
-    per query to the merge."""
+def pass_grid(num_queries: int, sms: int, pass_queries: int, lane_k: int,
+              codec: str = "h16", partitions: int = 1):
+    """The grid of the batch sweeps that read the stream once a pass, K8
+    (``csrc/slice_topk_batch.cuh``) and K6 (``csrc/octet_topk_batch.cuh``):
+    (passes, slots). A pass sweeps the stream once for up to
+    ``pass_queries`` queries; the passes, partitions and the 128 /
+    ``batch_block_lanes`` lane groups of a slot are CUDA blocks of their
+    own, one an SM: slots per partition and pass are the SMs over those
+    (rounded down, so that no block waits for a second wave), at least
+    one. Each slot writes lane_k * 128 (value, tag) pairs per query to the
+    merge."""
     passes = -(-num_queries // pass_queries)
-    groups = LANES // k8_block_lanes(pass_queries, lane_k, codec)
+    groups = LANES // batch_block_lanes(pass_queries, lane_k, codec)
     return passes, max(1, sms // (groups * partitions * passes))
 
 
@@ -1813,7 +1924,7 @@ def k8_launch(dev, cfg: TopKSpMVConfig, num_queries: int, partitions: int,
     codec, qp = k8_pass(cfg.query_codec, num_queries, cfg.lane_k, rows,
                         limit, pass_queries)
     return (codec, qp,
-            *k8_grid(num_queries, sms, qp, cfg.lane_k, codec, partitions))
+            *pass_grid(num_queries, sms, qp, cfg.lane_k, codec, partitions))
 
 
 def _slice_topk_batch_cuda(words, tables, nreal, plan_rows, P, part_slices,
@@ -2109,7 +2220,7 @@ def _check_bucket(words, num_slices: int, width: int, codec: str, name,
         raise ValueError(f"words on {dev}: the kernels need CUDA")
     if min(num_slices, width) < 1:
         raise ValueError(f"bucket of {num_slices} slices of width {width}")
-    if codec not in KERNEL_CODECS or codec == "f32_global":
+    if codec not in KERNEL_CODECS or codec.endswith("_global"):
         raise ValueError(f"unknown query codec {codec!r}")
     rows = tables.shape[-2] if tables.dim() == len(lead) + 2 else 0
     limit = 1 if codec == "h16" else 2 if codec in SIGN_SHIFTS else None
@@ -2255,7 +2366,7 @@ def _bucket_topk_slots(dev, arg: int, lane_k: int, rows: int,
 def _merge_workspace(kind: str, dev, stream: int, words: int, tickets: int):
     """The merge workspace (int32, at least ``words`` entries) and tickets
     (at least ``tickets`` zeros, which each launch leaves 0) of the lane
-    merges on the card, K13's (``kind`` "k13"), K6 h16's ("k6_h16"), K1's
+    merges on the card, K13's (``kind`` "k13"), K6's ("k6"), K1's
     ("k1"), K7's ("k7") or K8's ("k8"), or of K3's sum ("k3", its
     accumulator and ticket), on
     ``dev`` for launches on ``stream``: allocated once per (kind, device,

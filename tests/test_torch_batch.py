@@ -155,7 +155,7 @@ def test_slots_plain_matches_pallas(ref, case, slots):
     args, f = _stream(ref, case)
     sv, st = pkernel.octet_topk_batch_slots_plain(
         *args, num_slots=slots, lane_k=8, fold_tile=cfg.fold_tile,
-        tie_safe=True, block_sublanes=f.block_sublanes)
+        tie_safe=True, block_sublanes=f.block_sublanes, codec="h16")
     assert sv.shape == (3, 8, 128) and st.dtype == torch.int32
     for q in range(3):
         _assert_lanes_match(jv[q], jt_[q], sv[q].numpy(), st[q].numpy())
@@ -170,7 +170,8 @@ def test_slots_plain_merges_its_unmerged_slots(ref, case, tie_safe):
     cfg = pt.TopKSpMVConfig(**(RAW if case == "raw" else WIDE))
     args, f = _stream(ref, case)
     kw = dict(num_slots=5, lane_k=8, fold_tile=cfg.fold_tile,
-              tie_safe=tie_safe, block_sublanes=f.block_sublanes)
+              tie_safe=tie_safe, block_sublanes=f.block_sublanes,
+              codec="h16")
     sv, st = pkernel.octet_topk_batch_slots_plain(*args, **kw)
     uv, ut = pkernel.octet_topk_batch_slots_plain(*args, merged=False, **kw)
     assert uv.shape == (3, 1, 5, 8, 128)

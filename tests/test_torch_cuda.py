@@ -401,7 +401,7 @@ def _h16_slots_plain(eng, cfg, tables, merged=True):
         eng.words, tables, eng.nreal, eng.plan_rows, num_slots=slots,
         lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
         tie_safe=bool(cfg.tie_safe_topk),
-        block_sublanes=cfg.fused_block_sublanes, merged=merged,
+        block_sublanes=cfg.fused_block_sublanes, codec="h16", merged=merged,
         **eng.partition_kw)
 
 
@@ -442,6 +442,100 @@ def test_h16_batch_back_to_back_launches(gpu, corpus):
     eng, cfg = _h16_engine(gpu, corpus[0])
     groups = [_tables(create_query_batch(32, 1024, seed=100 + i), gpu)
               for i in range(20)]
+    alone = []
+    for tables in groups:
+        alone.append(eng.batch_candidates(tables))
+        torch.cuda.synchronize()
+    chained = [eng.batch_candidates(tables) for tables in groups]
+    torch.cuda.synchronize()
+    for (av, at), (cv, ct) in zip(alone, chained):
+        assert torch.equal(av, cv) and torch.equal(at, ct)
+
+
+# K6 for the other codecs (csrc/octet_topk_batch.cuh): its queries' passes
+# (8 or 16), lane_k, fold, wide octets of 8- and 3-chunk spans, partitions
+K6_CODEC_CASES = [(7, dict()), (33, dict(fold_tile=1)),
+                  (32, dict(fused_block_sublanes=64, lane_k=16)),
+                  (17, dict(fused_block_sublanes=24, lane_k=4)),
+                  (7, dict(num_partitions=2)),
+                  (33, dict(num_partitions=3, lane_k=4))]
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("Q,kw", K6_CODEC_CASES,
+                         ids=[f"q{q}_" + "_".join(f"{k}{v}" for k, v in
+                                                  kw.items())
+                              for q, kw in K6_CODEC_CASES])
+@pytest.mark.parametrize("codec", ["f32", "int8x4", "i8s", "i4s"])
+def test_k6_codec_batch_matches_slots_plain(gpu, corpus, codec, Q, kw,
+                                            tie_safe):
+    """K6 of each codec but h16 merged on the card against its slot plain
+    (``octet_topk_batch_slots_plain`` on ``k6_launch``'s grid): values and
+    tags bit for bit, ties included, the production buffers too; and the
+    unmerged launch's sorted slot buffers the same."""
+    eng, cfg = _h16_engine(gpu, corpus[0], query_codec=codec,
+                           rescore_pool=None, tie_safe_topk=tie_safe, **kw)
+    tables = _slice_tables(cfg, create_query_batch(Q, 1024, seed=28), gpu)
+    kv, kt = eng.batch_candidates(tables)
+    *_, slots = pkernel.k6_launch(eng.words.device, cfg, Q,
+                                  cfg.num_partitions)
+    plain = dict(num_slots=slots, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+                 tie_safe=tie_safe, block_sublanes=cfg.fused_block_sublanes,
+                 codec=codec, **eng.partition_kw)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    pv, pt_ = pkernel.octet_topk_batch_slots_plain(*args, **plain)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    uv, ut = pkernel.octet_topk_batch_cuda(
+        *args, cfg.num_partitions, eng.partition_kw.get("part_slices", 0),
+        cfg, **pkernel._sweep_kw(cfg, cfg.fused_block_sublanes),
+        unmerged=True)
+    sv, st = pkernel.octet_topk_batch_slots_plain(*args, merged=False,
+                                                  **plain)
+    torch.cuda.synchronize()
+    assert torch.equal(uv, sv) and torch.equal(ut, st)
+
+
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("codec", ["h16", "f32", "int8x4", "i8s", "i4s"])
+def test_k6_merges_on_the_card(gpu, corpus, codec, P, monkeypatch):
+    """K6 (K10d) of every codec returns its merged pairs from its one
+    launch: with ``torch.topk`` and ``merge_lane_topk`` made to raise, the
+    wrapper still gives the slot plain's pairs, and its counter counts
+    one launch."""
+    eng, cfg = _h16_engine(gpu, corpus[0], query_codec=codec,
+                           num_partitions=P)
+    tables = _slice_tables(cfg, create_query_batch(20, 1024, seed=29), gpu)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    *_, slots = pkernel.k6_launch(eng.words.device, cfg, 20, P)
+    pv, pt_ = pkernel.octet_topk_batch_slots_plain(
+        *args, num_slots=slots, lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
+        tie_safe=bool(cfg.tie_safe_topk),
+        block_sublanes=cfg.fused_block_sublanes, codec=codec,
+        **eng.partition_kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("a torch merge ran on K6's path")
+
+    monkeypatch.setattr(torch, "topk", refuse)
+    monkeypatch.setattr(pkernel, "merge_lane_topk", refuse)
+    before = pkernel.topk_spmv_fused_batch_octet_device.launches
+    kv, kt = pkernel.topk_spmv_fused_batch_octet_device(
+        *args, cfg=cfg, block_sublanes=cfg.fused_block_sublanes,
+        **eng.partition_kw)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert pkernel.topk_spmv_fused_batch_octet_device.launches == before + 1
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+
+
+@pytest.mark.parametrize("codec", ["f32", "i4s"])
+def test_k6_codec_batch_back_to_back_launches(gpu, corpus, codec):
+    """20 launches of K6 back to back on one stream (each merge's tickets
+    left 0 for the next) equal the launches run alone."""
+    eng, cfg = _h16_engine(gpu, corpus[0], query_codec=codec)
+    groups = [_slice_tables(cfg, create_query_batch(32, 1024, seed=100 + i),
+                            gpu) for i in range(20)]
     alone = []
     for tables in groups:
         alone.append(eng.batch_candidates(tables))
@@ -639,25 +733,40 @@ def _plain_kw(cfg, tie_safe):
 
 
 def _k8_slots_equal(eng, tables, cfg):
-    """K8 (K10c) with production buffers (tie_safe_topk=False) on the
-    tables' queries against ``slice_topk_batch_slots_plain`` on its grid
-    (``k8_launch``'s slots), bit for bit, tags included; its unmerged
-    launch's slots, merged by ``lane_merge_plain``, give the pairs its
-    merge on the card gave."""
+    """The engine's batch sweep with production buffers
+    (tie_safe_topk=False) on the tables' queries against its slot plain
+    on its grid, bit for bit, tags included: K8 (K10c) against
+    ``slice_topk_batch_slots_plain`` on ``k8_launch``'s slots on the slice
+    layout, K6 (K10d) against ``octet_topk_batch_slots_plain`` on
+    ``k6_launch``'s on the octet layout; its unmerged launch's slots,
+    merged by ``lane_merge_plain``, give the pairs its merge on the card
+    gave."""
     prod = dataclasses.replace(cfg, tie_safe_topk=False)
     P = cfg.num_partitions
     bs = cfg.fused_block_sublanes
     args = (eng.words, tables, eng.nreal, eng.plan_rows)
-    kv, kt = pkernel.topk_spmv_fused_batch_device(*args, cfg=prod,
-                                                  block_sublanes=bs,
-                                                  **eng.partition_kw)
-    *_, slots = pkernel.k8_launch(eng.words.device, prod, tables.shape[0], P)
-    pv, pt_ = pkernel.slice_topk_batch_slots_plain(
-        *args, num_slots=slots, **_plain_kw(prod, False),
-        **eng.partition_kw)
-    uv, ut = pkernel._slice_topk_batch_cuda(
-        *args, P, eng.partition_kw.get("part_slices", 0), prod, bs,
-        unmerged=True)
+    ps = eng.partition_kw.get("part_slices", 0)
+    if cfg.fused_layout == "octet":
+        kv, kt = pkernel.topk_spmv_fused_batch_octet_device(
+            *args, cfg=prod, block_sublanes=bs, **eng.partition_kw)
+        *_, slots = pkernel.k6_launch(eng.words.device, prod,
+                                      tables.shape[0], P)
+        pv, pt_ = pkernel.octet_topk_batch_slots_plain(
+            *args, num_slots=slots, fold_tile=cfg.fold_tile,
+            **_plain_kw(prod, False), **eng.partition_kw)
+        uv, ut = pkernel.octet_topk_batch_cuda(
+            *args, P, ps, prod, **pkernel._sweep_kw(prod, bs), unmerged=True)
+    else:
+        kv, kt = pkernel.topk_spmv_fused_batch_device(*args, cfg=prod,
+                                                      block_sublanes=bs,
+                                                      **eng.partition_kw)
+        *_, slots = pkernel.k8_launch(eng.words.device, prod,
+                                      tables.shape[0], P)
+        pv, pt_ = pkernel.slice_topk_batch_slots_plain(
+            *args, num_slots=slots, **_plain_kw(prod, False),
+            **eng.partition_kw)
+        uv, ut = pkernel._slice_topk_batch_cuda(*args, P, ps, prod, bs,
+                                                unmerged=True)
     torch.cuda.synchronize()
     assert torch.equal(kv, pv) and torch.equal(kt, pt_)
     merged = [pkernel.lane_merge_plain(v, t, cfg.lane_k)
@@ -1204,11 +1313,11 @@ def _part_view(eng, p):
                          ids=[c[0] for c in PART_CASES])
 def test_partition_kernels_match_plain(gpu, corpus, int_corpus, name, kw,
                                        integer, lane_k):
-    """K10a/b (one query), K10c/d (5 queries in subgroups of 2) and the
+    """K10a/b (one query), K10c/d (5 queries: one short pass) and the
     partitioned K4/K9 against their plain versions: sorted values
     bit-equal, (value, tag) pairs above each lane's floor, scores
-    bit-equal; K10c's production buffers against its slot plain; at
-    least one partition holds a bucket with no real slice."""
+    bit-equal; K10c's and K10d's production buffers against their slot
+    plains; at least one partition holds a bucket with no real slice."""
     eng, cfg = _slice_engine(gpu, corpus, int_corpus, kw, integer,
                              lane_k=lane_k, batch_subgroup=2)
     P = cfg.num_partitions
@@ -1257,8 +1366,7 @@ def test_partition_kernels_match_plain(gpu, corpus, int_corpus, name, kw,
     _pools_equal(kv, kt, *plain[0])
     _pools_equal(bv, bt, *plain[1])
     assert torch.equal(ks, plain[2])
-    if not octet:
-        _k8_slots_equal(eng, bargs[1], cfg)
+    _k8_slots_equal(eng, bargs[1], cfg)
 
 
 def _offset_real(tv, tt, off):
@@ -1354,7 +1462,8 @@ def test_partitioned_engines_on_gpu_match_cpu(gpu, corpus, name, kw):
 # ---------------------------------------------------------------- codecs
 # The quantized query codecs (int8x4, i8s, i4s) on both streams and f32 on
 # the octet stream, through every sweep: K1/K7 (one query), K6/K8 (5
-# queries in subgroups of 2), K4/K9, on one partition and on two (K10a-d).
+# queries: one short pass; K6's split passes: test_k6_codec_batch_matches_
+# slots_plain), K4/K9, on one partition and on two (K10a-d).
 # The plain versions add in the kernels' order, each product and add
 # rounded, so everything is held bit for bit, on real values.
 
@@ -1375,8 +1484,8 @@ def _sweeps(octet):
 
 def _codec_agree(eng, cfg, q, qs):
     """The three sweeps of eng under cfg (tie-safe) against their plain
-    versions: pools and scores bit-equal; one launch each; K8's (K10c's)
-    production buffers against its slot plain."""
+    versions: pools and scores bit-equal; one launch each; K8's or K6's
+    (K10c's, K10d's) production buffers against its slot plain."""
     octet = cfg.fused_layout == "octet"
     bs = cfg.fused_block_sublanes
     P = cfg.num_partitions
@@ -1493,7 +1602,7 @@ def test_codec_engines_on_gpu_match_cpu(gpu, corpus, name):
 @pytest.mark.parametrize("P", [1, 2])
 def test_octet_f32_tables_past_shared_memory_read_global(gpu, P):
     """The octet stream with f32 tables of 65,536 columns (256 KB, past a
-    CUDA block's shared memory): K1, K6 (5 queries in subgroups of 2) and
+    CUDA block's shared memory): K1, K6 (10 queries: passes of 8 and 2) and
     K4 gather from the tables in global memory (codec "f32_global"),
     bit-equal to their plain versions, on one partition and on two."""
     limit = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
@@ -1503,8 +1612,54 @@ def test_octet_f32_tables_past_shared_memory_read_global(gpu, P):
                                    rescore_pool=None, tie_safe_topk=True,
                                    batch_subgroup=2, num_partitions=P))
     eng = pt.TopKSpMV(coo, cfg, device=gpu)
-    qs = create_query_batch(6, 65536, seed=42)
+    qs = create_query_batch(11, 65536, seed=42)
     _codec_agree(eng, cfg, qs[0], qs[1:])
+
+
+@pytest.mark.parametrize("tie_safe", [False, True])
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("layout", ["octet", "slice"])
+def test_int8x4_batch_tables_past_shared_memory_read_global(gpu, layout, P,
+                                                            tie_safe):
+    """int8x4 tables of 32,768 columns (64 rows): no pass table of K6 or
+    K8 fits a CUDA block's shared memory beside its buffers, so both read
+    the tables from global memory (kernel codec "int8x4_global"; 10
+    queries: passes of 8 and 2), merged on the card and unmerged, bit for
+    bit against their slot plain, tags included, the production buffers
+    too."""
+    ncols, Q = 32768, 10
+    coo = create_sparse_matrix(3000, ncols, 20, "gamma", seed=43)
+    kw = dict(k=100, max_cols=ncols, query_codec="int8x4", width_quantum=4,
+              rescore_pool=None, tie_safe_topk=tie_safe, num_partitions=P)
+    octet = layout == "octet"
+    cfg = pt.TopKSpMVConfig(**(dict(HEADLINE, **kw) if octet else kw))
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    tables = _slice_tables(cfg, create_query_batch(Q, ncols, seed=44), gpu)
+    launch = pkernel.k6_launch if octet else pkernel.k8_launch
+    codec, qp, passes, slots = launch(gpu, cfg, Q, P)
+    assert (codec, qp, passes) == ("int8x4_global", 8, 2)
+    kv, kt = eng.batch_candidates(tables)
+    args = (eng.words, tables, eng.nreal, eng.plan_rows)
+    plain_kw = dict(num_slots=slots, lane_k=cfg.lane_k, tie_safe=tie_safe,
+                    block_sublanes=cfg.fused_block_sublanes, codec="int8x4",
+                    **eng.partition_kw)
+    tag_offset = (P, eng.partition_kw.get("part_slices", 0), cfg)
+    if octet:
+        plain = pkernel.octet_topk_batch_slots_plain
+        plain_kw["fold_tile"] = cfg.fold_tile
+        uv, ut = pkernel.octet_topk_batch_cuda(
+            *args, *tag_offset,
+            **pkernel._sweep_kw(cfg, cfg.fused_block_sublanes),
+            unmerged=True)
+    else:
+        plain = pkernel.slice_topk_batch_slots_plain
+        uv, ut = pkernel._slice_topk_batch_cuda(
+            *args, *tag_offset, cfg.fused_block_sublanes, unmerged=True)
+    pv, pt_ = plain(*args, **plain_kw)
+    sv, st = plain(*args, merged=False, **plain_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+    assert torch.equal(uv, sv) and torch.equal(ut, st)
 
 
 # ------------------------------------------------------------ per-bucket ops

@@ -442,9 +442,9 @@ def test_k8_launch_shapes(monkeypatch):
     """Passes of the fewest queries that hold the group (h16 8, 16, 32;
     the others 8, or 16 past 8), blocks of 64 lanes (32 for h16 at lane_k
     16 and the others past 128 entries a lane), one an SM: slots are the
-    SMs over the lane groups, partitions and passes. f32 tables that do
-    not fit beside the buffers take passes of 8, then global memory.
-    ``batch_subgroup`` changes nothing."""
+    SMs over the lane groups, partitions and passes. f32 and int8x4
+    tables that do not fit beside the buffers take passes of 8, then
+    global memory. ``batch_subgroup`` changes nothing."""
     monkeypatch.setattr(pkernel, "_device_info", lambda dev: (132, 232448))
     dev = torch.device("cuda", 0)
 
@@ -470,6 +470,13 @@ def test_k8_launch_shapes(monkeypatch):
     assert launch(16, max_cols=2048) == ("f32", 8, 2, 33)
     assert launch(5, max_cols=16384) == ("f32_global", 8, 1, 66)
     assert launch(33, max_cols=65536) == ("f32_global", 8, 5, 13)
+    # int8x4: 16,384 columns (32 rows) in passes of 8, from 32,768 (64
+    # rows) up to its 65,536 from global memory
+    q8 = dict(query_codec="int8x4", width_quantum=4)
+    assert launch(16, max_cols=4096, **q8) == ("int8x4", 16, 1, 66)
+    assert launch(16, max_cols=16384, **q8) == ("int8x4", 8, 2, 33)
+    assert launch(16, max_cols=32768, **q8) == ("int8x4_global", 8, 2, 33)
+    assert launch(5, max_cols=65536, **q8) == ("int8x4_global", 8, 1, 66)
     for codec in pkernel.KERNEL_CODECS:
         for qp in pkernel.K8_PASS_QUERIES[codec]:
             for k in pkernel.KERNEL_LANE_K:
