@@ -120,16 +120,22 @@ every phase runs:
      ``pack_sell_buckets``: at 50k rows every codec against their plain
      versions, tie-safe, bit for bit (lane_k 4, 8, 16; a bucket of one
      slice per block; quantum 2, widths below 8 scoring 0; 2-3-row
-     tables; 65,536 columns), and K13 tie-safe or not against its plain
-     version on the kernel's slots (``bucket_topk_slots_plain``), tags
-     included; on the 10M corpus the default config (32 queries through
-     K13, stacked and finalized once, against ``merge_candidates_host``,
-     the bf16 top 100 and the default engine; K12 on a group of 8 against
-     K13; K11 against K9) and h16 at quantum 8 (K13, the exact rescore of
-     a pool of 400), each op timed summed over its buckets; K13 also
-     alone on the card (whole, per bucket, with num_real 0), beside K3
-     per bucket, with its host enqueue time and its registers and spill
-     bytes;
+     tables; f32 and int8x4 at 65,536 columns), K13 and K12 tie-safe or
+     not against their plain versions on the kernels' slots
+     (``bucket_topk_slots_plain``, ``bucket_topk_batch_slots_plain``),
+     tags included, K12 on 5 queries and on 1 and 33 (every (kernel
+     codec, pass) of ``k12_pass``), its unmerged launch's slots too, and
+     every K12 and K11 instantiation's registers (none may spill); on the
+     10M corpus the default config (32 queries through K13, stacked and
+     finalized once, against ``merge_candidates_host``, the bf16 top 100
+     and the default engine; K12 on a group of 8 against K13 and against
+     its slot plain; K11 against K9) and h16 at quantum 8 (K13, the exact
+     rescore of a pool of 400; K12 on a group of 8 against its slot
+     plain), each op timed summed over its buckets; K13, K12 and K11 also
+     alone on the card (K13 whole, per bucket, with num_real 0; K12 with
+     and without its lane merge, and the ``torch.topk`` merge of its
+     slots), beside K3 per bucket, with K13's host enqueue time and the
+     registers and spill bytes of the kernels' instantiations;
  13. the measurement labs (``spmv_topk_tpu_torch/experiments``: kernel_lab
      L7, fused_lab L4, h16_lab L5, fold_lab L3, batch_lab L1, dma_lab L2,
      i16_probe L6, mxu_gather_lab L8): ``labs_small`` holds every
@@ -748,6 +754,11 @@ def _k8_registers(report):
 # ends at each span's end)
 K6_GEOMS = ((8, 8, 1024), (4, 1, 1024), (16, 8, 64), (8, 1, 24))
 K6_CODECS = ("f32", "int8x4", "i8s", "i4s")
+# K12's translation unit of each codec (csrc/bucket_topk_batch.cuh's
+# instantiations)
+K12_UNITS = {c: f"bucket_topk_batch_{c}.cu"
+             for c in ("f32", "int8x4", "i8s", "i4s")}
+K12_UNITS["h16"] = "bucket_topk_batch.cu"
 # K6's translation unit of each codec but h16 (csrc/octet_topk_batch.cuh's
 # instantiations; h16's kernel is octet_topk_batch_h16.cu)
 K6_UNITS = dict(f32="octet_topk_batch_f32.cu",
@@ -846,22 +857,30 @@ def _k6_instantiation(codec, pass_queries, lane_k, tie_safe, exact,
     codec (KERNEL_CODECS), pass, lane_k, buffers, fold and a launch of
     ``queries`` queries (h16 sizes its sums for the first pass's queries
     rounded up to 8, 16 or 32)."""
+    flags = f"{lane_k},{int(tie_safe)},{int(exact)}>"
+    if codec == "h16":
+        live = min(queries, pass_queries)
+        nr = 1 if live <= 8 else 2 if live <= 16 else 4
+        return f"octet_topk_batch_h16_kernel<{nr},{flags}"
+    return (f"octet_topk_batch_kernel<{_pass_codec(codec, pass_queries)},"
+            f"{flags}")
+
+
+def _pass_codec(codec, pass_queries):
+    """The name ``_build.ptxas_report`` gives the pass codec
+    (csrc/codecs.cuh) of a kernel codec (KERNEL_CODECS) and pass of the
+    batch sweeps K6 and K12 (K8 takes FloatPass for every float codec)."""
     from spmv_topk_tpu_torch.ops import kernel as K
 
     q = pass_queries
-    flags = f"{lane_k},{int(tie_safe)},{int(exact)}>"
     if codec == "h16":
-        live = min(queries, q)
-        nr = 1 if live <= 8 else 2 if live <= 16 else 4
-        return f"octet_topk_batch_h16_kernel<{nr},{flags}"
+        return f"H16Pass<{q}>"
     if codec.startswith("f32") or codec == "int8x4_global":
         c = dict(f32="F32T<1>", f32_global="F32T<0>",
                  int8x4_global="Int8x4T<0>")[codec]
-        pc = f"FloatPass<{c},{q}>"
-    else:
-        c = "Int8x4T<1>" if codec == "int8x4" else "Sign"
-        pc = f"Bf16Pass<{c},{q},{K.TABLE_FIELDS[codec]}>"
-    return f"octet_topk_batch_kernel<{pc},{flags}"
+        return f"FloatPass<{c},{q}>"
+    c = "Int8x4T<1>" if codec == "int8x4" else "Sign"
+    return f"Bf16Pass<{c},{q},{K.TABLE_FIELDS[codec]}>"
 
 
 def _k6_times(eng, tables, cfg, key="k6"):
@@ -2550,6 +2569,56 @@ def _bucket_topk_batch(bks, tables, cfg, codec, plain=False):
             torch.stack([t for _, t in outs], dim=1))
 
 
+def _k12_launch(w, tables, geo, cfg, codec):
+    """K12's (kernel codec, pass, passes, slots) on this bucket."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    return K.k12_launch(w.device, codec, tables.shape[0], cfg.lane_k,
+                        tables.shape[1],
+                        geo["num_blocks"] * geo["slices_per_block"])
+
+
+def _k12_unmerged(w, nr, geo, tables, cfg, codec):
+    """K12's unmerged launch on one bucket: each slot's sorted buffers."""
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    return K._bucket_topk_batch_cuda(
+        w, tables, nr, lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+        codec=codec, unmerged=True, **geo)
+
+
+def _k12_agree(bks, tables, cfg, codec, unmerged=False):
+    """K12 over every bucket equal to its plain version on the kernel's
+    slots (``bucket_topk_batch_slots_plain``), bit for bit, tags included,
+    and with ``unmerged`` its unmerged launch's slots too. Returns the
+    (kernel codec, pass) pairs it ran."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    ran = set()
+    for w, nr, geo in bks:
+        codec_arg, qp, _, slots = _k12_launch(w, tables, geo, cfg, codec)
+        ran.add((codec_arg, qp))
+        v, t = K.topk_spmv_bucket_batch_device(w, tables, nr, cfg=cfg,
+                                               codec=codec, **geo)
+        kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
+                  codec=codec, num_slots=slots, **geo)
+        sv, st = K.bucket_topk_batch_slots_plain(w, tables, nr, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(v, sv) and torch.equal(t, st),
+                "K12 equals its plain version on the kernel's slots bit for "
+                "bit, tags included")
+        if unmerged:
+            uv, ut = _k12_unmerged(w, nr, geo, tables, cfg, codec)
+            sv, st = K.bucket_topk_batch_slots_plain(w, tables, nr,
+                                                     merged=False, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(uv, sv) and torch.equal(ut, st),
+                    "K12's unmerged slots equal its slot plain's")
+    return ran
+
+
 def _bucket_scores(bks, table, cfg, codec, plain=False):
     """K11 (or its plain version) of every bucket: a list of (slices,
     128) f32 score rows."""
@@ -2567,7 +2636,10 @@ def _bucket_scores(bks, table, cfg, codec, plain=False):
 def _bucket_agree(bks, table, tables, cfg, codec):
     """K11, K13 and K12 over every bucket against their plain versions
     (tie-safe buffers): scores and per-lane values bit-equal, (value, tag)
-    pairs equal above each lane's floor. Returns the three max errors."""
+    pairs equal above each lane's floor; K13 and K12 against their plain
+    versions on the kernels' slots, tie-safe and not, bit for bit, tags
+    included. Returns the three max errors and the (kernel codec, pass)
+    pairs K12 ran."""
     import dataclasses
 
     import torch
@@ -2580,6 +2652,7 @@ def _bucket_agree(bks, table, tables, cfg, codec):
     for k, p in zip(ks, _bucket_scores(bks, table, cfg, codec, plain=True)):
         require(torch.equal(k, p), "K11 scores equal the plain version's "
                 "bit for bit")
+    ran = set()
     for c in (safe, dataclasses.replace(cfg, tie_safe_topk=False)):
         for j, (w, nr, geo) in enumerate(bks):
             v, t = _bucket_topk(bks[j:j + 1], table, c, codec)
@@ -2587,24 +2660,49 @@ def _bucket_agree(bks, table, tables, cfg, codec):
             require(torch.equal(v[0], sv) and torch.equal(t[0], st),
                     "K13 equals its plain version on the kernel's slots "
                     "bit for bit, tags included")
+        ran |= _k12_agree(bks, tables, c, codec)
     return (0.0, compare_pools(kv, kt, *_bucket_topk(bks, table, safe, codec,
                                                      plain=True)),
             compare_pools(bv, bt, *_bucket_topk_batch(bks, tables, safe,
-                                                      codec, plain=True)))
+                                                      codec, plain=True)),
+            ran)
+
+
+# K12's instantiations: h16 passes of 8 and 16, f32, int8x4, i8s and i4s
+# passes of 8, f32 and int8x4 in global memory 8; lane_k 4, 8, 16;
+# tie-safe and not. K11's: one a kernel codec but int8x4_global (i8s and
+# i4s share one)
+K12_INSTANTIATIONS = (2 + 6) * 3 * 2
+K11_INSTANTIATIONS = 5
+
+
+def _bucket_registers(report, kernel):
+    """{instantiation of ``kernel``: registers, spill bytes} of a ptxas
+    report."""
+    return {k: dict(registers=r, spill_bytes=sp)
+            for k, (r, sp) in report.items() if k.startswith(f"{kernel}<")}
 
 
 def phase_bucket_small(dev):
-    """K11, K13 and K12 (5 queries in subgroups of 2) over every bucket of
-    pack_sell_buckets against their plain versions, tie-safe, bit for bit:
-    every codec on the 50k-row corpus with three dense rows (a bucket of
-    one slice per block, wider than 512 rows for the one-nnz codecs) at
-    lane_k 4, 8 and 16; f32 at width_quantum 2 (widths not multiples of
-    8: their last width % 8 rows are dropped, widths below 8 score 0);
-    int8x4 at 1536 columns and i4s at 2048 (tables of 3 and 2 rows); f32
-    at 65,536 columns (tables read from global memory)."""
+    """K11, K13 and K12 over every bucket of pack_sell_buckets against
+    their plain versions, tie-safe, bit for bit, and K13 and K12 against
+    their plain versions on the kernels' slots, tie-safe and not, tags
+    included: every codec on the 50k-row corpus with three dense rows (a
+    bucket of one slice per block, wider than 512 rows for the one-nnz
+    codecs) at lane_k 4, 8 and 16; f32 at width_quantum 2 (widths not
+    multiples of 8: their last width % 8 rows are dropped, widths below 8
+    score 0); int8x4 at 1536 columns and i4s at 2048 (tables of 3 and 2
+    rows); f32 and int8x4 at 65,536 columns (tables read from global
+    memory). K12 on 5 queries (a short pass of 8), and at lane_k 8 on 1
+    and 33 (passes of 8, h16's of 16; the last of one query) with its
+    unmerged launch's slots, so that every (kernel codec, pass) of
+    ``k12_pass`` runs. Every K12 and K11 instantiation's registers: none
+    may spill."""
     import dataclasses
 
     import torch
+
+    from spmv_topk_tpu_torch.ops import _build
 
     from spmv_topk_tpu_torch import TopKSpMVConfig
     from spmv_topk_tpu_torch.formats import (create_query_batch,
@@ -2619,22 +2717,31 @@ def phase_bucket_small(dev):
     cases.append(("f32_quantum2", "f32", coo, (8,)))
     for name, codec, cols in (("int8x4_1536_cols", "int8x4", 1536),
                               ("i4s_2048_cols", "i4s", 2048),
-                              ("f32_65536_cols", "f32", F32_MAX_COLS)):
+                              ("f32_65536_cols", "f32", F32_MAX_COLS),
+                              ("int8x4_65536_cols", "int8x4", F32_MAX_COLS)):
         cases.append((name, codec, create_sparse_matrix(
             20_000, cols, AVG_DEG, "gamma", seed=10), (8,)))
-    out = []
+    out, ran = [], set()
     for name, codec, corpus, lane_ks in cases:
         cfg = TopKSpMVConfig(k=100, max_cols=corpus.num_cols,
-                             query_codec=codec, batch_subgroup=2,
+                             query_codec=codec,
                              width_quantum=2 if "quantum2" in name else 8)
         m = pack_sell_buckets(corpus, cfg)
-        qs = create_query_batch(6, corpus.num_cols, seed=11)
+        qs = create_query_batch(34, corpus.num_cols, seed=11)
         words, bks = _bucket_tensors(m, dev)
         table, _ = _table1(qs[0], dev, codec)
-        tables = _tables(qs[1:], dev, codec)
+        tables = _tables(qs[1:6], dev, codec)
         errs = [_bucket_agree(bks, table, tables,
                               dataclasses.replace(cfg, lane_k=lk), codec)
                 for lk in lane_ks]
+        ran |= set().union(*(e[3] for e in errs))
+        # K12 on 1 and 33 queries, tie-safe and not, merged and unmerged
+        for q in (1, 33):
+            for safe in (True, False):
+                ran |= _k12_agree(bks, _tables(qs[1:1 + q], dev, codec),
+                                  dataclasses.replace(cfg,
+                                                      tie_safe_topk=safe),
+                                  codec, unmerged=True)
         widths = [b.width for b in m.buckets]
         short = [s for s, b in zip(_bucket_scores(bks, table, cfg, codec),
                                    m.buckets) if b.width < 8]
@@ -2666,7 +2773,23 @@ def phase_bucket_small(dev):
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     require(K.tables_in_smem(4 * F32_MAX_COLS, limit) == 0,
             "a 65,536-column f32 table is read from global memory")
-    res = dict(phase="bucket_kernels_vs_plain_small", cases=out)
+    want = {(c, q) for c, qs in K.K12_PASS_QUERIES.items() for q in qs}
+    require(ran == want, f"every (kernel codec, pass) of k12_pass ran: "
+            f"{sorted(want - ran)} did not")
+    report = _build.ptxas_report()
+    k12_regs = _bucket_registers(report, "bucket_topk_batch_kernel")
+    k11_regs = _bucket_registers(report, "bucket_scores_kernel")
+    require(len(k12_regs) == K12_INSTANTIATIONS and
+            len(k11_regs) == K11_INSTANTIATIONS,
+            f"{K12_INSTANTIATIONS} K12 and {K11_INSTANTIATIONS} K11 "
+            f"instantiations built ({len(k12_regs)}, {len(k11_regs)})")
+    require(not any(r["spill_bytes"] for r in (*k12_regs.values(),
+                                               *k11_regs.values())),
+            "no K12 or K11 instantiation spills")
+    res = dict(phase="bucket_kernels_vs_plain_small", cases=out,
+               k12_kernel_codecs_and_passes=sorted(ran),
+               k12_registers_and_spill_bytes=k12_regs,
+               k11_registers_and_spill_bytes=k11_regs)
     emit(res)
     return res
 
@@ -2724,14 +2847,17 @@ def _device_ms(fns, reps):
             statistics.median(total))
 
 
-def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
-    """K13 and K11 (and K12 on ``tables``) per query over every bucket,
-    each summed over its bucket launches (K12's merges too), between CUDA
-    events, against their plain versions; K13 alone on the card (no host
-    time: ``_device_ms``), whole and per bucket, and with num_real 0 (its
-    fixed cost), beside K3 on the same words; K13's host clock per query (``_bucket_topk`` enqueued, and to
-    a synchronize; the bare launches enqueued); its kernels' registers
-    and spill bytes; the bounds."""
+def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables):
+    """K13 and K11 per query and K12 per group of ``tables`` over every
+    bucket, each summed over its bucket launches, between CUDA events,
+    against their plain versions; alone on the card (no host time:
+    ``_device_ms``): K13 whole and per bucket, and with num_real 0 (its
+    fixed cost), beside K3 on the same words; K11; K12 with and without its
+    lane merge, and the ``torch.topk`` merge of its unmerged slots (the
+    kernel before's merge); K13's host clock per query (``_bucket_topk``
+    enqueued, and to a synchronize; the bare launches enqueued); K12's
+    pass, passes and slots; the kernels' registers and spill bytes; the
+    bounds."""
     import torch
 
     from spmv_topk_tpu_torch.ops import _build
@@ -2750,15 +2876,13 @@ def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
              ("k11", lambda: _bucket_scores(bks, table, cfg, codec),
               lambda: _bucket_scores(bks, table, cfg, codec, plain=True),
               bound(wbytes + nb * tbytes + slices * 128 * 4, 2 * num_nnz))]
-    if tables is not None:
-        Q = len(tables)
-        kinds.append(("k12", lambda: _bucket_topk_batch(bks, tables, cfg,
-                                                        codec),
-                      lambda: _bucket_topk_batch(bks, tables, cfg, codec,
-                                                 plain=True),
-                      bound(wbytes + Q * nb * tbytes + Q * pairs,
-                            2 * num_nnz * Q)))
-        res["k12_queries"] = Q
+    Q = len(tables)
+    kinds.append(("k12", lambda: _bucket_topk_batch(bks, tables, cfg, codec),
+                  lambda: _bucket_topk_batch(bks, tables, cfg, codec,
+                                             plain=True),
+                  bound(wbytes + Q * nb * tbytes + Q * pairs,
+                        2 * num_nnz * Q)))
+    res["k12_queries"] = Q
     for kn, fn, plain, b in kinds:
         res[f"{kn}_ms"] = cuda_ms(fn, reps=10, warmup=2)
         res[f"{kn}_plain_ms"] = cuda_ms(plain, reps=1, warmup=0)
@@ -2779,6 +2903,25 @@ def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
             **geo) for w, _, geo in bks], reps=10)
     k3_per, k3_sum = _device_ms([lambda w=w: stream_words_device(w, salt)
                                  for w, _, _ in bks], reps=10)
+    # K11 alone; K12 alone with and without its merge, and the torch.topk
+    # merge of each bucket's unmerged slots
+    _, k11_alone = _device_ms([lambda b=b: _bucket_scores([b], table, cfg,
+                                                          codec)
+                               for b in bks], reps=10)
+    _, k12_alone = _device_ms([lambda w=w, nr=nr, geo=geo:
+                               K.topk_spmv_bucket_batch_device(
+                                   w, tables, nr, cfg=cfg, codec=codec, **geo)
+                               for w, nr, geo in bks], reps=10)
+    _, k12_unmerged = _device_ms([lambda w=w, nr=nr, geo=geo: _k12_unmerged(
+        w, nr, geo, tables, cfg, codec) for w, nr, geo in bks], reps=10)
+    slots = [_k12_unmerged(w, nr, geo, tables, cfg, codec)
+             for w, nr, geo in bks]
+    _, k12_topk_merge = _device_ms([lambda v=v, t=t: K.merge_lane_topk(
+        v, t, cfg.lane_k, lead=1) for v, t in slots], reps=10)
+    launch = [_k12_launch(w, tables, geo, cfg, codec) for w, _, geo in bks]
+    names = {_k12_instantiation(c, qp, cfg.lane_k, bool(cfg.tie_safe_topk))
+             for c, qp, _, _ in launch}
+    report = _build.ptxas_report()
     # the host clock of one query: _bucket_topk, its launches and the two
     # stacks (to enqueue them, and to a synchronize: the card's time shows
     # when it is the longer); and the bare launches, enqueued
@@ -2810,10 +2953,28 @@ def _bucket_times(bks, words, table, cfg, codec, num_nnz, tables=None):
         k13_words_gb_per_s=wbytes / (res["k13_ms"] * 1e-3) / 1e9,
         k13_alone_words_gb_per_s=wbytes / (alone * 1e-3) / 1e9,
         k13_alone_share_of_k3=k3_sum / alone,
-        k13_registers_and_spill_bytes={
-            name: regs for name, regs in _build.ptxas_report().items()
-            if name.startswith("bucket_topk_kernel")})
+        k13_registers_and_spill_bytes=_bucket_registers(report,
+                                                        "bucket_topk_kernel"),
+        k11_alone_ms=k11_alone,
+        k11_alone_words_gb_per_s=wbytes / (k11_alone * 1e-3) / 1e9,
+        k11_registers_and_spill_bytes=_bucket_registers(
+            report, "bucket_scores_kernel"),
+        k12_alone_ms=k12_alone, k12_unmerged_ms=k12_unmerged,
+        k12_card_merge_ms=k12_alone - k12_unmerged,
+        k12_topk_merge_of_the_slots_ms=k12_topk_merge,
+        k12_alone_words_gb_per_s=wbytes / (k12_alone * 1e-3) / 1e9,
+        k12_kernel_codec_pass_passes_slots_by_bucket=launch,
+        k12_registers_and_spill_bytes={n: report[n] for n in sorted(names)})
+    require(not any(report[n][1] for n in names),
+            "the K12 instantiations of the path do not spill")
     return res
+
+
+def _k12_instantiation(codec, pass_queries, lane_k, tie_safe):
+    """The name ``_build.ptxas_report`` gives K12's kernel for a kernel
+    codec (KERNEL_CODECS), pass, lane_k and buffers."""
+    return (f"bucket_topk_batch_kernel<{_pass_codec(codec, pass_queries)},"
+            f"{lane_k},{int(tie_safe)}>")
 
 
 def phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev):
@@ -2828,8 +2989,10 @@ def phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev):
     one query against the default engine's K9 scores of the same slices
     (rtol 1e-6) and the bf16 matrix product. Engine (b): h16 at quantum 8
     with the headline's other settings: K13 over every bucket, the exact
-    rescore of a pool of 400 (precision@100 >= MIN_PRECISION), K11 and K13
-    against their plain versions. Each: times, launches, K3."""
+    rescore of a pool of 400 (precision@100 >= MIN_PRECISION), K12 on a
+    group of 8. Each: K12's group against its plain version on the
+    kernel's slots, bit for bit; the three kernels against their plain
+    versions (``_bucket_agree``); times, launches, K3."""
     import scipy.sparse
     import torch
 
@@ -2874,14 +3037,21 @@ def phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev):
             raw.append(ri if not cfg.rescore_pool else
                        K.finalize_topk(tv, tt, row_ids, k)[0].cpu().numpy())
             pools.append((tv, tt))
-        if codec == "f32":
-            tables = _tables(group, dev, codec)
-            bv, bt = _bucket_topk_batch(bks, tables, cfg, codec)
+        tables = _tables(group, dev, codec)
+        bv, bt = _bucket_topk_batch(bks, tables, cfg, codec)
         ks = _bucket_scores(bks, _table1(qs[0], dev, codec)[0], cfg, codec)
         torch.cuda.synchronize()
         launches = _bucket_counts()
-        if codec != "f32":
-            del launches["bucket_topk_batch"]
+        # the group's pairs against K12's plain version on its slots
+        for j, (w, nr, geo) in enumerate(bks):
+            *_, slots = _k12_launch(w, tables, geo, cfg, codec)
+            sv, st = K.bucket_topk_batch_slots_plain(
+                w, tables, nr, lane_k=cfg.lane_k,
+                tie_safe=bool(cfg.tie_safe_topk), codec=codec,
+                num_slots=slots, **geo)
+            require(torch.equal(bv[:, j], sv) and torch.equal(bt[:, j], st),
+                    f"{name}: K12's group equals its plain version on the "
+                    "kernel's slots bit for bit at full size")
 
         prec = _precision(gold, idx, k)
         res = dict(phase=f"{name}_path", config=config, rows=m.num_rows,
@@ -2972,8 +3142,7 @@ def phase_bucket_path(coo, csr, qs, gold, gold_bf16, df, dev):
         res.update(k11_max_abs_err=errs[0], k13_max_abs_err=errs[1],
                    k12_max_abs_err=errs[2],
                    **_bucket_times(bks, words, table, cfg, codec,
-                                   coo.nnz,
-                                   tables if codec == "f32" else None),
+                                   coo.nnz, tables),
                    launches=launches, nvidia_smi=smi_line())
         emit(res)
         for kname, n in launches.items():
@@ -4561,6 +4730,14 @@ def summarize(R, complete):
     def sharded(key):
         return R["sharded"][key]
 
+    def k12_extra(r):
+        """K12's keys beside kernel_entry's (``_bucket_times``)."""
+        return dict(alone_ms=r["k12_alone_ms"],
+                    unmerged_ms=r["k12_unmerged_ms"],
+                    topk_merge_of_the_slots_ms=r[
+                        "k12_topk_merge_of_the_slots_ms"],
+                    template="spmv_topk_tpu_torch/csrc/bucket_topk_batch.cuh")
+
     def k13_extra(r):
         return dict(alone_ms=r["k13_alone_ms"],
                     host_enqueue_ms=r["k13_host_enqueue_ms_median"],
@@ -4696,16 +4873,18 @@ def summarize(R, complete):
             R["pdf"]["launches"]["slice_scores"], R["pdf"], "k9", spmv,
             partitions=PARTITIONS, **one)),
         # the per-bucket ops over every bucket of pack_sell_buckets: f32
-        # (the default config), h16 nested; times summed over the buckets
+        # (the default config), h16 nested; times summed over the buckets,
+        # alone_ms the kernels on the card with no host time
         (("bk", "bkh", "lib"), lambda: kernel_entry(
             "bucket_scores", "bucket_scores.cu", f"{ker}:2107",
             R["bk"]["launches"]["bucket_scores"], R["bk"], "k11", spmv,
-            buckets=R["bk"]["buckets"], **one,
+            buckets=R["bk"]["buckets"], alone_ms=R["bk"]["k11_alone_ms"],
+            **one,
             h16=kernel_entry("bucket_scores", "bucket_scores.cu",
                              f"{ker}:2107",
                              R["bkh"]["launches"]["bucket_scores"], R["bkh"],
                              "k11", spmv, buckets=R["bkh"]["buckets"],
-                             **one))),
+                             alone_ms=R["bkh"]["k11_alone_ms"], **one))),
         # K13: ms back to back through its wrapper, alone_ms the kernel
         # on the card with no host time (_bucket_times)
         (("bk", "bkh", "lib"), lambda: kernel_entry(
@@ -4716,11 +4895,19 @@ def summarize(R, complete):
                              R["bkh"]["launches"]["bucket_topk"], R["bkh"],
                              "k13", topk1, buckets=R["bkh"]["buckets"],
                              **two, **k13_extra(R["bkh"])))),
-        (("bk", "lib"), lambda: kernel_entry(
-            "bucket_topk_batch", "bucket_topk_batch.cuh", f"{ker}:2225",
+        # K12: its unit per codec, alone with and without its merge, the
+        # torch.topk merge of its slots (the kernel before's)
+        (("bk", "bkh", "lib"), lambda: kernel_entry(
+            "bucket_topk_batch", K12_UNITS["f32"], f"{ker}:2225",
             R["bk"]["launches"]["bucket_topk_batch"], R["bk"], "k12",
             lib[f"spmv_topk_{DEFAULT_GROUP}_ms"], buckets=R["bk"]["buckets"],
-            queries=DEFAULT_GROUP, **two)),
+            queries=DEFAULT_GROUP, **two, **k12_extra(R["bk"]),
+            h16=kernel_entry(
+                "bucket_topk_batch", K12_UNITS["h16"], f"{ker}:2225",
+                R["bkh"]["launches"]["bucket_topk_batch"], R["bkh"], "k12",
+                lib[f"spmv_topk_{DEFAULT_GROUP}_ms"],
+                buckets=R["bkh"]["buckets"], queries=DEFAULT_GROUP, **two,
+                **k12_extra(R["bkh"])))),
         # the measurement labs: each variant nested, v_prod (K7) under
         # fused_lab's entry
         (("labs",), lambda: lab_entry(

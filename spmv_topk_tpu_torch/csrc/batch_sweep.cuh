@@ -1,15 +1,17 @@
 // Pieces shared by the multi-query sweeps that read the stream once a pass
 // of queries: K6 h16 (octet_topk_batch_h16.cu), K6 for the other codecs
-// (octet_topk_batch.cuh) and K8 (slice_topk_batch.cuh).
+// (octet_topk_batch.cuh), K8 (slice_topk_batch.cuh) and K12
+// (bucket_topk_batch.cuh).
 //
 // A CUDA block of such a sweep is 8 member warps per 32 lanes of the
 // stream (L lanes, 8 L threads): the warps of member m add up member m of
 // each octet (slice run) for every query of the pass, and the member sums
-// go through shared memory to a harvest. The (lane, query) buffers live in
-// shared memory with their minima: thread (lane, m) compares the octet's
-// largest member of queries m, m + 8, ... with the minimum, and only the
-// pairs that can enter go on a queue that every thread then takes from, so
-// a replacement costs a warp only where a pair needs it. The lane merge
+// go through shared memory to a harvest (K8's and K12's: each member in
+// turn). The (lane, query) buffers live in shared memory with their
+// minima: thread (lane, m) compares the octet's largest member of queries
+// m, m + 8, ... with the minimum, and only the pairs that can enter go on
+// a queue that every thread then takes from, so a replacement costs a
+// warp only where a pair needs it. The lane merge
 // (lane_merge.cuh): each block sorts its buffers into the workspace, a
 // ticket elects the last block of each set of about sqrt(slots) slots to
 // merge the set's, a second ticket the last set.
@@ -152,6 +154,77 @@ __device__ __forceinline__ void octet_harvest(const S* sums, float* buf_v, int32
       sc[m] = real(m) ? static_cast<float>(sums[(q * kMembers + m) * L + l]) : -INFINITY;
     float tmin = buf_min[q * L + l];
     octet::harvest_above<K, TIE_SAFE, EXACT>(tv, tt, tmin, sc, tag0, cur.stride);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      buf_v[(q * K + k) * L + l] = tv[k];
+      buf_t[(q * K + k) * L + l] = tt[k];
+    }
+    buf_min[q * L + l] = tmin;
+  }
+  __syncthreads();   // the sums, the buffers and the queue are free again
+  if (threadIdx.x == 0) queued = 0;
+}
+
+// The harvest of a run of nr members (K8's work items, K12's runs of 8
+// slices) from their sums, after a barrier that follows the sums; member
+// m's tag is tag0 + m * dj. Thread (lane, member) checks queries member,
+// member + 8, ...: a (lane, query) pair goes on the queue when the run's
+// largest real member is not below its buffer's minimum (fmaxf passes
+// over a NaN member, which never enters); below it, nothing of the run
+// does. Then each queued pair is harvested by one thread: the real
+// members in turn, each at or above the buffer's minimum replacing the
+// first slot holding it (TIE_SAFE) or every one (_topk_update), its
+// buffer read from and written back to shared memory. Ends with the sums,
+// the buffers and the queue free again.
+template <int K, bool TIE_SAFE, int QP, int L>
+__device__ __forceinline__ void member_harvest(const float* sums, float* buf_v, int32_t* buf_t,
+                                               float* buf_min, uint16_t* queue, int& queued,
+                                               int nr, int32_t tag0, int dj, int member,
+                                               int lane, int nq) {
+  constexpr int T = kMembers * L;
+#pragma unroll
+  for (int i = 0; i < QP / kMembers; ++i) {
+    const int q = member + kMembers * i;
+    if (q >= nq) break;   // uniform in the warp
+    const float* in = sums + q * kMembers * L + lane;
+    float top = in[0];
+#pragma unroll
+    for (int m = 1; m < kMembers; ++m)
+      if (m < nr) top = fmaxf(top, in[m * L]);
+    const bool enter = top >= buf_min[q * L + lane];
+    enqueue(enter, queued, queue, q * L + lane);
+  }
+  __syncthreads();
+  const int n = queued;   // the same in every thread
+  if (n == 0) return;     // no one reads the sums again: no third barrier
+  for (int e = threadIdx.x; e < n; e += T) {
+    const int pair = queue[e];
+    const int q = pair / L, l = pair % L;
+    float tv[K];
+    int32_t tt[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      tv[k] = buf_v[(q * K + k) * L + l];
+      tt[k] = buf_t[(q * K + k) * L + l];
+    }
+    float tmin = buf_min[q * L + l];
+#pragma unroll
+    for (int m = 0; m < kMembers; ++m) {
+      if (m >= nr) break;
+      const float sc = sums[(q * kMembers + m) * L + l];
+      if (sc >= tmin) {
+        bool done = false;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (tv[k] == tmin && !done) {
+            tv[k] = sc;
+            tt[k] = tag0 + m * dj;
+            if (TIE_SAFE) done = true;
+          }
+        }
+        tmin = octet::buffer_min(tv);
+      }
+    }
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       buf_v[(q * K + k) * L + l] = tv[k];

@@ -41,32 +41,68 @@ __device__ __forceinline__ float halving_sum(P p) {
   return __fadd_rn(c0, c1);
 }
 
+// Chunks a load step of slice_score reads (an even and an odd one).
+constexpr int kStep = 2;
+
 // One slice's score for a single-query codec C, in the order of
-// _bucket_kernel and _bucket_scores_kernel: h16 sums every word of the
-// W // 8 chunks in int32; the float codecs sum row r of each chunk over
-// the chunks in two accumulators by chunk parity (the JAX kernels' two
-// alternating (8, 128) accumulators, one when W // 8 < 2), add the two,
-// and reduce the 8 rows by halving_sum. src: the lane's word of row 0.
+// _bucket_kernel and _bucket_scores_kernel (K13, K11): h16 sums every
+// word of the W // 8 chunks in int32; the float codecs sum row r of each
+// chunk over the chunks in two accumulators by chunk parity (the JAX
+// kernels' two alternating (8, 128) accumulators, one when W // 8 < 2),
+// add the two, and reduce the 8 rows by halving_sum. The chunks are the
+// outer loop: each step loads kStep chunks (16 words, W x 512 contiguous
+// bytes a slice) before any of their adds, so a thread keeps 16 loads in
+// flight, and the 8 rows' accumulators stay in registers (a step of 4
+// measured no faster: PERF.md); chunk c of a float codec goes to the even
+// or the odd accumulators of its 8 rows by its parity, an odd last chunk
+// alone. h16's int32 sum is exact in any order (one accumulator). src:
+// the lane's word of row 0.
 template <class C>
 __device__ __forceinline__ float slice_score(const int32_t* src, int chunks,
                                              const Table<typename C::Tab>& tab) {
+  static_assert(kStep == 2, "a step holds one (even, odd) chunk pair");
+  constexpr int N = kStep * kChunk;
   if constexpr (C::kExact) {
     typename C::Acc acc = 0;
-#pragma unroll 4
-    for (int r = 0; r < chunks * kChunk; ++r) acc = C::add(acc, word(src, r), tab);
+    int u = 0;
+    for (; u + kStep <= chunks; u += kStep) {
+      uint32_t w[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) w[i] = word(src, u * kChunk + i);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc = C::add(acc, w[i], tab);
+    }
+    if (u < chunks) {
+      uint32_t w[kChunk];
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) w[r] = word(src, u * kChunk + r);
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) acc = C::add(acc, w[r], tab);
+    }
     return C::finish(acc);
   } else {
-    return halving_sum([&](int r) {
-      float even = 0.0f, odd = 0.0f;
-      int u = 0;
-#pragma unroll 2
-      for (; u + 1 < chunks; u += 2) {
-        even = C::add(even, word(src, u * kChunk + r), tab);
-        odd = C::add(odd, word(src, (u + 1) * kChunk + r), tab);
+    float even[kChunk], odd[kChunk];
+#pragma unroll
+    for (int r = 0; r < kChunk; ++r) even[r] = odd[r] = 0.0f;
+    int u = 0;
+    for (; u + kStep <= chunks; u += kStep) {
+      uint32_t w[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) w[i] = word(src, u * kChunk + i);
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) {
+        even[r] = C::add(even[r], w[r], tab);
+        odd[r] = C::add(odd[r], w[kChunk + r], tab);
       }
-      if (u < chunks) even = C::add(even, word(src, u * kChunk + r), tab);
-      return __fadd_rn(even, odd);
-    });
+    }
+    if (u < chunks) {
+      uint32_t w[kChunk];
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) w[r] = word(src, u * kChunk + r);
+#pragma unroll
+      for (int r = 0; r < kChunk; ++r) even[r] = C::add(even[r], w[r], tab);
+    }
+    return halving_sum([&](int r) { return __fadd_rn(even[r], odd[r]); });
   }
 }
 

@@ -33,14 +33,11 @@
 // Design. A CUDA block is kGroups groups of 128 threads, one group per
 // slot and one thread per lane; the query table is staged in shared memory
 // once for the block (an f32 table past shared memory is read from global
-// memory, F32Global). A thread sums its lane of a slice with the chunks in
-// the outer loop: the 8 rows' accumulators stay in registers (for the
-// float codecs an even and an odd one per row, as slice_score adds), and
-// each step issues the loads of kStep chunks (8 x kStep words, W x 512
-// contiguous bytes a slice) before any of their adds, so a thread keeps
-// 16 loads in flight (a step of 4 measured no faster: PERF.md). Up to 128
-// registers a thread (one block of 512 threads an SM) hold those loads,
-// the 16 accumulators and the lane buffer without a spill. The merge runs in the same launch,
+// memory, F32Global). A thread sums its lane of a slice with
+// bucket_common.cuh::slice_score: the chunks in the outer loop, 16 loads
+// in flight, the 8 rows' accumulators in registers. Up to 128 registers a
+// thread (one block of 512 threads an SM) hold those loads, the 16
+// accumulators and the lane buffer without a spill. The merge runs in the same launch,
 // in three levels:
 //   1. each block merges its groups' buffers in shared memory and writes
 //      one sorted buffer to the workspace;
@@ -78,61 +75,6 @@ using namespace lane_merge;
 constexpr int kGroups = 4;                  // slots (128-thread groups) a block
 constexpr int kThreads = kGroups * kLanes;  // 512
 constexpr int kMinBlocks = 1;               // resident blocks an SM the launch bounds ask
-constexpr int kStep = 2;                    // chunks a load step of a slice issues
-
-// One slice's score in slice_score's order, the chunks in the outer loop:
-// each step loads kStep chunks (an even and an odd one), then adds them,
-// chunk c of a float codec to the even or the odd accumulators of its 8
-// rows by its parity; an odd last chunk goes alone. h16's int32 sum is
-// exact in any order (one accumulator). src: the lane's word of row 0.
-template <class C>
-__device__ __forceinline__ float score(const int32_t* src, int chunks,
-                                       const Table<typename C::Tab>& tab) {
-  static_assert(kStep == 2, "a step holds one (even, odd) chunk pair");
-  constexpr int N = kStep * kChunk;
-  if constexpr (C::kExact) {
-    typename C::Acc acc = 0;
-    int u = 0;
-    for (; u + kStep <= chunks; u += kStep) {
-      uint32_t w[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) w[i] = word(src, u * kChunk + i);
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc = C::add(acc, w[i], tab);
-    }
-    if (u < chunks) {
-      uint32_t w[kChunk];
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) w[r] = word(src, u * kChunk + r);
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) acc = C::add(acc, w[r], tab);
-    }
-    return C::finish(acc);
-  } else {
-    float even[kChunk], odd[kChunk];
-#pragma unroll
-    for (int r = 0; r < kChunk; ++r) even[r] = odd[r] = 0.0f;
-    int u = 0;
-    for (; u + kStep <= chunks; u += kStep) {
-      uint32_t w[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) w[i] = word(src, u * kChunk + i);
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) {
-        even[r] = C::add(even[r], w[r], tab);
-        odd[r] = C::add(odd[r], w[kChunk + r], tab);
-      }
-    }
-    if (u < chunks) {
-      uint32_t w[kChunk];
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) w[r] = word(src, u * kChunk + r);
-#pragma unroll
-      for (int r = 0; r < kChunk; ++r) even[r] = C::add(even[r], w[r], tab);
-    }
-    return halving_sum([&](int r) { return __fadd_rn(even[r], odd[r]); });
-  }
-}
 
 // The query table, copied into shared memory by all the block's threads
 // (C::kShared), else the global table.
@@ -171,7 +113,8 @@ bucket_topk_kernel(const int32_t* __restrict__ words, const typename C::Tab* __r
   const int n = real_slices(num_real, num_slices);
   if (slot < num_slots)
     for (int s = slot; s < n; s += num_slots)
-      topk_update<K>(v, t, score<C>(words + (int64_t)s * width * kLanes + lane, chunks, tab),
+      topk_update<K>(v, t,
+                     slice_score<C>(words + (int64_t)s * width * kLanes + lane, chunks, tab),
                      slice_base + s, tie_safe);
   // The next launch on the stream (launched to overlap this one's tail)
   // may start its sweep now; this one touches the workspace, the tickets

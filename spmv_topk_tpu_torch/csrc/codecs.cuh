@@ -238,13 +238,15 @@ inline size_t table_smem_bytes(int rows) {
 }
 
 // ------------------------------------------------------------- multi-query
-// The batch sweep K12 holds a subgroup of at most 8 queries (QG, the
-// subgroup rounded up to a power of two) in one CUDA block. load() fills
-// shared memory with the subgroup's tables and returns what add() gathers
-// from; add() adds word u's product for every query to acc[QG].
-// smem_bytes() is the dynamic shared memory load() takes.
+// The batch sweeps before K8, K6 and K12 read the stream once a pass held
+// a subgroup of at most 8 queries (QG, the subgroup rounded up to a power
+// of two) in one CUDA block; they serve only the old kernels that
+// experiments/k8_ablation.py, k6_ablation.py and k12_ablation.py time.
+// load() fills shared memory with the subgroup's tables and returns what
+// add() gathers from; add() adds word u's product for every query to
+// acc[QG]. smem_bytes() is the dynamic shared memory load() takes.
 
-// h16 (K12): the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
+// h16: the QG int4x8 tables (int32 (Q, 128), queries q0 .. q0 + nq - 1)
 // repacked into tab[1024]: entry c (a 10-bit column) holds that column's
 // signed nibble for every query, query dq at bits [4dq, 4dq+4), so one
 // shared-memory gather per nnz serves the whole subgroup (_h16_shared,
@@ -463,8 +465,9 @@ struct BatchOf<H16> {
 };
 
 // ------------------------------------------------------------ K8's passes
-// K8 (slice_topk_batch.cuh) and K6 but h16 (octet_topk_batch.cuh) read
-// each word of the stream once for a pass of QP queries. A pass codec: Sums, one member's sums for every query of
+// K8 (slice_topk_batch.cuh), K6 but h16 (octet_topk_batch.cuh) and K12
+// (bucket_topk_batch.cuh) read each word of the stream once for a pass of
+// QP queries. A pass codec: Sums, one member's sums for every query of
 // the pass; table_bytes(rows), the shared memory of the pass's tables;
 // load(), their fill by a block's threads; view(), what add() reads; add(),
 // up to kWords words of a member (those below `left`) added to the sums in
@@ -597,9 +600,9 @@ struct FloatPass {
 };
 
 // ------------------------------------------------------------ K6's passes
-// K6 (octet_topk_batch.cuh) reads the quantized codecs (C Int8x4 or Sign)
-// against a pass table of QP 8, 16 or 32 queries that holds each query's
-// decoded field as a bf16 value: a table entry (row e / 128, lane e % 128)
+// K6 (octet_topk_batch.cuh) and K12 read the quantized codecs (C Int8x4
+// or Sign) against a pass table of QP 8, 16 or 32 queries that holds each
+// query's decoded field as a bf16 value: a table entry (row e / 128, lane e % 128)
 // holds F fields (int8x4 and i8s 4 bytes, i4s 8 nibbles), and field f of
 // entry e is column c = e F + (f ^ turn(e)) of the pass table, 2 QP bytes
 // in S = QP / 8 16-byte words, word r holding queries 8r .. 8r + 7 as
@@ -738,8 +741,8 @@ struct Tag {
   using type = C;
 };
 
-// every codec argument but int8x4_global, which only the batch sweeps K6
-// and K8 take (their int8x4 pass tables past shared memory)
+// every codec argument but int8x4_global, which only the batch sweeps K6,
+// K8 and K12 take (their int8x4 pass tables past shared memory)
 constexpr unsigned kAllCodecs = (1u << kInt8x4Global) - 1;
 
 template <unsigned only = kAllCodecs, class F>

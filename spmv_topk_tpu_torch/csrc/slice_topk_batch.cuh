@@ -179,55 +179,11 @@ slice_topk_batch_kernel(const Params a) {
       for (int b = 0; b < A; ++b) load(w[b], b * kUnroll);
     }
     __syncthreads();
-    // The harvest. Thread (lane, member) checks queries member, member + 8,
-    // ...: a (lane, query) pair goes on the queue when the item's largest
-    // real member is not below its buffer's minimum (fmaxf passes over a
-    // NaN member, which never enters); below it, nothing of the item does.
-#pragma unroll
-    for (int i = 0; i < QP / kMembers; ++i) {
-      const int q = member + kMembers * i;
-      if (q >= nq) break;   // uniform in the warp
-      const float* in = sums + q * kMembers * L + lane;
-      float top = in[0];
-#pragma unroll
-      for (int m = 1; m < kMembers; ++m)
-        if (m < it.nr) top = fmaxf(top, in[m * L]);
-      const bool enter = top >= buf_min[q * L + lane];
-      batch::enqueue(enter, queued, queue, q * L + lane);
-    }
-    __syncthreads();
-    // Each queued pair harvested by one thread: the item's real members in
-    // turn (K7's replacement), its buffer read from and written back to
-    // shared memory.
-    const int n = queued;   // the same in every thread
-    if (n == 0) continue;   // no one reads the sums again: no third barrier
-    const int32_t tag0 = part.tag_offset + it.tag0;
-    for (int e = threadIdx.x; e < n; e += T) {
-      const int pair = queue[e];
-      const int q = pair / L, l = pair % L;
-      float tv[K];
-      int32_t tt[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        tv[k] = buf_v[(q * K + k) * L + l];
-        tt[k] = buf_t[(q * K + k) * L + l];
-      }
-      float tmin = buf_min[q * L + l];
-#pragma unroll
-      for (int m = 0; m < kMembers; ++m) {
-        if (m >= it.nr) break;
-        const float sc = sums[(q * kMembers + m) * L + l];
-        if (sc >= tmin) k7::replace<K, TIE_SAFE>(tv, tt, tmin, sc, tag0 + m * it.dj);
-      }
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        buf_v[(q * K + k) * L + l] = tv[k];
-        buf_t[(q * K + k) * L + l] = tt[k];
-      }
-      buf_min[q * L + l] = tmin;
-    }
-    __syncthreads();   // the sums, the buffers and the queue are free again
-    if (threadIdx.x == 0) queued = 0;
+    // The harvest (batch_sweep.cuh): the item's real members in turn
+    // (K7's replacement)
+    batch::member_harvest<K, TIE_SAFE, QP, L>(sums, buf_v, buf_t, buf_min, queue, queued, it.nr,
+                                             part.tag_offset + it.tag0, it.dj, member, lane,
+                                             nq);
   }
 
   // The lane merge (lane_merge.cuh), K6 h16's

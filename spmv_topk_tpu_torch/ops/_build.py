@@ -10,10 +10,10 @@ of the package, and only a launch on a CUDA tensor needs the library.
 ``ptxas_report`` reads each kernel's registers and spills from the build.
 
 Every C entry point takes its pointers and the CUDA stream as
-``c_void_p`` (``bucket_topk``, ``octet_topk``, ``octet_topk_batch``,
-``slice_topk``, ``slice_topk_batch``: one pointer to its arguments
-packed as int64) and returns ``cudaGetLastError()``; ``check`` raises
-when that is not 0.
+``c_void_p`` (``bucket_topk``, ``bucket_topk_batch``, ``octet_topk``,
+``octet_topk_batch``, ``slice_topk``, ``slice_topk_batch``: one pointer
+to its arguments packed as int64) and returns ``cudaGetLastError()``;
+``check`` raises when that is not 0.
 """
 
 from __future__ import annotations
@@ -70,9 +70,10 @@ _SIGNATURES = {
     "slice_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
     "stream_words": [_vp, _i64] + [_vp] * 3 + [_i32, _vp],
     "bucket_scores": [_vp] * 2 + [_i32] * 5 + [_vp] * 2,
+    "bucket_scores_occupancy": [_i32] * 2,
     "bucket_topk": [_vp],   # int64 arguments packed (csrc/bucket_topk.cu)
     "bucket_topk_occupancy": [_i32] * 3,
-    "bucket_topk_batch": [_vp] * 3 + [_i32] * 10 + [_vp] * 3,
+    "bucket_topk_batch": [_vp],  # packed int64 (bucket_topk_batch.cu)
     "lab_kernel": [_vp] * 2 + [_i32] * 7 + [_vp] * 3,
     "lab_fused": [_vp] * 3 + [_i32] * 6 + [_vp] * 3,
     "lab_h16": [_vp] * 2 + [_i32] * 5 + [_vp] * 3,

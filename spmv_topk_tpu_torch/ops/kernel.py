@@ -144,18 +144,22 @@ K8_PASS_QUERIES = {"h16": (8, 16, 32), "f32": (8, 16), "f32_global": (8,),
 K8_UNROLL = 4
 # (C entry point, device index, its arguments) -> a kernel's resident
 # blocks an SM (_resident_blocks); (kernel, device index, stream) -> the
-# workspace and tickets of K13, K6, K1, K7, K8 and K3 (_merge_workspace)
+# workspace and tickets of K13, K12, K6, K1, K7, K8 and K3
+# (_merge_workspace)
 _OCCUPANCY = {}
 _MERGE_WORKSPACE = {}
-# CUDA blocks per SM of the sweeps K4, K9 and K11, and the slots of the
-# batch sweep that merges with torch.topk (``batch_grid``: K12; each slot
-# owns one set of lane buffers, so this also sets their merge width,
-# slots * lane_k per lane)
+# CUDA blocks per SM of the sweeps K4 and K9, and the slots of the batch
+# sweeps that merged with torch.topk before K8, K6 and K12 read the stream
+# once a pass (``batch_grid``: the old kernels that experiments/
+# k8_ablation.py, k6_ablation.py and k12_ablation.py time; each slot owned
+# one set of lane buffers, so this also set their merge width, slots *
+# lane_k per lane)
 _BLOCKS_PER_SM = 8
 _HARVEST = 3   # octet fold: top 3 of the 8 members per lane
-# K12: queries live in one CUDA block when cfg.batch_subgroup is 0, and
-# at most (K12's h16 table entry packs 8 queries' nibbles; registers run
-# out first)
+# Those old kernels' subgroups: the queries of one CUDA block, 4 when
+# cfg.batch_subgroup is 0 and at most 8 (their h16 table entry packs 8
+# queries' nibbles, csrc/codecs.cuh::H16Batch). No kernel of the package
+# reads cfg.batch_subgroup: it never changed the JAX kernels' results
 BATCH_SUBGROUP = 4
 MAX_BATCH_SUBGROUP = 8
 # K6 h16 (csrc/octet_topk_batch_h16.cu): queries a pass reads the stream
@@ -173,6 +177,10 @@ H16_BLOCK_LANES = {4: 64, 8: 64, 16: 32}
 # pass of 8 than in one of 16
 K6_PASS_QUERIES = {"f32": (8, 16), "f32_global": (8,), "int8x4": (8, 16),
                    "int8x4_global": (8,), "i8s": (8, 16), "i4s": (8, 16)}
+# K12 (csrc/bucket_topk_batch.cuh): h16 on K8's H16Pass tables in passes
+# of 8 or 16; the other codecs on K6's tables in passes of 8 (their sums,
+# one a query and row of a chunk, fill a thread's registers at 8)
+K12_PASS_QUERIES = dict({c: (8,) for c in K6_PASS_QUERIES}, h16=(8, 16))
 # columns a query table entry holds (ops/quantized_query.py): f32 one
 # value, int8x4 and i8s 4 bytes, i4s 8 nibbles (each a column of K6's
 # Bf16Pass table); h16's one table row holds every column
@@ -187,8 +195,8 @@ SLICE_PLAN_COLUMNS = ("width", "slices_per_block", "blocks_per_slice",
 # enum Codec, in the same order): the config's codecs, and f32 with its
 # tables read from global memory (a table past a CUDA block's shared
 # memory, ``tables_in_smem``), and int8x4 with its tables read from
-# global memory (the batch sweeps K6 and K8 only: their pass tables past
-# shared memory)
+# global memory (the batch sweeps K6, K8 and K12 only: their pass tables
+# past shared memory)
 KERNEL_CODECS = ("h16", "f32", "f32_global", "int8x4", "i8s", "i4s",
                  "int8x4_global")
 # the sign-layout codecs' final arithmetic shift (``prod_sign``)
@@ -681,11 +689,12 @@ def _table_spec(cfg: TopKSpMVConfig):
 def tables_in_smem(table_bytes: int, smem_limit: int) -> int:
     """How many query tables of ``table_bytes`` bytes a CUDA block can
     hold in ``smem_limit`` bytes of shared memory: the largest power of two
-    up to MAX_BATCH_SUBGROUP (the batch sweeps size their tables for their
-    subgroup rounded up to one, and cut the subgroup to it), or 0 when not
-    even one fits: the sweeps then gather from the tables in global memory
-    (f32 only, codec "f32_global": no other codec's table comes near; the
-    batch sweeps K6 and K8 size theirs with ``k6_pass``, ``k8_pass``)."""
+    up to MAX_BATCH_SUBGROUP (the old batch sweeps sized their tables for
+    their subgroup rounded up to one, and cut the subgroup to it), or 0
+    when not even one fits: the sweeps then gather from the tables in
+    global memory (f32 only, codec "f32_global": no other codec's table
+    comes near; the batch sweeps K6, K8 and K12 size theirs with
+    ``k6_pass``, ``k8_pass``, ``k12_pass``)."""
     if table_bytes > smem_limit:
         return 0
     fit = 1
@@ -949,8 +958,10 @@ topk_spmv_fused_octet_device.launches = 0
 
 def batch_grid(num_queries: int, subgroup: int, sms: int, chunks: int,
                partitions: int = 1):
-    """The grid of K12: (queries per CUDA block, subgroups, slots per
-    partition).
+    """The grid of the batch sweeps before K8, K6 and K12 read the stream
+    once a pass (the old kernels of experiments/k8_ablation.py,
+    k6_ablation.py and k12_ablation.py): (queries per CUDA block,
+    subgroups, slots per partition).
 
     ``subgroup`` is cfg.batch_subgroup (0: BATCH_SUBGROUP), capped at
     MAX_BATCH_SUBGROUP and at the query count. The stream is read once
@@ -2208,6 +2219,64 @@ def bucket_topk_batch_plain(words, tables, num_real, **kw):
     return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
 
 
+def bucket_topk_batch_slots_plain(words, tables, num_real, *, lane_k: int,
+                                  tie_safe: bool, width: int,
+                                  slices_per_block: int, slice_base: int,
+                                  num_blocks: int, num_slots: int,
+                                  codec: str = "f32", merged: bool = True):
+    """Plain version of K12 as the kernel computes it, on ``num_slots``
+    slots (``k12_launch``): for each query of the (Q, rows, 128) tables,
+    the real slices' scores in K12's order (``_bucket_sums``, one
+    accumulator a row); the real slices form runs of 8 (the last may be
+    shorter), slot j of S takes runs j R / S .. (j + 1) R / S - 1 of the R
+    runs and folds their slices in order into lane buffers from
+    ``topk_init``'s entries (-inf when ``tie_safe``) by argmin replacement
+    (when score >= the minimum: the first slot holding it when tie-safe,
+    else every one); then ``lane_merge_plain`` over every slot's entries,
+    the initial ones included -> (topv, topt), each (Q, lane_k, 128).
+    With ``merged`` False, each slot's buffer in the merge's order, (Q,
+    slots, lane_k, 128), as the kernel's unmerged launch leaves them. The
+    kernel gives these pairs bit for bit, tags and ties included, however
+    its queries split into passes: on any data for h16 and f32, and for
+    int8x4, i8s and i4s on the packer's words, which its Bf16Pass tables
+    assume (``octet_topk_batch_slots_plain``). Against
+    ``bucket_topk_batch_plain``: the same values whenever the buffers are
+    tie-safe, and the same (value, tag) pairs above each lane's smallest
+    kept value."""
+    K, S = lane_k, num_slots
+    dev = words.device
+    n = min(max(int(num_real.reshape(-1)[0]), 0),
+            num_blocks * slices_per_block)
+    sc = torch.stack([_bucket_sums(words, t, width=width, num_slices=n,
+                                   codec=codec, pairs=False)
+                      for t in tables])                     # (Q, n, 128)
+    Q = sc.shape[0]
+    runs = -(-n // _RUN)
+    j = torch.arange(S, device=dev)
+    first = j * runs // S * _RUN
+    length = ((j + 1) * runs // S * _RUN).clamp(max=n) - first
+    init = (torch.full((K,), NEG_INF, device=dev) if tie_safe else
+            torch.from_numpy(topk_init(K)).to(dev))
+    tv = init.view(1, 1, K, 1).expand(Q, S, K, LANES).clone()
+    tt = torch.zeros((Q, S, K, LANES), dtype=torch.int32, device=dev)
+    kslot = torch.arange(K, device=dev).view(1, 1, K, 1)
+    for step in range(int(length.max()) if n else 0):
+        live = (step < length).view(1, S, 1, 1)
+        s = (first + step).clamp(max=n - 1)
+        score = sc[:, s].unsqueeze(2)                       # (Q, S, 1, 128)
+        cur = tv.amin(dim=2, keepdim=True)
+        hit = tv == cur
+        if tie_safe:
+            hit = kslot == hit.int().argmax(dim=2, keepdim=True)
+        rep = hit & (score >= cur) & live
+        tv = torch.where(rep, score, tv)
+        tt = torch.where(rep, (slice_base + s).int().view(1, S, 1, 1), tt)
+    if not merged:
+        return _sorted_lists(tv, tt)
+    outs = [lane_merge_plain(v, t, K) for v, t in zip(tv, tt)]
+    return torch.stack([v for v, _ in outs]), torch.stack([t for _, t in outs])
+
+
 def _check_bucket(words, num_slices: int, width: int, codec: str, name,
                   tables, lead, *extra):
     """Raise unless ``words`` is a contiguous int32 (num_slices * width,
@@ -2254,7 +2323,10 @@ def spmv_bucket_scores_device(words, table, *, cfg: TopKSpMVConfig,
     i4s); its rows are read whatever they are, as in the JAX kernel.
     ``codec`` is a keyword of its own, not cfg.query_codec.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel,
+    K13's sweep on one resident wave of 128-thread groups
+    (``_bucket_scores_slots``), a programmatic dependent launch: it stores
+    its scores once the stream's previous kernel has completed.
     """
     _check_slice(cfg)
     n = num_blocks * slices_per_block
@@ -2262,25 +2334,34 @@ def spmv_bucket_scores_device(words, table, *, cfg: TopKSpMVConfig,
         return bucket_scores_plain(words, table, width=width,
                                    slices_per_block=slices_per_block,
                                    num_blocks=num_blocks, codec=codec)
-    rows, sms = _check_bucket(words, n, width, codec, "table", table, ())
+    rows, _ = _check_bucket(words, n, width, codec, "table", table, ())
     dev = words.device
     arg, _ = _kernel_codec(dev, codec, rows)
     out = torch.empty((n, LANES), dtype=torch.float32, device=dev)
     _launch(dev, "bucket_scores", words.data_ptr(), table.data_ptr(), n,
-            width, rows, arg, max(1, min(sms * _BLOCKS_PER_SM, n)),
+            width, rows, arg, _bucket_scores_slots(dev, arg, rows, n),
             out.data_ptr())
     spmv_bucket_scores_device.launches += 1
     return out
+
+
+def _bucket_scores_slots(dev, arg: int, rows: int, num_slices: int) -> int:
+    """K11's 128-thread groups (csrc/bucket_scores.cu): ``_bucket_blocks``
+    of the kernel's resident blocks an SM from the occupancy API. Its
+    scores do not depend on them."""
+    per_sm = _resident_blocks(dev, "bucket_scores_occupancy", arg, rows)
+    return _bucket_blocks(_device_info(dev)[0], num_slices, per_sm)
 
 
 spmv_bucket_scores_device.launches = 0
 
 
 def _bucket_blocks(sms: int, num_slices: int, per_sm: int = 1) -> int:
-    """K13's slots on a card of ``sms`` SMs: one resident wave of
-    ``per_sm`` blocks an SM (the occupancy API's answer: 1 for every build,
-    whose launch bounds give a thread up to 128 registers) of BUCKET_GROUPS
-    slots, no more than the bucket has slices."""
+    """K13's slots (and K11's groups) on a card of ``sms`` SMs: one
+    resident wave of ``per_sm`` blocks an SM (the occupancy API's answer:
+    1 for every build, whose launch bounds give a thread up to 128
+    registers) of BUCKET_GROUPS slots, no more than the bucket has
+    slices."""
     return max(1, min(sms * BUCKET_GROUPS * per_sm, num_slices))
 
 
@@ -2366,9 +2447,9 @@ def _bucket_topk_slots(dev, arg: int, lane_k: int, rows: int,
 def _merge_workspace(kind: str, dev, stream: int, words: int, tickets: int):
     """The merge workspace (int32, at least ``words`` entries) and tickets
     (at least ``tickets`` zeros, which each launch leaves 0) of the lane
-    merges on the card, K13's (``kind`` "k13"), K6's ("k6"), K1's
-    ("k1"), K7's ("k7") or K8's ("k8"), or of K3's sum ("k3", its
-    accumulator and ticket), on
+    merges on the card, K13's (``kind`` "k13"), K12's ("k12"), K6's
+    ("k6"), K1's ("k1"), K7's ("k7") or K8's ("k8"), or of K3's sum
+    ("k3", its accumulator and ticket), on
     ``dev`` for launches on ``stream``: allocated once per (kind, device,
     stream) and grown when a launch needs more."""
     key = (kind, dev.index, stream)
@@ -2395,11 +2476,14 @@ def topk_spmv_bucket_batch_device(words, tables, num_real, *,
     tables of ``codec`` (``pack_query_tables``); the other arguments as
     for ``topk_spmv_bucket_device``. Each query's sums run in one
     accumulator (the JAX batch kernel's order), so its values can differ
-    from K13's in the last bits; ``cfg.batch_subgroup`` only sets how many
-    queries share a CUDA block (``batch_grid``; cut to the tables that fit
-    shared memory, ``tables_in_smem``).
+    from K13's in the last bits. ``cfg.batch_subgroup`` is not read.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    launch that returns the final pairs, its lane merge on the card
+    (``_bucket_topk_batch_cuda``: the bucket read once a pass of queries,
+    ``k12_launch``; ``bucket_topk_batch_slots_plain`` on its slots
+    computes what it gives), and no torch op after it. The launch is a
+    programmatic dependent launch, as K13's.
     """
     _check_slice(cfg)
     kw = dict(lane_k=cfg.lane_k, tie_safe=bool(cfg.tie_safe_topk),
@@ -2407,28 +2491,88 @@ def topk_spmv_bucket_batch_device(words, tables, num_real, *,
               slice_base=slice_base, num_blocks=num_blocks, codec=codec)
     if words.device.type == "cpu":
         return bucket_topk_batch_plain(words, tables, num_real, **kw)
+    return _bucket_topk_batch_cuda(words, tables, num_real, **kw)
+
+
+def k12_pass(codec: str, num_queries: int, lane_k: int, table_rows: int,
+             smem_limit: int):
+    """K12's (kernel codec, queries a pass) for ``num_queries`` queries of
+    ``codec`` (K12_PASS_QUERIES): h16 in passes of 8, or 16 for more than
+    8 queries (K8's H16Pass tables, 16 KB); the other codecs in passes of
+    8 on K6's tables (``k6_pass``: FloatPass for f32, Bf16Pass for int8x4,
+    i8s and i4s, f32 and int8x4 tables past shared memory from global
+    memory)."""
+    if codec != "h16":
+        return k6_pass(codec, 8, lane_k, table_rows, smem_limit)
+    return codec, 8 if num_queries <= 8 else 16
+
+
+def k12_launch(dev, codec: str, num_queries: int, lane_k: int,
+               table_rows: int, num_slices: int):
+    """K12's launch shape on CUDA ``dev`` for a bucket of ``num_slices``
+    slices: (kernel codec, queries a pass, passes, slots). The passes
+    (``k12_pass``) and the slots of a pass are ``pass_grid``'s (one CUDA
+    block an SM), no more slots than the bucket has runs of 8 slices."""
+    sms, limit = _device_info(dev)
+    kcodec, qp = k12_pass(codec, num_queries, lane_k, table_rows, limit)
+    passes, slots = pass_grid(num_queries, sms, qp, lane_k, kcodec)
+    return kcodec, qp, passes, max(1, min(slots, -(-num_slices // _RUN)))
+
+
+def _bucket_topk_batch_cuda(words, tables, num_real, *, lane_k: int,
+                            tie_safe: bool, width: int,
+                            slices_per_block: int, slice_base: int,
+                            num_blocks: int, codec: str, unmerged=False):
+    """K12's launch on CUDA tensors (``topk_spmv_bucket_batch_device``'s
+    keywords): one launch that returns the merged pairs, (Q, lane_k, 128);
+    with ``unmerged`` each slot's buffers, sorted (value descending, then
+    tag ascending), (Q, slots, lane_k, 128) values and tags, the merge not
+    run, for timing the sweep alone."""
     Q = tables.shape[0] if tables.dim() == 3 else 0
     if Q < 1:
         raise ValueError(f"tables of shape {tuple(tables.shape)}: need "
                          "(Q >= 1, rows, 128)")
     n = num_blocks * slices_per_block
-    rows, sms = _check_bucket(words, n, width, codec, "tables", tables, (Q,),
-                              ("num_real", num_real, (1, 1)))
-    _check_lane_k(cfg.lane_k)
+    rows, _ = _check_bucket(words, n, width, codec, "tables", tables, (Q,),
+                            ("num_real", num_real, (1, 1)))
+    _check_lane_k(lane_k)
+    if codec == "h16" and width > 65535:
+        raise ValueError(f"an h16 bucket of width {width}: K12's packed "
+                         "sums stay exact up to 65,535 words a slice")
+    K = lane_k
     dev = words.device
-    arg, fit = _kernel_codec(dev, codec, rows)
-    sub, n_sub, slots = batch_grid(
-        Q, min(cfg.batch_subgroup or BATCH_SUBGROUP, fit), sms, n)
-    out_v = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.float32,
-                        device=dev)
-    out_t = torch.empty((Q, slots, cfg.lane_k, LANES), dtype=torch.int32,
-                        device=dev)
-    _launch(dev, "bucket_topk_batch", words.data_ptr(), tables.data_ptr(),
-            num_real.data_ptr(), n, width, rows, arg, cfg.lane_k,
-            int(kw["tie_safe"]), slice_base, Q, sub, slots * n_sub,
-            out_v.data_ptr(), out_t.data_ptr())
+    kcodec, qp, passes, slots = k12_launch(dev, codec, Q, K, rows, n)
+    sets = _merge_sets(slots)
+    lists = Q * (slots if unmerged else slots + sets)
+    tickets = passes * 4 * (1 + sets)
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if unmerged:   # no ticket read: nothing to zero between launches
+            ws = torch.empty(lists * 2 * K * LANES, dtype=torch.int32,
+                             device=dev)
+            ticket = torch.empty(1, dtype=torch.int32, device=dev)
+        else:
+            ws, ticket = _merge_workspace("k12", dev, stream,
+                                          lists * 2 * K * LANES, tickets)
+        lists = ws.numel() // (2 * K * LANES)
+        out_v = torch.empty((Q, K, LANES), dtype=torch.float32, device=dev)
+        out_t = torch.empty((Q, K, LANES), dtype=torch.int32, device=dev)
+        # the arguments as int64 values, in csrc/bucket_topk_batch.cu's order
+        args = array.array("q", (
+            words.data_ptr(), tables.data_ptr(), num_real.data_ptr(), n,
+            width, rows, KERNEL_CODECS.index(kcodec), K, int(tie_safe),
+            slice_base, Q, qp, slots, int(not unmerged), ws.data_ptr(),
+            lists, ticket.data_ptr(), ticket.numel(), out_v.data_ptr(),
+            out_t.data_ptr(), stream))
+        err = _build.lib().bucket_topk_batch(args.buffer_info()[0])
+    _build.check(err, "bucket_topk_batch")
     topk_spmv_bucket_batch_device.launches += 1
-    return merge_lane_topk(out_v, out_t, cfg.lane_k, lead=1)
+    if unmerged:
+        m = Q * slots * K * LANES
+        return (ws[:m].view(torch.float32).view(Q, slots, K, LANES),
+                ws[lists * K * LANES:][:m].view(Q, slots, K, LANES))
+    return out_v, out_t
 
 
 topk_spmv_bucket_batch_device.launches = 0

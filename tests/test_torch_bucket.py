@@ -561,3 +561,164 @@ def test_bucket_topk_slots_plain_production(ref, slots):
         assert torch.equal(t[real], pt_[preal])
         if slots == 1:
             assert torch.equal(v, pv)
+
+
+# --------------------------------------------- K12's plain version on slots
+# csrc/bucket_topk_batch.cuh reads each bucket once a pass of queries,
+# deals runs of 8 slices to its slots and merges them on the card;
+# ops/kernel.py::bucket_topk_batch_slots_plain is what it gives on the
+# kernel's slots. Here it is held to bucket_topk_batch_plain and, on one
+# slot, to the interpret-mode JAX K12 of the module fixture.
+
+SMEM = 232448   # an H100's opt-in shared memory a block
+
+
+def _k12_slots(ref, name, slots, lane_k=LANE_K, tables=None, bucket=None,
+               merged=True):
+    """(slot plain, bucket_topk_batch_plain) of a fixture case's bucket
+    (the padded narrow one by default) and tables."""
+    r = ref[name]
+    codec = CASES[name][0] if name in CASES else "f32"
+    b = r["pm"].buckets[r["sel"][1] if bucket is None else bucket]
+    tables = _t(r["tables"] if tables is None else tables)
+    args = (_t(b.words), tables, _nreal(b))
+    pkw = dict(_plain_kw(r["pc"], b, codec), lane_k=lane_k)
+    return (pkernel.bucket_topk_batch_slots_plain(
+        *args, num_slots=slots, merged=merged, **pkw),
+        pkernel.bucket_topk_batch_plain(*args, **pkw))
+
+
+def _each_query_above_floor(got, want):
+    for q in range(got[0].shape[0]):
+        _lanes_above_floor(got[0][q], got[1][q], want[0][q], want[1][q])
+
+
+@pytest.mark.parametrize("slots", [1, 3, 64, 4096])
+@pytest.mark.parametrize("name", list(CASES))
+def test_k12_slots_plain_matches_plain(ref, name, slots):
+    """K12's plain version on 1, 3, 64 and more slots than runs, tie-safe,
+    every codec: bucket_topk_batch_plain's values, and its pairs above
+    each lane's floor, on the padded narrow bucket and on the widest (one
+    slice per block)."""
+    r = ref[name]
+    wide = r["pm"].buckets[r["sel"][0]]
+    assert wide.block_sublanes == wide.width
+    # more slots than runs: one query (each slot's buffers cost as much)
+    tables = r["tables"][:1] if slots > 64 else None
+    for bucket in r["sel"]:
+        _each_query_above_floor(*_k12_slots(ref, name, slots, bucket=bucket,
+                                            tables=tables))
+
+
+@pytest.mark.parametrize("lane_k", [4, 16])
+@pytest.mark.parametrize("name", ["h16", "f32", "int8x4", "i8s", "i4s"])
+def test_k12_slots_plain_lane_k(ref, name, lane_k):
+    """lane_k 4 and 16 on 3 slots, against bucket_topk_batch_plain."""
+    _each_query_above_floor(*_k12_slots(ref, name, 3, lane_k=lane_k))
+
+
+@pytest.mark.parametrize("Q", [1, 5, 33])
+def test_k12_slots_plain_groups(ref, Q):
+    """Groups of 1, 5 and 33 queries (a pass of 8 or 16 and their tails):
+    each query's pairs are those of the query alone."""
+    qs = _queries(Q, False, 12)
+    tables, _ = pack_query_tables(qs, "f32")
+    (v, t), want = _k12_slots(ref, "f32", 3, tables=tables)
+    assert v.shape == (Q, LANE_K, 128)
+    _each_query_above_floor((v, t), want)
+    alone = _k12_slots(ref, "f32", 3, tables=tables[-1:])[0]
+    assert torch.equal(v[-1], alone[0][0]) and torch.equal(t[-1], alone[1][0])
+
+
+def test_k12_slots_plain_quantum_2(ref):
+    """width_quantum 2: buckets of width 10, 6, 4 and 2 (a width below 8
+    scores 0 on every slice, every value tied) against
+    bucket_topk_batch_plain."""
+    r = ref["quantum2"]
+    tables = _t(pack_query_tables(_queries(3, False, 13), "f32")[0])
+    for b in r["pm"].buckets:
+        if not b.width % 8:
+            continue
+        args = (_t(b.words), tables, _nreal(b))
+        kw = dict(_geometry(b), lane_k=LANE_K, tie_safe=True,
+                  slice_base=b.slice_base, codec="f32")
+        got = pkernel.bucket_topk_batch_slots_plain(*args, num_slots=3, **kw)
+        want = pkernel.bucket_topk_batch_plain(*args, **kw)
+        _each_query_above_floor(got, want)
+        if b.width < 8:
+            assert not got[0][got[0] > float("-inf")].any()
+
+
+@pytest.mark.parametrize("name", ["h16", "f32_integer", "int8x4_integer",
+                                  "i8s_integer", "i4s_integer"])
+def test_k12_one_slot_is_the_jax_kernel(ref, name):
+    """On one slot K12's plain version folds every slice in order into one
+    buffer a query, as the JAX kernel's sequential grid does: the same
+    (value, tag) pairs, tags of tied entries included, but for the -inf
+    slots (the JAX kernel folds its padding slices there at -inf)."""
+    (v, t), _ = _k12_slots(ref, name, 1)
+    jv, jt = ref[name]["k12"][1]
+    v, t = v.numpy(), t.numpy()
+    for q in range(3):
+        np.testing.assert_array_equal(-np.sort(-jv[q], axis=0), v[q])
+        for lane in range(128):
+            a = sorted((x, y) for x, y in zip(jv[q][:, lane], jt[q][:, lane])
+                       if x > -np.inf)
+            b = sorted((x, y) for x, y in zip(v[q][:, lane], t[q][:, lane])
+                       if x > -np.inf)
+            assert a == b, f"query {q} lane {lane}"
+
+
+@pytest.mark.parametrize("slots", [1, 3, 200])
+def test_k12_slots_plain_production(ref, slots):
+    """Not tie-safe, on tie-free f32 data: the real candidates kept
+    (above TOPK_FLOOR) are bucket_topk_batch_plain's, pair for pair; on
+    one slot every entry is, sentinels included, and the JAX K12's to
+    the f32 tolerance; unmerged, each slot's sorted buffer."""
+    (v, t), (pv, pt_) = _k12_slots(ref, "production", slots)
+    real, preal = v > pkernel.TOPK_FLOOR, pv > pkernel.TOPK_FLOOR
+    assert torch.equal(real, preal)
+    assert torch.equal(v[real], pv[preal]) and torch.equal(t[real], pt_[preal])
+    if slots == 1:
+        assert torch.equal(v, pv) and torch.equal(t, pt_)
+        jv, jt = ref["production"]["k12"][1]
+        for q in range(3):
+            _assert_lanes(jv[q], jt[q], v[q].numpy(), t[q].numpy(), False)
+    (uv, ut), _ = _k12_slots(ref, "production", slots, merged=False)
+    assert uv.shape == (3, slots, LANE_K, 128)
+    assert (uv[:, :, :-1] >= uv[:, :, 1:]).all()
+    mv, mt = pkernel.lane_merge_plain(uv[0], ut[0], LANE_K)
+    assert torch.equal(mv, v[0]) and torch.equal(mt, t[0])
+
+
+@pytest.mark.parametrize("lane_k", [4, 8, 16])
+@pytest.mark.parametrize("codec", ["h16", "f32", "int8x4", "i8s", "i4s"])
+def test_k12_launch_shapes(codec, lane_k, monkeypatch):
+    """k12_launch on a card of 132 SMs and 227 KB of shared memory a
+    block: h16 in passes of 8 for up to 8 queries, else of 16, the other
+    codecs in passes of 8; f32 and int8x4 tables past shared memory from
+    global memory;
+    every pass's shared memory within the card's; the grid one block an
+    SM over the lane groups and passes, no more slots than runs of 8
+    slices."""
+    monkeypatch.setattr(pkernel, "_device_info", lambda dev: (132, SMEM))
+    dev = torch.device("cuda", 0)
+    for cols in (1024, 65536):
+        if codec in ("h16", "i8s", "i4s") and cols > 1024:
+            continue
+        rows, _ = pkernel._table_spec(pt.TopKSpMVConfig(
+            max_cols=cols, query_codec=codec))
+        for Q in (1, 5, 8, 9, 16, 33):
+            kc, qp, passes, slots = pkernel.k12_launch(dev, codec, Q, lane_k,
+                                                       rows, 10**6)
+            assert qp in pkernel.K12_PASS_QUERIES[kc]
+            assert qp == (16 if codec == "h16" and Q > 8 else 8)
+            assert kc == (codec if cols == 1024 else f"{codec}_global")
+            assert passes == -(-Q // qp)
+            smem = (pkernel.k8_smem_bytes if kc == "h16"
+                    else pkernel.k6_smem_bytes)
+            assert smem(kc, qp, lane_k, rows) <= SMEM
+            lanes = pkernel.batch_block_lanes(qp, lane_k, kc)
+            assert slots == 132 // (128 // lanes * passes)
+            assert pkernel.k12_launch(dev, codec, Q, lane_k, rows,
+                                      20)[3] == min(slots, 3)

@@ -15,8 +15,10 @@ bit to ``slice_topk_slots_plain``, tags included), K8 (multi-query sweep)
 and K9 (SpMV), and all six
 on partitioned streams (K10a-d and the partitioned K4/K9), with every
 query codec (int8x4, i8s, i4s on both streams, f32 on the octet stream),
-and the per-bucket ops K11, K13, K12 over pack_sell_buckets' buckets (the
-last section). Tolerances:
+and the per-bucket ops K11, K13, K12 over pack_sell_buckets' buckets (K12
+and K13 with their lane merge on the card, held bit for bit to
+``bucket_topk_batch_slots_plain`` and ``bucket_topk_slots_plain``, tags
+included). Tolerances:
 none against the plain versions. h16 scores are int32 sums converted to
 f32 once, so with tie-safe buffers the per-lane sorted values are
 bit-equal, and (value, slice) pairs are equal above each lane's smallest
@@ -1686,6 +1688,7 @@ BUCKET_CASES = {
     "int8x4_1536_cols": ("int8x4", 1536, 8, False),
     "i4s_2048_cols": ("i4s", 2048, 8, False),
     "f32_65536_cols": ("f32", 65536, 8, False),
+    "int8x4_65536_cols": ("int8x4", 65536, 8, False),
 }
 
 
@@ -1734,7 +1737,7 @@ def _bucket_args(b, dev):
 @pytest.mark.parametrize("lane_k", [8, 16, 4])
 @pytest.mark.parametrize("name", list(BUCKET_CASES))
 def test_bucket_kernels_match_plain(gpu, bucket_packs, name, lane_k):
-    """K11, K13 and K12 (5 queries in subgroups of 2) over every bucket,
+    """K11, K13 and K12 (5 queries, a pass of 8) over every bucket,
     tie-safe, against their plain versions: scores bit-equal, pools
     bit-equal with equal (value, tag) pairs above each lane's floor; one
     launch each per bucket."""
@@ -1776,7 +1779,7 @@ def test_bucket_kernels_match_plain(gpu, bucket_packs, name, lane_k):
         assert pkernel.tables_in_smem(4 * 65536, limit) == 0
 
 
-def _emulate_bucket_production(words, table, nreal, cfg, kw, nblk, pairs):
+def _emulate_bucket_production(words, table, nreal, cfg, kw, nblk):
     """Merged production (non-tie-safe) buffers of a per-bucket Top-K whose
     nblk CUDA blocks (slots) take slices in turn, block j slices j, j +
     nblk, ...: each block folds its real slices in order into fresh
@@ -1785,7 +1788,7 @@ def _emulate_bucket_production(words, table, nreal, cfg, kw, nblk, pairs):
     K, L = cfg.lane_k, 128
     n = min(int(nreal[0, 0]), kw["num_blocks"] * kw["slices_per_block"])
     sc = pkernel._bucket_sums(words, table, width=kw["width"], num_slices=n,
-                              codec=kw["codec"], pairs=pairs)
+                              codec=kw["codec"], pairs=True)
     tv = torch.from_numpy(pkernel.topk_init(K)).to(words.device).view(
         1, K, 1).expand(nblk, K, L).clone()
     tt = torch.zeros((nblk, K, L), dtype=torch.int32, device=words.device)
@@ -1804,15 +1807,15 @@ def _emulate_bucket_production(words, table, nreal, cfg, kw, nblk, pairs):
 @pytest.mark.parametrize("name", ["h16", "f32", "i4s"])
 def test_bucket_kernels_non_tie_safe(gpu, bucket_packs, name):
     """K13's and K12's production buffers (tie_safe_topk=False) over every
-    bucket against the per-CUDA-block emulation (K12: each query on the
-    kernel's slots)."""
+    bucket against the per-CUDA-block emulation (K13) and K12's plain
+    version on its slots (``bucket_topk_batch_slots_plain``: each query's
+    runs of 8 slices dealt to the kernel's slots)."""
     cfg, m, qs = bucket_packs(name)
     cfg = dataclasses.replace(cfg, tie_safe_topk=False)
     codec = cfg.query_codec
     table = torch.from_numpy(pack_query_table(qs[0], codec)[0]).to(gpu)
     tables = _slice_tables(cfg, qs[1:], gpu)
     sms = torch.cuda.get_device_properties(gpu).multi_processor_count
-    fit = pkernel._kernel_codec(gpu, codec, table.shape[0])[1]
     for b in m.buckets:
         words, nreal, kw = _bucket_args(b, gpu)
         tk = dict(kw, slice_base=b.slice_base, codec=codec)
@@ -1820,17 +1823,13 @@ def test_bucket_kernels_non_tie_safe(gpu, bucket_packs, name):
         kv, kt = pkernel.topk_spmv_bucket_device(words, table, nreal, cfg=cfg,
                                                  num_groups=1, **tk)
         ev, et = _emulate_bucket_production(words, table, nreal, cfg, tk,
-                                            pkernel._bucket_blocks(sms, n),
-                                            True)
+                                            pkernel._bucket_blocks(sms, n))
         _lanes_equal(kv, kt, ev, et)
         bv, bt = pkernel.topk_spmv_bucket_batch_device(words, tables, nreal,
                                                        cfg=cfg, **tk)
-        _, _, slots = pkernel.batch_grid(len(tables), min(
-            cfg.batch_subgroup, fit), sms, n)
+        ev, et = _k12_slots_plain(words, tables, nreal, cfg, tk)
         for q in range(len(tables)):
-            ev, et = _emulate_bucket_production(words, tables[q], nreal, cfg,
-                                                tk, slots, False)
-            _lanes_equal(bv[q], bt[q], ev, et)
+            _lanes_equal(bv[q], bt[q], ev[q], et[q])
 
 
 def test_bucket_wrappers_refuse_bad_inputs(gpu, bucket_packs):
@@ -1972,6 +1971,181 @@ def test_bucket_topk_num_real(gpu, bucket_packs, name, tie_safe):
             assert (kv == float("-inf")).all() if tie_safe else \
                 (kv <= pkernel.TOPK_FLOOR).all()
             assert not kt.any()
+
+
+# ------------------------------------------ K12 and K11 on K13's design
+# K12 reads each bucket once a pass of 8 or 16 queries and returns its
+# final pairs from one launch a bucket, its lane merge on the card
+# (csrc/bucket_topk_batch.cuh); bucket_topk_batch_slots_plain computes
+# what it gives on the kernel's slots, tags and ties included. K11 sums
+# with K13's sweep. Both are programmatic dependent launches, as K13 is.
+
+def _k12(words, tables, nreal, cfg, tk):
+    return pkernel.topk_spmv_bucket_batch_device(words, tables, nreal,
+                                                 cfg=cfg, **tk)
+
+
+def _k12_slots_plain(words, tables, nreal, cfg, tk, merged=True):
+    """K12's plain version on the slots its kernel runs on this bucket."""
+    n = tk["num_blocks"] * tk["slices_per_block"]
+    *_, slots = pkernel.k12_launch(words.device, tk["codec"],
+                                   tables.shape[0], cfg.lane_k,
+                                   tables.shape[1], n)
+    return pkernel.bucket_topk_batch_slots_plain(
+        words, tables, nreal, lane_k=cfg.lane_k,
+        tie_safe=bool(cfg.tie_safe_topk), num_slots=slots, merged=merged,
+        **tk)
+
+
+K12_SHAPES = [(1, 8), (5, 4), (5, 8), (5, 16), (33, 8)]
+
+
+@pytest.mark.parametrize("tie_safe", [True, False], ids=["tie_safe",
+                                                         "production"])
+@pytest.mark.parametrize("Q,lane_k", K12_SHAPES,
+                         ids=[f"q{q}_k{k}" for q, k in K12_SHAPES])
+@pytest.mark.parametrize("name", list(BUCKET_CASES))
+def test_k12_matches_slots_plain(gpu, bucket_packs, name, Q, lane_k,
+                                 tie_safe):
+    """K12 over every bucket equal to its plain version on the kernel's
+    slots, bit for bit, tags included, merged on the card and the
+    unmerged launch's sorted slots: 1, 5 and 33 queries (passes of 8 and
+    16, the last of one query), lane_k 4, 8 and 16, every codec, quantum
+    2, a bucket of one slice per block, f32 and int8x4 at 65,536 columns
+    (tables in global memory); one launch a bucket."""
+    cfg, m, _ = bucket_packs(name)
+    cfg = dataclasses.replace(cfg, tie_safe_topk=tie_safe, lane_k=lane_k)
+    codec = cfg.query_codec
+    tables = _slice_tables(cfg, create_query_batch(
+        Q, BUCKET_CASES[name][1], seed=46), gpu)
+    before = pkernel.topk_spmv_bucket_batch_device.launches
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        tk = dict(kw, slice_base=b.slice_base, codec=codec)
+        kv, kt = _k12(words, tables, nreal, cfg, tk)
+        uv, ut = pkernel._bucket_topk_batch_cuda(
+            words, tables, nreal, lane_k=lane_k, tie_safe=tie_safe,
+            unmerged=True, **tk)
+        pv, pt_ = _k12_slots_plain(words, tables, nreal, cfg, tk)
+        sv, st = _k12_slots_plain(words, tables, nreal, cfg, tk,
+                                  merged=False)
+        torch.cuda.synchronize()
+        assert kv.shape == (Q, lane_k, 128)
+        assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+        assert torch.equal(uv, sv) and torch.equal(ut, st)
+    assert pkernel.topk_spmv_bucket_batch_device.launches - before == \
+        2 * len(m.buckets)
+
+
+@pytest.mark.parametrize("name", ["h16", "f32", "int8x4", "i8s", "i4s"])
+def test_k12_merges_on_the_card(gpu, bucket_packs, name, monkeypatch):
+    """K12 returns its merged pairs from its one launch a bucket: with
+    ``torch.topk`` and ``merge_lane_topk`` made to raise, the wrapper
+    still gives the slot plain's pairs, and its counter counts one
+    launch a bucket."""
+    cfg, m, qs = bucket_packs(name)
+    cfg = dataclasses.replace(cfg, tie_safe_topk=False)
+    codec = cfg.query_codec
+    tables = _slice_tables(cfg, qs, gpu)
+    args, want = [], []
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        tk = dict(kw, slice_base=b.slice_base, codec=codec)
+        args.append((words, nreal, tk))
+        want.append(_k12_slots_plain(words, tables, nreal, cfg, tk))
+
+    def refuse(*a, **k):
+        raise AssertionError("a torch merge ran on K12's path")
+
+    monkeypatch.setattr(torch, "topk", refuse)
+    monkeypatch.setattr(pkernel, "merge_lane_topk", refuse)
+    before = pkernel.topk_spmv_bucket_batch_device.launches
+    got = [_k12(words, tables, nreal, cfg, tk) for words, nreal, tk in args]
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert pkernel.topk_spmv_bucket_batch_device.launches - before == \
+        len(m.buckets)
+    for (kv, kt), (pv, pt_) in zip(got, want):
+        assert torch.equal(kv, pv) and torch.equal(kt, pt_)
+
+
+def test_k12_back_to_back(gpu, bucket_packs):
+    """50 launches in a row on the largest bucket (one workspace and its
+    tickets, each launch's last blocks resetting them) give the same pairs
+    each time; then every bucket's launch in turn, 10 rounds with nothing
+    between the launches (each overlapping the one before), give each
+    bucket's pairs of a launch alone."""
+    cfg, m, qs = bucket_packs("f32")
+    cfg = dataclasses.replace(cfg, tie_safe_topk=False)
+    tables = _slice_tables(cfg, qs, gpu)
+    args = []
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        args.append((words, nreal, dict(kw, slice_base=b.slice_base,
+                                        codec="f32")))
+    big = max(args, key=lambda a: a[0].shape[0])
+    first = _k12(big[0], tables, big[1], cfg, big[2])
+    runs = [_k12(big[0], tables, big[1], cfg, big[2]) for _ in range(50)]
+    torch.cuda.synchronize()
+    for v, t in runs:
+        assert torch.equal(v, first[0]) and torch.equal(t, first[1])
+    alone = []
+    for words, nreal, tk in args:
+        alone.append(_k12(words, tables, nreal, cfg, tk))
+        torch.cuda.synchronize()
+    runs = [[_k12(words, tables, nreal, cfg, tk)
+             for words, nreal, tk in args] for _ in range(10)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for (v, t), (av, at) in zip(run, alone):
+            assert torch.equal(v, av) and torch.equal(t, at)
+
+
+@pytest.mark.parametrize("name", ["h16", "f32", "f32_65536_cols"])
+def test_k11_back_to_back(gpu, bucket_packs, name):
+    """K11 over every bucket, 10 rounds with nothing between the launches
+    (each overlapping the one before), bit for bit its plain version's
+    scores; then K13, K12 and K11 interleaved bucket by bucket, 5 rounds,
+    each equal to its launch alone."""
+    cfg, m, qs = bucket_packs(name)
+    codec = cfg.query_codec
+    table = torch.from_numpy(pack_query_table(qs[0], codec)[0]).to(gpu)
+    tables = _slice_tables(cfg, qs[1:], gpu)
+    args = []
+    for b in m.buckets:
+        words, nreal, kw = _bucket_args(b, gpu)
+        args.append((words, nreal, kw))
+
+    def k11(words, kw):
+        return pkernel.spmv_bucket_scores_device(words, table, cfg=cfg,
+                                                 codec=codec, **kw)
+
+    def three(words, nreal, kw):
+        tk = dict(kw, slice_base=0, codec=codec)
+        return (pkernel.topk_spmv_bucket_device(words, table, nreal, cfg=cfg,
+                                                num_groups=1, **tk),
+                _k12(words, tables, nreal, cfg, tk), k11(words, kw))
+
+    want = [pkernel.bucket_scores_plain(words, table, codec=codec, **kw)
+            for words, _, kw in args]
+    runs = [[k11(words, kw) for words, _, kw in args] for _ in range(10)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for got, w in zip(run, want):
+            assert torch.equal(got, w)
+    alone = []
+    for a in args:
+        alone.append(three(*a))
+        torch.cuda.synchronize()
+    runs = [[three(*a) for a in args] for _ in range(5)]
+    torch.cuda.synchronize()
+    for run in runs:
+        for got, a in zip(run, alone):
+            (kv, kt), (bv, bt), ks = got
+            (av, at), (cv, ct), s = a
+            assert torch.equal(kv, av) and torch.equal(kt, at)
+            assert torch.equal(bv, cv) and torch.equal(bt, ct)
+            assert torch.equal(ks, s)
 
 
 # ------------------------------------------------ a slice that scores NaN

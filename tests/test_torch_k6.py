@@ -523,7 +523,8 @@ def test_k6_launch_shapes(monkeypatch):
         pkernel.k6_pass("f32", 32, 8, 16, SMEM, pass_queries=16)
     with pytest.raises(ValueError, match="does not fit"):
         pkernel.k6_pass("i8s", 8, 8, 1024, SMEM)
-    # K12's grid reads the subgroup
+    # the old batch kernels' grid (the ablations' OLD_SOURCE) reads the
+    # subgroup
     assert pkernel.batch_grid(8, 2, 132, 10**6)[:2] == (2, 4)
     assert pkernel.batch_grid(8, 0, 132, 10**6)[:2] == (4, 2)
 
@@ -532,20 +533,21 @@ def test_k6_launch_shapes(monkeypatch):
 
 def _ablation_cases():
     from spmv_topk_tpu_torch.experiments import (k6_ablation, k6_h16_ablation,
-                                                 k8_ablation)
+                                                 k8_ablation, k12_ablation)
     return [(m, trim, n) for m, trim in (
         (k6_ablation, k6_ablation._TRIM), (k8_ablation, k8_ablation._TRIM),
-        (k6_h16_ablation, ())) for n in m.PARTS]
+        (k6_h16_ablation, ()), (k12_ablation, k12_ablation._TRIM))
+        for n in m.PARTS]
 
 
 @pytest.mark.parametrize("module,trim,name", _ablation_cases(),
                          ids=lambda x: getattr(x, "__name__", None)
                          and x.__name__.rsplit(".", 1)[-1])
 def test_ablation_variants_patch_their_sources(tmp_path, module, trim, name):
-    """Every variant of the batch sweeps' ablations (K6, K8, K6 h16) finds
-    each line it replaces in exactly one of the sources it copies (the
-    kernel's and batch_sweep.cuh), so that a kernel edit cannot leave a
-    variant timing the unchanged kernel."""
+    """Every variant of the batch sweeps' ablations (K6, K8, K6 h16, K12)
+    finds each line it replaces in exactly one of the sources it copies
+    (the kernel's and batch_sweep.cuh), so that a kernel edit cannot leave
+    a variant timing the unchanged kernel."""
     out = module.variant_dir(str(tmp_path), module.SOURCES,
                              (*trim, *module.PARTS[name]))
     for src in module.SOURCES:
