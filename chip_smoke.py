@@ -17,7 +17,10 @@ every phase runs:
      registers and spill bytes;
   2. kernels vs their plain PyTorch versions on a 50k-row h16 octet
      corpus (tie-safe buffers, so per-lane values must agree bit for bit;
-     K4's slice scores bit for bit), once more with blocks small enough
+     K4's scores bit for bit in slice order and in row order, and
+     ``scores()`` bit for bit against the path before the row-order
+     store, the kernel's slice order and a torch scatter), once more with
+     blocks small enough
      to force wide octets; K6 on 5 queries in uneven subgroups (h16
      ignores them), and K6 h16 with production buffers against its slot
      plain on the kernel's grid, tags included;
@@ -25,7 +28,8 @@ every phase runs:
      and K9 the same way: h16 at quantum 2 with fold 8 and fold 1, f32 at
      quantum 8 on integer-valued data (exact in any summation order)
      and on real values (the plain version sums in the kernels' order),
-     wide slices, and blocks past the unroll threshold;
+     wide slices, and blocks past the unroll threshold (K9 in both store
+     forms; no K9 or K4 instantiation may spill);
   2b. ``k1_small``: K1 and K10b (P = 3) with their lane merge on the
      card against their slot plain (``octet_topk_slots_plain`` on the
      kernel's grid) at 50k rows, tie-safe and production buffers, tags
@@ -64,8 +68,12 @@ every phase runs:
      (and the ``torch.topk`` merge of its slots), at 32 and 64 queries,
      the registers and spills of its instantiations (none may spill),
      its stream reads per group and slots;
-  6. the scores path: ``scores()`` of one query, K4 against its plain
-     version and against the exact f32 product;
+  6. the scores path: ``scores()`` of one query (a zero fill and one K4
+     launch that stores to row order) on the host clock and between CUDA
+     events, against the exact f32 product and bit for bit against the
+     path before the row-order store (timed too); K4 against its plain
+     version in both store forms, each timed beside its bound (the slice
+     engines do the same with K9);
   7. partitioned engines (``num_partitions`` > 1) at 50k rows, P = 3 and
      4: K10a-d (K1, K6, K7, K8 with a partition axis; the batch ones on
      5 queries) and the partitioned K4/K9 against
@@ -234,6 +242,13 @@ SINGLE_QUERY_CODECS = {"h16", "f32", "f32_global", "int8x4", "i8s", "i4s"}
 # (the rate used for the sweeps' multiply-adds of either codec)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# integer instructions a second: 64 INT32 lanes an SM a clock (the Hopper
+# white paper's INT32 33.5 TOPS, SXM5, counts a multiply-add as two)
+INT32_INSTR_PER_S = 16.75e12
+# integer instructions of the h16 batch decode a word and query beside its
+# two shared-memory gathers (csrc/lab_batch.cu's bound: the nibble shifts,
+# the products and their sum), for the labs L1 and L8
+H16_BATCH_INT_OPS = 10
 
 
 def require(ok, what):
@@ -302,11 +317,12 @@ def compare_pools(kv, kt, pv, pt):
                zip(*(x.reshape(shape) for x in (kv, kt, pv, pt))))
 
 
-def bound(nbytes, ops):
-    """The least time, ms, the card could take to move ``nbytes`` once
-    and do ``ops`` operations, and which of the two bounds it."""
+def bound(nbytes, ops, int_ops=0):
+    """The least time, ms, the card could take to move ``nbytes`` once,
+    do ``ops`` float operations and issue ``int_ops`` integer
+    instructions, and which bounds it (bytes, or operations)."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / F32_OPS_PER_S * 1e3
+    o_ms = max(ops / F32_OPS_PER_S, int_ops / INT32_INSTR_PER_S) * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -413,24 +429,139 @@ def _k6_slots_equal(eng, tables, cfg):
     return bool(torch.equal(kv, pv) and torch.equal(kt, pt))
 
 
-def _scores_plain_and_kernel(eng, table):
-    """Requires K4's slice scores (every partition's) bit-equal to the
-    plain version's; returns the max abs difference (0)."""
+def _same_bits(a, b):
+    """Whether two float32 tensors hold the same bits."""
     import torch
 
-    from spmv_topk_tpu_torch.ops.kernel import (
-        octet_scores_plain, spmv_fused_scores_octet_device)
+    return a.shape == b.shape and bool(torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
 
+
+def _scores_agree(eng, q):
+    """K4 (octet layout) or K9 (slice layout) of an engine, or of a
+    shard's view, on query q against its plain version on the same
+    inputs, bit for bit, in both store forms: slice order, and row order
+    (each slice lane's score times the query's scale at its row id, into
+    a zero fill). Returns the larger max abs difference (0)."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    octet = eng.config.fused_layout == "octet"
+    wrapper, plain, name = (
+        (K.spmv_fused_scores_octet_device, K.octet_scores_plain, "K4")
+        if octet else
+        (K.spmv_fused_scores_device, K.slice_scores_plain, "K9"))
+    table, scale = eng._table(q)
     args = (eng.words, table, eng.nreal, eng.plan_rows)
     kw = dict(block_sublanes=eng.fused.block_sublanes,
               num_slices=eng.row_ids.shape[0],
               num_partitions=eng.config.num_partitions)
-    kern = spmv_fused_scores_octet_device(*args, cfg=eng.config, **kw)
-    plain = octet_scores_plain(*args, codec=eng.config.query_codec, **kw)
+    pkw = dict(kw, codec=eng.config.query_codec)
+    rows = int(eng.row_ids.max()) + 1
+
+    def store():
+        return dict(row_ids=eng.row_ids, scale=scale,
+                    out=torch.zeros(rows, dtype=torch.float32,
+                                    device=eng.words.device))
+
+    ks = wrapper(*args, cfg=eng.config, **kw)
+    ps = plain(*args, **pkw)
+    kr = wrapper(*args, cfg=eng.config, **kw, **store())
+    pr = plain(*args, **pkw, **store())
     torch.cuda.synchronize()
-    require(torch.equal(kern, plain),
-            "K4 slice scores equal the plain version's bit for bit")
-    return float((kern - plain).abs().max())
+    require(_same_bits(ks, ps), f"{name} slice-order scores equal the plain "
+            "version's bit for bit")
+    require(_same_bits(kr, pr), f"{name} row-order scores equal the plain "
+            "version's bit for bit")
+    return max(float((ks - ps).abs().max()), float((kr - pr).abs().max()))
+
+
+def _scores_before(eng, table, scale):
+    """scores() as the port ran it before the row-order store: the
+    kernel's slice order, then an int64 copy of row_ids, torch.where
+    sending padding lanes to one extra slot, the multiply by the scale and
+    scatter_ into a zero fill."""
+    from spmv_topk_tpu_torch.experiments.k9_ablation import epilogue
+
+    sc = eng._layout.scores(
+        eng.words, table, eng.nreal, eng.plan_rows, cfg=eng.config,
+        block_sublanes=eng.fused.block_sublanes,
+        num_slices=eng.row_ids.shape[0],
+        num_partitions=eng.config.num_partitions)
+    return epilogue(eng, sc, scale * eng._value_scale)
+
+
+def _scores_path(eng, q):
+    """scores() of an engine (a zero fill and one K4 or K9 launch in row
+    order) held bit for bit to the path before the row-order store
+    (``_scores_before``), then timed: the whole call between CUDA events
+    (device ms) and to its synchronize on the host clock, each the median
+    of 10, and the path before between CUDA events."""
+    import torch
+
+    table, scale = eng._table(q)
+    got = eng.scores(q)
+    want = _scores_before(eng, table, scale)
+    torch.cuda.synchronize()
+    require(_same_bits(got, want), "scores() equals the path before the "
+            "row-order store bit for bit")
+    host, device, before = [], [], []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        eng.scores(q)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+        before.append(cuda_ms(lambda: _scores_before(eng, table, scale),
+                              reps=1, warmup=0))
+    return dict(scores_device_ms_median=statistics.median(device),
+                scores_host_ms_median=statistics.median(host),
+                scores_before_row_store_device_ms_median=statistics.median(
+                    before))
+
+
+def _scores_times(eng, q, kn):
+    """K4 or K9 (``kn``, the engine's layout) through its wrapper, in row
+    order (scores()'s launch, into a zero fill made once) and in slice
+    order, each beside its plain version and its bound: the words and the
+    table read once, and the scores written once (row order: the row ids
+    read besides, a float a row written)."""
+    import torch
+
+    from spmv_topk_tpu_torch.ops import kernel as K
+
+    octet = eng.config.fused_layout == "octet"
+    wrapper, plain = ((K.spmv_fused_scores_octet_device, K.octet_scores_plain)
+                      if octet else
+                      (K.spmv_fused_scores_device, K.slice_scores_plain))
+    table, scale = eng._table(q)
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    kw = dict(block_sublanes=eng.fused.block_sublanes,
+              num_slices=eng.row_ids.shape[0],
+              num_partitions=eng.config.num_partitions)
+    pkw = dict(kw, codec=eng.config.query_codec)
+    out = torch.zeros(eng.num_rows, dtype=torch.float32, device=eng.device)
+    rows = dict(row_ids=eng.row_ids, scale=scale * eng._value_scale, out=out)
+    slice_bytes = eng.row_ids.numel() * 4
+    bounds = {kn: sweep_bound(eng, 1, slice_bytes + eng.num_rows * 4),
+              f"{kn}_slice_order": sweep_bound(eng, 1, slice_bytes)}
+    return {
+        f"{kn}_ms": cuda_ms(lambda: wrapper(*args, cfg=eng.config, **kw,
+                                            **rows), reps=20, warmup=2),
+        f"{kn}_plain_ms": cuda_ms(lambda: plain(*args, **pkw, **rows),
+                                  reps=2),
+        f"{kn}_slice_order_ms": cuda_ms(lambda: wrapper(
+            *args, cfg=eng.config, **kw), reps=20, warmup=2),
+        f"{kn}_slice_order_plain_ms": cuda_ms(lambda: plain(*args, **pkw),
+                                              reps=2),
+        **{f"{k}_bound_ms": b[0] for k, b in bounds.items()},
+        **{f"{k}_bound_by": b[1] for k, b in bounds.items()}}
 
 
 def phase_small(dev):
@@ -473,7 +604,8 @@ def phase_small(dev):
         require(_k6_slots_equal(eng, tables,
                                 dataclasses.replace(cfg, tie_safe_topk=False)),
                 "K6 h16 (production buffers) equals its slot plain")
-        k4_err = _scores_plain_and_kernel(eng, table)
+        k4_err = _scores_agree(eng, q)
+        _scores_path(eng, q)
         cases.append(dict(fused_block_sublanes=fbs, fold_tile=fold,
                           buckets=len(eng.fused.plan), wide_buckets=wide,
                           k1_max_abs_err=err, k6_max_abs_err=k6_err,
@@ -1571,11 +1703,14 @@ def phase_batch(eng, qs, gold, single, k1_ms, dev):
 
 
 def phase_scores(eng, qs, dev):
-    """The scores path on the main-path engine: scores() through K4."""
+    """The scores path on the main-path engine: scores() through K4 (a
+    zero fill and one launch in row order), its host-clock and device
+    times and the path before the row-order store's (``_scores_path``);
+    K4 held to its plain version in both store forms and timed in both,
+    with their bounds (``_scores_times``)."""
     import torch
 
-    from spmv_topk_tpu_torch.ops.kernel import (
-        octet_scores_plain, spmv_fused_scores_octet_device)
+    from spmv_topk_tpu_torch.ops.kernel import spmv_fused_scores_octet_device
 
     q = qs[0]
     eng.scores(q)                                            # warm
@@ -1594,25 +1729,18 @@ def phase_scores(eng, qs, dev):
             "scores() returns a finite score per row")
     exact = np.asarray(eng._scipy_csr @ q, np.float32)
 
-    table, _ = eng._table(q)
-    k4_err = _scores_plain_and_kernel(eng, table)
-    args = (eng.words, table, eng.nreal, eng.plan_rows)
-    kw = dict(block_sublanes=eng.fused.block_sublanes,
-              num_slices=eng.row_ids.shape[0])
-    k4_ms = cuda_ms(lambda: spmv_fused_scores_octet_device(
-        *args, cfg=eng.config, **kw), reps=20, warmup=2)
-    k4_plain_ms = cuda_ms(lambda: octet_scores_plain(*args, **kw), reps=2)
-    k4_bound = sweep_bound(eng, 1, eng.row_ids.numel() * 4)
+    k4_err = _scores_agree(eng, q)
+    times = _scores_times(eng, q, "k4")
     res = dict(phase="scores_path", rows=eng.num_rows,
-               k4_bound_ms=k4_bound[0], k4_bound_by=k4_bound[1],
                scores_e2e_ms_median=statistics.median(e2e),
-               k4_ms=k4_ms, k4_plain_ms=k4_plain_ms, k4_max_abs_err=k4_err,
-               k4_words_gb_per_s=eng.hbm_bytes / (k4_ms * 1e-3) / 1e9,
+               **_scores_path(eng, q), **times, k4_max_abs_err=k4_err,
+               k4_words_gb_per_s=eng.hbm_bytes / (times["k4_ms"] * 1e-3)
+               / 1e9,
                max_abs_diff_vs_exact_f32=float(np.abs(s - exact).max()),
                max_abs_exact=float(np.abs(exact).max()),
                launches=launches, nvidia_smi=smi_line())
     emit(res)
-    require(launches > 0, "scores() launched K4")
+    require(launches == 5, "each scores() launched K4 once")
     return res
 
 
@@ -1639,33 +1767,35 @@ def _slice_agree(eng, cfg, q, qs, dev, held=None):
     """K7 (query q), K8 (queries qs in one group) and K9 (query q) of one
     engine under cfg (tie-safe buffers) against their plain versions,
     which sum in the kernels' order for both codecs: per-lane values and
-    K9's slice scores must be bit-equal, and (value, tag) pairs equal
-    above each lane's floor; K7 and K8, tie-safe and with production
-    buffers, bit for bit against their slot plains too (``_k7_agree``,
-    ``_batch_agree``, K8's for its first ``held`` queries). Returns the
-    three max abs errors."""
-    import torch
-
-    from spmv_topk_tpu_torch.ops import kernel as K
-
-    bs = cfg.fused_block_sublanes
-    parts = eng.partition_kw
+    K9's scores bit-equal in both store forms (``_scores_agree``), and
+    (value, tag) pairs equal above each lane's floor; K7 and K8, tie-safe
+    and with production buffers, bit for bit against their slot plains
+    too (``_k7_agree``, ``_batch_agree``, K8's for its first ``held``
+    queries). Returns the three max abs errors."""
     table, _ = eng._table(q)
-    args = (eng.words, table, eng.nreal, eng.plan_rows)
-    bargs = (eng.words, _tables(qs, dev, cfg.query_codec), eng.nreal,
-             eng.plan_rows)
-    n = eng.row_ids.shape[0]
-    P = cfg.num_partitions
     k7 = _k7_agree(eng, table, cfg, "K7")
-    k8 = _batch_agree(eng, bargs[1], cfg, f"K8 {len(qs)} queries", held)
-    ks = K.spmv_fused_scores_device(*args, cfg=cfg, block_sublanes=bs,
-                                    num_slices=n, num_partitions=P)
-    ps = K.slice_scores_plain(*args, num_slices=n, block_sublanes=bs,
-                              codec=cfg.query_codec, num_partitions=P)
-    torch.cuda.synchronize()
-    require(torch.equal(ks, ps), "K9 slice scores equal the plain "
-            "version's bit for bit")
-    return k7, k8, float((ks - ps).abs().max())
+    k8 = _batch_agree(eng, _tables(qs, dev, cfg.query_codec), cfg,
+                      f"K8 {len(qs)} queries", held)
+    return k7, k8, _scores_agree(eng, q)
+
+
+def _scores_registers():
+    """The registers and spills of every instantiation of K9 and K4 (five
+    codec types, two store forms each), from the build's ptxas report;
+    requires that none spills."""
+    from spmv_topk_tpu_torch.ops import _build
+
+    report = _build.ptxas_report()
+    out = {}
+    for kernel in ("slice_scores_kernel<", "octet_scores_kernel<"):
+        regs = {k: dict(registers=r, spill_bytes=sp)
+                for k, (r, sp) in report.items() if k.startswith(kernel)}
+        require(len(regs) == 10, f"{kernel}...>: 10 instantiations, got "
+                f"{len(regs)}")
+        require(all(v["spill_bytes"] == 0 for v in regs.values()),
+                f"no {kernel}...> instantiation spills: {regs}")
+        out[f"{kernel[:-1]}_registers"] = regs
+    return out
 
 
 def phase_slice_small(dev):
@@ -1719,7 +1849,7 @@ def phase_slice_small(dev):
                           k7_max_abs_err=k7, k8_max_abs_err=k8,
                           k9_max_abs_err=k9))
     out = dict(phase="slice_kernels_vs_plain_small", rows=coo.num_rows,
-               nnz=coo.nnz, cases=cases)
+               nnz=coo.nnz, cases=cases, **_scores_registers())
     emit(out)
     return out
 
@@ -1812,10 +1942,12 @@ def _slice_kernel_times(eng, qs, dev, group):
     path's group size) and K9 held to their plain versions at this
     engine's shapes (``_slice_agree``, tie-safe buffers: bit-equal; K7's
     and K8's production buffers bit for bit against their slot plains),
-    then each timed against its plain version; K7 and K8 alone on the
-    card with and without their lane merge (``_k7_alone_ms``,
-    ``_k8_times``: K8's grid, passes, registers and spills too), their
-    grids and their slots' balance (``_k7_deal_balance``)."""
+    then each timed against its plain version (K9 in both store forms,
+    ``_scores_times``; scores() on the host clock and between CUDA
+    events, ``_scores_path``); K7 and K8 alone on the card with and
+    without their lane merge (``_k7_alone_ms``, ``_k8_times``: K8's grid,
+    passes, registers and spills too), their grids and their slots'
+    balance (``_k7_deal_balance``)."""
     import dataclasses
 
     from spmv_topk_tpu_torch.ops import kernel as K
@@ -1831,12 +1963,10 @@ def _slice_kernel_times(eng, qs, dev, group):
     args = (eng.words, table, eng.nreal, eng.plan_rows)
     bargs = (eng.words, _tables(qs, dev, cfg.query_codec), eng.nreal,
              eng.plan_rows)
-    n = eng.row_ids.shape[0]
     P = cfg.num_partitions
     plain_kw = dict(_slice_plain_kw(cfg), **parts)
     bounds = dict(k7=sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
-                  k8=sweep_bound(eng, len(qs), topk_out_bytes(eng, len(qs))),
-                  k9=sweep_bound(eng, 1, eng.row_ids.numel() * 4))
+                  k8=sweep_bound(eng, len(qs), topk_out_bytes(eng, len(qs))))
     alone, unmerged, topk_merge = _k7_alone_ms(eng, table, cfg)
     blocks, slots = K.slice_topk_grid(dev, cfg, eng.words.shape[0] // P, P)
     return dict(**_k8_times(eng, bargs[1], cfg),
@@ -1855,12 +1985,7 @@ def _slice_kernel_times(eng, qs, dev, group):
         k8_plain_ms=cuda_ms(lambda: K.slice_topk_batch_plain(
             *bargs, **plain_kw), reps=1, warmup=0),
         k8_max_abs_err=k8, k8_queries=len(qs),
-        k9_ms=cuda_ms(lambda: K.spmv_fused_scores_device(
-            *args, cfg=cfg, block_sublanes=bs, num_slices=n,
-            num_partitions=P), reps=20, warmup=2),
-        k9_plain_ms=cuda_ms(lambda: K.slice_scores_plain(
-            *args, num_slices=n, block_sublanes=bs, codec=cfg.query_codec,
-            num_partitions=P), reps=2),
+        **_scores_times(eng, qs[0], "k9"), **_scores_path(eng, qs[0]),
         k9_max_abs_err=k9,
         **{f"{k}_bound_ms": b[0] for k, b in bounds.items()},
         **{f"{k}_bound_by": b[1] for k, b in bounds.items()})
@@ -2182,7 +2307,7 @@ def phase_partition_small(dev):
             torch.cuda.synchronize()
             errs = (compare_pools(kv, kt, pv, pt),
                     compare_pools(bv, bt, bpv, bpt),
-                    _scores_plain_and_kernel(eng, table))
+                    _scores_agree(eng, query))
             require(kv.shape == (P, cfg.lane_k, 128) and bv.shape ==
                     (len(queries), P, cfg.lane_k, 128),
                     f"{name}: a pool per partition")
@@ -2226,9 +2351,9 @@ def phase_partition_small(dev):
 def _octet_agree(eng, cfg, q, qs, dev):
     """K1 (query q), K6 (queries qs in one group) and K4 (query q) of one
     octet engine under cfg (tie-safe buffers) against their plain versions,
-    which add in the kernels' order: per-lane values and K4's slice scores
-    bit-equal, (value, tag) pairs equal above each lane's floor. Returns the
-    three max abs errors."""
+    which add in the kernels' order: per-lane values and K4's scores
+    bit-equal in both store forms (``_scores_agree``), (value, tag) pairs
+    equal above each lane's floor. Returns the three max abs errors."""
     import torch
 
     table, _ = eng._table(q)
@@ -2237,7 +2362,7 @@ def _octet_agree(eng, cfg, q, qs, dev):
         eng, _tables(qs, dev, cfg.query_codec), cfg)
     torch.cuda.synchronize()
     return (compare_pools(kv, kt, pv, pt), compare_pools(bv, bt, bpv, bpt),
-            _scores_plain_and_kernel(eng, table))
+            _scores_agree(eng, q))
 
 
 def phase_codecs_small(dev):
@@ -2386,8 +2511,6 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
     plain_kw = dict(lane_k=cfg.lane_k, fold_tile=cfg.fold_tile,
                     tie_safe=bool(cfg.tie_safe_topk), block_sublanes=bs,
                     codec=codec, **parts)
-    skw = dict(block_sublanes=bs, num_slices=eng.row_ids.shape[0],
-               num_partitions=P)
     salt = torch.arange(128, dtype=torch.int32, device=dev).reshape(1, 128)
     k1, k6, k4 = kinds
     times = {
@@ -2400,10 +2523,7 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
             *bargs, cfg=cfg, block_sublanes=bs, **parts), reps=10, warmup=2),
         f"{k6}_plain_ms": cuda_ms(lambda: K.octet_topk_batch_plain(
             *bargs, **plain_kw), reps=1, warmup=0),
-        f"{k4}_ms": cuda_ms(lambda: K.spmv_fused_scores_octet_device(
-            *args, cfg=cfg, **skw), reps=20, warmup=2),
-        f"{k4}_plain_ms": cuda_ms(lambda: K.octet_scores_plain(
-            *args, codec=codec, **skw), reps=2),
+        **_scores_times(eng, qs[0], k4), **_scores_path(eng, qs[0]),
         "k3_ms": cuda_ms(lambda: stream_words_device(eng.words, salt),
                          reps=20, warmup=2),
         "k3_library_ms": _k3_library_ms(
@@ -2421,8 +2541,7 @@ def phase_octet_engine(coo, csr, qs, gold, dev, name, config,
                  plain=False)
     bounds = {k1: sweep_bound(eng, 1, topk_out_bytes(eng, 1)),
               k6: sweep_bound(eng, len(group),
-                              topk_out_bytes(eng, len(group))),
-              k4: sweep_bound(eng, 1, eng.row_ids.numel() * 4)}
+                              topk_out_bytes(eng, len(group)))}
     exact = np.asarray(csr @ qs[0], np.float32)
     per_query = times[f"{k6}_ms"] / len(group)
     res = dict(
@@ -3398,7 +3517,8 @@ def _exact(v, kern, ref):
 
 
 def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
-              agree=_lab_agree, out_bytes=None, queries=1, ops_per=2):
+              agree=_lab_agree, out_bytes=None, queries=1, ops_per=2,
+              int_ops_per_word=0):
     """One lab at full size. variants: name -> (call, kernel, counter,
     check): the wrapper on ``words`` (a tensor, or name -> the variant's
     words), its kernel alone (unmerged; None where the wrapper merges
@@ -3409,7 +3529,9 @@ def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
     timed by ``_common.measure`` beside K3 on its words (and K3's library
     yardstick there, ``_k3_library_ms``). Bound: the words,
     ``table_bytes`` and ``out_bytes`` (default the merged (value, tag)
-    buffers) moved once, or ``ops_per`` operations per nnz per query."""
+    buffers) moved once, or ``ops_per`` float operations per nnz per
+    query, or ``int_ops_per_word`` integer instructions per word per
+    query, the largest."""
     import torch
 
     from spmv_topk_tpu_torch.experiments import _common as lc
@@ -3448,7 +3570,8 @@ def _lab_time(name, lab, words, nb, nnz_per_word, table_bytes, variants,
                          k3_ms=k3[w.data_ptr()])
         nbytes = w.numel() * w.element_size()
         b_ms, b_by = bound(nbytes + table_bytes + out_bytes,
-                           ops_per * w.numel() * nnz_per_word * queries)
+                           ops_per * w.numel() * nnz_per_word * queries,
+                           int_ops_per_word * w.numel() * queries)
         res[v].update(bound_ms=b_ms, bound_by=b_by,
                       launches=counters[counter].launches - before,
                       merge_in_ms=kernel is None, k3_ms=rep["k3_ms"],
@@ -3619,7 +3742,7 @@ def _labs2(dev):
     out["batch_lab"] = _lab_time(
         "lab_batch", "batch_lab", words, nb, 2, BATCH_Q * 128 * 4, variants,
         agree=_exact, out_bytes=BATCH_Q * lc.LANE_K * 128 * 8,
-        queries=BATCH_Q)
+        queries=BATCH_Q, int_ops_per_word=H16_BATCH_INT_OPS)
     out["batch_lab"].update(data_seconds=gen, queries=BATCH_Q)
     del words, tables
 
@@ -3691,7 +3814,8 @@ def _labs2(dev):
              lambda: mxu_gather_lab.mxu_vpu_plain(words, tables)))}
         r = _lab_time("lab_mxu", "mxu_gather_lab", words, reps, 2,
                       BATCH_Q * 128 * 4, variants, agree=_exact,
-                      out_bytes=BATCH_Q * 128 * 4, queries=BATCH_Q)
+                      out_bytes=BATCH_Q * 128 * 4, queries=BATCH_Q,
+                      int_ops_per_word=H16_BATCH_INT_OPS)
         oh_bytes = words.numel() * 1024 * 4
         oh_ms = (lc.sweep_ms(lambda: mxu_gather_lab.mxu_onehot(words, tabq))
                  if oh_bytes <= ONEHOT_MAX_BYTES else None)
@@ -4710,7 +4834,7 @@ def summarize(R, complete):
 
         def extra(r):
             return (k7_extra(r, kn) if kn == "k7" else
-                    k8_extra(r, kn) if kn == "k8" else {})
+                    k8_extra(r, kn) if kn == "k8" else scores_extra(r, kn))
 
         def unit(codec):
             return units[codec] if units else src
@@ -4729,6 +4853,20 @@ def summarize(R, complete):
 
     def sharded(key):
         return R["sharded"][key]
+
+    def scores_extra(r, kn):
+        """K4's and K9's keys beside kernel_entry's (``ms`` is the row-order
+        launch that scores() makes): the slice-order form's times and
+        bound (``_scores_times``), and scores() whole (``_scores_path``)."""
+        return dict(store="row order",
+                    slice_order_ms=r[f"{kn}_slice_order_ms"],
+                    slice_order_plain_ms=r[f"{kn}_slice_order_plain_ms"],
+                    slice_order_bound_ms=r[f"{kn}_slice_order_bound_ms"],
+                    slice_order_bound_by=r[f"{kn}_slice_order_bound_by"],
+                    scores_device_ms=r["scores_device_ms_median"],
+                    scores_host_ms=r["scores_host_ms_median"],
+                    scores_before_row_store_device_ms=r[
+                        "scores_before_row_store_device_ms_median"])
 
     def k12_extra(r):
         """K12's keys beside kernel_entry's (``_bucket_times``)."""
@@ -4769,8 +4907,11 @@ def summarize(R, complete):
         (("main_res", "scores", "oc", "lib"), lambda: kernel_entry(
             "octet_scores_h16", "octet_scores.cu", f"{ker}:2039",
             launches["octet_scores_h16"], R["scores"], "k4", spmv, **one,
+            **scores_extra(R["scores"], "k4"),
             **octet_codecs("octet_scores_h16", "octet_scores.cu", 2039,
-                           "k4", spmv, **one))),
+                           "k4", spmv,
+                           extra_of=lambda r: scores_extra(r, "k4"),
+                           **one))),
         (("main_res", "full"), lambda: kernel_entry(
             "stream_words", "stream_probe.cu",
             "spmv_topk_tpu/ops/streamprobe.py:54", launches["stream_words"],
@@ -4825,11 +4966,13 @@ def summarize(R, complete):
             "octet_scores_h16_partitioned", "octet_scores.cu",
             f"{ker}:2039", R["po"]["launches"]["octet_scores_h16"], R["po"],
             "k4", spmv, partitions=PARTITIONS, **one,
+            **scores_extra(R["po"], "k4"),
             f32=kernel_entry(
                 "octet_scores_f32_partitioned", "octet_scores.cu",
                 f"{ker}:2039", R["pof"]["launches"]["octet_scores_f32"],
                 R["pof"], "k4", spmv, partitions=PARTITIONS,
-                path="partitioned_octet_f32_path", **one))),
+                path="partitioned_octet_f32_path", **one,
+                **scores_extra(R["pof"], "k4")))),
         (("pdf", "sharded", "lib"), lambda: kernel_entry(
             "slice_topk_partitioned", K7_UNITS["f32"], f"{ker}:927",
             R["pdf"]["launches"]["slice_topk"], R["pdf"], "k7", topk1,
@@ -4871,7 +5014,7 @@ def summarize(R, complete):
         (("pdf", "lib"), lambda: kernel_entry(
             "slice_scores_partitioned", "slice_scores.cu", f"{ker}:1909",
             R["pdf"]["launches"]["slice_scores"], R["pdf"], "k9", spmv,
-            partitions=PARTITIONS, **one)),
+            partitions=PARTITIONS, **one, **scores_extra(R["pdf"], "k9"))),
         # the per-bucket ops over every bucket of pack_sell_buckets: f32
         # (the default config), h16 nested; times summed over the buckets,
         # alone_ms the kernels on the card with no host time

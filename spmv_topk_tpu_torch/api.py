@@ -24,7 +24,8 @@ tables (``pack_query_tables``), the multi-query sweep
 (``topk_spmv_fused_batch_device`` / ``topk_spmv_fused_batch_octet_device``),
 ``finalize_topk_batch`` and the rescore on a thread pool. ``scores`` is
 plain SpMV over the same stream (``spmv_fused_scores_device`` /
-``spmv_fused_scores_octet_device``).
+``spmv_fused_scores_octet_device``): a zero fill and one launch that
+stores each score, scaled, at its row.
 
 Snapshots use the JAX package's ``.npz`` format v2, so one file serves
 both packages.
@@ -191,6 +192,9 @@ class TopKSpMV(torch.nn.Module):
                 for p, n in zip(fused.plan, nr)]
         if max(ends, default=0) > part_slices - 1:
             raise ValueError("plan slices run past row_ids")
+        # scores() stores each slice lane's score at its row id on the card
+        if fused.row_ids.size and int(np.max(fused.row_ids)) >= self.num_rows:
+            raise ValueError("row_ids hold rows past num_rows")
         for name, arr in (("words", fused.words), ("nreal", fused.nreal),
                           ("row_ids", fused.row_ids),
                           ("plan_rows", plan_rows)):
@@ -435,18 +439,16 @@ class TopKSpMV(torch.nn.Module):
         Materializes num_rows floats; prefer query() for similarity
         lookup."""
         table, scale = self._table(vec)
-        sc = self._layout.scores(
+        # one launch stores each score, scaled, straight to its row
+        # (padding lanes, row -1, store nothing)
+        out = torch.zeros(self.num_rows, dtype=torch.float32,
+                          device=self.device)
+        return self._layout.scores(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes,
             num_slices=self.row_ids.shape[0],
-            num_partitions=self.config.num_partitions)
-        rows = self.row_ids.reshape(-1).long()
-        # padding lanes (row -1) land in one extra slot, dropped after
-        res = torch.zeros(self.num_rows + 1, dtype=torch.float32,
-                          device=self.device)
-        res.scatter_(0, torch.where(rows >= 0, rows, self.num_rows),
-                     sc.reshape(-1) * (scale * self._value_scale))
-        return res[: self.num_rows]
+            num_partitions=self.config.num_partitions, row_ids=self.row_ids,
+            scale=scale * self._value_scale, out=out)
 
     # -- accounting ---------------------------------------------------------
 

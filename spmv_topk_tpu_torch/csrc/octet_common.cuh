@@ -141,6 +141,23 @@ __device__ __forceinline__ void harvest_above(float (&tv)[K], int32_t (&tt)[K], 
   }
 }
 
+// The row-order store of the SpMV kernels (K4, octet_scores.cu; K9,
+// slice_scores.cu): the stream and the row ids are loaded cache-streaming
+// (__ldcs: L2 evict-first), the scattered 4-byte row stores made with an
+// L2 evict-last policy (createpolicy, sm_80 and later), so that the L2
+// holds the 40 MB of rows while the stream passes through it, and each
+// 32-byte sector of rows until its rows are written.
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ void store_kept(float* p, float v, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.f32 [%0], %1, %2;" ::"l"(p), "f"(v), "l"(policy)
+               : "memory");
+}
+
 // Partition blockIdx.y of a partition-major stream (formats/
 // sell_buckets.py::PartitionedFusedMatrix; an unpartitioned stream is
 // partition 0 of 1): its blocks start part_rows rows into the words, its
@@ -211,10 +228,16 @@ __device__ __forceinline__ Octet locate(const int32_t* words,
 // float codecs add the even and the odd chunks of each block span (the
 // octet's chunks in one block; a wide octet spans several) into two
 // accumulators from 0 and then the two together; a wide octet adds its
-// span sums in block order from 0 (the TPU kernel's carry).
-template <class C>
+// span sums in block order from 0 (the TPU kernel's carry). STREAM:
+// each word loaded cache-streaming (K4's row-order store: the stream
+// leaves L2 first), else through the read-only path.
+template <class C, bool STREAM = false>
 __device__ __forceinline__ void octet_sums(const Octet& oc, const codec::Table<typename C::Tab>& t,
                                            int chunks_per_block, float (&sc)[kMembers]) {
+  const auto word = [](const int32_t* p) -> uint32_t {
+    if constexpr (STREAM) return static_cast<uint32_t>(__ldcs(p));
+    return static_cast<uint32_t>(__ldg(p));
+  };
   if constexpr (C::kExact) {
     typename C::Acc acc[kMembers];
 #pragma unroll
@@ -224,7 +247,7 @@ __device__ __forceinline__ void octet_sums(const Octet& oc, const codec::Table<t
       const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
 #pragma unroll
       for (int m = 0; m < kMembers; ++m)
-        acc[m] = C::add(acc[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t);
+        acc[m] = C::add(acc[m], word(row + m * kLanes), t);
     }
 #pragma unroll
     for (int m = 0; m < kMembers; ++m) sc[m] = C::finish(acc[m]);
@@ -242,15 +265,15 @@ __device__ __forceinline__ void octet_sums(const Octet& oc, const codec::Table<t
         const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
 #pragma unroll
         for (int m = 0; m < kMembers; ++m) {
-          even[m] = C::add(even[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t);
-          odd[m] = C::add(odd[m], static_cast<uint32_t>(__ldg(row + (kMembers + m) * kLanes)), t);
+          even[m] = C::add(even[m], word(row + m * kLanes), t);
+          odd[m] = C::add(odd[m], word(row + (kMembers + m) * kLanes), t);
         }
       }
       if (j < j1) {
         const int32_t* row = oc.src + (int64_t)j * kMembers * kLanes;
 #pragma unroll
         for (int m = 0; m < kMembers; ++m)
-          even[m] = C::add(even[m], static_cast<uint32_t>(__ldg(row + m * kLanes)), t);
+          even[m] = C::add(even[m], word(row + m * kLanes), t);
       }
 #pragma unroll
       for (int m = 0; m < kMembers; ++m) {

@@ -1,8 +1,9 @@
 // Pieces shared by the slice-stream kernels: K7 (slice_topk.cuh), K8
 // (slice_topk_batch.cuh) and K9 (slice_scores.cu). The work items and
-// their members are Bucket's and members_of's for all three; K7 and K8
-// walk them with K7's cursor (slice_topk.cuh::Walk), K9 with the Walker
-// below.
+// their members are Bucket's and members_of's for K7 and K8, which walk
+// them with K7's cursor (slice_topk.cuh::Walk); K9 takes whole slices in
+// turn. The Walker below walks them for the kernels before K8 and K9 that
+// experiments/k8_ablation.py and k9_ablation.py build.
 //
 // The stream (formats/sell_buckets.py::fuse_buckets) is a sequence of
 // uniform blocks of block_sublanes rows x 128 lanes of int32 words. A
@@ -179,34 +180,5 @@ struct Walker {
     return k.mode == kWide ? it.src : it.src + (int64_t)(it.j0 + m * it.dj) * k.width * kLanes;
   }
 };
-
-// A slice's rows summed in row order from 0 (h16 in int32; the float
-// codecs one rounded add at a time, ops/kernel.py::_row_sum).
-template <class C>
-__device__ __forceinline__ typename C::Acc rows_sum(const int32_t* src, int rows,
-                                                    const Table<typename C::Tab>& tab) {
-  typename C::Acc acc = 0;
-#pragma unroll 4
-  for (int r = 0; r < rows; ++r)
-    acc = C::add(acc, static_cast<uint32_t>(__ldg(src + (int64_t)r * kLanes)), tab);
-  return acc;
-}
-
-// Member m's score: its W words summed; a wide slice sums each block,
-// converts, and adds the block sums up in float in block order (the JAX
-// kernel's carry).
-template <class C>
-__device__ __forceinline__ float member_score(const Walker& w, const Item& it, int m,
-                                              const Table<typename C::Tab>& tab) {
-  const int32_t* src = w.rows_of(it, m);
-  if (w.k.mode != kWide) return C::finish(rows_sum<C>(src, w.k.width, tab));
-  float carry = 0.0f;
-  for (int blk = 0; blk < w.k.bps; ++blk) {
-    const int rows = min(w.block_sublanes, w.k.width - blk * w.block_sublanes);
-    carry = __fadd_rn(carry, C::finish(rows_sum<C>(
-        src + (int64_t)blk * w.block_sublanes * kLanes, rows, tab)));
-  }
-  return carry;
-}
 
 }  // namespace slice

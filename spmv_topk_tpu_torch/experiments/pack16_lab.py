@@ -26,8 +26,9 @@ are equal bit for bit. ``main()`` times each case as the lab does
 (pack16_lab.py:78-91): the slope between 12 and 2 chained calls on inputs
 x + i, median of 5, here between CUDA events, and prints the lab's ms,
 cycles per tile-op at the card's SM clock (nvidia-smi's ``clocks.max.sm``,
-named in the line), element-ops per second, and the bound at the card's
-non-tensor rate for the type (``RATES``).
+named in the line), element-ops per second, and the bound at the rate
+at which the card issues the chain's instructions for the type
+(``RATES``).
 
     python -m spmv_topk_tpu_torch.experiments.pack16_lab [case ...]
         [--device cpu]
@@ -57,20 +58,26 @@ NAMES = tuple(c[0] for c in CASES)
 LAB_NAMES = dict(zip(NAMES, ("f32 (8,128)", "f32 (16,128)", "bf16 (16,128)",
                              "bf16 (32,128)", "int16 (16,128)",
                              "int32 (8,128)")))
-# NVIDIA H100 SXM, element-ops per second outside the tensor cores, an
-# FMA counted as two: f32 from the H100 data sheet, bf16 and int32 from
-# the Hopper architecture white paper (its table of peak rates, SXM5);
-# int16 runs on the int32 units (no packed 16-bit integer arithmetic,
-# PERF.md's L6 finding)
-RATES = {torch.float32: 67e12, torch.bfloat16: 133.8e12,
+# NVIDIA H100 SXM, element-ops per second outside the tensor cores as the
+# chains issue them: a multiply and an add each rounded, so the float
+# chains issue FMUL and FADD apart (bf16 as HMUL2 and HADD2 on pairs), at
+# half the FMA-counted peak (f32 67 TFLOPS, the H100 data sheet; bf16
+# 133.8, the Hopper architecture white paper's table of peak rates, SXM5);
+# an integer multiply-add is one IMAD at the int32 units' rate, which the
+# white paper's INT32 33.5 TOPS counts as two ops; int16 runs on the int32
+# units (no packed 16-bit integer arithmetic, PERF.md's L6 finding)
+RATES = {torch.float32: 33.5e12, torch.bfloat16: 66.9e12,
          torch.int16: 33.5e12, torch.int32: 33.5e12}
 RATE_SOURCES = {
-    torch.float32: "H100 SXM data sheet: FP32 67 TFLOPS",
+    torch.float32: "H100 SXM data sheet: FP32 67 TFLOPS counting an FMA "
+                   "as two; FMUL and FADD issue apart: 33.5e12",
     torch.bfloat16: "Hopper white paper, H100 SXM5: BF16 (non-Tensor) "
-                    "133.8 TFLOPS",
-    torch.int16: "Hopper white paper, H100 SXM5: INT32 33.5 TOPS (int16 "
-                 "on the int32 units)",
-    torch.int32: "Hopper white paper, H100 SXM5: INT32 33.5 TOPS"}
+                    "133.8 TFLOPS counting an HFMA2 as four; HMUL2 and "
+                    "HADD2 issue apart: 66.9e12",
+    torch.int16: "Hopper white paper, H100 SXM5: INT32 33.5 TOPS, one "
+                 "IMAD a multiply-add (int16 on the int32 units)",
+    torch.int32: "Hopper white paper, H100 SXM5: INT32 33.5 TOPS, one "
+                 "IMAD a multiply-add"}
 
 
 def case(name: str):

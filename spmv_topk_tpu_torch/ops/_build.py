@@ -11,8 +11,8 @@ of the package, and only a launch on a CUDA tensor needs the library.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p`` (``bucket_topk``, ``bucket_topk_batch``, ``octet_topk``,
-``octet_topk_batch``, ``slice_topk``, ``slice_topk_batch``: one pointer
-to its arguments packed as int64) and returns ``cudaGetLastError()``;
+``octet_topk_batch``, ``slice_topk``, ``slice_topk_batch``,
+``slice_scores``: one pointer to its arguments packed as int64) and returns ``cudaGetLastError()``;
 ``check`` raises when that is not 0.
 """
 
@@ -56,6 +56,7 @@ source_seconds = {}    # source -> wall seconds of its nvcc process (a
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
+_f32 = ctypes.c_float
 # name -> argtypes of each C entry point (all return int: cudaError_t)
 _SIGNATURES = {
     "octet_topk": [_vp],    # int64 arguments packed (csrc/octet_topk.cu)
@@ -63,11 +64,12 @@ _SIGNATURES = {
     "octet_topk_batch": [_vp],   # int64 arguments packed (octet_topk_batch.cu)
     "octet_topk_batch_h16": [_vp] * 4 + [_i32] * 11 + [_vp, _i64] * 2
     + [_vp] * 3,
-    "octet_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
+    "octet_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2 + [_f32, _vp],
     "slice_topk": [_vp],    # int64 arguments packed (csrc/slice_topk.cu)
     "slice_topk_occupancy": [_i32] * 4,
     "slice_topk_batch": [_vp],   # int64 arguments packed (slice_topk_batch.cu)
-    "slice_scores": [_vp] * 4 + [_i32] * 8 + [_vp] * 2,
+    "slice_scores": [_vp],  # int64 arguments packed (csrc/slice_scores.cu)
+    "slice_scores_occupancy": [_i32] * 3,
     "stream_words": [_vp, _i64] + [_vp] * 3 + [_i32, _vp],
     "bucket_scores": [_vp] * 2 + [_i32] * 5 + [_vp] * 2,
     "bucket_scores_occupancy": [_i32] * 2,

@@ -29,7 +29,8 @@ chunks into 8 member scores per lane:
     once for up to 32 queries, the merge on the card;
     ``octet_topk_batch_slots_plain`` is that kernel on its slots);
   - ``spmv_fused_scores_octet_device`` (K4) writes the 8 member scores
-    themselves, in slice order: plain SpMV.
+    themselves, in slice order or, scaled, straight to row order: plain
+    SpMV.
 
 Slice stream (formats/sell_buckets.py::fuse_buckets). A slice's W words sit on W consecutive rows; each sweep
 adds up every slice's W decoded words into its 128 row scores (one
@@ -45,7 +46,8 @@ lane per row):
     whatever ``fold_tile`` is (the JAX batch kernel has no tiled fold),
     the stream read once a pass of queries and the merge on the card
     (``slice_topk_batch_slots_plain`` is that kernel on its slots);
-  - ``spmv_fused_scores_device`` (K9) writes the slice scores: plain SpMV.
+  - ``spmv_fused_scores_device`` (K9) writes the slice scores, in slice
+    order or, scaled, straight to row order: plain SpMV.
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/`` (K1
 ``octet_topk.cuh``, K6 ``octet_topk_batch.cuh`` and, for h16,
@@ -142,13 +144,16 @@ K8_PASS_QUERIES = {"h16": (8, 16, 32), "f32": (8, 16), "f32_global": (8,),
                    "int8x4": (8, 16), "i8s": (8, 16), "i4s": (8, 16),
                    "int8x4_global": (8,)}
 K8_UNROLL = 4
+# K9 (csrc/slice_scores.cu): warps a CUDA block, each summing a slice at a
+# time (its kWarps)
+K9_WARPS = 16
 # (C entry point, device index, its arguments) -> a kernel's resident
 # blocks an SM (_resident_blocks); (kernel, device index, stream) -> the
 # workspace and tickets of K13, K12, K6, K1, K7, K8 and K3
 # (_merge_workspace)
 _OCCUPANCY = {}
 _MERGE_WORKSPACE = {}
-# CUDA blocks per SM of the sweeps K4 and K9, and the slots of the batch
+# CUDA blocks per SM of the sweep K4, and the slots of the batch
 # sweeps that merged with torch.topk before K8, K6 and K12 read the stream
 # once a pass (``batch_grid``: the old kernels that experiments/
 # k8_ablation.py, k6_ablation.py and k12_ablation.py time; each slot owned
@@ -641,15 +646,19 @@ def _octet_slots_one(words, table, nreal, plan_rows, *, num_slots, lane_k,
 
 def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
                        block_sublanes: int, chunk_sublanes: int = 8,
-                       num_partitions: int = 1, codec: str = "h16"):
+                       num_partitions: int = 1, codec: str = "h16",
+                       row_ids=None, scale: float = 1.0, out=None):
     """Plain PyTorch version of the octet SpMV: (num_slices, 128) f32, row
     s holding slice s's 128 unscaled row scores (K1's sums). Member m of
     octet o of a bucket is slice slice_base + o + m * stride; rows of no
     real slice (the sentinel slice) stay 0. With P partitions, partition
-    p's slices fill rows p * part_slices .., part_slices = num_slices / P."""
+    p's slices fill rows p * part_slices .., part_slices = num_slices / P.
+
+    With ``row_ids`` ((num_slices, 128) int32) the row-order form: those
+    scores scaled into ``out`` (``scores_to_rows``), which it returns."""
     S = chunk_sublanes
-    out = torch.zeros((num_slices, LANES), dtype=torch.float32,
-                      device=words.device)
+    sc = torch.zeros((num_slices, LANES), dtype=torch.float32,
+                     device=words.device)
     part_slices = num_slices // num_partitions
     for p, (w, nr) in enumerate(_partitions(words, nreal, num_partitions)):
         for b, row in enumerate(plan_rows.tolist()):
@@ -659,8 +668,27 @@ def octet_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
                                                          block_sublanes, S,
                                                          codec)])
             # (octet, member) -> (member, octet): the flat index is the slice
-            out[slice_base:slice_base + n_real] = sums.transpose(
+            sc[slice_base:slice_base + n_real] = sums.transpose(
                 0, 1).reshape(-1, LANES)[:n_real].to(torch.float32)
+    return sc if row_ids is None else scores_to_rows(sc, row_ids, scale, out)
+
+
+def score_factor(scale) -> float:
+    """The float32 factor the row-order stores multiply each score by:
+    ``scale`` rounded to float32, as torch rounds a Python scalar before it
+    multiplies a float32 tensor by it."""
+    return float(np.float32(scale))
+
+
+def scores_to_rows(sc, row_ids, scale, out):
+    """Slice-order scores (num_slices, 128) into row order, the plain form
+    of K4's and K9's row-order store: out[row] = sc[s, lane] * factor
+    (``score_factor(scale)``, one rounded float32 multiply) for each slice
+    lane whose row row_ids[s, lane] is >= 0; other rows of ``out`` are left.
+    Returns ``out``."""
+    rows = row_ids.reshape(-1).long()
+    keep = rows >= 0
+    out[rows[keep]] = sc.reshape(-1)[keep] * score_factor(scale)
     return out
 
 
@@ -772,10 +800,10 @@ def _check_inputs(words, nreal, plan_rows, block_sublanes, num_partitions,
 
 
 def _sweep_blocks(sms: int, part_rows: int, num_partitions: int) -> int:
-    """CUDA blocks per partition of the sweeps K4 and K9 (K1 and K7 have
-    their own grid, ``octet_grid``): the card's sms * _BLOCKS_PER_SM shared
-    among the partitions, and no more than a partition has chunks (every
-    octet, or slice, holds at least one)."""
+    """CUDA blocks per partition of the sweep K4 (K1 and K7 have their own
+    grid, ``octet_grid``, K9 ``slice_scores_grid``): the card's sms *
+    _BLOCKS_PER_SM shared among the partitions, and no more than a
+    partition has chunks (every octet holds at least one)."""
     return max(1, min(-(-sms * _BLOCKS_PER_SM // num_partitions),
                       part_rows // _S))
 
@@ -1181,12 +1209,20 @@ topk_spmv_fused_batch_octet_device.launches = 0
 
 def spmv_fused_scores_octet_device(words, table, nreal, plan_rows, *,
                                    cfg: TopKSpMVConfig, block_sublanes: int,
-                                   num_slices: int, num_partitions: int = 1):
+                                   num_slices: int, num_partitions: int = 1,
+                                   row_ids=None, scale: float = 1.0,
+                                   out=None):
     """Plain SpMV over the octet stream (K4, over every partition when
     P = num_partitions > 1): (num_slices, 128) f32, row s the unscaled
     scores of slice s's 128 rows (rows of no real slice are 0), summed as
     K1 sums them. Arguments as for ``topk_spmv_fused_octet_device``;
     num_slices is ``row_ids.shape[0]``, P * part_slices for P partitions.
+
+    With ``row_ids`` ((num_slices, 128) int32, -1 for no row) and ``out``
+    (a float32 vector that every row id indexes) the kernel stores in row
+    order instead: out[row] = score * ``score_factor(scale)`` for each slice
+    lane's row, other entries left as they are (a zero fill makes A @ q);
+    returns ``out``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -1196,13 +1232,38 @@ def spmv_fused_scores_octet_device(words, table, nreal, plan_rows, *,
     kw = dict(num_slices=num_slices, block_sublanes=block_sublanes,
               chunk_sublanes=cfg.chunk_sublanes,
               num_partitions=num_partitions, codec=cfg.query_codec)
+    if (row_ids is None) != (out is None):
+        raise ValueError("the row-order store takes row_ids and out")
     if words.device.type == "cpu":
-        return octet_scores_plain(words, table, nreal, plan_rows, **kw)
-    return _octet_scores_cuda(words, table, nreal, plan_rows, cfg, **kw)
+        return octet_scores_plain(words, table, nreal, plan_rows, **kw,
+                                  row_ids=row_ids, scale=scale, out=out)
+    return _octet_scores_cuda(words, table, nreal, plan_rows, cfg, **kw,
+                              row_ids=row_ids, scale=scale, out=out)
+
+
+def _row_store(row_ids, out, num_slices: int, dev):
+    """(row_ids pointer, out) of a launch: 0 and a zeroed (num_slices,
+    128) f32 slice-order output without row_ids; else both checked (row
+    ids (num_slices, 128) int32, out a float32 vector, contiguous on
+    ``dev``)."""
+    if row_ids is None:
+        return 0, torch.zeros((num_slices, LANES), dtype=torch.float32,
+                              device=dev)
+    for name, t, dtype, ok in (
+            ("row_ids", row_ids, torch.int32,
+             tuple(row_ids.shape) == (num_slices, LANES)),
+            ("out", out, torch.float32, out.dim() == 1)):
+        if t.device != dev or t.dtype != dtype or not ok or \
+                not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dtype} tensor "
+                             f"on {dev} of the row-order shape, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return row_ids.data_ptr(), out
 
 
 def _octet_scores_cuda(words, table, nreal, plan_rows, cfg, *, num_slices,
-                       block_sublanes, chunk_sublanes, num_partitions, codec):
+                       block_sublanes, chunk_sublanes, num_partitions, codec,
+                       row_ids=None, scale=1.0, out=None):
     B = plan_rows.shape[0]
     P = num_partitions
     rows, dtype = _table_spec(cfg)
@@ -1214,10 +1275,11 @@ def _octet_scores_cuda(words, table, nreal, plan_rows, cfg, *, num_slices,
     arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
     part_rows = words.shape[0] // P
     nblk = _sweep_blocks(sms, part_rows, P)
-    out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
+    ids, out = _row_store(row_ids, out, num_slices, dev)
     _launch(dev, "octet_scores", words.data_ptr(), table.data_ptr(),
             nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            arg, nblk, P, part_rows, num_slices // P, out.data_ptr())
+            arg, nblk, P, part_rows, num_slices // P, out.data_ptr(), ids,
+            score_factor(scale))
     spmv_fused_scores_octet_device.launches += 1
     return out
 
@@ -1371,7 +1433,7 @@ def codec_prod(codec: str):
 
 def _row_sum(p: torch.Tensor, dim: int) -> torch.Tensor:
     """Sum over ``dim`` in index order, one rounded float32 add at a time
-    from 0 (the kernels' order, csrc/slice_common.cuh::rows_sum)."""
+    from 0 (the kernels' order, csrc/slice_scores.cu::span_sums)."""
     acc = p.new_zeros(p.shape[:dim] + p.shape[dim + 1:])
     for r in range(p.shape[dim]):
         acc = acc + p.select(dim, r)
@@ -1416,21 +1478,25 @@ def _bucket_scores(words, table, row, codec: str, block_sublanes: int):
 
 def slice_scores_plain(words, table, nreal, plan_rows, *, num_slices: int,
                        block_sublanes: int, codec: str,
-                       num_partitions: int = 1):
+                       num_partitions: int = 1, row_ids=None,
+                       scale: float = 1.0, out=None):
     """Plain PyTorch version of the slice-stream SpMV: (num_slices, 128)
     f32, row s holding slice s's 128 unscaled row scores; rows of no real
     slice (the sentinel slice) stay 0. With P partitions, partition p's
-    slices fill rows p * part_slices .., part_slices = num_slices / P."""
-    out = torch.zeros((num_slices, LANES), dtype=torch.float32,
-                      device=words.device)
+    slices fill rows p * part_slices .., part_slices = num_slices / P.
+
+    With ``row_ids`` ((num_slices, 128) int32) the row-order form: those
+    scores scaled into ``out`` (``scores_to_rows``), which it returns."""
+    sc = torch.zeros((num_slices, LANES), dtype=torch.float32,
+                     device=words.device)
     part_slices = num_slices // num_partitions
     for p, (w, nr) in enumerate(_partitions(words, nreal, num_partitions)):
         for b, row in enumerate(plan_rows.tolist()):
             n = int(nr[b])
             base = p * part_slices + row[3]
-            out[base:base + n] = _bucket_scores(
+            sc[base:base + n] = _bucket_scores(
                 w, table, row, codec, block_sublanes)[:n]
-    return out
+    return sc if row_ids is None else scores_to_rows(sc, row_ids, scale, out)
 
 
 def slice_topk_plain(words, table, nreal, plan_rows, *,
@@ -2008,12 +2074,19 @@ topk_spmv_fused_batch_device.launches = 0
 
 def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
                              cfg: TopKSpMVConfig, block_sublanes: int,
-                             num_slices: int, num_partitions: int = 1):
+                             num_slices: int, num_partitions: int = 1,
+                             row_ids=None, scale: float = 1.0, out=None):
     """Plain SpMV over the slice stream (K9, over every partition when
     P = num_partitions > 1): (num_slices, 128) f32, row s the unscaled
     scores of slice s's 128 rows (rows of no real slice are 0).
     Arguments as for ``topk_spmv_fused_device``; num_slices is
     ``row_ids.shape[0]``, P * part_slices for P partitions.
+
+    With ``row_ids`` ((num_slices, 128) int32, -1 for no row) and ``out``
+    (a float32 vector that every row id indexes) the kernel stores in row
+    order instead: out[row] = score * ``score_factor(scale)`` for each slice
+    lane's row, other entries left as they are (a zero fill makes A @ q);
+    returns ``out``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -2021,26 +2094,54 @@ def spmv_fused_scores_device(words, table, nreal, plan_rows, *,
     P = num_partitions
     if num_slices % P:
         raise ValueError(f"{num_slices} slices in {P} partitions")
+    if (row_ids is None) != (out is None):
+        raise ValueError("the row-order store takes row_ids and out")
     if words.device.type == "cpu":
         return slice_scores_plain(words, table, nreal, plan_rows,
                                   num_slices=num_slices,
                                   block_sublanes=block_sublanes,
-                                  codec=cfg.query_codec, num_partitions=P)
+                                  codec=cfg.query_codec, num_partitions=P,
+                                  row_ids=row_ids, scale=scale, out=out)
     B = plan_rows.shape[0]
     rows, dtype = _table_spec(cfg)
-    sms = _check_inputs(words, nreal, plan_rows, block_sublanes, P,
-                        ("table", table, (rows, LANES), dtype),
-                        plan_cols=len(SLICE_PLAN_COLUMNS))
+    _check_inputs(words, nreal, plan_rows, block_sublanes, P,
+                  ("table", table, (rows, LANES), dtype),
+                  plan_cols=len(SLICE_PLAN_COLUMNS))
     dev = words.device
     codec, _ = _kernel_codec(dev, cfg.query_codec, rows)
-    part_rows = words.shape[0] // P
-    nblk = _sweep_blocks(sms, part_rows, P)
-    out = torch.zeros((num_slices, LANES), dtype=torch.float32, device=dev)
-    _launch(dev, "slice_scores", words.data_ptr(), table.data_ptr(),
-            nreal.data_ptr(), plan_rows.data_ptr(), B, block_sublanes, rows,
-            codec, nblk, P, part_rows, num_slices // P, out.data_ptr())
+    ids, out = _row_store(row_ids, out, num_slices, dev)
+    blocks = slice_scores_grid(dev, cfg, num_slices // P, P,
+                               row_order=bool(ids))
+    lib = _build.lib()
+    with (contextlib.nullcontext() if torch.cuda.current_device() == dev.index
+          else torch.cuda.device(dev)):
+        # the arguments as int64 values, in csrc/slice_scores.cu's order
+        args = array.array("q", (
+            words.data_ptr(), table.data_ptr(), nreal.data_ptr(),
+            plan_rows.data_ptr(), B, block_sublanes, rows, codec, blocks, P,
+            words.shape[0] // P, num_slices // P, out.data_ptr(), ids,
+            int(np.float32(score_factor(scale)).view(np.uint32)),
+            torch._C._cuda_getCurrentRawStream(dev.index)))
+        err = lib.slice_scores(args.buffer_info()[0])
+    _build.check(err, "slice_scores")
     spmv_fused_scores_device.launches += 1
     return out
+
+
+def slice_scores_grid(dev, cfg: TopKSpMVConfig, part_slices: int,
+                      num_partitions: int = 1,
+                      row_order: bool = False) -> int:
+    """K9's CUDA blocks a partition on CUDA ``dev`` for cfg's codec and a
+    store form (``csrc/slice_scores.cu``): one resident wave, the card's
+    SMs x the occupancy API's resident blocks an SM shared among the
+    partitions, at least one, and no more than give each of a
+    partition's ``part_slices`` slices a warp (K9_WARPS a block)."""
+    rows, _ = _table_spec(cfg)
+    arg, _ = _kernel_codec(dev, cfg.query_codec, rows)
+    per_sm = _resident_blocks(dev, "slice_scores_occupancy", arg, rows,
+                              int(row_order))
+    blocks = max(1, _device_info(dev)[0] * per_sm // num_partitions)
+    return max(1, min(blocks, -(-part_slices // K9_WARPS)))
 
 
 spmv_fused_scores_device.launches = 0

@@ -12,7 +12,8 @@ held bit for bit to ``octet_topk_slots_plain``, tags included), K6
 K4 (octet SpMV), K3 (stream probe, one launch a call), on the slice
 stream K7 (single-query sweep; its lane merge on the card, held bit for
 bit to ``slice_topk_slots_plain``, tags included), K8 (multi-query sweep)
-and K9 (SpMV), and all six
+and K9 (SpMV; K4 and K9 in slice order and in row order, and
+``scores()`` against the path before the row-order store), and all six
 on partitioned streams (K10a-d and the partitioned K4/K9), with every
 query codec (int8x4, i8s, i4s on both streams, f32 on the octet stream),
 and the per-bucket ops K11, K13, K12 over pack_sell_buckets' buckets (K12
@@ -989,6 +990,86 @@ def test_slice_scores_kernel_matches_plain(gpu, corpus, int_corpus, name, kw,
         codec=cfg.query_codec)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# K9 and K4 in both store forms (slice order, and row order: each slice
+# lane's score times the scale at its row id), every codec, on one and two
+# partitions, with wide slices and wide octets, on a corpus with a row of
+# no nnz: each kernel bit for bit against its plain version, and scores()
+# bit for bit against the path before the row-order store (the kernel's
+# slice order, then an int64 copy of row_ids, torch.where, the multiply by
+# the scale and scatter_ into a zero fill, on the card).
+SCORES_GEOMETRIES = {
+    ("slice", "narrow"): dict(fused_layout="slice", width_quantum=2,
+                              fused_block_sublanes=1024),
+    ("slice", "wide"): dict(fused_layout="slice", width_quantum=2,
+                            fused_block_sublanes=32),
+    ("octet", "narrow"): dict(fused_layout="octet", width_quantum=2,
+                              fused_block_sublanes=1024),
+    ("octet", "wide"): dict(fused_layout="octet", width_quantum=1,
+                            fused_block_sublanes=64),
+}
+SCORES_CODECS = ("h16", "f32", "int8x4", "i8s", "i4s")
+EMPTY_ROW = 7
+
+
+@pytest.fixture(scope="module")
+def gappy_corpus(corpus):
+    coo, qs = corpus
+    keep = coo.rows != EMPTY_ROW
+    return pt.CooMatrix(coo.rows[keep], coo.cols[keep], coo.vals[keep],
+                        coo.num_rows, coo.num_cols), qs
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("partitions", [1, 2])
+@pytest.mark.parametrize("codec", SCORES_CODECS)
+@pytest.mark.parametrize("layout,geometry", list(SCORES_GEOMETRIES))
+def test_scores_store_forms_match_plain(gpu, gappy_corpus, layout, geometry,
+                                        codec, partitions):
+    coo, qs = gappy_corpus
+    cfg = pt.TopKSpMVConfig(k=100, lane_k=8, max_cols=1024,
+                            query_codec=codec, rescore_pool=None,
+                            num_partitions=partitions,
+                            **SCORES_GEOMETRIES[(layout, geometry)])
+    eng = pt.TopKSpMV(coo, cfg, device=gpu)
+    if geometry == "wide":
+        assert any((p.blocks_per_slice if layout == "slice"
+                    else p.blocks_per_octet) > 1 for p in eng.fused.plan)
+    wrapper, plain = (
+        (pkernel.spmv_fused_scores_device, pkernel.slice_scores_plain)
+        if layout == "slice" else
+        (pkernel.spmv_fused_scores_octet_device, pkernel.octet_scores_plain))
+    table, scale = eng._table(qs[0])
+    factor = scale * eng._value_scale
+    args = (eng.words, table, eng.nreal, eng.plan_rows)
+    kw = dict(block_sublanes=cfg.fused_block_sublanes,
+              num_slices=eng.row_ids.shape[0], num_partitions=partitions)
+
+    def rows():
+        return dict(row_ids=eng.row_ids, scale=factor,
+                    out=torch.zeros(eng.num_rows, device=gpu))
+
+    before = wrapper.launches
+    ks = wrapper(*args, cfg=cfg, **kw)
+    kr = wrapper(*args, cfg=cfg, **kw, **rows())
+    assert wrapper.launches == before + 2
+    ps = plain(*args, codec=codec, **kw)
+    pr = plain(*args, codec=codec, **kw, **rows())
+    got = eng.scores(qs[0])
+    assert wrapper.launches == before + 3
+    ids = eng.row_ids.reshape(-1).long()
+    want = torch.zeros(eng.num_rows + 1, device=gpu)
+    want.scatter_(0, torch.where(ids >= 0, ids, eng.num_rows),
+                  ks.reshape(-1) * factor)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(ks), _bits(ps))
+    assert torch.equal(_bits(kr), _bits(pr))
+    assert torch.equal(_bits(got), _bits(want[:eng.num_rows]))
+    assert float(got[EMPTY_ROW]) == 0.0 and bool((got != 0).any())
 
 
 def test_slice_engines_on_gpu_match_cpu(gpu, corpus):

@@ -176,7 +176,7 @@ def test_report_and_bound():
     line = pack16_lab.report("bf16_32", 0.05, 1.98e9)
     assert line["element_ops"] == 2 * 512 * 512 * 32 * 128
     assert line["bound_ms"] == pytest.approx(
-        line["element_ops"] / 133.8e12 * 1e3)
+        line["element_ops"] / 66.9e12 * 1e3)
     assert line["cyc_per_op"] == pytest.approx(0.05e-3 * 1.98e9
                                                / (2 * 512 * 512))
     assert line["telem_op_per_s"] == pytest.approx(

@@ -425,7 +425,7 @@ def test_slice_work_items_cover_every_slice(ref):
 @pytest.mark.parametrize("block_rows", [128, 32], ids=["narrow", "wide"])
 def test_slice_f32_plain_sums_in_row_order(block_rows):
     """The plain f32 slice scores are the kernels' sums
-    (csrc/slice_common.cuh: F32, member_score): a slice's words in row
+    (csrc/slice_scores.cu: F32, slice_sums): a slice's words in row
     order from 0, each product and each add rounded to f32, and a wide
     slice's block sums added in block order. Bit-equal to a NumPy float32
     loop over the decoded words; rows of no real slice stay 0."""
