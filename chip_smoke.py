@@ -183,7 +183,20 @@ every phase runs:
  16. ``pack16_lab``: L9's six cases bit for bit against their plain
      versions, then the lab's own timing run; ``sass`` holds each case's
      512 rounds of every chain;
- 17. the launch counts of each path's run (counts set to 0 just before
+ 17. ``cli``: the command line at full size in a process of its own,
+     ``python -m spmv_topk_tpu_torch --synthetic 10000000 1024 20 gamma -k
+     100 -t 5 --autotune -d --csv ...`` (the 10M corpus, seed 1), after
+     the full-size engines have left the card: each autotune candidate's
+     precision and per-query sweep ms on its 500k-row sample, the chosen
+     config, the summary line (exec ms, precision, GNNZ/s), its CSV, and
+     the launches of K1 and K7 in that process;
+ 18. ``tools`` at the JAX tools' own sizes: the examples (quickstart at
+     1M x 1024, multihost in one process, mtx_search on a 200k-row MTX
+     file with autotune), the serving loop on the default engine at 1M
+     rows (p50 / p90 / p99, recall), one 100k-row configuration of the
+     sweep and the capacity planner (``--mesh h100-8 --json``), each
+     checked;
+ 19. the launch counts of each path's run (counts set to 0 just before
      a path is driven, read just after).
 
 Then the kernel summary (each kernel's time, its plain version's, the
@@ -4482,6 +4495,225 @@ def phase_sharded_dense(coo, batch, gold, dev, dense_answers):
     return res
 
 
+# ------------------------------------------------------------ command line
+
+CLI_TIMEOUT_S = 600
+CLI_DIR = os.path.join("build", "chip_smoke_cli")
+CLI_CANDIDATES = 6        # tune._candidates at 1024 columns
+# the cli phase's command: ``python -m spmv_topk_tpu_torch`` (runpy, as -m
+# runs it) in a fresh process, then the launch counts of the kernels'
+# wrappers, zeroed before it, as the last line of the process's output
+CLI_RUNNER = """
+import json, runpy, sys
+from spmv_topk_tpu_torch.ops import kernel, streamprobe
+wrappers = {n: f for mod in (kernel, streamprobe) for n, f in vars(mod).items()
+            if callable(f) and hasattr(f, "launches")}
+for f in wrappers.values():
+    f.launches = 0
+sys.argv = ["spmv_topk_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("spmv_topk_tpu_torch", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code or 0
+print(json.dumps({"cli_launches": {n: f.launches for n, f in wrappers.items()}}))
+sys.exit(rc)
+"""
+
+
+def phase_cli(dev):
+    """The command line at full size, after the full-size engines have
+    left the card: ``python -m spmv_topk_tpu_torch --synthetic 10000000
+    1024 20 gamma -k 100 -t 5 --autotune -d --csv ...`` (the corpus of
+    ``phase_corpus``, seed 1) in a process of its own (``CLI_RUNNER``).
+    Parses the autotune report (each candidate's precision and per-query
+    sweep ms on its 500k-row sample), the chosen config, each iteration
+    and the summary line; requires exit 0, every candidate timed on the
+    card, mean precision >= MIN_PRECISION, 5 iterations, a CSV of 5 rows
+    under ``CSV_HEADER``, and K1 and K7 launched in that process (the
+    octet and slice candidates)."""
+    import ast
+
+    import torch
+
+    from spmv_topk_tpu_torch.bench import CSV_HEADER
+
+    os.makedirs(CLI_DIR, exist_ok=True)
+    csv_path = os.path.abspath(os.path.join(CLI_DIR, "cli.csv"))
+    argv = ["--synthetic", str(FULL_ROWS), str(NUM_COLS), str(AVG_DEG),
+            "gamma", "-k", "100", "-t", "5", "--autotune", "-d", "--csv",
+            csv_path]
+    allocated = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER, *argv],
+                          capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S, cwd=os.path.dirname(
+                              os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines,
+            f"the command line exits 0 (rc {proc.returncode}: "
+            f"{proc.stderr[-2000:]})")
+    launches = json.loads(lines[-1])["cli_launches"]
+    summary = lines[-2]
+    require(summary.startswith("exec ") and " GNNZ/s over " in summary,
+            f"the summary line closes the output: {summary!r}")
+    exec_ms, rest = summary[len("exec "):].split(" ms; precision ")
+    precision, rest = rest.split("; ")
+    gnnz, nnz = rest.split(" GNNZ/s over ")
+    (chosen,) = [line for line in lines if line.startswith("autotune:")]
+    with open(csv_path) as f:
+        csv_lines = f.read().strip().splitlines()
+    res = dict(
+        phase="cli", command=["python", "-m", "spmv_topk_tpu_torch", *argv],
+        seconds=seconds, card_bytes_allocated_before=allocated,
+        candidates=[{key: c.get(key) for key in (
+            "codec", "fused_layout", "width_quantum", "fold_tile",
+            "rescore_pool", "precision", "per_query_ms", "meets_target",
+            "timed_on")} for c in (ast.literal_eval(line) for line in lines
+                                   if line.startswith("{'codec'"))
+            if "precision" in c],
+        chosen=dict(item.split("=") for item in chosen.split()[1:]),
+        iterations=[line for line in lines if line.startswith("iter ")],
+        exec_ms=exec_ms, precision=float(precision),
+        gnnz_per_s_e2e=float(gnnz), nnz=int(nnz.split()[0]),
+        csv_rows=len(csv_lines) - 1,
+        launches=dict(octet_topk=launches["topk_spmv_fused_octet_device"],
+                      slice_topk=launches["topk_spmv_fused_device"]),
+        all_launches=launches, nvidia_smi=smi_line())
+    emit(res)
+    require(len(res["candidates"]) == CLI_CANDIDATES and all(
+        c["per_query_ms"] and c["per_query_ms"] > 0 and
+        c["timed_on"] == torch.cuda.get_device_name(dev)
+        for c in res["candidates"]), "every candidate timed on the card")
+    require(res["precision"] >= MIN_PRECISION,
+            f"the command line's mean precision@100 >= {MIN_PRECISION}")
+    require(csv_lines[0] == CSV_HEADER and res["csv_rows"] == 5 and
+            len(res["iterations"]) == 5,
+            "5 iterations and a CSV of 5 rows under CSV_HEADER")
+    for name, n in res["launches"].items():
+        require(n > 0, f"the command line's path launched {name}")
+    return res
+
+
+# ------------------------------------------------------------ tools
+
+# the JAX tools' own sizes: the quickstart, multihost and service corpora
+# (spmv_topk_tpu/bench/service.py's default rows), the MTX file
+# mtx_search reads, and one configuration of the sweep
+TOOLS_ROWS = 1_000_000
+MTX_ROWS = 200_000
+SWEEP_ROWS = 100_000
+TOOLS_DIR = os.path.join("build", "chip_smoke_tools")
+
+
+def _captured(fn, *args, **kw):
+    """fn's return value and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def phase_tools(dev):
+    """The tools at their own sizes, each checked: the three examples
+    (quickstart at 1M x 1024, multihost in one process, mtx_search on an
+    MTX file of 200k rows written under build/, with autotune), the
+    serving loop on the default engine at 1M rows (K8 on groups of 8),
+    one 100k-row configuration of the sweep, and the capacity planner for
+    one host of eight cards; the kernels launched by them, counted from
+    0."""
+    import torch
+
+    from spmv_topk_tpu_torch import TopKSpMV, TopKSpMVConfig
+    from spmv_topk_tpu_torch.bench import capacity
+    from spmv_topk_tpu_torch.bench.service import run_service
+    from spmv_topk_tpu_torch.bench.sweep import run_sweep
+    from spmv_topk_tpu_torch.examples import mtx_search, multihost, quickstart
+    from spmv_topk_tpu_torch.formats import create_sparse_matrix, write_mtx
+
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    _reset_octet_counts()
+    _reset_slice_counts()
+    res = dict(phase="tools")
+
+    t0 = time.perf_counter()
+    rc, out = _captured(quickstart.main, TOOLS_ROWS, dev)
+    require(rc == 0 and all(tag in out for tag in (
+        "query 2: top-5 rows", "batch: (16, 100)", "fast top-5:",
+        "reloaded top-5:", "dense batch: (16, 100)")),
+        f"quickstart runs through: {out[-500:]!r}")
+    res["quickstart"] = dict(rows=TOOLS_ROWS, seconds=time.perf_counter() - t0,
+                             output=out.splitlines())
+
+    t0 = time.perf_counter()
+    rc, out = _captured(multihost.main, TOOLS_ROWS, dev)
+    require(rc == 0 and f"mesh devices: {torch.cuda.device_count()}" in out
+            and "top-5:" in out, f"multihost runs through: {out!r}")
+    res["multihost"] = dict(rows=TOOLS_ROWS, seconds=time.perf_counter() - t0,
+                            output=out.splitlines())
+
+    t0 = time.perf_counter()
+    mtx = os.path.join(TOOLS_DIR, "corpus.mtx")
+    write_mtx(mtx, create_sparse_matrix(MTX_ROWS, NUM_COLS, AVG_DEG, "gamma",
+                                        seed=2))
+    write_s = time.perf_counter() - t0
+    rc, out = _captured(mtx_search.main, [mtx, "100", "--device", str(dev)])
+    prec = float(out.split("vs exact gold:")[1].split()[0]) \
+        if "vs exact gold:" in out else 0.0
+    require(rc == 0 and "autotune (" in out and prec >= MIN_PRECISION,
+            f"mtx_search autotunes and serves at precision@100 >= "
+            f"{MIN_PRECISION}: {out[-800:]!r}")
+    res["mtx_search"] = dict(rows=MTX_ROWS, write_mtx_s=write_s,
+                             seconds=time.perf_counter() - t0,
+                             precision_at_100=prec, output=out.splitlines())
+
+    t0 = time.perf_counter()
+    coo = create_sparse_matrix(TOOLS_ROWS, NUM_COLS, AVG_DEG, "gamma",
+                               seed=CORPUS_SEED)
+    eng = TopKSpMV(coo, TopKSpMVConfig(**DEFAULT), device=dev)
+    stats = run_service(eng, coo, num_batches=20, batch_size=DEFAULT_GROUP,
+                        k=100)
+    require(stats["num_queries"] == 20 * DEFAULT_GROUP and
+            stats["recall_at_100"] >= MIN_PRECISION_BF16 and
+            0 < stats["p50_ms"] <= stats["p99_ms"],
+            f"the serving loop's recall@100 >= {MIN_PRECISION_BF16}: {stats}")
+    res["service"] = dict(stats, rows=TOOLS_ROWS, config=DEFAULT,
+                          seconds=time.perf_counter() - t0)
+    del eng
+
+    t0 = time.perf_counter()
+    rows = run_sweep([SWEEP_ROWS], [NUM_COLS], ["gamma"], [AVG_DEG], k=100,
+                     num_tests=10, out_dir=os.path.join(TOOLS_DIR, "sweep"),
+                     device=dev)
+    (row,) = rows
+    name = (f"{dev.type}-f32_{SWEEP_ROWS}_{NUM_COLS}_gamma_{AVG_DEG}"
+            "_bf16_1_100_10")
+    with open(os.path.join(TOOLS_DIR, "sweep", name + ".csv")) as f:
+        require(len(f.read().strip().splitlines()) == 11,
+                "the sweep's CSV holds its 10 iterations")
+    require(row["config"] == name and row["precision"] >= MIN_PRECISION_BF16,
+            f"the sweep's precision@100 >= {MIN_PRECISION_BF16}: {row}")
+    res["sweep"] = dict(row, seconds=time.perf_counter() - t0)
+
+    p, out = _captured(capacity.main, ["--mesh", "h100-8", "--json"])
+    require(json.loads(out) == json.loads(p.as_json()) and p.fits and
+            p.mesh == "h100-8", f"the capacity planner's plan: {out!r}")
+    res["capacity"] = json.loads(out)
+
+    torch.cuda.synchronize()
+    res["launches"] = dict(octet_topk=_octet_counts("h16")["octet_topk_h16"],
+                           **_slice_counts())
+    res["nvidia_smi"] = smi_line()
+    emit(res)
+    for name in ("octet_topk", "slice_topk", "slice_topk_batch"):
+        require(res["launches"][name] > 0, f"the tools launched {name}")
+    return res
+
+
 def lab_entry(name, source, replaces, res, default, variants_of=None,
               **extra_top):
     """A lab's entry of the kernels line: its default variant's numbers,
@@ -4554,7 +4786,7 @@ PHASES = ("small", "k1_small", "k7_small", "k8_small", "k6_small",
           "codecs_small", "bucket_small", "labs_small", "sass", "main",
           "library",
           "slice_engines", "default_config", "bucket_path", "octet_engines",
-          "dense", "sharded", "labs", "pack16")
+          "dense", "sharded", "labs", "pack16", "cli", "tools")
 PHASE_NEEDS = {
     "slice_engines": ("default_config",),
     "bucket_path": ("default_config", "library"),
@@ -4695,6 +4927,14 @@ def main(argv=()):
         torch.cuda.synchronize()
     if "pack16" in want:
         R["p16"] = phase_pack16(dev)
+        torch.cuda.synchronize()
+    # the command line and the tools build engines of their own: the
+    # full-size engines above have left the card
+    torch.cuda.empty_cache()
+    if "cli" in want:
+        R["cli"] = phase_cli(dev)
+    if "tools" in want:
+        R["tools"] = phase_tools(dev)
         torch.cuda.synchronize()
     summarize(R, complete=want == set(PHASES))
     print(smi_line(), flush=True)

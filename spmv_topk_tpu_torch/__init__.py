@@ -17,6 +17,12 @@ Beside it the dense engine (``DenseTopKSpMV``, ``ops.dense``: bf16 or
 int8 block products and a per-block top-k) and the sharded engines
 (``parallel``: ``ShardedTopKSpMV`` over a list of devices and, across
 processes, ``torch.distributed``; ``ShardedDenseTopKSpMV``).
+
+Around them the JAX package's tools: the command line (``python -m
+spmv_topk_tpu_torch``, ``cli``), the autotuner (``autotune``), the
+benchmark tools (``bench``: the CSV benchmark loop, sweep, serving loop,
+CPU baseline and capacity planner), ``utils.profiling`` and the examples
+(``examples``).
 """
 
 from .config import (
@@ -25,6 +31,7 @@ from .config import (
 )
 from .api import TopKSpMV
 from .ops.dense import DenseTopKSpMV
+from .tune import autotune
 from .formats import (CooMatrix, create_query_batch, create_sample_vector,
                       create_sparse_matrix, from_scipy)
 

@@ -312,6 +312,12 @@ class TopKSpMV(torch.nn.Module):
         before the global merge; values are unscaled (h16: integer sums;
         the quantized codecs: sums against the integer query table)."""
         table, self._last_scale = self._table(vec)
+        return self.table_candidates(table)
+
+    def table_candidates(self, table):
+        """``candidates()`` of a query table packed beforehand
+        (``_table(vec)[0]``, on the engine's device): the sweep alone, no
+        host work but its launch (``tune.autotune`` times it so)."""
         return self._layout.sweep(
             self.words, table, self.nreal, self.plan_rows, cfg=self.config,
             block_sublanes=self.fused.block_sublanes, **self._parts)

@@ -248,9 +248,10 @@ def test_device_is_required():
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port (walked with pkgutil), the measurement labs
-    included, imports neither jax nor the JAX package (and a lab parses
-    no arguments and needs no card at import)."""
+    """Every module of the port (walked with pkgutil), the measurement labs,
+    the command line (``__main__`` too) and the examples included, imports
+    neither jax nor the JAX package (and a lab, tool or example parses no
+    arguments and needs no card at import)."""
     code = ("import importlib, pkgutil, sys, spmv_topk_tpu_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "p.__name__ + '.')]; "
@@ -262,7 +263,11 @@ def test_import_leaves_jax_out():
             "'experiments.kernel_lab', 'experiments.fused_lab', "
             "'experiments.h16_lab', 'experiments.fold_lab', "
             "'experiments.batch_lab', 'experiments.dma_lab', "
-            "'experiments.i16_probe', 'experiments.mxu_gather_lab')}; "
+            "'experiments.i16_probe', 'experiments.mxu_gather_lab', "
+            "'cli', '__main__', 'tune', 'utils.profiling', 'bench.harness', "
+            "'bench.sweep', 'bench.service', 'bench.cpu_baseline', "
+            "'bench.capacity', 'examples.quickstart', 'examples.mtx_search', "
+            "'examples.multihost')}; "
             "assert want <= set(mods), sorted(want - set(mods)); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'spmv_topk_tpu' or "

@@ -1,7 +1,9 @@
 """The carried host modules' surface: every public function, class and
 constant a JAX host module defines exists in the port's module of the same
 name, with the same parameters in the same order, and every public method
-and property of its classes; then the names added to complete that surface
+and property of its classes; the same of the tools (``bench/``, ``tune``,
+``cli``, ``utils.profiling``), whose functions may take a trailing
+``device``; then the names added to complete that surface
 held to the JAX package's on the same seeded inputs (``pack_sell_buckets``'
 ``target_block_sublanes``, the matrices' size properties, the config's,
 the query dequantizers, ``validate_codec``, and the native runtime's
@@ -35,12 +37,19 @@ CARRIED = ("config", "formats.coo", "formats.synthetic", "formats.sell",
            "utils.native", "topk.merge", "eval.accuracy_model",
            "eval.metrics")
 
+# the tools the port rewrites for torch under the same names; a function
+# may take one more parameter, a trailing ``device`` (the torch device of
+# the engines it builds)
+TOOLS = ("utils.profiling", "bench.harness", "bench.sweep", "bench.service",
+         "bench.cpu_baseline", "bench.capacity", "tune", "cli")
+
 # Names of the JAX package the port leaves out on purpose, each with its
-# reason. No carried module has one; these live in api.py, which the port
-# rewrites for torch:
+# reason. No carried module or tool has one; these live in api.py, which
+# the port rewrites for torch:
 #   api.TopKSpMV.candidates_traceable, batch_candidates_traceable: jit-
-#     traceable forms for tune.py's scan; torch runs eagerly, and the port
-#     times candidates() with CUDA events instead.
+#     traceable forms for a jitted scan; torch runs eagerly, and the
+#     port's tune.py times table_candidates() (a table packed beforehand)
+#     back to back instead.
 JAX_ONLY_API = ("candidates_traceable", "batch_candidates_traceable")
 # Parameters left out of the port's signatures: ``interpret=`` picks
 # Pallas's interpret mode; the port picks a kernel or its plain version
@@ -90,6 +99,34 @@ def test_carried_module_has_the_jax_surface(module):
                 if isinstance(ja, (property, classmethod, staticmethod)):
                     assert isinstance(pa, type(ja)), f"{n}.{a}"
                 elif inspect.isfunction(ja):
+                    assert _params(ja) == _params(pa), f"{n}.{a}"
+
+
+@pytest.mark.parametrize("module", TOOLS)
+def test_tool_module_has_the_jax_surface(module):
+    """Every public name of the JAX tool is in the port's, functions with
+    the same parameters in the same order (the port's may end in one more,
+    ``device``), classes with every public method and property."""
+    jmod = importlib.import_module(f"spmv_topk_tpu.{module}")
+    pmod = importlib.import_module(f"spmv_topk_tpu_torch.{module}")
+    names = _public_names(jmod)
+    assert names, module
+    missing = [n for n in names if not hasattr(pmod, n)]
+    assert not missing, f"{module} lacks {missing}"
+    for n in names:
+        j, p = getattr(jmod, n), getattr(pmod, n)
+        if inspect.isfunction(j):
+            jp, pp = _params(j), _params(p)
+            if pp[-1:] == ["device"] and "device" not in jp:
+                pp = pp[:-1]
+            assert jp == pp, n
+        elif inspect.isclass(j):
+            attrs = [a for a in vars(j) if not a.startswith("_")]
+            lacking = [a for a in attrs if not hasattr(p, a)]
+            assert not lacking, f"{module}.{n} lacks {lacking}"
+            for a in attrs:
+                ja, pa = vars(j)[a], inspect.getattr_static(p, a)
+                if inspect.isfunction(ja):
                     assert _params(ja) == _params(pa), f"{n}.{a}"
 
 
