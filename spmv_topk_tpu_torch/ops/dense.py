@@ -236,9 +236,11 @@ def dense_topk_batch(A, queries, num_real=None, row_scales=None,
     return torch.gather(isx, 1, fp).to(torch.int32), fv
 
 
-def quantize_queries_int8(queries: np.ndarray, device="cpu"):
+def quantize_queries_int8(queries: np.ndarray, device="cuda"):
     """(Q, C) f32 -> (int8 (Q, C) tensor, (Q,) f32 per-query scales) on
-    ``device``, quantized on the host as the JAX engine does."""
+    ``device`` (the card unless the caller asks for the CPU, as the JAX
+    function puts its arrays on the default device), quantized on the
+    host as the JAX engine does."""
     queries = np.asarray(queries, np.float32)
     m = np.abs(queries).max(axis=1)
     qscales = np.where(m > 0, m / 127.0, 1.0).astype(np.float32)

@@ -45,13 +45,6 @@ from .ops.gold import topk_exact
 # the faster at 256 in every run, at 64 in some; int8 took 0.358-0.360 /
 # 0.479-0.487.
 DENSE_MIN_BATCH = 256
-# cycles the card sleeps at the head of each timed run while the host
-# enqueues its sweeps (``torch.cuda._sleep``; ~10 ms at the H100's clocks),
-# so that the sweeps then run back to back and the slope is the card's
-# time a sweep, as the JAX package's jitted scan of sweeps is, and not the
-# host's time a launch: a 500k-row sample's sweep takes the card less time
-# than the host takes to launch it
-HOLD_CYCLES = 20_000_000
 
 
 def _candidates(k: int, max_cols: int, pool: int):
@@ -179,20 +172,12 @@ def autotune(
             # back-to-back sweeps of tables packed beforehand, slope-timed:
             # one sweep is sub-ms, and the fixed cost of a run (the card's
             # hold, the synchronize) would mis-rank codecs
-            from .utils.profiling import timed_slope
+            from .utils.profiling import held_runner, timed_slope
 
             tabs8 = [eng._table(queries[i % num_queries])[0]
                      for i in range(8)]
-
-            def run_n(n):
-                if device.type == "cuda":
-                    with torch.cuda.device(device):
-                        torch.cuda._sleep(HOLD_CYCLES)
-                for i in range(n):
-                    eng.table_candidates(tabs8[i % 8])
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-
+            run_n = held_runner(
+                device, lambda i: eng.table_candidates(tabs8[i % 8]))
             sweep_s = timed_slope(run_n, 4, 104, reps=timing_reps)
             entry["per_query_ms"] = round(sweep_s * 1e3, 4)
             entry["rank_key"] = entry["per_query_ms"]

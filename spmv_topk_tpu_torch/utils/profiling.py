@@ -9,6 +9,8 @@
   - ``timed_slope``: per-iteration time from the slope between a short and
     a long run of iterations, which cancels the fixed cost of a run (the
     first launch, the final synchronize).
+  - ``held_runner``: a ``run_n`` for ``timed_slope`` whose launches the
+    card runs back to back (behind a hold of the stream), then waits for.
 """
 
 from __future__ import annotations
@@ -72,6 +74,36 @@ def timed_slope(run_n, short: int, long_: int, reps: int = 5) -> float:
     slopes = sorted(
         (once(long_) - once(short)) / (long_ - short) for _ in range(reps))
     return slopes[len(slopes) // 2]
+
+
+# cycles the card sleeps at the head of each timed run while the host
+# enqueues its sweeps (``torch.cuda._sleep``; ~10 ms at the H100's clocks),
+# so that the sweeps then run back to back and the slope is the card's
+# time a sweep, as the JAX package's jitted scan of sweeps is, and not the
+# host's time a launch: a 500k-row sample's sweep takes the card less time
+# than the host takes to launch it
+HOLD_CYCLES = 20_000_000
+
+
+def held_runner(device, step):
+    """``run_n(n)`` for ``timed_slope``: on a CUDA device the card first
+    sleeps (HOLD_CYCLES) while the host enqueues ``step(0) .. step(n -
+    1)``, so the launches then run back to back and the slope is the
+    card's time a step, not the host's time a launch; then a synchronize.
+    On the CPU, the steps and nothing else."""
+    import torch
+
+    device = torch.device(device)
+
+    def run_n(n):
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                torch.cuda._sleep(HOLD_CYCLES)
+        for i in range(n):
+            step(i)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return run_n
 
 
 def enable_compilation_cache(path: "str | None" = None) -> None:

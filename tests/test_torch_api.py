@@ -249,9 +249,11 @@ def test_device_is_required():
 
 def test_import_leaves_jax_out():
     """Every module of the port (walked with pkgutil), the measurement labs,
-    the command line (``__main__`` too) and the examples included, imports
-    neither jax nor the JAX package (and a lab, tool or example parses no
-    arguments and needs no card at import)."""
+    the command line (``__main__`` too), the evaluation tools, the
+    experiment drivers and the examples included, imports neither jax nor
+    the JAX package, nor pandas or matplotlib (the card's host has
+    neither); a lab, tool or example parses no arguments and needs no
+    card at import."""
     code = ("import importlib, pkgutil, sys, spmv_topk_tpu_torch as p; "
             "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "p.__name__ + '.')]; "
@@ -266,12 +268,18 @@ def test_import_leaves_jax_out():
             "'experiments.i16_probe', 'experiments.mxu_gather_lab', "
             "'cli', '__main__', 'tune', 'utils.profiling', 'bench.harness', "
             "'bench.sweep', 'bench.service', 'bench.cpu_baseline', "
-            "'bench.capacity', 'examples.quickstart', 'examples.mtx_search', "
+            "'bench.capacity', 'bench.accuracy_sweep', 'bench.full_eval', "
+            "'bench.plots', 'experiments._drivers', 'experiments.padding_lab', "
+            "'experiments.cfg_sweep', 'experiments.q1_ab', "
+            "'experiments.octet_lab', 'experiments.octet_batch_lab', "
+            "'experiments.octet_block_lab', 'experiments.octet_multicall_lab', "
+            "'examples.quickstart', 'examples.mtx_search', "
             "'examples.multihost')}; "
             "assert want <= set(mods), sorted(want - set(mods)); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'spmv_topk_tpu' or "
-            "m.startswith('spmv_topk_tpu.')]; "
+            "m.startswith('spmv_topk_tpu.') or m in ('pandas', "
+            "'matplotlib')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -120,10 +120,28 @@ def test_densify_device_sums_duplicates():
 def test_quantize_queries_bit_identical():
     qs = create_query_batch(4, COLS, seed=402)
     qs[1] = 0.0
-    qi, sc = pdense.quantize_queries_int8(qs)
+    qi, sc = pdense.quantize_queries_int8(qs, device="cpu")
     ri, rsc = jdense.quantize_queries_int8(qs)
     np.testing.assert_array_equal(qi.numpy(), np.asarray(ri))
     np.testing.assert_array_equal(sc.numpy(), np.asarray(rsc))
+
+
+def test_quantize_queries_default_to_the_card():
+    """Without ``device`` the quantized queries go to the card, as the JAX
+    function's go to the default device: on a host without one the call
+    refuses rather than fall back to the CPU."""
+    import inspect
+
+    default = inspect.signature(pdense.quantize_queries_int8).parameters[
+        "device"].default
+    assert torch.device(default).type == "cuda"
+    qs = create_query_batch(2, COLS, seed=402)
+    if torch.cuda.is_available():
+        qi, sc = pdense.quantize_queries_int8(qs)
+        assert qi.device.type == sc.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            pdense.quantize_queries_int8(qs)
 
 
 @pytest.mark.parametrize("data", ["exact", "real"])
@@ -139,7 +157,7 @@ def test_dense_topk_batch_matches_jax(dtype, data):
         pad = (-bits.shape[0]) % 512
         bits = np.concatenate([bits, np.zeros((pad, COLS), np.int8)])
         sc = np.concatenate([sc, np.ones(pad, np.float32)])
-        qi, qsc = pdense.quantize_queries_int8(qs)
+        qi, qsc = pdense.quantize_queries_int8(qs, device="cpu")
         gi, gv = pdense.dense_topk_batch(
             torch.from_numpy(bits), qi, 1100, torch.from_numpy(sc), qsc,
             k=30, block_rows=512)
