@@ -165,7 +165,10 @@ every phase runs:
      without it) beside K3 and its library yardstick on
      the same words, each kernel alone and with its wrapper's merge, and
      checks each against its plain version at that size (kernel_lab,
-     fused_lab and dma_lab on the words with real values);
+     fused_lab and dma_lab on the words with real values); L8 (one
+     launch, its merge on the card) also by its held device time, beside
+     the kernel before it alone and with its torch merge and an empty
+     launch, in turns (``experiments/lab_ablation.py``);
  14. the dense engine (``DenseTopKSpMV``; ``dense``): at 50k rows each
      dtype's densify on the card against the NumPy densify and its
      query_batch against its plain products (int8 bit for bit, bf16 to
@@ -181,8 +184,12 @@ every phase runs:
      process with ``exchange_skeleton=True``); ``sharded_dense``: int8 at
      D = 1 and 4, held to ``DenseTopKSpMV``;
  16. ``pack16_lab``: L9's six cases bit for bit against their plain
-     versions, then the lab's own timing run; ``sass`` holds each case's
-     512 rounds of every chain;
+     versions, then the lab's own timing run (with the SM clock the card
+     held in each case), each case's held device time against the kernel
+     before it in turns, and an empty launch;
+     ``sass`` holds each kernel's rolled round loop to UNROLL rounds of
+     its chains (the lab's 512 rounds over the loop's trips), no FFMA in
+     the f32 kernel, no PRMT in int16's round loop;
  17. ``cli``: the command line at full size in a process of its own,
      ``python -m spmv_topk_tpu_torch --synthetic 10000000 1024 20 gamma -k
      100 -t 5 --autotune -d --csv ...`` (the 10M corpus, seed 1), after
@@ -3727,6 +3734,9 @@ def phase_labs(dev):
 # 32 chunks and at 512 (its one-hot arm then 2 GiB), and its VPU arm alone
 # at 65536 (256 MiB of words, past the L2; the one-hot would be 256 GiB)
 BATCH_Q, DMA_ROWS, MXU_REPS = 16, 1 << 21, (32, 512, 65536)
+# L8's numbers beside the lab's in its entry of the kernels line
+MXU_HELD_KEYS = ("onehot_ms", "alone_ms", "before_ms", "before_alone_ms",
+                 "empty_launch_ms")
 ONEHOT_MAX_BYTES = 4 << 30
 
 
@@ -3737,12 +3747,15 @@ def _labs2(dev):
     version in the kernel's block order; mxu_gather_lab at each shape),
     then timed beside K3 on the same words; mxu_gather_lab's one-hot arm
     (``mxu_onehot``: a one-hot and ``torch.matmul``, TF32 off) timed
-    beside its VPU arm."""
+    beside its VPU arm; mxu_gather_lab's held device times in turns with
+    the kernel before it and an empty launch (``lab_ablation.mxu_routes``).
+    """
     import torch
 
     from spmv_topk_tpu_torch.experiments import _common as lc
     from spmv_topk_tpu_torch.experiments import (batch_lab, dma_lab,
-                                                 i16_probe, mxu_gather_lab)
+                                                 i16_probe, lab_ablation,
+                                                 mxu_gather_lab)
 
     def t(a):
         return torch.from_numpy(a).to(dev)
@@ -3829,9 +3842,7 @@ def _labs2(dev):
     for reps in MXU_REPS:
         words, tables, tabq = (t(a) for a in lc.mxu_lab_data(reps, BATCH_Q))
         variants = {"vpu": (
-            lambda: mxu_gather_lab.mxu_vpu_device(words, tables),
-            lambda: mxu_gather_lab.mxu_vpu_device(words, tables,
-                                                  unmerged=True),
+            lambda: mxu_gather_lab.mxu_vpu_device(words, tables), None,
             "lab_mxu",
             (lambda: mxu_gather_lab.mxu_vpu_device(words, tables),
              lambda: mxu_gather_lab.mxu_vpu_plain(words, tables)))}
@@ -3842,10 +3853,21 @@ def _labs2(dev):
         oh_bytes = words.numel() * 1024 * 4
         oh_ms = (lc.sweep_ms(lambda: mxu_gather_lab.mxu_onehot(words, tabq))
                  if oh_bytes <= ONEHOT_MAX_BYTES else None)
-        r["variants"]["vpu"].update(onehot_ms=oh_ms, onehot_bytes=oh_bytes,
-                                    reps=reps, words_bytes=r["words_bytes"])
-        res[reps] = r
         del words, tables, tabq
+        torch.cuda.empty_cache()
+        # held device times in turns: the call, the kernel before it with
+        # its torch merge and alone, an empty launch
+        held = lab_ablation.mxu_routes(dev, (reps,), BATCH_Q, rounds=1)[reps]
+        r["variants"]["vpu"].update(
+            onehot_ms=oh_ms, onehot_bytes=oh_bytes, reps=reps,
+            words_bytes=r["words_bytes"],
+            alone_ms=held["new_held_ms_median"],
+            before_ms=held["old_held_ms_median"],
+            before_alone_ms=held["old_unmerged_held_ms_median"],
+            empty_launch_ms=held["empty_held_ms_median"],
+            cuda_blocks=held["blocks"], before_cuda_blocks=held["old_blocks"],
+            held_in_turns=held)
+        res[reps] = r
         torch.cuda.empty_cache()
     launches = {}
     for r in res.values():
@@ -3930,6 +3952,7 @@ def _k6_h16_sass():
 PACK16_DEFAULT = "f32_8"
 PACK16_NO_LIBRARY = ("none: no PyTorch call runs the lab's chain as one "
                      "operation")
+PACK16_RAGGED_COPIES = 133    # copies that leave the grid's warps uneven
 
 
 def _bits(t):
@@ -3943,23 +3966,32 @@ def _bits(t):
 def phase_pack16(dev):
     """L9 (pack16_lab): each of the lab's six cases held to its plain
     version bit for bit, on the lab's tile and on x + 3 (the float chains
-    run to inf and NaN, the integer ones wrap), then the lab's own run
-    (``pack16_lab.main``: the slope of 12 against 2 chained calls on x +
-    i, each case; the path, its launches counted from 0), each case's
-    plain version timed beside it."""
+    run to inf and NaN, the integer ones wrap), at the lab's 512 copies and
+    at PACK16_RAGGED_COPIES (not a multiple of the grid's warps); then the
+    lab's own run (``pack16_lab.main``: the slope of
+    12 against 2 chained calls on x + i, each case, with the SM clock the
+    card held; the path, its launches counted from 0), each case's plain
+    version timed beside it; then ``experiments/lab_ablation.py``: each
+    case's slope and held device time against the kernel before it, in
+    turns (old, new, new, old), and an empty launch's held time."""
     import torch
 
+    from spmv_topk_tpu_torch.experiments import _common as lc
+    from spmv_topk_tpu_torch.experiments import lab_ablation as A
     from spmv_topk_tpu_torch.experiments import pack16_lab as L
 
     data = L.pack16_data()
     for name in L.NAMES:
         x = data[name].to(dev)
         for xi in (x, x + 3):
-            got, want = L.pack16_device(xi), L.pack16_plain(xi)
-            torch.cuda.synchronize()
-            require(got.dtype == want.dtype and
-                    torch.equal(_bits(got), _bits(want)),
-                    f"L9 {name}: kernel equals its plain version bit for bit")
+            want = L.pack16_plain(xi)
+            for grid in (L.GRID, PACK16_RAGGED_COPIES):
+                got = L.pack16_device(xi, grid=grid)
+                torch.cuda.synchronize()
+                require(got.dtype == want.dtype and
+                        torch.equal(_bits(got), _bits(want)),
+                        f"L9 {name} ({grid} copies): kernel equals its "
+                        f"plain version bit for bit")
     L.pack16_device.launches = 0
     lines = L.main([])
     torch.cuda.synchronize()
@@ -3969,8 +4001,20 @@ def phase_pack16(dev):
         x = data[line["case"]].to(dev)
         cases[line["case"]] = dict(line, max_abs_err=0.0, plain_ms=cuda_ms(
             lambda x=x: L.pack16_plain(x), reps=3))
+    routes = A.pack16_routes(dev, rounds=1)
+    empty = lc.sweep_ms(lambda: A.empty_launch(dev), reps=20)
+    for name, c in cases.items():
+        r = routes[name]
+        c.update(alone_ms=r["new_held_ms_median"],
+                 before_ms=r["old_slope_ms_median"],
+                 before_alone_ms=r["old_held_ms_median"],
+                 in_turns_ms=r["new_slope_ms_median"],
+                 empty_launch_ms=empty)
     res = dict(phase="pack16_lab", cases=cases,
-               launches=dict(lab_pack16=launches), nvidia_smi=smi_line())
+               launches=dict(lab_pack16=launches), routes=routes,
+               empty_launch_ms=empty,
+               before_build_seconds=dict(A.build_seconds),
+               nvidia_smi=smi_line())
     emit(res)
     require(launches > 0, "the pack16_lab path launched lab_pack16")
     return res
@@ -3978,18 +4022,25 @@ def phase_pack16(dev):
 
 def pack16_entry(p16):
     """L9's entry of the kernels line: the f32 (8,128) case's numbers,
-    every case nested under ``variants``."""
+    every case nested under ``variants``: the lab's slope (``ms``), the
+    held device time (``alone_ms``), the kernel before it (slope and held,
+    in turns), the SM clock held and an empty launch's held time."""
     where = dict(route="cuda",
                  source="spmv_topk_tpu_torch/csrc/lab_pack16.cu",
                  replaces="experiments/pack16_lab.py:46")
 
     def keys(r):
         return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    alone_ms=r["alone_ms"], before_ms=r["before_ms"],
+                    before_alone_ms=r["before_alone_ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=None,
                     telem_op_per_s=r["telem_op_per_s"],
                     cyc_per_op=r["cyc_per_op"],
                     sm_clock_hz=r["sm_clock_hz"],
+                    cyc_per_op_held=r["cyc_per_op_held"],
+                    held_clock_hz=r["held_clock_hz"],
+                    empty_launch_ms=r["empty_launch_ms"],
                     rate_source=r["rate_source"])
 
     cases = p16["cases"]
@@ -4003,34 +4054,59 @@ def pack16_entry(p16):
 
 
 def _pack16_sass():
-    """What nvcc made of L9: per kernel the chain's arithmetic
-    instructions, required to hold the lab's 512 rounds of every chain
-    (a float multiply and add each; an integer multiply-add may fuse into
-    one IMAD)."""
+    """What nvcc made of L9 (``csrc/lab_pack16.cu``, a rolled round loop
+    of UNROLL rounds a trip): per type's kernel its round loop
+    (``pack16_lab.round_loop`` of ``_build.sass_loops``), required to
+    issue every round's multiply and add: the loop's chain instructions
+    are UNROLL rounds of the type's CHAINS (a float multiply and add each,
+    a bf16 pair's each, an integer multiply-add one IMAD), and its trips,
+    read from its counter in the SASS (``_build.loop_trips``: the
+    counter's start, step and bound), times those reach the lab's 512
+    rounds of an item's chains; no FFMA in the f32 kernel, no PRMT in
+    int16's round loop, and the bf16 loop's chain arithmetic only the
+    opcodes of its fma.rn pair (``pack16_lab.BF16_CHAIN_OPCODES``)."""
+    import torch
+
+    from spmv_topk_tpu_torch.experiments import pack16_lab as L
     from spmv_topk_tpu_torch.ops import _build
 
-    rep = _build.sass_report("lab_pack16.cu", "lab_pack16")
+    loops = _build.sass_loops("lab_pack16.cu", "lab_pack16_chains")
+    rep = _build.sass_report("lab_pack16.cu", "lab_pack16_chains")
+    require(len(loops) == 4, f"four L9 kernels in the SASS, got "
+            f"{list(loops)}")
     out = {}
-    for kern, c in rep.items():
-        sub = int(kern.rsplit(",", 1)[-1].split("<")[-1].rstrip(">"))
-        if "bf16" in kern:
-            arith = sum(n for op, n in c.items()
-                        if op.split(".")[0] in ("HMUL2", "HADD2", "HFMA2"))
-            need = 2 * 512 * sub // 2        # bf16x2: two elements a chain
-        elif "f32" in kern:
-            arith = c.get("FMUL", 0) + c.get("FADD", 0)
-            need = 2 * 512 * sub
-        else:
-            arith = sum(n for op, n in c.items()
-                        if op.split(".")[0] in ("IMAD", "IADD3", "IMUL"))
-            need = 512 * sub
-        out[kern] = dict(total=c["total"], chain_ops=arith, need=need,
-                         top=sorted(((op, n) for op, n in c.items()
-                                     if op != "total"),
-                                    key=lambda x: -x[1])[:6])
-        require(arith >= need, f"{kern}: the SASS holds the lab's 512 "
-                f"rounds ({arith} chain instructions, {need} needed)")
-    require(len(out) == 6, f"six L9 kernels in the SASS, got {list(out)}")
+    for dt in (torch.float32, torch.bfloat16, torch.int16, torch.int32):
+        kern = L.sass_kernel(loops, dt)
+        loop = L.round_loop(loops[kern], dt)
+        chain = L.chain_opcodes(loop["opcodes"], dt)
+        per_trip = sum(chain.values())
+        trips = loop["trips"]
+        require(trips is not None,
+                f"{kern}: the round loop's trip count read from its counter "
+                f"in the SASS")
+        need = L.round_ops(dt) * L.REPS * L.CHAINS[dt]
+        out[kern] = dict(total=rep[kern]["total"],
+                         loop_instructions=loop["opcodes"]["total"],
+                         loop_opcodes=loop["opcodes"], chain_opcodes=chain,
+                         chain_per_trip=per_trip, trips=trips,
+                         need_per_item=need)
+        require(per_trip == L.round_ops(dt) * L.UNROLL * L.CHAINS[dt],
+                f"{kern}: the round loop holds {L.UNROLL} rounds of "
+                f"{L.CHAINS[dt]} chains ({per_trip} chain instructions)")
+        require(per_trip * trips >= need,
+                f"{kern}: the SASS's {trips} trips issue the lab's {L.REPS} "
+                f"rounds ({per_trip * trips} chain instructions, {need} "
+                f"needed)")
+        if dt == torch.float32:
+            require(rep[kern].get("FFMA", 0) == 0,
+                    f"{kern}: no FFMA (each multiply and add rounded)")
+        if dt == torch.int16:
+            require(loop["opcodes"].get("PRMT", 0) == 0,
+                    f"{kern}: no PRMT in int16's round loop")
+        if dt == torch.bfloat16:
+            require(set(chain) <= L.BF16_CHAIN_OPCODES,
+                    f"{kern}: the bf16 loop's arithmetic only "
+                    f"{sorted(L.BF16_CHAIN_OPCODES)}, got {sorted(chain)}")
     return out
 
 
@@ -4734,7 +4810,13 @@ EVAL_CONFIGS = "c1,c2,c4,c5,c6,c7"
 # and queries today (0.9833 rescored, 0.84 raw; its fold-8 sub-tiles
 # harvest the top 2 of their members a lane, and on this corpus the
 # widest bucket's best rows share sub-tiles), less one query's row:
-# RESULTS.json's 1.0 and 0.86 are not what that engine returns
+# RESULTS.json's 1.0 and 0.86 are not what that engine returns. Nor what
+# the JAX package returned when that entry was written: the tree of commit
+# 090f846 gives 0.9833 and 0.84 too, in interpret mode on the CPU on its
+# own full_eval corpus and queries (19,488,361 nnz, padding 0.605 as
+# recorded), so the recorded 1.0 / 0.86 came from the TPU's run, which
+# interpret mode, and the port after it, do not reproduce (ROADMAP.md,
+# Queue 3)
 EVAL_BARS = {
     "c1_small_oracle": dict(precision=1.0),
     "c2_1M_bf16_i8s": dict(precision=0.99),
@@ -5055,6 +5137,14 @@ def main(argv=()):
 
     phase_environment()
     torch.cuda.synchronize()
+    if want & {"labs", "pack16"}:
+        # the kernels before L8 and L9 and the empty kernel, built while
+        # the phases before them run (they wait for the build)
+        import threading
+
+        from spmv_topk_tpu_torch.experiments import lab_ablation
+
+        threading.Thread(target=lab_ablation.build, daemon=True).start()
     for name, fn in (("small", phase_small), ("k1_small", phase_k1_small),
                      ("k7_small", phase_k7_small),
                      ("k8_small", phase_k8_small),
@@ -5542,10 +5632,10 @@ def summarize(R, complete):
         (("labs",), lambda: lab_entry(
             "lab_mxu", "lab_mxu.cu", "experiments/mxu_gather_lab.py:108",
             R["labs"]["mxu_gather_lab"], "vpu", queries=BATCH_Q,
-            onehot_ms=R["labs"]["mxu_gather_lab"]["variants"]["vpu"][
-                "onehot_ms"],
             onehot_calls="torch.where one-hot + torch.matmul (f32)",
-            variants_of={v: dict(onehot_ms=r["onehot_ms"])
+            **{k: R["labs"]["mxu_gather_lab"]["variants"]["vpu"][k]
+               for k in MXU_HELD_KEYS},
+            variants_of={v: {k: r[k] for k in MXU_HELD_KEYS}
                          for v, r in R["labs"]["mxu_gather_lab"][
                              "variants"].items()})),
         (("p16",), lambda: pack16_entry(R["p16"])),

@@ -57,8 +57,9 @@ import numpy as np
 import torch
 
 from ..config import LANES
-from ..ops.kernel import _launch, merge_lane_topk
+from ..ops.kernel import _device_info, _launch, merge_lane_topk
 from ..ops.streamprobe import stream_words_device
+from ..utils.profiling import HOLD_CYCLES
 
 LANE_K = 8           # the labs' per-lane buffer depth
 CHUNK = 8            # rows of an (8, 128) chunk (LAB_S)
@@ -421,10 +422,10 @@ def check_table(table: torch.Tensor, rows: int, dtype, dev) -> None:
 
 def cuda_blocks(dev, nb: int, blocks=None) -> int:
     """A lab kernel's CUDA block count: ``blocks``, or BLOCKS_PER_SM a
-    multiprocessor, at most ``nb`` (its grid-stride units)."""
+    multiprocessor (the SM count read once per device), at most ``nb``
+    (its grid-stride units)."""
     if blocks is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = min(nb, sms * BLOCKS_PER_SM)
+        blocks = min(nb, _device_info(dev)[0] * BLOCKS_PER_SM)
     return max(1, int(blocks))
 
 
@@ -479,12 +480,15 @@ def one_buffer(result, unmerged: bool):
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Milliseconds per fn() over ``reps`` back-to-back calls between two
-    CUDA events."""
+    CUDA events, the card first sleeping (HOLD_CYCLES) while the host
+    enqueues the calls: a call whose host work outlasts its kernel is
+    timed by the card, not by the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -595,10 +599,11 @@ def parse_args(argv, variants, default, doc: str):
 def measure(lab: str, variant: str, words: torch.Tensor, nb: int,
             nnz_per_word: int, call, kernel=None, *, k3_ms,
             queries=None) -> dict:
-    """The report line of one variant timed on the card (``sweep_ms``)
-    beside K3's ``k3_ms`` on the same words: ``ms`` the kernel alone
-    (``kernel()``, its launch without the merge; where None, ``call()``),
-    ``merged_ms`` the wrapper with its per-lane merge (``call()``)."""
+    """The report line of one variant timed on the card (``sweep_ms``,
+    the stream held while the host enqueues: device time) beside K3's
+    ``k3_ms`` on the same words: ``ms`` the kernel alone (``kernel()``, its
+    launch without the merge; where None, ``call()``), ``merged_ms`` the
+    wrapper with its per-lane merge (``call()``)."""
     merged = sweep_ms(call)
     ms = sweep_ms(kernel) if kernel is not None else merged
     return report(lab, variant, nb=nb, words=words, nnz_per_word=nnz_per_word,
@@ -609,7 +614,8 @@ def measure(lab: str, variant: str, words: torch.Tensor, nb: int,
 def drive(lab: str, names, words, nb: int, nnz_per_word: int,
           call, kernel, queries=None) -> list:
     """Run each variant ``call(name)``; on the card time it and its kernel
-    alone, ``kernel(name)`` (``measure``), beside K3 on the same words.
+    alone, ``kernel(name)`` (``measure``; None where the call is one
+    launch with its merge in it), beside K3 on the same words.
     ``words``: the words, or name -> the variant's words (K3 on each
     variant's own bytes). Print and return one report line per variant,
     with its largest finite result (on the CPU: untimed)."""
@@ -625,7 +631,8 @@ def drive(lab: str, names, words, nb: int, nnz_per_word: int,
             if w.data_ptr() not in k3:
                 k3[w.data_ptr()] = stream_ms(as_words32(w))
             line = measure(lab, name, w, nb, nnz_per_word,
-                           lambda: call(name), lambda: kernel(name),
+                           lambda: call(name),
+                           None if kernel is None else lambda: kernel(name),
                            k3_ms=k3[w.data_ptr()], queries=queries)
         else:
             line = report(lab, name, nb=nb, words=w,

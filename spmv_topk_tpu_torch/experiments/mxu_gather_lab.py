@@ -22,8 +22,9 @@ REPS (LAB_REPS, 32: the lab's shape, launch-bound on the card as on the
 TPU), Q (LAB_Q, 16), C = 1024. The words are random 31-bit integers and
 the tables random int32 (mxu_gather_lab.py:101-106); a gather index is
 the field's low 7 bits, as the TPU's lane gather reads the lab's raw
-words. ``mxu_vpu_device`` launches the kernel on a CUDA tensor and
-``mxu_vpu_plain`` runs on a CPU tensor.
+words. ``mxu_vpu_device`` launches the kernel on a CUDA tensor (one
+launch, its merge on the card) and ``mxu_vpu_plain`` runs on a CPU
+tensor.
 
     python -m spmv_topk_tpu_torch.experiments.mxu_gather_lab [arm ...]
         [--device cpu]      (env LAB_REPS, LAB_Q)
@@ -33,14 +34,20 @@ from __future__ import annotations
 
 import torch
 
-from ._common import (CHUNK, LANES, check_tables, check_words, cuda_blocks,
-                      drive, env_int, mxu_lab_data, parse_args, wrap_int)
+from ._common import (CHUNK, LANES, check_tables, check_words, drive,
+                      env_int, mxu_lab_data, parse_args, wrap_int)
 from .batch_lab import KERNEL_QUERIES
 from .h16_lab import decode_nsh
 
 ARMS = ("vpu", "onehot")
 REPS = 32
 COLUMNS = 1024
+# the kernel's grid (csrc/lab_mxu.cu: kMxuBlocksPerSm blocks of 4 x 128
+# threads an SM): one wave, at least MXU_MIN_ROWS rows a block (one row
+# a thread)
+MXU_BLOCKS_PER_SM = 1
+MXU_MIN_ROWS = 4
+_WORKSPACE = {}
 
 
 def _check(words, tables):
@@ -62,32 +69,58 @@ def mxu_vpu_plain(words, tables) -> torch.Tensor:
     return wrap_int(mxu_vpu_sums(words, tables), torch.int32).float()
 
 
-def mxu_vpu_device(words, tables, *, blocks=None, unmerged: bool = False):
+def mxu_blocks(dev, chunks: int, blocks=None) -> int:
+    """The kernel's CUDA grid: ``blocks``, or one wave of MXU_BLOCKS_PER_SM
+    blocks an SM (the SM count read once per device) with at least
+    MXU_MIN_ROWS of the chunks' rows a block; at most MXU_BLOCKS_PER_SM an
+    SM either way."""
+    from ..ops.kernel import _device_info
+
+    wave = _device_info(dev)[0] * MXU_BLOCKS_PER_SM
+    if blocks is None:
+        blocks = min(wave, -(-chunks * CHUNK // MXU_MIN_ROWS))
+    return max(1, min(int(blocks), wave))
+
+
+def block_rows(rows: int, blocks: int, b: int) -> range:
+    """The rows of block ``b`` of ``blocks``: [b R / B, (b + 1) R / B), as
+    the kernel takes them."""
+    return range(rows * b // blocks, rows * (b + 1) // blocks)
+
+
+def _workspace(dev, stream: int, Q: int):
+    """The kernel's accumulator, (Q, 128) 64-bit counters, zeros (each
+    launch leaves them 0), allocated once per device, stream and Q."""
+    key = (dev.index, stream, Q)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = _WORKSPACE[key] = torch.zeros((Q, LANES), dtype=torch.int64,
+                                           device=dev)
+    return ws
+
+
+def mxu_vpu_device(words, tables, *, blocks=None):
     """The vpu arm's kernel (csrc/lab_mxu.cu) on a CUDA tensor: as
-    ``mxu_vpu_plain``, which a CPU tensor runs. ``blocks``: the CUDA block
-    count (default ``_common.cuda_blocks`` over the chunks); ``unmerged``:
-    the per-CUDA-block int32 sums (blocks, Q, 128), the kernel alone (on
-    the CPU, the plain sums as one block)."""
+    ``mxu_vpu_plain``, which a CPU tensor runs. One launch, its merge on
+    the card, returns the (Q, 128) float32 result. ``blocks``: the CUDA
+    block count (default ``mxu_blocks``' over the chunks)."""
     chunks = _check(words, tables)
     Q = tables.shape[0]
     if words.device.type == "cpu":
-        if unmerged:
-            return wrap_int(mxu_vpu_sums(words, tables), torch.int32)[None]
         return mxu_vpu_plain(words, tables)
     if Q not in KERNEL_QUERIES:
         raise ValueError(f"Q={Q}: the kernel is built for {KERNEL_QUERIES} "
                          f"queries")
     from ..ops.kernel import _launch
 
-    nblk = cuda_blocks(words.device, chunks, blocks)
-    part = torch.empty((nblk, Q, LANES), dtype=torch.int32,
-                       device=words.device)
-    _launch(words.device, "lab_mxu", words.data_ptr(), tables.data_ptr(),
-            chunks, Q, nblk, part.data_ptr())
+    dev = words.device
+    nblk = mxu_blocks(dev, chunks, blocks)
+    out = torch.empty((Q, LANES), dtype=torch.float32, device=dev)
+    _launch(dev, "lab_mxu", words.data_ptr(), tables.data_ptr(), chunks, Q,
+            nblk, _workspace(dev, torch.cuda.current_stream(dev).cuda_stream,
+                             Q).data_ptr(), out.data_ptr())
     mxu_vpu_device.launches += 1
-    if unmerged:
-        return part
-    return wrap_int(part.long().sum(0), torch.int32).float()
+    return out
 
 
 mxu_vpu_device.launches = 0
@@ -109,13 +142,13 @@ def main(argv=None):
     words, tables, tabq = (torch.from_numpy(a).to(dev)
                            for a in mxu_lab_data(reps, Q, COLUMNS))
 
-    def call(name, unmerged=False):
+    def call(name):
         if name == "onehot":
             return mxu_onehot(words, tabq)
-        return mxu_vpu_device(words, tables, unmerged=unmerged)
+        return mxu_vpu_device(words, tables)
 
-    return drive("mxu_gather_lab", names, words, reps, 2, call,
-                 lambda name: call(name, unmerged=True), queries=Q)
+    return drive("mxu_gather_lab", names, words, reps, 2, call, None,
+                 queries=Q)
 
 
 if __name__ == "__main__":

@@ -84,8 +84,8 @@ _SIGNATURES = {
     "lab_dma": [_vp] * 2 + [_i32] * 4 + [_vp] * 2,
     "lab_dma_reduce": [_vp, _i32, _vp, _vp],
     "lab_i16": [_vp] * 2 + [_i32] * 4 + [_vp] * 2,
-    "lab_mxu": [_vp] * 2 + [_i32] * 3 + [_vp] * 2,
-    "lab_pack16": [_vp] + [_i32] * 3 + [_vp] * 2,
+    "lab_mxu": [_vp] * 2 + [_i32] * 3 + [_vp] * 3,
+    "lab_pack16": [_vp] + [_i32] * 4 + [_vp] * 3,
 }
 
 
@@ -227,40 +227,185 @@ def object_path(library: str, source: str) -> str:
     return f"{library}.{source}.o"
 
 
-def sass_report(source: str, match: str = "") -> dict:
-    """{kernel<template args>: {opcode: count}} of the kernels of
-    ``source`` (one of SASS_SOURCES, whose object the build keeps) whose
-    name contains ``match``, from the toolkit's ``cuobjdump -sass``: an
-    opcode with its modifiers, predicates dropped; the key "total" counts
-    every instruction."""
-    lib()
+def _sass_dump(source: str, match: str, obj=None) -> dict:
+    """{kernel<template args>: ([(address, opcode, operands, guard)],
+    {label: address})} of the kernels of ``source`` (one of SASS_SOURCES,
+    or the object or library ``obj``) whose name contains ``match``, from
+    the toolkit's ``cuobjdump -sass``: an opcode with its modifiers, the
+    guard predicate such as ``"!P0"`` (``""`` for none); a label
+    (``.L_x_N:``) at the address of the instruction after it."""
+    if obj is None:
+        lib()
+        obj = object_path(library_path(), source)
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", object_path(library_path(),
-                                                      source)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    mangled, counts, cur = [], [], None
+    text = subprocess.run([tool, "-sass", obj], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    mangled, bodies, cur, pending = [], [], None, []
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = None
             if match in m.group(1):
                 mangled.append(m.group(1))
-                counts.append({"total": 0})
-                cur = counts[-1]
+                bodies.append(([], {}))
+                cur = bodies[-1]
+            pending = []
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9_.]*)", line)
-        if m and cur is not None:
-            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
-            cur["total"] += 1
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@(!?U?P[T0-9]+)\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*)", line)
+        if m:
+            addr = int(m.group(1), 16)
+            cur[0].append((addr, m.group(3), m.group(4).strip(),
+                           m.group(2) or ""))
+            for label in pending:
+                cur[1][label] = addr
+            pending = []
     if not mangled:
         return {}
     cufilt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
     names = subprocess.run([cufilt, *mangled], capture_output=True,
                            text=True, check=True, timeout=60).stdout
-    return {_kernel_name(d): c
-            for d, c in zip(names.splitlines(), counts, strict=True)}
+    return {_kernel_name(d): b
+            for d, b in zip(names.splitlines(), bodies, strict=True)}
+
+
+def _counts(instructions) -> dict:
+    out = {"total": 0}
+    for _, op, _, _ in instructions:
+        out[op] = out.get(op, 0) + 1
+        out["total"] += 1
+    return out
+
+
+def sass_report(source: str, match: str = "") -> dict:
+    """{kernel<template args>: {opcode: count}} of the kernels of
+    ``source`` (one of SASS_SOURCES, whose object the build keeps) whose
+    name contains ``match``, from the toolkit's ``cuobjdump -sass``: an
+    opcode with its modifiers, predicates dropped; the key "total" counts
+    every instruction."""
+    return {k: _counts(ins) for k, (ins, _) in
+            _sass_dump(source, match).items()}
+
+
+def sass_loops(source: str, match: str = "", obj=None) -> dict:
+    """{kernel<template args>: [loop, ...]} of the kernels of ``source``
+    (or of the object or library ``obj``) whose name contains ``match``:
+    each backward branch (a ``BRA`` to a label or address at or before
+    it) as dict(start, end, opcodes, trips), the body's instructions from
+    the branch's target to the branch, counted as ``sass_report`` counts
+    them, and the trips the loop runs as ``loop_trips`` reads them from
+    its counter (None where it cannot); innermost (shortest) first."""
+    out = {}
+    for kern, (ins, labels) in _sass_dump(source, match, obj).items():
+        loops = []
+        for addr, op, args, _ in ins:
+            if op.split(".")[0] != "BRA":
+                continue
+            m = re.search(r"\(?(\.L_x_\d+)\)?|(0x[0-9a-f]+)", args)
+            if m is None:
+                continue
+            target = labels.get(m.group(1)) if m.group(1) else \
+                int(m.group(2), 16)
+            if target is None or target > addr:
+                continue
+            loops.append(dict(start=target, end=addr, opcodes=_counts(
+                [i for i in ins if target <= i[0] <= addr]),
+                trips=loop_trips(ins, target, addr)))
+        out[kern] = sorted(loops, key=lambda lp: lp["end"] - lp["start"])
+    return out
+
+
+# a loop counter's value at entry: SASS that writes a constant
+_ZERO_FORMS = {("MOV", ("RZ",)), ("CS2R", ("SRZ",)),
+               ("HFMA2.MMA", ("-RZ", "RZ", "0", "0")),
+               ("IMAD.MOV.U32", ("RZ", "RZ", "RZ"))}
+_CMP = {"GE": lambda a, b: a >= b, "GT": lambda a, b: a > b,
+        "LE": lambda a, b: a <= b, "LT": lambda a, b: a < b,
+        "EQ": lambda a, b: a == b, "NE": lambda a, b: a != b}
+MAX_TRIPS = 1 << 20
+
+
+def _imm(text: str):
+    try:
+        return int(text, 0)
+    except ValueError:
+        return None
+
+
+def _constant(op: str, operands: list):
+    """The constant that instruction (op, dest + operands) writes, or
+    None."""
+    if (op, tuple(operands[1:])) in _ZERO_FORMS:
+        return 0
+    if op == "MOV" and len(operands) == 2:
+        return _imm(operands[1])
+    if op == "IMAD.MOV.U32" and operands[1:3] == ["RZ", "RZ"]:
+        return _imm(operands[3]) if len(operands) == 4 else None
+    return None
+
+
+def loop_trips(ins: list, start: int, end: int):
+    """The trips of the loop from ``start`` to its backward branch at
+    ``end`` (``ins``: ``_sass_dump``'s instructions of one kernel), read
+    from its counter: the branch's predicate set by one ISETP in the body
+    comparing a register with a constant (or RZ); that register written
+    in the body only by one unguarded ``IADD3 R, R, step, RZ``; its value
+    at entry the constant that the last instruction before the loop
+    writing it sets. The trips are counted by running the counter as the
+    SASS does (32-bit, signed unless the compare is .U32); None for a
+    loop of any other form or of more than MAX_TRIPS trips."""
+    parsed = [(a, op, [x.strip() for x in args.split(",")], g)
+              for a, op, args, g in ins]
+    body = [i for i in parsed if start <= i[0] <= end]
+    if not body or body[-1][1].split(".")[0] != "BRA" or not body[-1][3]:
+        return None
+    guard = body[-1][3]
+    sets = [i for i in body[:-1] if i[1].startswith("ISETP") and not i[3]
+            and i[2][0] == guard.lstrip("!")]
+    if len(sets) != 1 or len(sets[0][2]) != 5:
+        return None
+    set_at, cmp_op, (_, pt0, reg, bound, pt1), _ = sets[0]
+    mods = cmp_op.split(".")[1:]
+    cond = next((c for c in mods if c in _CMP), None)
+    bound = 0 if bound == "RZ" else _imm(bound)
+    if (pt0, pt1) != ("PT", "PT") or "EX" in mods or mods[-1:] != ["AND"] \
+            or cond is None or bound is None or \
+            not re.fullmatch(r"R\d+", reg):
+        return None
+    writes = [i for i in body if i[2][0] == reg]
+    if len(writes) != 1:
+        return None
+    step_at, op, args, g = writes[0]
+    step = _imm(args[2]) if len(args) == 4 else None
+    if op != "IADD3" or g or args[1] != reg or args[3] != "RZ" or \
+            step is None:
+        return None
+    before = [i for i in parsed if i[0] < start and i[2][0] == reg]
+    if not before or before[-1][3]:
+        return None
+    value = _constant(before[-1][1], before[-1][2])
+    if value is None:
+        return None
+    unsigned = "U32" in mods
+
+    def word(v):
+        v &= 0xFFFFFFFF
+        return v if unsigned or v < 1 << 31 else v - (1 << 32)
+
+    bound = word(bound)
+    for trips in range(1, MAX_TRIPS + 1):
+        stepped = word(value + step)
+        seen = stepped if step_at < set_at else word(value)
+        value = stepped
+        if _CMP[cond](seen, bound) == guard.startswith("!"):
+            return trips
+    return None
 
 
 def check(err: int, name: str) -> None:

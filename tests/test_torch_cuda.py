@@ -2594,6 +2594,28 @@ def test_mxu_gather_lab_matches_plain(gpu, geom):
         mxu_gather_lab.mxu_onehot(words.cpu(), tabq.cpu()).numpy())
 
 
+@pytest.mark.parametrize("blocks", [None, 3, 1])
+@pytest.mark.parametrize("Q", [4, 16])
+@pytest.mark.parametrize("chunks", [32, 64, 512, 1000])
+def test_mxu_one_launch_merges_on_the_card(gpu, chunks, Q, blocks):
+    """L8's call is one launch returning the (Q, 128) result, bit for bit
+    ``mxu_vpu_plain``, on its default grid (1000 chunks: 8000 rows that
+    the wave's blocks do not divide) and on 3 and 1 blocks; two calls back
+    to back, so that a counter the kernel left set would show."""
+    words, tables, _ = (torch.from_numpy(a).to(gpu) for a in
+                        lab_data.mxu_lab_data(chunks, Q, seed=chunks + Q))
+    want = mxu_gather_lab.mxu_vpu_plain(words, tables)
+    for _ in range(2):
+        before = mxu_gather_lab.mxu_vpu_device.launches
+        got = mxu_gather_lab.mxu_vpu_device(words, tables, blocks=blocks)
+        assert mxu_gather_lab.mxu_vpu_device.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (Q, 128) and got.dtype == torch.float32
+        assert torch.equal(got, want)
+    stream = torch.cuda.current_stream(gpu).cuda_stream
+    assert not mxu_gather_lab._workspace(gpu, stream, Q).any()
+
+
 def test_labs2_wrappers_refuse_bad_inputs(gpu):
     words, tables = (torch.from_numpy(a).to(gpu) for a in
                      lab_data.batch_lab_data(2, 16 * 8, 3, seed=1))
@@ -2627,19 +2649,39 @@ def _bits(t):
         t.view(torch.int32)
 
 
-@pytest.mark.parametrize("grid", [512, 7])
+@pytest.mark.parametrize("grid", [512, 7, 133])
 @pytest.mark.parametrize("name", pack16_lab.NAMES)
 def test_pack16_kernel_matches_plain(gpu, name, grid):
     """L9 bit for bit: on the lab's tile and on x + 3 (chains that run to
-    inf and NaN for the floats, wrap for the integers)."""
+    inf and NaN for the floats, wrap for the integers), at the lab's 512
+    copies and at copy counts that leave the grid's warps uneven; every
+    copy wrote the same bits into its own tile."""
     x = pack16_lab.pack16_data()[name].to(gpu)
     for xi in (x, x + 3):
+        want = pack16_lab.pack16_plain(xi)
         before = pack16_lab.pack16_device.launches
         got = pack16_lab.pack16_device(xi, grid=grid)
         assert pack16_lab.pack16_device.launches == before + 1
-        want = pack16_lab.pack16_plain(xi)
         torch.cuda.synchronize()
         assert got.dtype == xi.dtype and torch.equal(_bits(got), _bits(want))
+        tiles = got._base
+        assert tiles.shape == (grid, *xi.shape)
+        assert torch.equal(_bits(tiles), _bits(want).expand_as(_bits(tiles)))
+
+
+def test_pack16_held_clock(gpu):
+    """The diagnostic launch: one block on every SM, a clock the card can
+    hold (0.5-2.5 GHz), blocks that start before the first one ends."""
+    x = pack16_lab.pack16_data()["int16_16"].to(gpu)
+    c = pack16_lab.held_clock(x)
+    assert c["held_clock_blocks"] == pack16_lab.pack16_blocks(gpu)
+    assert c["held_clock_max_blocks_an_sm"] == 1
+    assert 0.5e9 < c["held_clock_hz"] < 2.5e9
+    assert 0 <= c["held_clock_last_start_ns"] < c["held_clock_first_end_ns"]
+    with pytest.raises(ValueError, match="clocks"):
+        pack16_lab.pack16_device(x, clocks=torch.zeros((3, 4),
+                                                       dtype=torch.int64,
+                                                       device=gpu))
 
 
 def test_pack16_refuses_other_tiles(gpu):

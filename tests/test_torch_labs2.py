@@ -535,8 +535,31 @@ def test_wrappers_run_the_plain_versions_on_cpu():
         mxu_gather_lab.mxu_vpu_device(mw[:-1], mt)
 
 
-@pytest.mark.parametrize("lab", ["batch_lab", "dma_lab", "i16_probe",
-                                 "mxu_gather_lab"])
+def _mxu_emulated(words, tables, blocks, phases=4):
+    """csrc/lab_mxu.cu's order in NumPy: block b's rows (``block_rows``),
+    phase p summing rows p, p + 4, ... of them, the phases added in the
+    block, each block's (Q, 128) sums added into a 64-bit counter (2^48 +
+    the sum's uint32 bits), whose bits 0-31 are converted to float once
+    the count reaches the blocks."""
+    w = words.numpy()
+    acc = np.zeros((tables.shape[0], LANES), np.uint64)
+    for b in range(blocks):
+        rows = mxu_gather_lab.block_rows(w.shape[0], blocks, b)
+        block = np.zeros(acc.shape, np.uint32)
+        for p in range(phases):
+            mine = list(rows)[p::phases]
+            if mine:
+                part = mxu_gather_lab.mxu_vpu_sums(
+                    words[mine], tables).numpy().astype(np.uint64)
+                block += (part & 0xFFFFFFFF).astype(np.uint32)
+        acc += np.uint64(1 << 48) | block.astype(np.uint64)
+    assert ((acc >> np.uint64(48)) == blocks).all()
+    assert ((acc >> np.uint64(32)) & np.uint64(0xFFFF) < blocks).all()
+    low = (acc & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return torch.from_numpy(low.view(np.int32).astype(np.float32))
+
+
+@pytest.mark.parametrize("lab", ["batch_lab", "dma_lab", "i16_probe"])
 def test_unmerged_on_cpu_is_one_block(lab):
     """``unmerged`` on a CPU tensor: the plain result as the one CUDA
     block's buffer (batch_lab: the slots' pair; the others their sums
@@ -557,7 +580,7 @@ def test_unmerged_on_cpu_is_one_block(lab):
         assert part.shape == (3, 8, LANES)
         assert torch.equal(dma_lab.reduce_plain(part), dma_lab.dma_lab_plain(
             w, tb, bs=128, t=2, blocks=3))
-    elif lab == "i16_probe":
+    else:
         w, tb, salt = map(_t, _i16_args("s16"))
         part = i16_probe.i16_probe_device(w, tb, salt, variant="s16",
                                           sub32=16, unmerged=True)
@@ -567,12 +590,6 @@ def test_unmerged_on_cpu_is_one_block(lab):
                            i16_probe.i16_probe_plain(w, tb, salt,
                                                      variant="s16",
                                                      sub32=16))
-    else:
-        w, tb, _ = map(_t, _mxu_inputs(small=False))
-        part = mxu_gather_lab.mxu_vpu_device(w, tb, unmerged=True)
-        assert part.shape == (1, MX["Q"], LANES)
-        assert torch.equal(part[0].float(),
-                           mxu_gather_lab.mxu_vpu_plain(w, tb))
 
 
 @pytest.mark.parametrize("lab", ["batch_lab", "dma_lab", "i16_probe",
@@ -655,3 +672,73 @@ def test_sass_report_counts_opcodes(tmp_path, monkeypatch):
         "lab_i16_sweep<int,0,0>": {"total": 2, "IMAD.SHL.U32": 1,
                                    "EXIT": 1}}
     assert _build.sass_report("lab_i16.cu", "lab_batch") == {}
+
+
+def test_mxu_grid_is_one_wave_of_enough_rows(monkeypatch):
+    """``mxu_blocks``: one wave (MXU_BLOCKS_PER_SM an SM) of at least
+    MXU_MIN_ROWS rows a block, the SM count read once per device; a given
+    ``blocks`` kept up to the wave."""
+    from spmv_topk_tpu_torch.ops import kernel as pk
+
+    calls = []
+
+    def info(dev):
+        calls.append(dev)
+        return (132, 232448)
+
+    monkeypatch.setattr(pk, "_device_info", info)
+    dev = torch.device("cpu")
+    wave = 132 * mxu_gather_lab.MXU_BLOCKS_PER_SM
+    got = {n: mxu_gather_lab.mxu_blocks(dev, n) for n in (1, 32, 512, 65536)}
+    assert got == {1: 8 // mxu_gather_lab.MXU_MIN_ROWS,
+                   32: min(wave, 32 * 8 // mxu_gather_lab.MXU_MIN_ROWS),
+                   512: wave, 65536: wave}
+    assert mxu_gather_lab.mxu_blocks(dev, 512, 3) == 3
+    assert mxu_gather_lab.mxu_blocks(dev, 512, 10 ** 6) == wave
+    assert mxu_gather_lab.mxu_blocks(dev, 512, 0) == 1
+    assert len(calls) == 7
+
+
+@pytest.mark.parametrize("rows,blocks", [(256, 64), (4096, 264), (100, 7),
+                                         (8, 264), (524288, 264)])
+def test_mxu_block_rows_cover_once(rows, blocks):
+    """Each row in exactly one block, two blocks' rows differing by one at
+    most (``block_rows``, the kernel's split)."""
+    spans = [mxu_gather_lab.block_rows(rows, blocks, b)
+             for b in range(blocks)]
+    assert [r for s in spans for r in s] == list(range(rows))
+    sizes = [len(s) for s in spans]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_mxu_workspace_once_per_device_stream_and_q():
+    """The accumulator: (Q, 128) 64-bit zeros (the kernel's counters),
+    made once per (device, stream, Q) and handed out again."""
+    dev = torch.device("cpu")
+    mxu_gather_lab._WORKSPACE.clear()
+    a = mxu_gather_lab._workspace(dev, 0, 16)
+    assert a.shape == (16, LANES) and a.dtype == torch.int64
+    assert not a.any()
+    assert mxu_gather_lab._workspace(dev, 0, 16) is a
+    assert mxu_gather_lab._workspace(dev, 0, 4).shape == (4, LANES)
+    assert mxu_gather_lab._workspace(dev, 7, 16) is not a
+    mxu_gather_lab._WORKSPACE.clear()
+
+
+@pytest.mark.parametrize("chunks,Q", [(32, 16), (9, 4), (64, 4),
+                                     (None, None)])
+def test_mxu_emulated_grid_matches_plain(chunks, Q):
+    """The kernel's order (``_mxu_emulated``: its blocks' sums added in
+    int32 through the accumulator) on grids that do not divide the rows,
+    wrapping int32 sums included, equals ``mxu_vpu_plain``; None: the
+    lab's inputs of the interpret-mode tests (``_mxu_inputs``) on 1, 3 and
+    one block a row."""
+    if chunks is None:
+        words, tab, _ = map(_t, _mxu_inputs(small=False))
+        grids = (1, 3, words.shape[0])
+    else:
+        words, tab, _ = map(_t, _common.mxu_lab_data(chunks, Q, seed=21))
+        grids = (1, 5, chunks * 2, chunks * 8)
+    want = mxu_gather_lab.mxu_vpu_plain(words, tab)
+    for blocks in grids:
+        assert torch.equal(_mxu_emulated(words, tab, blocks), want)
