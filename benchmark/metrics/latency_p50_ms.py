@@ -1,0 +1,9 @@
+"""Median latency of all requests in the window, submission to answers on
+the host (host clock), in ms."""
+
+import numpy as np
+
+
+def read(ctx):
+    lat = ctx.latencies
+    return float(np.percentile(lat, 50)) * 1e3 if len(lat) else None
